@@ -1,5 +1,5 @@
 """Core vector math (port of ``mitsuba_tpu/core/math.py``, the subset the
-Cornell path uses).
+port's scenes use).
 
 Vectors, points and normals are plain ``(..., 3)`` float32 tensors. Each
 function repeats the JAX function's arithmetic in the same order, so the two
@@ -60,6 +60,13 @@ def coordinate_system(n):
     )
     t = torch.stack([b, sign + n[..., 1] * n[..., 1] * a, -n[..., 1]], dim=-1)
     return s, t
+
+
+def spherical_direction(theta, phi):
+    """(theta, phi) -> unit vector, Z up."""
+    st, ct = torch.sin(theta), torch.cos(theta)
+    sp, cp = torch.sin(phi), torch.cos(phi)
+    return torch.stack([st * cp, st * sp, ct], dim=-1)
 
 
 def spherical_coordinates(d):

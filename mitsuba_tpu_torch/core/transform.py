@@ -13,6 +13,10 @@ class Transform(NamedTuple):
     inv: np.ndarray    # (4, 4)
 
     @staticmethod
+    def identity() -> "Transform":
+        return Transform(np.eye(4), np.eye(4))
+
+    @staticmethod
     def translate(v) -> "Transform":
         v = np.asarray(v, dtype=np.float64)
         m = np.eye(4)
@@ -73,3 +77,8 @@ class Transform(NamedTuple):
         r = self.m[:3, :3] @ p.T + self.m[:3, 3:4] if p.ndim == 2 else self.m[:3, :3] @ p + self.m[:3, 3]
         w = self.m[3, :3] @ p.T + self.m[3, 3] if p.ndim == 2 else self.m[3, :3] @ p + self.m[3, 3]
         return (r / w).T if p.ndim == 2 else r / w
+
+    def apply_normal(self, n):
+        n = np.asarray(n, dtype=np.float64)
+        A = self.inv[:3, :3].T
+        return (A @ n.T).T if n.ndim == 2 else A @ n

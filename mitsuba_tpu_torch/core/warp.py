@@ -1,5 +1,5 @@
 """Sampling warps (port of ``mitsuba_tpu/core/warp.py``, the subset the
-Cornell path uses): square -> cosine hemisphere, concentric disk, triangle."""
+port's scenes use): square -> cosine hemisphere, concentric disk, triangle."""
 from __future__ import annotations
 
 import math
@@ -9,6 +9,7 @@ import torch
 from . import math as m
 
 INV_PI = 1.0 / math.pi
+INV_TWOPI = 1.0 / (2.0 * math.pi)
 
 
 def square_to_cosine_hemisphere(u):

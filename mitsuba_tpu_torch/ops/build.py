@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mitsuba_tpu_torch"
 
 # one shared library per source file
-SOURCES = ("brute_force",)
+SOURCES = ("brute_force", "bvh_lane")
 
 # -fmad=false: see the note at the top of each source; the kernels must round
 # like their plain PyTorch versions. -Xptxas -v reports registers and spills.

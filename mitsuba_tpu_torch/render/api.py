@@ -48,6 +48,8 @@ def render_pass(scene, static, sensor, cfg: icommon.IntegratorConfig,
     pixel_idx = torch.arange(H * W, dtype=torch.int64, device=dev)
     seed = settings.seed
     res = torch.tensor([W, H], dtype=torch.float32, device=dev)
+    # ray-cone texture filtering needs the pixel's angular size
+    spread = sensor_mod.pixel_spread(sensor, W) if static.has_textures else None
     for s in range(n_samples):
         sample_idx = sample_base + s
         pos = pixel_sample_positions(settings, pixel_idx, sample_idx, seed)
@@ -55,7 +57,7 @@ def render_pass(scene, static, sensor, cfg: icommon.IntegratorConfig,
         u_ap = rng_mod.uniform2(seed, pixel_idx, sample_idx, icommon.DIM_APERTURE)
         o, d = sensor_mod.sample_ray(sensor, uv, u_ap)
         L, n = int_path.li(scene, static, cfg, o, d, seed, pixel_idx,
-                           sample_idx, with_stats=True)
+                           sample_idx, with_stats=True, pixel_spread=spread)
         if stats is not None:
             stats["n_rays"] = stats["n_rays"] + n
         film = film_mod.splat_grid(film, pos.reshape(H, W, 2),

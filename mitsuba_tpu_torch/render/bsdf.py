@@ -23,11 +23,12 @@ SUPPORTED_TYPES = (DIFFUSE,)
 
 
 class MaterialTable(NamedTuple):
-    """One row per scene material (the columns the Cornell path reads)."""
+    """One row per scene material (the columns the port reads)."""
 
-    type: torch.Tensor      # (M,) int32 type tag
-    albedo: torch.Tensor    # (M, 3) diffuse reflectance
-    twosided: torch.Tensor  # (M,) bool: flip frame on backface
+    type: torch.Tensor        # (M,) int32 type tag
+    albedo: torch.Tensor      # (M, 3) diffuse reflectance
+    albedo_tex: torch.Tensor  # (M,) int32 texture of the albedo, -1 if none
+    twosided: torch.Tensor    # (M,) bool: flip frame on backface
 
 
 class BsdfLocals(NamedTuple):
@@ -46,9 +47,13 @@ class BsdfSample(NamedTuple):
     eta: torch.Tensor       # (R,) relative IOR along the sampled lobe
 
 
-def gather_locals(table: MaterialTable, mat_id) -> BsdfLocals:
+def gather_locals(table: MaterialTable, mat_id,
+                  albedo_override=None) -> BsdfLocals:
+    """Per-lane parameters of materials ``mat_id``; ``albedo_override``
+    (R, 3) replaces the table's albedo (a textured albedo)."""
     mid = torch.clamp(mat_id, min=0).to(torch.int64)
-    return BsdfLocals(type=table.type[mid], albedo=table.albedo[mid],
+    albedo = table.albedo[mid] if albedo_override is None else albedo_override
+    return BsdfLocals(type=table.type[mid], albedo=albedo,
                       twosided=table.twosided[mid])
 
 

@@ -1,5 +1,7 @@
-"""Host-side shape tessellation and the Cornell box (a copy of the subset of
-``mitsuba_tpu/render/shapes.py`` that the Cornell scene uses)."""
+"""Host-side shape tessellation (a copy of the subset of
+``mitsuba_tpu/render/shapes.py`` that the port's scenes use): rectangles and
+cubes for the Cornell box, and the heightfield that stands in for
+``bunny.ply`` in bench.py's bunny_x2 scene."""
 from __future__ import annotations
 
 import numpy as np
@@ -96,3 +98,31 @@ def _box(builder, mat, lo, hi, rot_deg=0.0):
     )
     v, f, uv = cube(t)
     builder.add_mesh(v, f, mat, uvs=uv)
+
+
+def heightfield(heights, extent=(1.0, 1.0), height_scale: float = 1.0,
+                to_world: Transform = None):
+    """heightfield.cpp: regular grid of heights -> triangle mesh.
+
+    heights (N, M) sample the surface over [-ex, ex] x [-ey, ey] in the XY
+    plane, displaced along +Z (the reference ray-marches the implicit grid;
+    a tessellated mesh maps better onto the BVH wavefront). Returns
+    (verts, faces, uvs)."""
+    h = np.asarray(heights, np.float64)
+    N, M = h.shape
+    ex, ey = extent
+    xs = np.linspace(-ex, ex, M)
+    ys = np.linspace(-ey, ey, N)
+    X, Y = np.meshgrid(xs, ys)
+    v = np.stack([X, Y, h * height_scale], axis=-1).reshape(-1, 3)
+    uu, vv = np.meshgrid(np.linspace(0, 1, M), np.linspace(0, 1, N))
+    uv = np.stack([uu, vv], axis=-1).reshape(-1, 2)
+    idx = np.arange(N * M).reshape(N, M)
+    a = idx[:-1, :-1].ravel()
+    b = idx[:-1, 1:].ravel()
+    c = idx[1:, 1:].ravel()
+    d = idx[1:, :-1].ravel()
+    f = np.concatenate([np.stack([a, b, c], -1), np.stack([a, c, d], -1)])
+    if to_world is not None:
+        v = to_world.apply_point(v)
+    return v, f.astype(np.int64), uv

@@ -1,0 +1,397 @@
+"""Port parity, BVH layer: the BVH builder (numpy and native routes), the node
+packer, the coherence sort key and the plain versions of the lane kernels
+K3-K6 (mitsuba_tpu_torch.ops.cuda_bvh) against the JAX package on the CPU.
+
+Tolerances:
+  * builder, packer and sort keys: exact (the same arithmetic on the same
+    inputs, copied code);
+  * K4 and K3 against the Pallas kernels in interpret mode: hit and idx
+    exact (both walk the same nodes in the same order with the same strict
+    comparisons), t to rtol 1e-5 / atol 1e-6 and the barycentrics u, v in
+    [0, 1] to atol 1e-5 (XLA may contract a*b+c into an FMA where the plain
+    version rounds each operation; measured up to 4.5e-6 on u, v);
+  * K5 and K6 against the XLA walk ``accel/traverse.py:bvh_closest_hit``
+    (their Pallas kernels take 3-5 s each to compile in interpret mode, more
+    than this file's time budget): hit exact, idx on 99% of hits, t to
+    rtol 1e-4 (the XLA walk tests a leaf's box before its triangle and
+    inverts the determinant through safe_div, so grazing hits can differ);
+  * a budgeted and resumed walk against the unbounded one: bit for bit.
+
+The Pallas calls run with strip=1: a lane's node sequence does not depend on
+the strip, and the smaller kernel body compiles in a third of the time.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mitsuba_tpu.accel import build as jbuild
+from mitsuba_tpu.accel.traverse import DeviceBVH, bvh_closest_hit
+from mitsuba_tpu.ops import pallas_bvh as jpb
+from mitsuba_tpu.render import shapes as jshapes
+from mitsuba_tpu_torch import bridge
+from mitsuba_tpu_torch import native
+from mitsuba_tpu_torch.accel import build as tbuild
+from mitsuba_tpu_torch.ops import cuda_bvh as cb
+
+TOL = {"t": dict(rtol=1e-5, atol=1e-6), "u": dict(rtol=1e-5, atol=1e-5),
+       "v": dict(rtol=1e-5, atol=1e-5)}
+OUT = ("hit", "t", "idx", "u", "v")
+BVH_FIELDS = ("lo", "hi", "skip", "prim_first", "prim_count", "prim_order")
+
+
+def _mesh(T, seed, size=0.3):
+    """A random triangle soup (tests/test_accel.py:random_mesh)."""
+    rs = np.random.default_rng(seed)
+    p0 = rs.uniform(-1, 1, (T, 3)).astype(np.float32)
+    e1 = rs.normal(0, size, (T, 3)).astype(np.float32)
+    e2 = rs.normal(0, size, (T, 3)).astype(np.float32)
+    return p0, e1, e2
+
+
+def _rays(R, seed, t_max=np.inf):
+    """Rays from [-2, 2]^3 (tests/test_accel.py) aimed at points of the
+    soup's box, so that most of them hit; a tenth of them dead
+    (t_max = t_min) as the integrator sends them."""
+    rs = np.random.default_rng(seed)
+    o = rs.uniform(-2, 2, (R, 3)).astype(np.float32)
+    d = (rs.uniform(-1, 1, (R, 3)) - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_min = np.full(R, 1e-4, np.float32)
+    t_max = np.full(R, t_max, np.float32)
+    dead = rs.random(R) < 0.1
+    t_max[dead] = t_min[dead]
+    return o, d, t_min, t_max
+
+
+def _t(*xs):
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)) for x in xs)
+
+
+@pytest.fixture(scope="module")
+def soup():
+    """600 triangles and 1024 rays (the sizes of tests/test_accel.py's
+    resort test), the JAX tree and its two packings."""
+    p0, e1, e2 = _mesh(600, 21)
+    lo, hi = jbuild.triangle_aabbs(p0, p0 + e1, p0 + e2)
+    bvh = jbuild.build_bvh(lo, hi, leaf_size=1)
+    N = len(bvh.lo)
+    pages = jpb.pack_pages(bvh, p0, e1, e2)
+    return dict(tris=(p0, e1, e2), bvh=bvh, N=N, pages=pages,
+                nodes=torch.from_numpy(cb.pack_nodes(bvh, p0, e1, e2)),
+                lo=lo.min(0), hi=hi.max(0), rays=_rays(1024, 22))
+
+
+def _compare(out, ref, field):
+    out, ref = np.asarray(out), np.asarray(ref)
+    assert out.shape == ref.shape, field
+    if field in ("hit", "idx"):
+        np.testing.assert_array_equal(out, ref, err_msg=field)
+    else:
+        np.testing.assert_allclose(out, ref, err_msg=field, **TOL[field])
+
+
+# --- builder --------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def builds():
+    """Both packages' trees on a 600-triangle soup (numpy route) and a
+    50x50 heightfield of 4,802 triangles (native route)."""
+    p0, e1, e2 = _mesh(600, 5)
+    soup_box = jbuild.triangle_aabbs(p0, p0 + e1, p0 + e2)
+    h = np.sin(np.linspace(0, 8, 50))[:, None] * np.cos(
+        np.linspace(0, 8, 50))[None, :] * 0.02
+    v, f, _ = jshapes.heightfield(h, extent=(0.3, 0.3))
+    assert len(f) >= tbuild.NATIVE_MIN_PRIMS
+    hf_box = jbuild.triangle_aabbs(v[f[:, 0]], v[f[:, 1]], v[f[:, 2]])
+    return {route: (jbuild.build_bvh(*box, leaf_size=1),
+                    tbuild.build_bvh(*box))
+            for route, box in (("numpy", soup_box), ("native", hf_box))}
+
+
+@pytest.mark.parametrize("field", BVH_FIELDS)
+@pytest.mark.parametrize("route", ["numpy", "native"])
+def test_builder_matches_jax(builds, route, field):
+    ref, out = (getattr(b, field) for b in builds[route])
+    assert out.dtype == ref.dtype
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_native_build_failure_raises(monkeypatch, tmp_path):
+    """No silent numpy fallback for a large mesh: a failed build raises."""
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "library_path", lambda: tmp_path / "missing.so")
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    box = np.zeros((5000, 3)), np.ones((5000, 3))
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        tbuild.build_bvh(*box)
+
+
+# --- packer and sort keys -------------------------------------------------
+
+def test_packer_matches_pages(soup):
+    """pack_nodes holds what pack_pages holds, node-major."""
+    out = soup["nodes"].numpy()
+    ref = bridge.nodes_from_pages(soup["pages"], soup["N"])
+    assert out.shape == (soup["N"], cb.NODE_COLS)
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_packer_rejects_fat_leaves(soup):
+    p0, e1, e2 = soup["tris"]
+    lo, hi = jbuild.triangle_aabbs(p0, p0 + e1, p0 + e2)
+    with pytest.raises(ValueError, match="leaf_size=1"):
+        cb.pack_nodes(jbuild.build_bvh(lo, hi, leaf_size=4), p0, e1, e2)
+
+
+def test_ray_sort_keys_match_jax(soup):
+    o, d, _, _ = soup["rays"]
+    o = o * 1.5  # some origins outside the scene box: clamped
+    ref = np.asarray(jax.jit(jpb.ray_sort_keys)(
+        jnp.asarray(o), jnp.asarray(d), jnp.asarray(soup["lo"]),
+        jnp.asarray(soup["hi"])))
+    out = cb.ray_sort_keys(*_t(o, d), *_t(soup["lo"].astype(np.float32),
+                                          soup["hi"].astype(np.float32)))
+    np.testing.assert_array_equal(out.numpy(), ref.astype(np.int64))
+
+
+# --- K4 and K3 against the Pallas kernels (interpret mode) ----------------
+
+@pytest.fixture(scope="module")
+def k4(soup):
+    o, d, t_min, t_max = soup["rays"]
+    ref = jpb.bvh_traverse_lane_packed(
+        jnp.asarray(soup["pages"]), soup["N"], *(jnp.asarray(x) for x in
+                                                 (o, d, t_min, t_max)),
+        interpret=True, strip=1)
+    out = cb.bvh_traverse_lane_packed(soup["nodes"], soup["N"],
+                                      *_t(o, d, t_min, t_max))
+    return ref, out
+
+
+@pytest.mark.parametrize("field", OUT)
+def test_k4_plain_matches_pallas(k4, field):
+    ref, out = k4
+    i = OUT.index(field)
+    _compare(out[i].numpy(), ref[i], field)
+
+
+def test_k4_rays_cover_hits_misses_and_dead_lanes(soup, k4):
+    _, (hit, *_) = k4
+    _, _, t_min, t_max = soup["rays"]
+    assert 0.3 < hit.float().mean() < 0.95
+    assert not hit.numpy()[t_max == t_min].any()
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["closest", "any_hit"])
+def k3(soup, request):
+    """The resort query (rounds=2, chunk_nit=3: lanes resume mid-walk) on
+    the port's K3 plain version and on the Pallas _lane_chunk."""
+    o, d, _, _ = soup["rays"]
+    R = len(o)
+    t_min, t_max = np.zeros(R, np.float32), np.full(R, np.inf, np.float32)
+    any_hit = request.param
+    ref = jpb.bvh_traverse_lane_resort(
+        jnp.asarray(soup["pages"]), soup["N"],
+        *(jnp.asarray(x) for x in (o, d, t_min, t_max, soup["lo"], soup["hi"])),
+        any_hit=any_hit, strip=1, rounds=2, chunk_nit=3, interpret=True)
+    out = cb.bvh_traverse_lane_resort(
+        soup["nodes"], soup["N"], *_t(o, d, t_min, t_max),
+        *_t(soup["lo"].astype(np.float32), soup["hi"].astype(np.float32)),
+        any_hit=any_hit, strip=1, rounds=2, chunk_nit=3)
+    return ref, out
+
+
+@pytest.mark.parametrize("field", OUT)
+def test_k3_plain_matches_pallas(k3, field):
+    """Closest hit, and for any-hit the first hit found: the same node order
+    gives the same first hit, not just the same occlusion."""
+    ref, out = k3
+    i = OUT.index(field)
+    _compare(out[i].numpy(), ref[i], field)
+
+
+# --- K5 and K6 against the XLA walk ---------------------------------------
+
+@pytest.fixture(scope="module")
+def big_soup():
+    """1500 triangles and 1024 rays (tests/test_accel.py:277-391), with the
+    XLA walk over the same leaf_size=1 tree as the reference."""
+    rs = np.random.default_rng(3)
+    T = 1500
+    p0 = rs.uniform(-1, 1, (T, 3)).astype(np.float32)
+    e1 = rs.uniform(-0.15, 0.15, (T, 3)).astype(np.float32)
+    e2 = rs.uniform(-0.15, 0.15, (T, 3)).astype(np.float32)
+    lo, hi = jbuild.triangle_aabbs(p0, p0 + e1, p0 + e2)
+    bvh = jbuild.build_bvh(lo, hi, leaf_size=1)
+    R = 1024
+    # rays aimed into the soup, so most of them hit
+    o = rs.uniform(-2, 2, (R, 3)).astype(np.float32)
+    d = (rs.uniform(-0.8, 0.8, (R, 3)) - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_min, t_max = np.full(R, 1e-4, np.float32), np.full(R, 1e9, np.float32)
+    ref = jax.jit(bvh_closest_hit)(DeviceBVH.from_host(bvh, p0, e1, e2),
+                                   *(jnp.asarray(x) for x in (o, d, t_min,
+                                                              t_max)))
+    nodes = torch.from_numpy(cb.pack_nodes(bvh, p0, e1, e2))
+    bounds = _t(lo.min(0).astype(np.float32), hi.max(0).astype(np.float32))
+    return dict(ref=[np.asarray(x) for x in ref], nodes=nodes, N=len(bvh.lo),
+                rays=_t(o, d, t_min, t_max), bounds=bounds)
+
+
+@pytest.mark.parametrize("kernel", ["k5", "k6"])
+def test_k5_k6_plain_match_xla(big_soup, kernel):
+    nodes, N, rays, bounds = (big_soup[k] for k in ("nodes", "N", "rays",
+                                                    "bounds"))
+    if kernel == "k5":
+        out = cb.bvh_traverse_lane_hbm(nodes, N, *rays, *bounds, sort=True)
+    else:
+        out = cb.bvh_traverse_lane_hbm_resort(nodes, N, *rays, *bounds,
+                                              rounds=2, chunk_nit=6)
+    hit, t, idx = (x.numpy() for x in out[:3])
+    h_x, t_x, i_x = big_soup["ref"][:3]
+    assert 0.3 < hit.mean()
+    np.testing.assert_array_equal(hit, h_x)
+    np.testing.assert_allclose(t[hit], t_x[hit], rtol=1e-4)
+    assert (idx[hit] == i_x[hit]).mean() > 0.99
+
+
+def test_k5_k6_run_k4_k3_arithmetic(big_soup):
+    """On the card K5/K6 differ from K4/K3 only by tree size: their plain
+    versions are the same walk."""
+    nodes, N, (o, d, t_min, t_max), _ = (big_soup[k] for k in (
+        "nodes", "N", "rays", "bounds"))
+    for a, b in zip(cb.lane_hbm_plain(nodes, N, o, d, t_min, t_max),
+                    cb.bvh_traverse_lane_packed_plain(nodes, N, o, d, t_min,
+                                                      t_max)):
+        assert torch.equal(a, b)
+
+
+# --- the schedule does not change the result ------------------------------
+
+def _chunk_args(soup, n=None):
+    o, d, t_min, t_max = _t(*(x[:n] for x in soup["rays"]))
+    R = o.shape[0]
+    rays = tuple(o[:, k].contiguous() for k in range(3)) + tuple(
+        d[:, k].contiguous() for k in range(3)) + (t_min,)
+    state = (torch.where(t_max > t_min, 0, soup["N"]).to(torch.int32), t_max,
+             torch.full((R,), -1, dtype=torch.int32), torch.zeros(R),
+             torch.zeros(R))
+    return rays, state
+
+
+def _bounds(soup):
+    return _t(soup["lo"].astype(np.float32), soup["hi"].astype(np.float32))
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["closest", "any_hit"])
+def unbounded(soup, request):
+    """One unbounded K3 launch and one unsorted root query on 256 rays, which
+    every budget's runs must end on."""
+    any_hit = request.param
+    nodes, N = soup["nodes"], soup["N"]
+    rays, state = _chunk_args(soup, 256)
+    full = cb.lane_chunk(nodes, N, *rays, *state, any_hit=any_hit)
+    o, d, t_min, t_max = _t(*(x[:256] for x in soup["rays"]))
+    ref = cb.bvh_traverse_lane(nodes, N, o, d, t_min, t_max, *_bounds(soup),
+                               sort=False, any_hit=any_hit)
+    return any_hit, full, ref
+
+
+@pytest.mark.parametrize("budget", [1, 7, 40])
+def test_budgeted_walk_equals_unbounded(soup, unbounded, budget):
+    """K3 resumed launch after launch with ``budget`` visits each ends where
+    one unbounded launch ends, bit for bit; so does the resort query."""
+    any_hit, full, ref = unbounded
+    rays, state = _chunk_args(soup, 256)
+    nodes, N = soup["nodes"], soup["N"]
+    launches = 0
+    while bool((state[0] < N).any()):
+        t, i, u, v, node = cb.lane_chunk(nodes, N, *rays, *state,
+                                         any_hit=any_hit, max_steps=budget)
+        state = (node, t, i, u, v)
+        launches += 1
+        assert launches < 10_000
+    assert launches > 1
+    for a, b in zip((state[1], state[2], state[3], state[4], state[0]), full):
+        assert torch.equal(a, b)
+    o, d, t_min, t_max = _t(*(x[:256] for x in soup["rays"]))
+    res = cb.bvh_traverse_lane_resort(nodes, N, o, d, t_min, t_max,
+                                      *_bounds(soup), any_hit=any_hit,
+                                      rounds=3, chunk_nit=budget, strip=1)
+    for a, b in zip(res, ref):
+        assert torch.equal(a, b)
+
+
+def test_visit_counts_add_up(soup):
+    """with_visits counts every step of a lane once, a budget caps it, and
+    the nodes read are marked."""
+    rays, state = _chunk_args(soup)
+    nodes, N = soup["nodes"], soup["N"]
+    *_, node, (v_int, v_leaf, touched) = cb.lane_chunk_plain(
+        nodes, N, *rays, *state, max_steps=5, with_visits=True)
+    live = state[0] < N
+    assert int((v_int + v_leaf)[~live].sum()) == 0
+    assert int((v_int + v_leaf).max()) == 5
+    assert torch.equal((v_int + v_leaf < 5) & live, live & (node >= N))
+    assert bool(touched[0]) and int(touched.sum()) <= int((v_int + v_leaf).sum())
+
+
+# --- wrappers ---------------------------------------------------------------
+
+def test_cpu_calls_run_plain_and_count_no_launch(soup):
+    o, d, t_min, t_max = _t(*(x[:256] for x in soup["rays"]))
+    rays, state = _chunk_args(soup, 256)
+    wrappers = (cb.bvh_traverse_lane_packed, cb.lane_hbm, cb.lane_chunk,
+                cb.lane_chunk_hbm)
+    before = [w.launches for w in wrappers]
+    a = cb.bvh_traverse_lane_packed(soup["nodes"], soup["N"], o, d, t_min, t_max)
+    b = cb.lane_hbm(soup["nodes"], soup["N"], o, d, t_min, t_max)
+    c = cb.lane_chunk(soup["nodes"], soup["N"], *rays, *state)
+    e = cb.lane_chunk_hbm(soup["nodes"], soup["N"], *rays, *state)
+    assert [w.launches for w in wrappers] == before
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    for x, y in zip(c, e):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("bad,error", [
+    ("nodes_f64", TypeError), ("nodes_shape", ValueError),
+    ("n_nodes", ValueError), ("o_strided", ValueError), ("t_min_len", ValueError),
+    ("idx_dtype", TypeError), ("max_steps", ValueError),
+])
+def test_wrappers_check_inputs_on_the_cpu_too(soup, bad, error):
+    nodes, N = soup["nodes"], soup["N"]
+    o, d, t_min, t_max = _t(*soup["rays"])
+    rays, (node, t, i, u, v) = _chunk_args(soup)
+    root = dict(nodes=nodes, n_nodes=N, o=o, d=d, t_min=t_min, t_max=t_max)
+    chunk = dict(max_steps=0)
+    if bad == "nodes_f64":
+        root["nodes"] = nodes.double()
+    elif bad == "nodes_shape":
+        root["nodes"] = nodes[:, :11].contiguous()
+    elif bad == "n_nodes":
+        root["n_nodes"] = N + 1
+    elif bad == "o_strided":
+        root["o"] = torch.cat([o, o], dim=1)[:, ::2]
+    elif bad == "t_min_len":
+        root["t_min"] = t_min[:-1]
+    elif bad == "idx_dtype":
+        i = i.long()
+    elif bad == "max_steps":
+        chunk["max_steps"] = -1
+    with pytest.raises(error):
+        if bad in ("idx_dtype", "max_steps"):
+            cb.lane_chunk(nodes, N, *rays, node, t, i, u, v, **chunk)
+        else:
+            cb.bvh_traverse_lane_packed(**root)
+
+
+def test_wrappers_reject_other_devices(soup):
+    meta = soup["nodes"].to("meta")
+    o = torch.zeros((4, 3), device="meta")
+    t = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="no BVH traversal"):
+        cb.bvh_traverse_lane_packed(meta, soup["N"], o, o, t, t)

@@ -52,8 +52,13 @@ SPP = 2
 TRI_FIELDS = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
               "tri_uv0", "tri_uv1", "tri_uv2", "tri_gn", "tri_mat",
               "tri_emitter", "tri_nee_pdf_area")
-MAT_FIELDS = ("type", "albedo", "twosided")
-EM_FIELDS = ("type", "radiance", "pmf", "cdf", "etri_tri", "etri_cdf")
+MAT_FIELDS = ("type", "albedo", "albedo_tex", "twosided")
+EM_FIELDS = ("type", "radiance", "pmf", "cdf", "etri_tri", "etri_cdf",
+             "env_index", "env_map", "env_alias", "env_hw", "env_to_world",
+             "env_scale")
+TEX_FIELDS = ("type", "uv_scale", "uv_offset", "scale", "bitmap_idx", "stack",
+              "stack_hw", "sizes", "mips", "mips_hw")
+SCENE_FIELDS = TRI_FIELDS + ("aabb_lo", "aabb_hi", "radius")
 
 
 def _np_tree(nt, fields):
@@ -61,9 +66,10 @@ def _np_tree(nt, fields):
 
 
 def jax_scene_arrays(scene):
-    """The JAX Scene's leaves that the slice reads, as numpy, by field name."""
-    arrays = _np_tree(scene, TRI_FIELDS)
+    """The JAX Scene's leaves that the port reads, as numpy, by field name."""
+    arrays = _np_tree(scene, SCENE_FIELDS + ("bvh_pages",))
     arrays["materials"] = _np_tree(scene.materials, MAT_FIELDS)
+    arrays["textures"] = _np_tree(scene.textures, TEX_FIELDS)
     arrays["emitters"] = _np_tree(scene.emitters, EM_FIELDS)
     return arrays
 
@@ -90,7 +96,8 @@ def _leaf(port_scene, path):
     return x.numpy()
 
 
-FIELD_PATHS = ([(f,) for f in TRI_FIELDS] + [("materials", f) for f in MAT_FIELDS]
+FIELD_PATHS = ([(f,) for f in SCENE_FIELDS] + [("materials", f) for f in MAT_FIELDS]
+               + [("textures", f) for f in TEX_FIELDS]
                + [("emitters", f) for f in EM_FIELDS])
 
 
@@ -142,8 +149,8 @@ def test_bridge_sensor(sensors):
 
 
 @pytest.mark.parametrize("change", [
-    dict(use_bvh=True, n_tris=600), dict(n_spheres=1), dict(has_env=True),
-    dict(has_textures=True), dict(bsdf_types=(0, 3)), dict(emitter_types=(0, 1)),
+    dict(has_opacity_tex=True), dict(n_spheres=1), dict(emitter_types=(0, 2)),
+    dict(ewa_taps=4), dict(bsdf_types=(0, 3)), dict(emitter_types=(0, 1)),
     dict(medium_types=(0,)), dict(n_tris=0),
 ])
 def test_later_slices_raise(cornell, change):
@@ -155,7 +162,7 @@ def test_later_slices_raise(cornell, change):
 def test_sample_ray_matches_jax(sensors):
     js, ts = sensors
     uv = np.random.default_rng(0).random((4096, 2)).astype(np.float32)
-    o_ref, d_ref = (np.asarray(x) for x in jsensor.sample_ray(
+    o_ref, d_ref = (np.asarray(x) for x in jax.jit(jsensor.sample_ray)(
         js, jnp.asarray(uv), jnp.zeros((4096, 2))))
     o, d = tsensor.sample_ray(ts, torch.from_numpy(uv), torch.zeros(4096, 2))
     np.testing.assert_allclose(o.numpy(), o_ref, **TOL)
@@ -182,14 +189,16 @@ def test_splat_grid_and_develop_match_jax():
     val[0, 0, 1] = np.nan  # dropped, like ImageBlock::put
     val[3, 4, 2] = -1.0
     prior = rs.random((h, w, 4)).astype(np.float32)
-    ref = jfilm.splat_grid(jfilm.Film(jnp.asarray(prior)), jnp.asarray(pos),
-                           jnp.asarray(val), jrfilter.GAUSSIAN, 0)
+    # jitted, as render_pass runs it (one compile instead of ~100 eager ones)
+    ref = jax.jit(lambda f, p, v: jfilm.splat_grid(
+        jfilm.Film(f), p, v, jrfilter.GAUSSIAN, 0))(
+            jnp.asarray(prior), jnp.asarray(pos), jnp.asarray(val))
     out = tfilm.splat_grid(tfilm.Film(torch.from_numpy(prior)),
                            torch.from_numpy(pos), torch.from_numpy(val),
                            jrfilter.GAUSSIAN)
     np.testing.assert_allclose(out.data.numpy(), np.asarray(ref.data), **TOL)
     np.testing.assert_allclose(tfilm.develop(out).numpy(),
-                               np.asarray(jfilm.develop(ref)), **TOL)
+                               np.asarray(jax.jit(jfilm.develop)(ref)), **TOL)
 
 
 @pytest.fixture(scope="module")
@@ -275,33 +284,33 @@ def test_integrator_helpers_match_jax():
 @pytest.fixture(scope="module")
 def renders(cornell, port_cornell, sensors):
     """The Cornell box at 32x32, 2 spp, depth 5, seed 0, through both
-    packages; JAX on its CPU backend takes the XLA brute-force path."""
+    packages; JAX on its CPU backend takes the XLA brute-force path. The JAX
+    side traces one sample and runs it per sample index (the same samples;
+    one traced sample compiles in half the time)."""
     js, ts = sensors
     jcfg = jcommon.IntegratorConfig(type=jcommon.PATH, max_depth=5)
     ref = np.asarray(japi.render(
         cornell[0], cornell[1], js, jcfg,
-        japi.RenderSettings(width=W, height=H, spp=SPP, spp_per_pass=SPP)))
+        japi.RenderSettings(width=W, height=H, spp=SPP, spp_per_pass=1)))
 
     @jax.jit
-    def jax_rays(scene):
-        # bench.py's ray count: path.li's with_stats counter over every sample
+    def jax_rays(scene, s):
+        # bench.py's ray count: path.li's with_stats counter of sample s
         pix = jnp.arange(H * W, dtype=jnp.int32)
         st = japi.RenderSettings(width=W, height=H)
-        n = jnp.zeros(())
-        for s in range(SPP):
-            pos = japi.pixel_sample_positions(st, pix, s, 0)
-            o, d = jsensor.sample_ray(js, pos / jnp.asarray([W, H], jnp.float32),
-                                      jnp.zeros((H * W, 2)))
-            n = n + jpath.li(scene, cornell[1], jcfg, o, d, 0, pix, s,
-                             with_stats=True)[1]
-        return n
+        pos = japi.pixel_sample_positions(st, pix, s, 0)
+        o, d = jsensor.sample_ray(js, pos / jnp.asarray([W, H], jnp.float32),
+                                  jnp.zeros((H * W, 2)))
+        return jpath.li(scene, cornell[1], jcfg, o, d, 0, pix, s,
+                        with_stats=True)[1]
 
     img, n_rays = tapi.render(
         port_cornell[0], port_cornell[1], ts,
         tcommon.IntegratorConfig(type=tcommon.PATH, max_depth=5),
         tapi.RenderSettings(width=W, height=H, spp=SPP, spp_per_pass=SPP),
         device="cpu", with_stats=True)
-    return ref, img.numpy(), int(jax_rays(cornell[0])), n_rays
+    n_jax = sum(int(jax_rays(cornell[0], jnp.int32(s))) for s in range(SPP))
+    return ref, img.numpy(), n_jax, n_rays
 
 
 def test_render_image_means_match_jax(renders):
