@@ -20,25 +20,50 @@ Phases, each of which raises on failure (no phase is skipped):
      the first bounce (a bounded launch, then the resumed rest), bit for
      bit; time them, and time the bounce query with the JAX resort schedule
      against one unbounded K3 launch with and without the coherence sort;
-  5. large tier: 16 offset copies of the fallback mesh (bench.py:176-183;
+  5. the treelet kernel K7 (treelet_rounds) on the bunny scene's treelet
+     cut: held against its plain version bit for bit on the 262,144 camera
+     rays (as they come), the bounce rays and the shadow rays (any-hit),
+     both sorted as its query function sorts them; each launch timed, and
+     the bounce query through the K7 query function timed against the K3
+     resort query;
+  6. the fat-row kernel K8 (bvh_traverse_packed) on a leaf-4 tree of the
+     same triangles: camera and bounce rays, closest and any-hit, and a
+     bounded case with per-ray [start, end) ranges of the tree's treelets;
+     then its sorting query bvh_traverse with the counts set to 0;
+  7. the wide-page kernel K9 (lane_chunk_w) on pack_pages_w of the same
+     triangles' leaf-1 tree: a bounded launch on the sorted bounce rays, then
+     the resumed rest, timed beside K3 on the same tree and rays; then its
+     query bvh_traverse_lane_resort_w with the counts set to 0;
+  8. large tier: 16 offset copies of the fallback mesh (bench.py:176-183;
      1,267,232 triangles, 2.53M nodes, above LANE_VMEM_MAX_NODES): hold K5
      (lane_hbm) and K6 (lane_chunk_hbm) against their plain versions on the
      262,144 rays of bench.py:205-212; then, with the counts set to 0, a
      closest-hit and a shadow query through the scene (K5) and bench's
      resort query (K6, rounds 6, chunk 16); print build time, rays/s and
      hit rate;
-  6. render: mitsuba_tpu_torch.render.api.render of the Cornell box at
+  9. render: mitsuba_tpu_torch.render.api.render of the Cornell box at
      512x512, depth 5, 36 spp in passes of 4, seed 0 (bench.py's Cornell
      layout), with every launch count set to 0 just before and read just
      after; checks 180 launches of K1 and of K2 and the image mean against
      the JAX package's value;
-  7. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
+ 10. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
      2, seed 0 (bench.py:289-293); checks 10 launches of K4 and 300 of K3
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
      bounces 1-4 and 5 x (1 + 1) for shadow rays, per sample), none of
      K1/K2/K5/K6, and the image mean within 1% of the JAX package's value;
-  8. profile: one render pass of each scene under torch.profiler, printing
-     the device's busy share of the wall time and the kernels that take it.
+ 11. the treelet render: the bunny render of phase 10 with
+     render.scene.BVH_KERNEL = "treelet"; checks 100 launches of K7 (a
+     closest-hit and a shadow query per bounce, 5 bounces, 10 samples) and
+     none of K1-K6, the mean within 1% of the JAX value, and prints ms/spp
+     and the mean's difference from the lane render's;
+ 12. kdbench: bench.py's fallback heightfield written as a binary PLY into a
+     temporary directory, run through mitsuba_tpu_torch.mtsutil.main
+     (["kdbench", path], defaults: 2^18 rays, 3 repeats); checks that the
+     treelet and lane-resort kernels report the same hit rate on each batch
+     and that K7 and K3 launched as the utility drives them;
+ 13. profile: one render pass of each scene (the bunny in both BVH modes)
+     under torch.profiler, printing the device's busy share of the wall time
+     and the kernels that take it.
 
 The second-to-last line of output is the kernels' JSON record, the last
 {"ok": true, "device": {...}}. Without CUDA the script exits nonzero before
@@ -46,14 +71,21 @@ printing any result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from mitsuba_tpu_torch import mtsutil
+from mitsuba_tpu_torch.accel.build import (build_bvh, treelet_roots,
+                                           triangle_aabbs)
 from mitsuba_tpu_torch.core import math as m
 from mitsuba_tpu_torch.core import rng as rng_mod
 from mitsuba_tpu_torch.core.transform import Transform
@@ -114,6 +146,15 @@ REPO_PATHS = {
     "lane_chunk_hbm": (
         "mitsuba_tpu_torch/csrc/bvh_lane.cu",
         "mitsuba_tpu/ops/pallas_bvh.py:1514"),
+    "treelet_rounds": (
+        "mitsuba_tpu_torch/csrc/bvh_lane.cu",
+        "mitsuba_tpu/ops/pallas_bvh.py:514"),
+    "bvh_traverse_packed": (
+        "mitsuba_tpu_torch/csrc/bvh_lane.cu",
+        "mitsuba_tpu/ops/pallas_bvh.py:226"),
+    "lane_chunk_w": (
+        "mitsuba_tpu_torch/csrc/bvh_lane.cu",
+        "mitsuba_tpu/ops/pallas_bvh.py:1802"),
 }
 KERNELS = {
     "brute_force_interaction": bf.brute_force_interaction,
@@ -122,6 +163,9 @@ KERNELS = {
     "bvh_traverse_lane_packed": cb.bvh_traverse_lane_packed,
     "lane_hbm": cb.lane_hbm,
     "lane_chunk_hbm": cb.lane_chunk_hbm,
+    "treelet_rounds": cb.treelet_rounds,
+    "bvh_traverse_packed": cb.bvh_traverse_packed,
+    "lane_chunk_w": cb.lane_chunk_w,
 }
 
 # the bunny_x2 scene (bench.py:27-89, rendered at bench.py:289-293)
@@ -148,6 +192,11 @@ LARGE_COPIES, LARGE_ROUNDS, LARGE_CHUNK = 16, 6, 16
 FLOPS_PER_BOX = 25
 K4_RAY_BYTES = 32 + 17            # o, d, t_min, t_max | hit, t, idx, u, v
 K3_RAY_BYTES = 48 + 20            # 7 ray floats + 5 state | t, idx, u, v, node
+K8_RANGE_BYTES = 8                # per-ray start, end of a bounded K8 call
+K9_LEAF_BYTES = 44                # a wide-page leaf: 11 component words
+# the treelet render: a closest-hit and a shadow query per bounce, each one
+# K7 launch (render/scene.py _bvh_query)
+K7_PER_SPP = 2 * DEPTH
 
 
 def log(*a):
@@ -381,20 +430,27 @@ def bunny(dev):
     return scene, static, sensor
 
 
-def lane_bound_ms(nodes, R, visits, ray_bytes):
+def _bound(nbytes, flops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def lane_bound_ms(nodes, R, visits, ray_bytes, leaf_bytes=48, extra_bytes=0,
+                  extra_flops=0):
     """Least time for a lane-kernel call on an H100: the larger of its bytes
     over HBM bandwidth and its fp32 operations over the fp32 peak. Bytes:
     each node the call reads, once (32 bytes of an internal node, 48 of a
     leaf, as the kernel loads them), and each ray's inputs and outputs once;
     operations: every visit's test. ``visits`` = (per-lane internal and leaf
     visit counts, nodes read) from the plain version."""
-    v_int, v_leaf, touched = visits
+    v_int, v_leaf, touched = visits[:3]
     leaf = nodes[:, 7] >= 0
-    nbytes = (int((touched & ~leaf).sum()) * 32 + int((touched & leaf).sum()) * 48
-              + R * ray_bytes)
-    flops = int(v_int.sum()) * FLOPS_PER_BOX + int(v_leaf.sum()) * FLOPS_PER_TEST
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FP32 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    nbytes = (int((touched & ~leaf).sum()) * 32
+              + int((touched & leaf).sum()) * leaf_bytes + R * ray_bytes
+              + extra_bytes)
+    flops = (int(v_int.sum()) * FLOPS_PER_BOX + int(v_leaf.sum()) * FLOPS_PER_TEST
+             + extra_flops)
+    return _bound(nbytes, flops)
 
 
 def _visits_line(visits, live):
@@ -572,7 +628,265 @@ def bvh_kernel_phase(dev):
             f"sorted rays {t_one:.4f} ms; one unbounded K3 unsorted "
             f"{t_raw:.4f} ms")
     records["lane_chunk"] = rec
+    records.update(treelet_kernel_phase(scene, cam, bounce, shadow))
+    records.update(fat_kernel_phase(scene, cam, bounce))
+    records.update(wide_kernel_phase(scene, bounce))
     return records
+
+
+def device_ms(fn):
+    """fn() and its device time by CUDA events, for one call of a plain
+    version (its host loop synchronizes as it goes)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _zero_counts():
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def _check_launches(label, expected):
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    log(f"{label} launches {launches}")
+    for name, n in launches.items():
+        if n != expected.get(name, 0):
+            raise AssertionError(f"{label}: {name} launched {n} times, "
+                                 f"expected {expected.get(name, 0)}")
+    return launches
+
+
+def _new_record(name):
+    return dict(name=name, route="cuda", source=REPO_PATHS[name][0],
+                replaces=REPO_PATHS[name][1], max_abs_err=0.0)
+
+
+def treelet_kernel_phase(scene, cam, bounce, shadow):
+    """K7 against its plain version bit for bit on the camera rays (as they
+    come, the render's presorted query), the bounce rays and the shadow rays
+    (sorted as its query function sorts them); the bounce query through
+    the K7 query function against the K3 resort query."""
+    nodes, lo, hi = scene.nodes, scene.aabb_lo, scene.aabb_hi
+    tl = (scene.tl_root, scene.tl_skip, scene.tl_lo, scene.tl_hi)
+    tab = cb.treelet_table(*tl)
+    K = tab.shape[0]
+    log(f"treelets: K={K} (treelet_roots max_nodes "
+        f"{scene_mod.TREELET_MAX_NODES}), nodes {nodes.shape[0]}")
+
+    def sorted_rays(o, d, t_min, t_max):
+        orig = torch.argsort(cb.treelet_sort_keys(o, d, t_min, t_max, tl[2],
+                                                  tl[3], lo, hi), stable=True)
+        return o[orig], d[orig], t_min[orig], t_max[orig]
+
+    rec = _new_record("treelet_rounds")
+    for label, rays, any_hit in (("camera", cam, False),
+                                 ("bounce", sorted_rays(*bounce), False),
+                                 ("shadow", sorted_rays(*shadow), True)):
+        o, d, t_min, t_max = rays
+        out = cb.treelet_rounds(nodes, tab, o, d, t_min, t_max, any_hit=any_hit)
+        ref = cb.treelet_rounds_plain(nodes, tab, o, d, t_min, t_max,
+                                      any_hit=any_hit, with_visits=True)
+        torch.cuda.synchronize()
+        err, ulp = compare(f"treelet_rounds/{label}", out, ref[:5], n_exact=1,
+                           ulp_limit=0)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        ms = cuda_ms(lambda: cb.treelet_rounds(nodes, tab, o, d, t_min, t_max,
+                                               any_hit=any_hit), reps=20)
+        visits = ref[5]
+        R = o.shape[0]
+        bound, by = lane_bound_ms(
+            nodes, R, visits, K4_RAY_BYTES, extra_bytes=K * 32,
+            extra_flops=int(visits[3].sum()) * FLOPS_PER_BOX)
+        log(f"kernel treelet_rounds {label} (any_hit={any_hit}): R={R} K={K} "
+            f"hit/idx mismatches 0, max |kernel-plain| {err:.3g} ({ulp} ulp), "
+            f"hit rate {float(out[0].float().mean()):.4f}, root-box tests "
+            f"{int(visits[3].sum())} ({float(visits[3].float().mean()):.2f} "
+            f"per ray), {_visits_line(visits, t_max > t_min)}; {ms:.4f} ms, "
+            f"bound {bound:.5f} ms ({by})")
+        if label == "bounce":
+            _, rec["plain_ms"] = device_ms(lambda: cb.treelet_rounds_plain(
+                nodes, tab, o, d, t_min, t_max))
+            rec.update(ms=ms, bound_ms=bound, bound_by=by, library_ms=None)
+    o, d, t_min, t_max = bounce
+    rounds, chunk_nit, strip = scene_mod.BVH_RESORT
+    t_k7 = cuda_ms(lambda: cb.bvh_traverse_treelets(
+        nodes, *tl, o, d, t_min, t_max, lo, hi), reps=10)
+    t_k3 = cuda_ms(lambda: cb.bvh_traverse_lane_resort(
+        nodes, nodes.shape[0], o, d, t_min, t_max, lo, hi,
+        rounds=rounds, chunk_nit=chunk_nit, strip=strip), reps=10)
+    k7q = cb.bvh_traverse_treelets(nodes, *tl, o, d, t_min, t_max, lo, hi)
+    k3q = cb.bvh_traverse_lane_resort(nodes, nodes.shape[0], o, d, t_min,
+                                      t_max, lo, hi, rounds=rounds,
+                                      chunk_nit=chunk_nit, strip=strip)
+    if not (torch.equal(k7q[0], k3q[0]) and torch.equal(k7q[1], k3q[1])):
+        raise AssertionError("bounce query: K7 and K3 queries disagree on "
+                             "hit or t")
+    log(f"bounce query (R={o.shape[0]}, live {int((t_max > t_min).sum())}): "
+        f"K7 query (sort + K7 + unsort) {t_k7:.4f} ms; K3 resort query "
+        f"{rounds},{chunk_nit},{strip} {t_k3:.4f} ms; hit and t equal")
+    log(f"kernel treelet_rounds: {rec['ms']:.4f} ms (bounce), plain "
+        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']})")
+    return {"treelet_rounds": rec}
+
+
+def scene_tris(scene):
+    """The scene's triangles as float32 numpy (p0, e1, e2) and their float64
+    bounds."""
+    p0, e1, e2 = (x.cpu().numpy() for x in (scene.tri_p0, scene.tri_e1,
+                                             scene.tri_e2))
+    lo, hi = triangle_aabbs(*(x.astype(np.float64) for x in (p0, p0 + e1,
+                                                            p0 + e2)))
+    return (p0, e1, e2), (lo, hi)
+
+
+def fat_kernel_phase(scene, cam, bounce):
+    """K8 on the fat rows of a leaf-4 tree of the bunny's triangles: kernel
+    == plain bit for bit on camera and bounce rays, closest and any-hit, and
+    with per-ray [start, end) treelet ranges; then the sorting query with
+    the counts set to 0."""
+    dev = scene.nodes.device
+    lo, hi = scene.aabb_lo, scene.aabb_hi
+    tris, box = scene_tris(scene)
+    t0 = time.perf_counter()
+    bvh4 = build_bvh(*box, leaf_size=cb.FAT_LEAF_SIZE)
+    fat = torch.as_tensor(cb.pack_nodes_fat(bvh4, *tris), device=dev)
+    N = fat.shape[0]
+    counts = fat[:, 7].to(torch.int64)
+    log(f"fat rows: leaf-4 tree of {len(tris[0])} triangles, {N} nodes, "
+        f"{int((counts > 0).sum())} leaves, built and packed in "
+        f"{time.perf_counter() - t0:.2f} s")
+    roots = treelet_roots(bvh4, max_nodes=scene_mod.TREELET_MAX_NODES)
+    r_root, r_skip, r_lo, r_hi = (torch.as_tensor(x, device=dev) for x in (
+        roots.astype(np.int32), bvh4.skip[roots].astype(np.int32),
+        bvh4.lo[roots], bvh4.hi[roots]))
+    (*srt, tmx), _ = cb.sort_rays(*bounce, lo, hi)
+    b_sorted = (torch.stack(srt[0:3], -1), torch.stack(srt[3:6], -1), srt[6],
+                tmx)
+    sel = cb.nearest_treelet(*b_sorted, r_lo, r_hi)
+    ranges = (r_root[sel].contiguous(), r_skip[sel].contiguous())
+
+    def bound_of(visits, R, bounded):
+        # 32 B of box per node read; 48 B per triangle only of the leaves
+        # whose box some lane entered (the kernel reads no other slot)
+        v_node, v_tri, touched, opened = visits
+        nbytes = (int(touched.sum()) * 32
+                  + int((counts * opened).sum()) * 48
+                  + R * (K4_RAY_BYTES + (K8_RANGE_BYTES if bounded else 0)))
+        return _bound(nbytes, int(v_node.sum()) * FLOPS_PER_BOX
+                      + int(v_tri.sum()) * FLOPS_PER_TEST)
+
+    rec = _new_record("bvh_traverse_packed")
+    for label, rays, rng, any_hit in (
+            ("camera", cam, (None, None), False),
+            ("camera", cam, (None, None), True),
+            ("bounce", b_sorted, (None, None), False),
+            ("bounce", b_sorted, (None, None), True),
+            ("bounce [start, end)", b_sorted, ranges, False)):
+        out = cb.bvh_traverse_packed(fat, *rays, *rng, any_hit=any_hit)
+        ref = cb.bvh_traverse_packed_plain(fat, *rays, *rng, any_hit=any_hit,
+                                           with_visits=True)
+        torch.cuda.synchronize()
+        err, ulp = compare(f"bvh_traverse_packed/{label}/any_hit={any_hit}",
+                           out, ref[:5], n_exact=1, ulp_limit=0)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        v_node, v_tri, touched, opened = ref[5]
+        ms = cuda_ms(lambda: cb.bvh_traverse_packed(fat, *rays, *rng,
+                                                    any_hit=any_hit), reps=20)
+        R = rays[0].shape[0]
+        bound, by = bound_of(ref[5], R, rng[0] is not None)
+        log(f"kernel bvh_traverse_packed {label} any_hit={any_hit}: R={R} "
+            f"hit/idx mismatches 0, max |kernel-plain| {err:.3g} ({ulp} ulp), "
+            f"hit rate {float(out[0].float().mean()):.4f}, node visits "
+            f"{int(v_node.sum())} ({float(v_node.float().mean()):.2f} per ray, "
+            f"max {int(v_node.max())}), triangle tests {int(v_tri.sum())}, "
+            f"{int(touched.sum())} distinct nodes ({int(opened.sum())} leaves "
+            f"opened); {ms:.4f} ms, bound "
+            f"{bound:.5f} ms ({by})")
+        if label == "bounce" and not any_hit:
+            _, rec["plain_ms"] = device_ms(lambda: cb.bvh_traverse_packed_plain(
+                fat, *rays))
+            rec.update(ms=ms, bound_ms=bound, bound_by=by, library_ms=None)
+    # the op as a caller drives it: sort, K8, unsort, closest and any-hit
+    _zero_counts()
+    res = [cb.bvh_traverse(fat, *bounce, lo, hi, any_hit=a) for a in (False, True)]
+    torch.cuda.synchronize()
+    launches = _check_launches("bvh_traverse (K8 query)",
+                               {"bvh_traverse_packed": 2})
+    rec["launches"] = launches["bvh_traverse_packed"]
+    if not torch.equal(res[0][0], res[1][0]):
+        raise AssertionError("K8 query: closest and any-hit disagree on hits")
+    log(f"kernel bvh_traverse_packed: {rec['ms']:.4f} ms (sorted bounce), plain "
+        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']})")
+    return {"bvh_traverse_packed": rec}
+
+
+def wide_kernel_phase(scene, bounce):
+    """K9 on pack_pages_w of a leaf-1 tree of the bunny's triangles: a
+    bounded launch on the sorted bounce rays and the resumed rest, kernel ==
+    plain bit for bit; one unbounded launch timed beside K3 on the same tree
+    and rays; then its resort query with the counts set to 0."""
+    dev = scene.nodes.device
+    lo, hi = scene.aabb_lo, scene.aabb_hi
+    tris, box = scene_tris(scene)
+    bvh = build_bvh(*box)
+    N = len(bvh.lo)
+    pages = torch.as_tensor(cb.pack_pages_w(bvh, *tris), device=dev)
+    nodes = torch.as_tensor(cb.pack_nodes(bvh, *tris), device=dev)
+    (*rays, tmx), _ = cb.sort_rays(*bounce, lo, hi)
+    rays = tuple(rays)
+    budget = 16 * cb.LSTRIP   # the resort query's default chunk_nit x strip
+    rec = _new_record("lane_chunk_w")
+    state = _root_state(N, rays, tmx)
+    for step, steps in ((f"bounded ({budget} visits)", budget),
+                        ("resumed to the end", 0)):
+        out = cb.lane_chunk_w(pages, N, *rays, *state, max_steps=steps)
+        ref = cb.lane_chunk_w_plain(pages, N, *rays, *state, max_steps=steps,
+                                    with_visits=True)
+        torch.cuda.synchronize()
+        err, ulp = compare(f"lane_chunk_w/{step}", out, ref[:5], n_exact=0,
+                           ulp_limit=0)
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        log(f"kernel lane_chunk_w {step}: R={tmx.shape[0]} N={N} page "
+            f"{cb.WIDE_PAGE} ({pages.shape[0]} rows) idx/node mismatches 0, "
+            f"max |kernel-plain| {err:.3g} ({ulp} ulp), lanes still walking "
+            f"{int((out[4] < N).sum())}, {_visits_line(ref[5], state[0] < N)}")
+        state = (out[4], out[0], out[1], out[2], out[3])
+    root = _root_state(N, rays, tmx)
+    full, rec["plain_ms"] = device_ms(lambda: cb.lane_chunk_w_plain(
+        pages, N, *rays, *root, with_visits=True))
+    k3 = cb.lane_chunk(nodes, N, *rays, *root)
+    if not all(torch.equal(a, b) for a, b in zip(
+            cb.lane_chunk_w(pages, N, *rays, *root), k3)):
+        raise AssertionError("K9 and K3 disagree on the same tree")
+    rec["ms"] = cuda_ms(lambda: cb.lane_chunk_w(pages, N, *rays, *root),
+                        reps=20)
+    t_k3 = cuda_ms(lambda: cb.lane_chunk(nodes, N, *rays, *root), reps=20)
+    rec["bound_ms"], rec["bound_by"] = lane_bound_ms(
+        nodes, tmx.shape[0], full[5], K3_RAY_BYTES, leaf_bytes=K9_LEAF_BYTES)
+    rec["library_ms"] = None  # no single PyTorch call computes it
+    log(f"kernel lane_chunk_w (one unbounded launch, sorted bounce rays): "
+        f"{rec['ms']:.4f} ms, K3 on the same tree and rays {t_k3:.4f} ms, "
+        f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+        f"({rec['bound_by']}), {_visits_line(full[5], root[0] < N)}")
+    _zero_counts()
+    res = cb.bvh_traverse_lane_resort_w(pages, N, *bounce, lo, hi)
+    torch.cuda.synchronize()
+    launches = _check_launches("bvh_traverse_lane_resort_w (K9 query)",
+                               {"lane_chunk_w": 3})
+    rec["launches"] = launches["lane_chunk_w"]
+    ref = cb.bvh_traverse_lane_resort(nodes, N, *bounce, lo, hi, rounds=2,
+                                      chunk_nit=16)
+    if not all(torch.equal(a, b) for a, b in zip(res, ref)):
+        raise AssertionError("K9 and K3 resort queries disagree")
+    return {"lane_chunk_w": rec}
 
 
 def large_scene(dev):
@@ -636,21 +950,15 @@ def large_tier_phase(dev):
 
     # the tier's queries: scene closest hit and shadow ray (K5), bench's
     # resort query (K6), with the counts set to 0 just before
-    for k in KERNELS.values():
-        k.launches = 0
+    _zero_counts()
     its = scene_mod.ray_intersect(scene, static, o, d, 1e-4, 1e9)
     occ = scene_mod.occluded(scene, static, o, d, 1e-4, 1e9)
     res = cb.bvh_traverse_lane_hbm_resort(nodes, N, o, d, t_min, t_max, lo, hi,
                                           rounds=LARGE_ROUNDS,
                                           chunk_nit=LARGE_CHUNK)
     torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in KERNELS.items()}
-    log(f"large tier launches {launches}")
-    expected = {"lane_hbm": 2, "lane_chunk_hbm": LARGE_ROUNDS + 1}
-    for name, n in launches.items():
-        if n != expected.get(name, 0):
-            raise AssertionError(f"large tier: {name} launched {n} times, "
-                                 f"expected {expected.get(name, 0)}")
+    launches = _check_launches("large tier", {"lane_hbm": 2,
+                                              "lane_chunk_hbm": LARGE_ROUNDS + 1})
     if not (torch.equal(its.valid, res[0]) and torch.equal(occ, res[0])
             and torch.equal(its.prim_id, torch.where(res[0], res[2], -1))):
         raise AssertionError("large tier: K5 and K6 queries disagree")
@@ -672,7 +980,8 @@ def render_phase(dev, label, scene, static, sensor, eye, at, fov, spp,
     """The port's main path: api.render at 512x512, depth 5, seed 0, with
     every launch count set to 0 just before and read just after; checks the
     counts against ``expected`` (0 for a kernel not named) and the image
-    mean against the JAX package's value."""
+    mean against the JAX package's value. Returns (launches, mean_rgb,
+    ms/spp)."""
     cfg = IntegratorConfig(type=PATH, max_depth=DEPTH)
     # warm-up at a small size (first-call set-up of the CUDA libraries)
     small = sensor_mod.make_perspective(Transform.look_at(eye, at, UP), fov,
@@ -685,15 +994,12 @@ def render_phase(dev, label, scene, static, sensor, eye, at, fov, spp,
 
     settings = api.RenderSettings(width=W, height=H, spp=spp,
                                   spp_per_pass=spp_per_pass, seed=SEED)
-    for k in KERNELS.values():
-        k.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     img, n_rays = api.render(scene, static, sensor, cfg, settings, device=dev,
                              with_stats=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in KERNELS.items()}
-
     if tuple(img.shape) != (H, W, 3):
         raise AssertionError(f"image shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()):
@@ -706,16 +1012,74 @@ def render_phase(dev, label, scene, static, sensor, eye, at, fov, spp,
         f"{dt / spp * 1e3:.3f} ms/spp")
     log(f"render {label} max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes")
-    log(f"render {label} launches {launches}")
-    for name, n in launches.items():
-        if n != expected.get(name, 0):
-            raise AssertionError(f"{label}: {name} launched {n} times, "
-                                 f"expected {expected.get(name, 0)}")
+    launches = _check_launches(f"render {label}", expected)
     for c, (a, b) in enumerate(zip(mean, ref_mean)):
         if abs(a - b) > rtol * b:
             raise AssertionError(
                 f"{label}: mean_rgb[{c}] = {a:.6f}, reference {b} "
                 f"(tolerance {rtol:.1%})")
+    return launches, mean, dt / spp * 1e3
+
+
+@contextlib.contextmanager
+def bvh_kernel(name):
+    """Run the scene's BVH queries through the ``name`` kernel family."""
+    old = scene_mod.BVH_KERNEL
+    scene_mod.BVH_KERNEL = name
+    try:
+        yield
+    finally:
+        scene_mod.BVH_KERNEL = old
+
+
+def write_ply(path, v, f):
+    """A binary little-endian PLY of float32 vertices and int32 triangles."""
+    face = np.zeros(len(f), dtype=[("n", "u1"), ("i", "<i4", (3,))])
+    face["n"], face["i"] = 3, f
+    with open(path, "wb") as fh:
+        fh.write((f"ply\nformat binary_little_endian 1.0\n"
+                  f"element vertex {len(v)}\nproperty float x\n"
+                  f"property float y\nproperty float z\n"
+                  f"element face {len(f)}\n"
+                  f"property list uchar int vertex_indices\nend_header\n"
+                  ).encode())
+        fh.write(np.ascontiguousarray(v, "<f4").tobytes())
+        fh.write(face.tobytes())
+
+
+def kdbench_phase():
+    """mtsutil kdbench at its defaults on the fallback heightfield written as
+    a binary PLY; the treelet and lane-resort kernels must report the same
+    hit rate on each batch. Returns the launches of the run."""
+    v, f = fallback_mesh()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "fallback_heightfield.ply")
+        write_ply(path, v, f)
+        buf = io.StringIO()
+        _zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = mtsutil.main(["kdbench", path])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"kdbench {line}")
+    log(f"kdbench: {dt:.2f} s including the PLY load and the BVH build")
+    # per batch (coherent, incoherent) each query runs once to warm up and
+    # 3 timed times (the defaults); a lane-resort query is 2 rounds + 1 K3
+    # launches (bvh_traverse_lane_resort's default rounds)
+    calls = 2 * (1 + 3)
+    launches = _check_launches("kdbench", {"treelet_rounds": calls,
+                                           "lane_chunk": calls * (2 + 1)})
+    rates = {}
+    for line in lines[1:]:
+        tag, kname = line.split(":", 1)[0].split()
+        rates.setdefault(tag, {})[kname] = line.rsplit("hit rate", 1)[1]
+    if rc != 0 or len(rates) != 2 or any(
+            len(r) != 2 or r["treelet"] != r["lane-resort"]
+            for r in rates.values()):
+        raise AssertionError(f"kdbench: rc {rc}, hit rates {rates}")
     return launches
 
 
@@ -748,7 +1112,8 @@ def profile_phase(dev, label, scene, static, sensor, spp):
     calls_of = {e.key: e.count for e in events
                 if e.device_type == DeviceType.CUDA}
     for kernel in ("interaction_kernel", "closest_hit_kernel",
-                   "lane_packed_kernel", "lane_chunk_kernel"):
+                   "lane_packed_kernel", "lane_chunk_kernel",
+                   "treelet_rounds_kernel"):
         hits = [k for k in dev_us if f"::{kernel}(" in k]
         if hits or not dev_us:
             took = (f"{sum(dev_us[k] for k in hits) / 1e3:.3f} ms in "
@@ -784,17 +1149,27 @@ def main() -> int:
     records.update(large)
 
     cornell_scene = cornell(dev)
-    launches = render_phase(
+    launches, _, _ = render_phase(
         dev, "cornell", *cornell_scene, EYE, AT, FOV, SPP, SPP_PER_PASS,
         REF_MEAN_RGB, MEAN_RTOL,
         {"brute_force_interaction": DEPTH * SPP,
          "brute_force_closest_hit": DEPTH * SPP})
     bunny_scene = bunny(dev)
-    bunny_launches = render_phase(
+    bunny_launches, lane_mean, lane_ms = render_phase(
         dev, "bunny", *bunny_scene, BUNNY_EYE, BUNNY_AT, BUNNY_FOV,
         BUNNY_SPP, BUNNY_SPP_PER_PASS, BUNNY_REF_MEAN_RGB, BUNNY_MEAN_RTOL,
         {"bvh_traverse_lane_packed": BUNNY_SPP,
          "lane_chunk": K3_PER_SPP * BUNNY_SPP})
+    with bvh_kernel("treelet"):
+        treelet_launches, tl_mean, tl_ms = render_phase(
+            dev, "bunny treelet", *bunny_scene, BUNNY_EYE, BUNNY_AT,
+            BUNNY_FOV, BUNNY_SPP, BUNNY_SPP_PER_PASS, BUNNY_REF_MEAN_RGB,
+            BUNNY_MEAN_RTOL, {"treelet_rounds": K7_PER_SPP * BUNNY_SPP})
+    log(f"render bunny treelet vs lane: {tl_ms:.3f} against {lane_ms:.3f} "
+        f"ms/spp; mean_rgb difference "
+        f"{[a - b for a, b in zip(tl_mean, lane_mean)]}")
+    records["treelet_rounds"]["launches"] = treelet_launches["treelet_rounds"]
+    kdbench_phase()
     # each kernel's count from the run of the path that drives it
     for name in ("brute_force_interaction", "brute_force_closest_hit"):
         records[name]["launches"] = launches[name]
@@ -804,6 +1179,8 @@ def main() -> int:
         records[name]["launches"] = large_launches[name]
     profile_phase(dev, "cornell", *cornell_scene, SPP_PER_PASS)
     profile_phase(dev, "bunny", *bunny_scene, BUNNY_SPP_PER_PASS)
+    with bvh_kernel("treelet"):
+        profile_phase(dev, "bunny treelet", *bunny_scene, BUNNY_SPP_PER_PASS)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,5 +1,5 @@
-"""Binned-SAH BVH builder, host side (a copy of ``mitsuba_tpu/accel/build.py``
-without ``treelet_roots``, which waits for the treelet kernel K7).
+"""Binned-SAH BVH builder and treelet cut, host side (a copy of
+``mitsuba_tpu/accel/build.py``).
 
 The BVH is flattened into a threaded node stream: every node carries a skip
 (miss) link to the next node in depth-first order, so traversal needs no
@@ -14,7 +14,8 @@ from typing import NamedTuple
 
 import numpy as np
 
-# one triangle per leaf: the only tree the lane kernels traverse
+# one triangle per leaf: the tree of the scene and of every kernel but K8,
+# whose fat rows hold up to four (ops/cuda_bvh.FAT_LEAF_SIZE)
 LEAF_SIZE = 1
 N_BINS = 16
 # the JAX package's threshold for its C++ builder (accel/build.py:50)
@@ -38,9 +39,10 @@ class BVH(NamedTuple):
     prim_order: np.ndarray  # (T,)  int32 permutation of input primitives
 
 
-def build_bvh(prim_lo: np.ndarray, prim_hi: np.ndarray) -> BVH:
-    """Build a tree of ``LEAF_SIZE`` primitives per leaf from per-primitive
-    AABBs (T, 3)/(T, 3).
+def build_bvh(prim_lo: np.ndarray, prim_hi: np.ndarray,
+              leaf_size: int = LEAF_SIZE) -> BVH:
+    """Build a tree of at most ``leaf_size`` primitives per leaf from
+    per-primitive AABBs (T, 3)/(T, 3).
 
     Meshes of ``NATIVE_MIN_PRIMS`` primitives or more go to the C++ builder
     (``native/bvh.cpp``), which raises if it cannot be built; smaller ones to
@@ -50,11 +52,12 @@ def build_bvh(prim_lo: np.ndarray, prim_hi: np.ndarray) -> BVH:
         from ..native import build_bvh_native
 
         return BVH(*build_bvh_native(np.asarray(prim_lo), np.asarray(prim_hi),
-                                     LEAF_SIZE))
-    return _build_bvh_numpy(prim_lo, prim_hi)
+                                     leaf_size))
+    return _build_bvh_numpy(prim_lo, prim_hi, leaf_size)
 
 
-def _build_bvh_numpy(prim_lo: np.ndarray, prim_hi: np.ndarray) -> BVH:
+def _build_bvh_numpy(prim_lo: np.ndarray, prim_hi: np.ndarray,
+                     leaf_size: int = LEAF_SIZE) -> BVH:
     """Pure-numpy builder (the JAX package's, arithmetic for arithmetic)."""
     T = prim_lo.shape[0]
     assert T > 0
@@ -86,7 +89,7 @@ def _build_bvh_numpy(prim_lo: np.ndarray, prim_hi: np.ndarray) -> BVH:
         node_lo[node] = lo
         node_hi[node] = hi
         n = len(idx)
-        if n <= LEAF_SIZE:
+        if n <= leaf_size:
             node_first[node] = order_pos
             node_count[node] = n
             order.append(idx)
@@ -187,6 +190,31 @@ def _build_bvh_numpy(prim_lo: np.ndarray, prim_hi: np.ndarray) -> BVH:
         lo=lo_out, hi=hi_out, skip=skip_out,
         prim_first=first_out, prim_count=count_out, prim_order=prim_order,
     )
+
+
+def treelet_roots(bvh: BVH, max_nodes: int = 1024,
+                  max_roots: int = 128) -> np.ndarray:
+    """Cut the preorder node stream into treelets: subtrees of at most
+    ``max_nodes`` rows whose parents exceed it. In the threaded DFS layout a
+    subtree rooted at i is exactly the row range [i, skip[i]), so bounding a
+    walk to a treelet is a per-lane range clamp (K7, ops/cuda_bvh.py).
+
+    Walk: descend internal nodes until the subtree fits, emit, jump to its
+    skip. ``max_nodes`` is doubled until at most ``max_roots`` treelets
+    result (K7 keeps the treelet table in shared memory)."""
+    N = len(bvh.skip)
+    while True:
+        roots = []
+        i = 0
+        while i < N:
+            if bvh.skip[i] - i <= max_nodes:
+                roots.append(i)
+                i = int(bvh.skip[i])
+            else:
+                i += 1
+        if len(roots) <= max_roots:
+            return np.asarray(roots, np.int32)
+        max_nodes *= 2
 
 
 def triangle_aabbs(p0, p1, p2):

@@ -26,8 +26,15 @@ _TRI_INT = ("tri_mat", "tri_emitter")
 _ENV_FLOAT = ("env_map", "env_alias", "env_to_world", "env_scale")
 _TEX_FLOAT = ("uv_scale", "uv_offset", "scale", "stack", "mips")
 _TEX_INT = ("type", "bitmap_idx", "stack_hw", "sizes", "mips_hw")
+_TL_INT = ("tl_root", "tl_skip")
+_TL_FLOAT = ("tl_lo", "tl_hi")
 # rows per page of the JAX package's page-planar BVH table (pack_pages)
 _PAGE, _PCOMP = 128, 11
+# the JAX slim layout (pack_nodes_slim): four 32-float node slots per row
+_SLIM_SLOT = 32
+# the JAX fat rows (pallas_bvh.py:56-61): lo, hi, skip, count, then per
+# triangle slot p0, e1, e2, id
+_FAT_ROW, _FAT_TRI = 64, 10
 
 
 def _f32(x, dev):
@@ -60,6 +67,40 @@ def nodes_from_pages(pages, n_nodes: int) -> np.ndarray:
     return nodes
 
 
+def nodes_from_slim(rows, n_nodes: int) -> np.ndarray:
+    """The port's (n_nodes, 12) node table from the JAX package's slim rows
+    ``(ceil(N / 4), 128)`` (``pack_nodes_slim``, which K7 walks there): node
+    n's slot is row n // 4, columns 32 (n % 4) + (lo|p0, hi|e1, e2, skip,
+    tri id). The same nodes in the same order as ``cuda_bvh.pack_nodes``."""
+    rows = np.asarray(rows, np.float32)
+    if rows.shape != (-(-n_nodes // 4), 4 * _SLIM_SLOT):
+        raise ValueError(f"slim rows of shape {rows.shape} do not hold "
+                         f"{n_nodes} nodes")
+    slots = rows.reshape(-1, _SLIM_SLOT)[:n_nodes]
+    nodes = np.zeros((n_nodes, cuda_bvh.NODE_COLS), np.float32)
+    nodes[:, :11] = slots[:, [0, 1, 2, 9, 3, 4, 5, 10, 6, 7, 8]]
+    return nodes
+
+
+def fat_from_rows(rows) -> np.ndarray:
+    """The port's (N, 56) fat table (``cuda_bvh.pack_nodes_fat``) from the
+    JAX package's (N, 64) fat rows (``pack_nodes``): the same values, moved
+    into float4s (lo skip | hi count | per slot p0 id | e1 0 | e2 0)."""
+    rows = np.asarray(rows, np.float32)
+    if rows.ndim != 2 or rows.shape[1] != _FAT_ROW:
+        raise ValueError(f"fat rows of shape {rows.shape}, expected (N, 64)")
+    out = np.zeros((rows.shape[0], cuda_bvh.FAT_COLS), np.float32)
+    out[:, 0:3], out[:, 3] = rows[:, 0:3], rows[:, 6]
+    out[:, 4:7], out[:, 7] = rows[:, 3:6], rows[:, 7]
+    for k in range(cuda_bvh.FAT_LEAF_SIZE):
+        src, dst = 8 + _FAT_TRI * k, 8 + 12 * k
+        out[:, dst:dst + 3] = rows[:, src:src + 3]
+        out[:, dst + 3] = rows[:, src + 9]
+        out[:, dst + 4:dst + 7] = rows[:, src + 3:src + 6]
+        out[:, dst + 8:dst + 11] = rows[:, src + 6:src + 9]
+    return out
+
+
 def scene_from_arrays(arrays: dict, static: dict, device=None):
     """(Scene, SceneStatic) of the port from the JAX scene's leaves.
 
@@ -67,7 +108,8 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
     ``textures`` and ``emitters`` as dicts of their tables' fields;
     ``static`` maps SceneStatic field names to values. The BVH comes across
     as the JAX scene's ``bvh_pages`` (the same tree, repacked by
-    ``nodes_from_pages``). Raises NotImplementedError for a scene the port
+    ``nodes_from_pages``), with its treelet cut (``tl_root``, ``tl_skip``,
+    ``tl_lo``, ``tl_hi``). Raises NotImplementedError for a scene the port
     does not render.
     """
     dev = resolve_device(device)
@@ -93,6 +135,8 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
     scene = scene_mod.Scene(
         **tri,
         nodes=_f32(nodes, dev),
+        **{k: _i32(arrays[k], dev) for k in _TL_INT},
+        **{k: _f32(arrays[k], dev) for k in _TL_FLOAT},
         aabb_lo=_f32(arrays["aabb_lo"], dev),
         aabb_hi=_f32(arrays["aabb_hi"], dev),
         radius=_f32(arrays["radius"], dev),

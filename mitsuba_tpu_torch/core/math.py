@@ -24,8 +24,25 @@ def cross(a, b):
     ], dim=-1)
 
 
+def sqrt(x):
+    """Correctly rounded square root, on every device (XLA's sqrt is).
+
+    On the CPU, ``torch.sqrt`` runs MKL's vector math library (VML,
+    ``vmsSqrt``), which splits a large call over its OpenMP threads. In a
+    process's first such call, one thread's half of a 4,096-lane call was
+    seen to come back as x * rsqrt(x) from the 12-bit ``vrsqrtps``
+    estimate with no refinement step (3e-4 relative error, in 15 of 2,500
+    fresh processes on a loaded host: ``scripts/vml_first_call_probe.py``).
+    The CPU route goes around MKL: the reciprocal of PyTorch's own
+    vectorised ``rsqrt`` in float64, rounded once, which is the correctly
+    rounded float32 root."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return (1.0 / torch.rsqrt(x.to(torch.float64))).to(x.dtype)
+
+
 def length(v, keepdim: bool = False):
-    return torch.sqrt(torch.clamp(dot(v, v, keepdim), min=0.0))
+    return sqrt(torch.clamp(dot(v, v, keepdim), min=0.0))
 
 
 def squared_length(v, keepdim: bool = False):
@@ -37,7 +54,7 @@ def normalize(v):
 
 
 def safe_sqrt(x):
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    return sqrt(torch.clamp(x, min=0.0))
 
 
 def safe_div(a, b, eps: float = 1e-20):

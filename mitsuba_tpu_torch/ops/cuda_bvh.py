@@ -1,13 +1,18 @@
-"""Threaded-BVH traversal: the CUDA kernels K3-K6 (``csrc/bvh_lane.cu``),
-their wrappers, their plain versions, the node packer, the coherence sort key
-and the query functions around them (the counterpart of
-``mitsuba_tpu/ops/pallas_bvh.py``).
+"""Threaded-BVH traversal: the CUDA kernels K3-K9 (``csrc/bvh_lane.cu``),
+their wrappers, their plain versions, the node packers, the coherence sort
+keys and the query functions around them (the counterpart of
+``mitsuba_tpu/ops/pallas_bvh.py``, which holds all seven TPU kernels; they
+share one walk, one set of checks and one sort, so they share a module).
 
     K3 ``lane_chunk``                <- ``_lane_chunk`` (pallas_bvh.py:1132)
     K4 ``bvh_traverse_lane_packed``  <- ``bvh_traverse_lane_packed`` (:1052)
     K5 ``lane_hbm``                  <- the kernel of ``bvh_traverse_lane_hbm``
                                         (:1423)
     K6 ``lane_chunk_hbm``            <- ``_lane_chunk_hbm`` (:1514)
+    K7 ``treelet_rounds``            <- the kernel of ``bvh_traverse_treelets``
+                                        (:514, body ``_treelet_rounds`` :406)
+    K8 ``bvh_traverse_packed``       <- ``bvh_traverse_packed`` (:226)
+    K9 ``lane_chunk_w``              <- ``_lane_chunk_w`` (:1802)
 
 The TPU's page-planar table (``pack_pages``) exists because Mosaic has no
 per-lane gather; here each CUDA thread follows its own skip link through a
@@ -15,7 +20,11 @@ node-major table of ``(N, 12)`` float32 (``pack_nodes``; three float4s per
 node, see the source note in ``bvh_lane.cu``). K4/K5 walk from the root; K3/K6
 resume from per-lane state ``(node, t, idx, u, v)`` for at most ``max_steps``
 node visits (0: to the end). On the H100 there is no VMEM/HBM split: K5 and K6
-run K4's and K3's code, on trees above ``LANE_VMEM_MAX_NODES``.
+run K4's and K3's code, on trees above ``LANE_VMEM_MAX_NODES``. K7 walks the
+same table one treelet (a subtree's row range) at a time, nearest pending
+treelet first; K8 walks fat rows of up to four triangles per leaf
+(``pack_nodes_fat``); K9 runs K3's walk over the JAX package's wide pages
+(``pack_pages_w``).
 
 Each wrapper checks its inputs (one device, dtype, shape, contiguity) on
 either device. On CUDA tensors it then allocates the outputs, launches its
@@ -37,6 +46,20 @@ from . import build
 NODE_COLS = 12    # lo.xyz skip | hi.xyz tri | e2.xyz 0 (three float4s)
 MAX_NODES = 1 << 24   # skip links and triangle ids are exact float32 values
 LSTRIP = 10       # the TPU schedule's strip (pallas_bvh.py:893)
+# K7's treelet table: (K, 8) lo.xyz, hi.xyz, root, skip; K7 keeps it in
+# shared memory and the pending set in four 32-bit masks
+TREELET_COLS = 8
+MAX_TREELETS = 128
+# rays per chunk of the treelet sort key's dense (rays x K) box test
+TREELET_KEY_CHUNK = 1 << 15
+# K8's fat rows: lo.xyz skip | hi.xyz count | per slot p0.xyz id | e1.xyz 0 |
+# e2.xyz 0 (fourteen float4s)
+FAT_LEAF_SIZE = 4
+FAT_COLS = 8 + 12 * FAT_LEAF_SIZE
+# K9's wide pages (pallas_bvh.py:1655): 11 component rows of vpp = page / 128
+# lanes-of-128 per page
+PCOMP = 11
+WIDE_PAGE = 256
 # trees above this node count go to K5/K6, as in the JAX package (the TPU's
 # VMEM ceiling, pallas_bvh.py:1639)
 LANE_VMEM_MAX_NODES = 2_300_000
@@ -50,9 +73,14 @@ def _lib():
     if lib.bvh_lane_packed.argtypes is None:
         root = [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P]
         chunk = [_P, _I] + [_P] * 12 + [_I, _I, _I] + [_P] * 6
+        treelet = [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I] + [_P] * 6
+        fat = [_P, _I] + [_P] * 6 + [_I, _I] + [_P] * 6
         for fn, args in ((lib.bvh_lane_packed, root), (lib.bvh_lane_hbm, root),
                          (lib.bvh_lane_chunk, chunk),
-                         (lib.bvh_lane_chunk_hbm, chunk)):
+                         (lib.bvh_lane_chunk_hbm, chunk),
+                         (lib.bvh_lane_chunk_w, [_P, _I] + chunk[1:]),
+                         (lib.bvh_treelet_rounds, treelet),
+                         (lib.bvh_fat_packed, fat)):
             fn.argtypes = args
             fn.restype = _I
     return lib
@@ -71,9 +99,7 @@ def pack_nodes(bvh, p0, e1, e2) -> np.ndarray:
     counts = np.where(bvh.prim_first >= 0, bvh.prim_count, 0)
     if counts.max() > 1:
         raise ValueError("the lane kernels need a leaf_size=1 BVH")
-    if N >= MAX_NODES or len(p0) >= MAX_NODES:
-        raise ValueError(f"{N} nodes / {len(p0)} triangles: ids must stay "
-                         f"below 2^24 to be exact in float32")
+    _check_ids(N, len(p0))
     leaf = counts > 0
     tri = np.where(leaf, bvh.prim_order[np.maximum(bvh.prim_first, 0)], -1)
     nodes = np.zeros((N, NODE_COLS), np.float32)
@@ -83,6 +109,83 @@ def pack_nodes(bvh, p0, e1, e2) -> np.ndarray:
     nodes[:, 3] = bvh.skip.astype(np.float32)
     nodes[:, 7] = tri.astype(np.float32)
     return nodes
+
+
+def _check_ids(N, T):
+    if N >= MAX_NODES or T >= MAX_NODES:
+        raise ValueError(f"{N} nodes / {T} triangles: ids must stay below "
+                         f"2^24 to be exact in float32")
+
+
+def pack_nodes_fat(bvh, p0, e1, e2) -> np.ndarray:
+    """(N, 56) float32 fat rows for K8 from a BVH of at most four triangles
+    per leaf: ``lo.xyz skip | hi.xyz count`` on every node, then per slot k
+    < count ``p0.xyz id | e1.xyz 0 | e2.xyz 0``, empty slots zero. The same
+    values as the JAX ``pack_nodes`` (pallas_bvh.py:64), in float4s."""
+    N = len(bvh.lo)
+    counts = np.where(bvh.prim_first >= 0, bvh.prim_count, 0)
+    if counts.max() > FAT_LEAF_SIZE:
+        raise ValueError(f"fat rows hold at most {FAT_LEAF_SIZE} triangles "
+                         f"per leaf, the tree has {counts.max()}")
+    _check_ids(N, len(p0))
+    rows = np.zeros((N, FAT_COLS), np.float32)
+    rows[:, 0:3] = bvh.lo
+    rows[:, 3] = bvh.skip.astype(np.float32)
+    rows[:, 4:7] = bvh.hi
+    rows[:, 7] = counts.astype(np.float32)
+    leaf = np.nonzero(counts > 0)[0]
+    for k in range(FAT_LEAF_SIZE):
+        sel = leaf[counts[leaf] > k]
+        tri = bvh.prim_order[bvh.prim_first[sel] + k]
+        base = 8 + 12 * k
+        rows[sel, base:base + 3] = p0[tri]
+        rows[sel, base + 3] = tri.astype(np.float32)
+        rows[sel, base + 4:base + 7] = e1[tri]
+        rows[sel, base + 8:base + 11] = e2[tri]
+    return rows
+
+
+def pack_pages_w(bvh, p0, e1, e2, page: int = WIDE_PAGE) -> np.ndarray:
+    """(n_pages * 11 * vpp, 128) float32 wide-page rows (leaf_size=1 BVH), a
+    copy of pallas_bvh.py:1655. Page p, component c, vreg k lives at row
+    p*(11*vpp) + c*vpp + k and holds nodes [p*page + k*128, p*page +
+    (k+1)*128); padding slots carry skip = N and tri id -1."""
+    if page <= 0 or page % 128:
+        raise ValueError(f"page {page} is not a positive multiple of 128")
+    vpp = page // 128
+    pcomp = PCOMP * vpp
+    N = len(bvh.lo)
+    counts = np.where(bvh.prim_first >= 0, bvh.prim_count, 0)
+    if counts.max() > 1:
+        raise ValueError("the lane kernels need a leaf_size=1 BVH")
+    _check_ids(N, len(p0))
+    n_pages = -(-N // page)
+    comp = np.zeros((PCOMP, n_pages * page), np.float32)
+    comp[9, :] = float(N)
+    comp[10, :] = -1.0
+    inner = counts == 0
+    leaf = ~inner
+    tri = np.zeros(N, np.int64)
+    tri[leaf] = bvh.prim_order[bvh.prim_first[leaf]]
+    idx = np.arange(N)
+    for c in range(3):
+        comp[c, idx[inner]] = bvh.lo[inner, c]
+        comp[3 + c, idx[inner]] = bvh.hi[inner, c]
+        comp[c, idx[leaf]] = p0[tri[leaf], c]
+        comp[3 + c, idx[leaf]] = e1[tri[leaf], c]
+        comp[6 + c, idx[leaf]] = e2[tri[leaf], c]
+    comp[9, idx] = bvh.skip.astype(np.float32)
+    comp[10, idx] = np.where(leaf, tri, -1).astype(np.float32)
+    # (c, p, k, lane) -> (p, c, k, lane): the loop of the JAX packer
+    out = comp.reshape(PCOMP, n_pages, vpp, 128).transpose(1, 0, 2, 3)
+    return np.ascontiguousarray(out.reshape(n_pages * pcomp, 128))
+
+
+def treelet_table(tl_root, tl_skip, tl_lo, tl_hi):
+    """K7's (K, 8) float32 table: lo.xyz, hi.xyz, root, skip (ints exact
+    below 2^24), as the JAX function concatenates it (pallas_bvh.py:573)."""
+    return torch.cat([tl_lo, tl_hi, tl_root[:, None].to(torch.float32),
+                      tl_skip[:, None].to(torch.float32)], dim=1).contiguous()
 
 
 # === coherence sort key ====================================================
@@ -113,6 +216,35 @@ def ray_sort_keys(o, d, scene_lo, scene_hi):
     return (octant << 29) | (morton >> 1)
 
 
+def nearest_treelet(o, d, t_min, t_max, tl_lo, tl_hi):
+    """Index of the nearest treelet root box each ray enters within (t_min,
+    t_max), 0 when it enters none (``_nearest_treelet``, pallas_bvh.py:383):
+    a dense (rays x K) box test, ``TREELET_KEY_CHUNK`` rays at a time; the
+    lowest index wins a tie, as the JAX scan's strict < gives."""
+    inv = _safe_inv(d)
+    out = torch.empty(o.shape[0], dtype=torch.int64, device=o.device)
+    for a in range(0, o.shape[0], TREELET_KEY_CHUNK):
+        b = a + TREELET_KEY_CHUNK
+        oo, ii = o[a:b, None, :], inv[a:b, None, :]
+        t0 = (tl_lo[None] - oo) * ii
+        t1 = (tl_hi[None] - oo) * ii
+        tn = torch.maximum(torch.amax(torch.minimum(t0, t1), dim=2),
+                           t_min[a:b, None])
+        tf = torch.minimum(torch.amin(torch.maximum(t0, t1), dim=2),
+                           t_max[a:b, None])
+        e = torch.where(tn <= tf, tn, torch.inf)
+        out[a:b] = torch.argmin(e, dim=1)
+    return out
+
+
+def treelet_sort_keys(o, d, t_min, t_max, tl_lo, tl_hi, scene_lo, scene_hi):
+    """K7's sort key (pallas_bvh.py:541-548): the nearest treelet in the top
+    8 bits over ``ray_sort_keys >> 8``; dead lanes (t_max <= t_min) last."""
+    key = ((nearest_treelet(o, d, t_min, t_max, tl_lo, tl_hi) << 24)
+           | (ray_sort_keys(o, d, scene_lo, scene_hi) >> 8))
+    return torch.where(t_max <= t_min, 0xFFFFFFFF, key)
+
+
 # === input checks ==========================================================
 
 def _check(name, t, dtype, shape, device):
@@ -127,20 +259,30 @@ def _check(name, t, dtype, shape, device):
 
 
 def _check_nodes(nodes, n_nodes):
-    dev = nodes.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no BVH traversal for device {dev}")
-    if not 0 < n_nodes < MAX_NODES:
-        raise ValueError(f"{n_nodes} nodes; the lane kernels take 1..2^24-1")
-    _check("nodes", nodes, torch.float32, (n_nodes, NODE_COLS), dev)
-    if dev.type == "cuda" and nodes.data_ptr() % 16:
-        raise ValueError("nodes must be 16-byte aligned (float4 loads)")
-    return dev
+    """The node-major table of exactly ``n_nodes`` rows; returns its
+    device."""
+    if _check_table("nodes", nodes, NODE_COLS, nodes.device) != n_nodes:
+        raise ValueError(f"nodes has {nodes.shape[0]} rows, expected "
+                         f"{n_nodes}")
+    return nodes.device
 
 
 def _check_count(R):
     if 3 * R >= 2 ** 31:
         raise ValueError(f"{R} rays exceed the kernels' int32 index range")
+
+
+def _check_table(name, t, cols, dev):
+    """A float32 node table of ``cols`` columns, 16-byte aligned on CUDA."""
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no BVH traversal for device {dev}")
+    n = t.shape[0] if t.dim() == 2 else 0
+    if not 0 < n < MAX_NODES:
+        raise ValueError(f"{name} has {n} rows; the kernels take 1..2^24-1")
+    _check(name, t, torch.float32, (n, cols), dev)
+    if dev.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+    return n
 
 
 def _check_root_rays(o, d, t_min, t_max, dev):
@@ -173,14 +315,39 @@ def _safe_inv(x):
     return 1.0 / torch.where(tiny, torch.where(x < 0, -1e-12, 1e-12), x)
 
 
-def _walk_plain(nodes, n_nodes, rays, node, bt, bi, bu, bv, any_hit,
-                max_steps):
-    """The kernels' per-lane walk in tensor form. ``rays`` = (ox, oy, oz, dx,
-    dy, dz, t_min), each (R,). Each step advances every lane that is still
-    walking by one node, with the kernel's operations in the kernel's order.
-    Returns the new (node, t, idx, u, v) and the visits: per-lane internal
-    and leaf visit counts (int64) and which nodes were read at all ((N,)
-    bool)."""
+def _node_rows(nodes):
+    """Node ids -> the node-major table's 12 columns (K3-K7)."""
+    def fetch(n):
+        row = nodes[n]
+        return [row[:, c] for c in range(NODE_COLS)]
+    return fetch
+
+
+def _wide_pages(pages, page):
+    """Node ids -> the same 12 columns gathered from K9's wide pages:
+    component c of node n at row (n // page) * 11 * vpp + c * vpp + (n %
+    page) // 128, lane n % 128."""
+    vpp = page // 128
+    flat = pages.reshape(-1)
+
+    def fetch(n):
+        r = n % page
+        base = (n // page) * (PCOMP * vpp) + r // 128
+        g = [flat[(base + c * vpp) * 128 + r % 128] for c in range(PCOMP)]
+        return (g[0:3] + [g[9]] + g[3:6] + [g[10]] + g[6:9]
+                + [torch.zeros_like(g[0])])
+    return fetch
+
+
+def _walk_plain(fetch, n_nodes, rays, node, bt, bi, bu, bv, any_hit,
+                max_steps, end=None):
+    """The kernels' per-lane walk in tensor form over the table that
+    ``fetch`` reads. ``rays`` = (ox, oy, oz, dx, dy, dz, t_min), each (R,).
+    Each step advances every lane that is still walking by one node, with
+    the kernel's operations in the kernel's order; a lane whose pointer
+    reaches its ``end`` (R,) retires (K7). Returns the new (node, t, idx, u,
+    v) and the visits: per-lane internal and leaf visit counts (int64) and
+    which nodes were read at all ((N,) bool)."""
     ox, oy, oz, dx, dy, dz, t_min = rays
     node, bt, bi, bu, bv = (x.clone() for x in (node, bt, bi, bu, bv))
     inx, iny, inz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
@@ -191,8 +358,7 @@ def _walk_plain(nodes, n_nodes, rays, node, bt, bi, bu, bv, any_hit,
     while lane.numel():
         n = node[lane].to(torch.int64)
         touched[n] = True
-        row = nodes[n]
-        g = [row[:, c] for c in range(NODE_COLS)]
+        g = fetch(n)
         skip = g[3].to(torch.int64)
         tid = g[7].to(torch.int32)
         leaf = tid >= 0
@@ -227,6 +393,8 @@ def _walk_plain(nodes, n_nodes, rays, node, bt, bi, bu, bv, any_hit,
             torch.minimum(torch.maximum(t0z, t1z), best))
         descend = ~leaf & (tnear <= tfar)
         nxt = torch.where(descend, n + 1, skip)
+        if end is not None:
+            nxt = torch.where(nxt >= end[lane], n_nodes, nxt)
         new_bi = torch.where(h, tid, bi[lane])
         bt[lane] = torch.where(h, tt, best)
         bi[lane] = new_bi
@@ -250,7 +418,7 @@ def _root_plain(nodes, n_nodes, o, d, t_min, t_max, any_hit, with_visits):
     node = torch.where(t_max > t_min, 0, n_nodes).to(torch.int32)
     rays = tuple(o[:, k] for k in range(3)) + tuple(d[:, k] for k in range(3))
     (_, bt, bi, bu, bv), visits = _walk_plain(
-        nodes, n_nodes, rays + (t_min,), node, t_max,
+        _node_rows(nodes), n_nodes, rays + (t_min,), node, t_max,
         torch.full((R,), -1, dtype=torch.int32, device=dev),
         torch.zeros(R, device=dev), torch.zeros(R, device=dev), any_hit, 0)
     hit = bi >= 0
@@ -274,10 +442,10 @@ def lane_hbm_plain(nodes, n_nodes, o, d, t_min, t_max, any_hit=False,
                        with_visits)
 
 
-def _chunk_plain(nodes, n_nodes, rays, state, any_hit, max_steps,
+def _chunk_plain(fetch, n_nodes, rays, state, any_hit, max_steps,
                  with_visits):
     (node, bt, bi, bu, bv), visits = _walk_plain(
-        nodes, n_nodes, rays, *state, any_hit, max_steps)
+        fetch, n_nodes, rays, *state, any_hit, max_steps)
     out = (bt, bi, bu, bv, node)
     return out + (visits,) if with_visits else out
 
@@ -288,7 +456,8 @@ def lane_chunk_plain(nodes, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
     """Plain PyTorch version of K3: (t, idx, u, v, node) after at most
     ``max_steps`` visits per lane, and with ``with_visits`` this call's
     visits (per-lane internal and leaf counts, nodes read)."""
-    return _chunk_plain(nodes, n_nodes, (ox, oy, oz, dx, dy, dz, t_min),
+    return _chunk_plain(_node_rows(nodes), n_nodes,
+                        (ox, oy, oz, dx, dy, dz, t_min),
                         (node_in, t_in, i_in, u_in, v_in), any_hit, max_steps,
                         with_visits)
 
@@ -297,12 +466,187 @@ def lane_chunk_hbm_plain(nodes, n_nodes, ox, oy, oz, dx, dy, dz, t_min,
                          node_in, t_in, i_in, u_in, v_in, any_hit=False,
                          max_steps=0, with_visits=False):
     """Plain PyTorch version of K6 (the same walk as K3)."""
-    return _chunk_plain(nodes, n_nodes, (ox, oy, oz, dx, dy, dz, t_min),
+    return _chunk_plain(_node_rows(nodes), n_nodes,
+                        (ox, oy, oz, dx, dy, dz, t_min),
+                        (node_in, t_in, i_in, u_in, v_in), any_hit, max_steps,
+                        with_visits)
+
+def lane_chunk_w_plain(pages, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
+                       t_in, i_in, u_in, v_in, any_hit=False, max_steps=0,
+                       page=WIDE_PAGE, with_visits=False):
+    """Plain PyTorch version of K9: K3's walk over the wide pages."""
+    return _chunk_plain(_wide_pages(pages, page), n_nodes,
+                        (ox, oy, oz, dx, dy, dz, t_min),
                         (node_in, t_in, i_in, u_in, v_in), any_hit, max_steps,
                         with_visits)
 
 
+def _box_plain(lox, loy, loz, hix, hiy, hiz, ox, oy, oz, inx, iny, inz, tmin,
+               best):
+    """The kernels' slab test in tensor form: (tnear, tfar)."""
+    t0x, t1x = (lox - ox) * inx, (hix - ox) * inx
+    t0y, t1y = (loy - oy) * iny, (hiy - oy) * iny
+    t0z, t1z = (loz - oz) * inz, (hiz - oz) * inz
+    tnear = torch.maximum(
+        torch.maximum(torch.minimum(t0x, t1x), torch.minimum(t0y, t1y)),
+        torch.maximum(torch.minimum(t0z, t1z), tmin))
+    tfar = torch.minimum(
+        torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
+        torch.minimum(torch.maximum(t0z, t1z), best))
+    return tnear, tfar
+
+
+def treelet_rounds_plain(nodes, tab, o, d, t_min, t_max, any_hit=False,
+                         with_visits=False):
+    """Plain PyTorch version of K7: (hit, t, idx, u, v), and with
+    ``with_visits`` the visits (per-lane internal and leaf visit counts,
+    nodes read, per-lane root-box tests). Each round tests every live lane
+    against its pending treelets' root boxes at once, picks the nearest
+    (lowest index on a tie), and walks those treelets' row ranges."""
+    N, R, dev = nodes.shape[0], o.shape[0], o.device
+    rays = tuple(o[:, k] for k in range(3)) + tuple(d[:, k] for k in range(3))
+    inv = [_safe_inv(x) for x in rays[3:]]
+    lo, hi = tab[:, 0:3], tab[:, 3:6]
+    root, skip = tab[:, 6].to(torch.int64), tab[:, 7].to(torch.int64)
+    bt, bi = t_max.clone(), torch.full((R,), -1, dtype=torch.int32, device=dev)
+    bu, bv = torch.zeros(R, device=dev), torch.zeros(R, device=dev)
+    pend = (t_max > t_min)[:, None].repeat(1, tab.shape[0])
+    v_int = torch.zeros(R, dtype=torch.int64, device=dev)
+    v_leaf, v_root = torch.zeros_like(v_int), torch.zeros_like(v_int)
+    touched = torch.zeros(N, dtype=torch.bool, device=dev)
+    lane = torch.nonzero(pend.any(dim=1)).squeeze(1)
+    while lane.numel():
+        live = pend[lane]
+        v_root[lane] += live.sum(dim=1)
+        tn, tf = _box_plain(*lo.T[:, None, :], *hi.T[:, None, :],
+                            *(x[lane, None] for x in rays[:3]),
+                            *(x[lane, None] for x in inv),
+                            t_min[lane, None], bt[lane, None])
+        e = torch.where(live & (tn <= tf), tn, torch.inf)
+        best_e, sel = torch.min(e, dim=1)
+        keep = best_e < torch.inf    # a lane that enters no box retires
+        lane, sel = lane[keep], sel[keep]
+        pend[lane, sel] = False
+        node = torch.full((R,), N, dtype=torch.int32, device=dev)
+        end = torch.zeros(R, dtype=torch.int64, device=dev)
+        node[lane] = root[sel].to(torch.int32)
+        end[lane] = skip[sel]
+        (_, bt, bi, bu, bv), (vi, vl, tc) = _walk_plain(
+            _node_rows(nodes), N, rays + (t_min,), node, bt, bi, bu, bv,
+            any_hit, 0, end=end)
+        v_int += vi
+        v_leaf += vl
+        touched |= tc
+        if any_hit:
+            lane = lane[bi[lane] < 0]
+    out = _hit_result(bt, bi, bu, bv)
+    return out + ((v_int, v_leaf, touched, v_root),) if with_visits else out
+
+
+def bvh_traverse_packed_plain(nodes, o, d, t_min, t_max, start=None, end=None,
+                              any_hit=False, with_visits=False):
+    """Plain PyTorch version of K8 over fat rows: (hit, t, idx, u, v), and
+    with ``with_visits`` the visits (per-lane node visits and triangle
+    tests, nodes read, leaves whose triangles were read: a leaf's box was
+    entered by some lane)."""
+    N, R, dev = nodes.shape[0], o.shape[0], o.device
+    ox, oy, oz = (o[:, k] for k in range(3))
+    dx, dy, dz = (d[:, k] for k in range(3))
+    inx, iny, inz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+    first = torch.zeros(R, dtype=torch.int64, device=dev) if start is None \
+        else start.to(torch.int64)
+    stop = torch.full((R,), N, dtype=torch.int64, device=dev) if end is None \
+        else end.to(torch.int64)
+    node = torch.where((t_max > t_min) & (first >= 0) & (first < stop), first,
+                       N)
+    bt, bi = t_max.clone(), torch.full((R,), -1, dtype=torch.int32, device=dev)
+    bu, bv = torch.zeros(R, device=dev), torch.zeros(R, device=dev)
+    v_node = torch.zeros(R, dtype=torch.int64, device=dev)
+    v_tri = torch.zeros_like(v_node)
+    touched = torch.zeros(N, dtype=torch.bool, device=dev)
+    opened = torch.zeros_like(touched)
+    lane = torch.nonzero(node < N).squeeze(1)
+    while lane.numel():
+        n = node[lane]
+        touched[n] = True
+        row = nodes[n]
+        g = [row[:, c] for c in range(FAT_COLS)]
+        lox, loy, loz = ox[lane], oy[lane], oz[lane]
+        ldx, ldy, ldz = dx[lane], dy[lane], dz[lane]
+        tmin, best = t_min[lane], bt[lane]
+        tnear, tfar = _box_plain(g[0], g[1], g[2], g[4], g[5], g[6], lox, loy,
+                                 loz, inx[lane], iny[lane], inz[lane], tmin,
+                                 best)
+        hit_box = tnear <= tfar
+        cnt = g[7].to(torch.int64)
+        opened[n[hit_box & (cnt > 0)]] = True
+        li, lu, lv = bi[lane], bu[lane], bv[lane]
+        for k in range(FAT_LEAF_SIZE):
+            c = 8 + 12 * k   # p0 = c..c+2, id = c+3, e1 = c+4.., e2 = c+8..
+            valid = hit_box & (k < cnt)
+            pvx = ldy * g[c + 10] - ldz * g[c + 9]
+            pvy = ldz * g[c + 8] - ldx * g[c + 10]
+            pvz = ldx * g[c + 9] - ldy * g[c + 8]
+            det = g[c + 4] * pvx + g[c + 5] * pvy + g[c + 6] * pvz
+            ok = torch.abs(det) > 1e-12
+            invd = 1.0 / torch.where(ok, det, 1.0)
+            tvx, tvy, tvz = lox - g[c], loy - g[c + 1], loz - g[c + 2]
+            uu = (tvx * pvx + tvy * pvy + tvz * pvz) * invd
+            qx = tvy * g[c + 6] - tvz * g[c + 5]
+            qy = tvz * g[c + 4] - tvx * g[c + 6]
+            qz = tvx * g[c + 5] - tvy * g[c + 4]
+            vv = (ldx * qx + ldy * qy + ldz * qz) * invd
+            tt = (g[c + 8] * qx + g[c + 9] * qy + g[c + 10] * qz) * invd
+            h = (valid & ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+                 & (tt > tmin) & (tt < best))
+            best = torch.where(h, tt, best)
+            li = torch.where(h, g[c + 3].to(torch.int32), li)
+            lu = torch.where(h, uu, lu)
+            lv = torch.where(h, vv, lv)
+            v_tri[lane] += valid.to(torch.int64)
+        bt[lane], bi[lane], bu[lane], bv[lane] = best, li, lu, lv
+        nxt = torch.where(hit_box & (cnt == 0), n + 1, g[3].to(torch.int64))
+        retire = nxt >= stop[lane]
+        if any_hit:
+            retire |= li >= 0
+        node[lane] = torch.where(retire, N, nxt)
+        v_node[lane] += 1
+        lane = lane[node[lane] < N]
+    out = _hit_result(bt, bi, bu, bv)
+    return out + ((v_node, v_tri, touched, opened),) if with_visits else out
+
+
 # === kernel wrappers =======================================================
+
+def _root_outputs(R, dev):
+    """(hit, t, idx, u, v) of a root walk (K4, K5, K7, K8)."""
+    hit = torch.empty(R, dtype=torch.bool, device=dev)
+    t, u, v = (torch.empty(R, dtype=torch.float32, device=dev) for _ in range(3))
+    return hit, t, torch.empty(R, dtype=torch.int32, device=dev), u, v
+
+
+def _chunk_outputs(R, dev):
+    """(t, idx, u, v, node) of a resumable walk (K3, K6, K9)."""
+    t, u, v = (torch.empty(R, dtype=torch.float32, device=dev) for _ in range(3))
+    idx, node = (torch.empty(R, dtype=torch.int32, device=dev) for _ in range(2))
+    return t, idx, u, v, node
+
+
+def _launch(fn_name, wrapper, dev, args, outs):
+    """Call csrc's ``fn_name(*args, *outs, stream)`` on ``dev``'s current
+    stream, raise if the launch was refused, and count it on ``wrapper``.
+    Returns ``outs``; a call without rays launches nothing."""
+    if outs[0].numel() == 0:
+        return outs
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(_lib(), fn_name)(*args, *(x.data_ptr() for x in outs),
+                                      stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")
+    wrapper.launches += 1
+    return outs
+
 
 def _launch_root(fn_name, plain, wrapper, nodes, n_nodes, o, d, t_min, t_max,
                  any_hit):
@@ -310,22 +654,10 @@ def _launch_root(fn_name, plain, wrapper, nodes, n_nodes, o, d, t_min, t_max,
     R = _check_root_rays(o, d, t_min, t_max, dev)
     if dev.type == "cpu":
         return plain(nodes, n_nodes, o, d, t_min, t_max, any_hit=any_hit)
-    hit = torch.empty(R, dtype=torch.bool, device=dev)
-    t, u, v = (torch.empty(R, dtype=torch.float32, device=dev) for _ in range(3))
-    idx = torch.empty(R, dtype=torch.int32, device=dev)
-    if R == 0:
-        return hit, t, idx, u, v
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(_lib(), fn_name)(
-            nodes.data_ptr(), n_nodes, o.data_ptr(), d.data_ptr(),
-            t_min.data_ptr(), t_max.data_ptr(), R, int(any_hit),
-            hit.data_ptr(), t.data_ptr(), idx.data_ptr(), u.data_ptr(),
-            v.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")
-    wrapper.launches += 1
-    return hit, t, idx, u, v
+    return _launch(fn_name, wrapper, dev, (
+        nodes.data_ptr(), n_nodes, o.data_ptr(), d.data_ptr(),
+        t_min.data_ptr(), t_max.data_ptr(), R, int(any_hit)),
+        _root_outputs(R, dev))
 
 
 def bvh_traverse_lane_packed(nodes, n_nodes, o, d, t_min, t_max,
@@ -353,29 +685,39 @@ def lane_hbm(nodes, n_nodes, o, d, t_min, t_max, any_hit=False):
 lane_hbm.launches = 0
 
 
-def _launch_chunk(fn_name, plain, wrapper, nodes, n_nodes, rays, state,
-                  any_hit, max_steps):
-    dev = _check_nodes(nodes, n_nodes)
+def _check_pages(pages, n_nodes, page):
+    """K9's wide pages: whole pages of ``page`` nodes that hold
+    ``n_nodes``."""
+    if page <= 0 or page % 128:
+        raise ValueError(f"page {page} is not a positive multiple of 128")
+    rows = _check_table("pages", pages, 128, pages.device)
+    per_page = PCOMP * page // 128
+    if rows % per_page or not 0 < n_nodes <= rows // per_page * page \
+            or n_nodes >= MAX_NODES:
+        raise ValueError(f"{n_nodes} nodes do not fit {rows} page rows of "
+                         f"{page} nodes")
+
+
+def _launch_chunk(fn_name, plain, wrapper, table, n_nodes, rays, state,
+                  any_hit, max_steps, page=None):
+    """A resumable walk over the node-major ``table`` (K3, K6) or, given
+    ``page``, over wide pages of that many nodes (K9)."""
+    dev = table.device
+    if page is None:
+        _check_nodes(table, n_nodes)
+    else:
+        _check_pages(table, n_nodes, page)
     R = _check_chunk_state(rays, state, dev)
     if max_steps < 0:
         raise ValueError(f"max_steps {max_steps} < 0")
+    kw = {} if page is None else {"page": page}
     if dev.type == "cpu":
-        return plain(nodes, n_nodes, *rays, *state, any_hit=any_hit,
-                     max_steps=max_steps)
-    t, u, v = (torch.empty(R, dtype=torch.float32, device=dev) for _ in range(3))
-    idx, node = (torch.empty(R, dtype=torch.int32, device=dev) for _ in range(2))
-    if R == 0:
-        return t, idx, u, v, node
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(_lib(), fn_name)(
-            nodes.data_ptr(), n_nodes, *(x.data_ptr() for x in rays + state),
-            R, int(any_hit), int(max_steps), t.data_ptr(), idx.data_ptr(),
-            u.data_ptr(), v.data_ptr(), node.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")
-    wrapper.launches += 1
-    return t, idx, u, v, node
+        return plain(table, n_nodes, *rays, *state, any_hit=any_hit,
+                     max_steps=max_steps, **kw)
+    lead = (n_nodes,) if page is None else (page, n_nodes)
+    return _launch(fn_name, wrapper, dev, (
+        table.data_ptr(), *lead, *(x.data_ptr() for x in rays + state), R,
+        int(any_hit), int(max_steps)), _chunk_outputs(R, dev))
 
 
 def lane_chunk(nodes, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in, t_in,
@@ -403,6 +745,74 @@ def lane_chunk_hbm(nodes, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
 
 
 lane_chunk_hbm.launches = 0
+
+
+def lane_chunk_w(pages, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in, t_in,
+                 i_in, u_in, v_in, any_hit=False, max_steps=0, page=WIDE_PAGE):
+    """K9: K3's contract (resume for at most ``max_steps`` node visits) over
+    the wide pages of ``pack_pages_w`` with ``page`` nodes per page."""
+    return _launch_chunk("bvh_lane_chunk_w", lane_chunk_w_plain, lane_chunk_w,
+                         pages, n_nodes, (ox, oy, oz, dx, dy, dz, t_min),
+                         (node_in, t_in, i_in, u_in, v_in), any_hit, max_steps,
+                         page=page)
+
+
+lane_chunk_w.launches = 0
+
+
+def treelet_rounds(nodes, tab, o, d, t_min, t_max, any_hit=False):
+    """K7: closest hit (or, with ``any_hit``, the first hit found) of rays
+    o, d (R, 3) within (t_min, t_max) (R,), walking one treelet at a time:
+    each round the nearest pending treelet whose root box (``tab``, (K, 8),
+    ``treelet_table``) the ray enters before its best hit, over its rows
+    [root, skip) of the node-major table ``nodes`` (N, 12). Returns (hit,
+    t, idx, u, v) as K4 does; a lane with t_max <= t_min misses."""
+    dev = nodes.device
+    N = _check_table("nodes", nodes, NODE_COLS, dev)
+    K = tab.shape[0] if tab.dim() == 2 else 0
+    if not 0 < K <= MAX_TREELETS:
+        raise ValueError(f"{K} treelets; K7 takes 1..{MAX_TREELETS}")
+    _check("tab", tab, torch.float32, (K, TREELET_COLS), dev)
+    R = _check_root_rays(o, d, t_min, t_max, dev)
+    if dev.type == "cpu":
+        return treelet_rounds_plain(nodes, tab, o, d, t_min, t_max,
+                                    any_hit=any_hit)
+    return _launch("bvh_treelet_rounds", treelet_rounds, dev, (
+        nodes.data_ptr(), N, tab.data_ptr(), K, o.data_ptr(), d.data_ptr(),
+        t_min.data_ptr(), t_max.data_ptr(), R, int(any_hit)),
+        _root_outputs(R, dev))
+
+
+treelet_rounds.launches = 0
+
+
+def bvh_traverse_packed(nodes, o, d, t_min, t_max, start=None, end=None,
+                        any_hit=False):
+    """K8: closest hit (or the first hit found) of rays o, d (R, 3) within
+    (t_min, t_max) over the fat rows ``nodes`` (N, 56) of ``pack_nodes_fat``.
+    Optional per-ray ``start``/``end`` (R,) int32 restrict each lane to the
+    preorder node range [start, end) (a subtree is such a range); a lane
+    with start >= end or start outside [0, N) is dead. Returns (hit, t, idx,
+    u, v)."""
+    dev = nodes.device
+    N = _check_table("nodes", nodes, FAT_COLS, dev)
+    R = _check_root_rays(o, d, t_min, t_max, dev)
+    if (start is None) != (end is None):
+        raise ValueError("pass both start and end, or neither")
+    if start is not None:
+        _check("start", start, torch.int32, (R,), dev)
+        _check("end", end, torch.int32, (R,), dev)
+    if dev.type == "cpu":
+        return bvh_traverse_packed_plain(nodes, o, d, t_min, t_max, start, end,
+                                         any_hit=any_hit)
+    bounds = (None, None) if start is None else (start.data_ptr(),
+                                                 end.data_ptr())
+    return _launch("bvh_fat_packed", bvh_traverse_packed, dev, (
+        nodes.data_ptr(), N, o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
+        t_max.data_ptr(), *bounds, R, int(any_hit)), _root_outputs(R, dev))
+
+
+bvh_traverse_packed.launches = 0
 
 
 # === queries (sort, launches, re-sorts, unsort) ============================
@@ -496,3 +906,48 @@ def bvh_traverse_lane_hbm(nodes, n_nodes, o, d, t_min, t_max, scene_lo,
     """K5 with an optional coherence sort (pallas_bvh.py:1423)."""
     return _traverse_root(lane_hbm, nodes, n_nodes, o, d, t_min, t_max,
                           scene_lo, scene_hi, sort, any_hit)
+
+
+def bvh_traverse_lane_resort_w(pages, n_nodes, o, d, t_min, t_max, scene_lo,
+                               scene_hi, any_hit=False, strip=LSTRIP, rounds=2,
+                               chunk_nit=16, page=WIDE_PAGE):
+    """``bvh_traverse_lane_resort`` through K9 over wide pages
+    (pallas_bvh.py:1870): sort, ``rounds`` K9 launches of ``chunk_nit *
+    strip`` node visits with a re-sort by node pointer after each, a final
+    unbounded launch, unsort. Returns (hit, t, idx, u, v)."""
+    def chunk(*args, **kw):
+        return lane_chunk_w(*args, page=page, **kw)
+    return _resort(chunk, pages, n_nodes, o, d, t_min, t_max, scene_lo,
+                   scene_hi, any_hit, strip, rounds, chunk_nit)
+
+
+def bvh_traverse_treelets(nodes, tl_root, tl_skip, tl_lo, tl_hi, o, d, t_min,
+                          t_max, scene_lo, scene_hi, sort=True, any_hit=False):
+    """Two-level traversal through K7 (pallas_bvh.py:514): with ``sort``,
+    the rays are sorted once by ``treelet_sort_keys`` (nearest treelet,
+    octant, origin Morton code; dead lanes last), traversed by one K7
+    launch and unsorted. ``tl_*`` are the treelets' root rows, skip links
+    and root boxes (``accel.build.treelet_roots``). Returns (hit, t, idx, u,
+    v); the result does not depend on the order."""
+    tab = treelet_table(tl_root, tl_skip, tl_lo, tl_hi)
+    if not sort:
+        return treelet_rounds(nodes, tab, o, d, t_min, t_max, any_hit=any_hit)
+    key = treelet_sort_keys(o, d, t_min, t_max, tl_lo, tl_hi, scene_lo,
+                            scene_hi)
+    orig = torch.argsort(key, stable=True)
+    res = treelet_rounds(nodes, tab, o[orig], d[orig], t_min[orig],
+                         t_max[orig], any_hit=any_hit)
+    return tuple(_unsort(orig, *res))
+
+
+def bvh_traverse(nodes, o, d, t_min, t_max, scene_lo, scene_hi, sort=True,
+                 any_hit=False):
+    """K8 over fat rows with an optional coherence sort (sort -> traverse ->
+    unsort; pallas_bvh.py:339). Returns (hit, t, idx, u, v)."""
+    if not sort:
+        return bvh_traverse_packed(nodes, o, d, t_min, t_max, any_hit=any_hit)
+    (*rays, tmx), orig = sort_rays(o, d, t_min, t_max, scene_lo, scene_hi)
+    res = bvh_traverse_packed(nodes, torch.stack(rays[0:3], -1),
+                              torch.stack(rays[3:6], -1), rays[6], tmx,
+                              any_hit=any_hit)
+    return tuple(_unsort(orig, *res))

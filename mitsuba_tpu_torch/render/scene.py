@@ -9,22 +9,24 @@ table. ``SceneStatic`` holds the facts the code branches on.
 
 Scenes of at most ``BRUTE_FORCE_MAX_TRIS`` triangles send their queries to
 the brute-force kernels of ``ops/cuda_intersect``; larger ones build a
-leaf_size=1 BVH and send them to the lane kernels of ``ops/cuda_bvh``, with
-the JAX package's dispatch. Materials are diffuse, with an optional bitmap
-albedo; lights are triangle area lights and a lat-long environment map;
-meshes may be instanced. Anything else (spheres, other textures and lights,
-media, other BSDFs) raises ``NotImplementedError``: it lands in a later
-slice.
+leaf_size=1 BVH, cut it into treelets, and send them to the lane kernels of
+``ops/cuda_bvh``, or with ``MTS_BVH_KERNEL=treelet`` to the treelet kernel
+K7, with the JAX package's dispatch. Materials are diffuse, with an optional
+bitmap albedo; lights are triangle area lights and a lat-long environment
+map; meshes may be instanced. Anything else (spheres, other textures and
+lights, media, other BSDFs) raises ``NotImplementedError``: it lands in a
+later slice.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from ..accel.build import build_bvh, triangle_aabbs
+from ..accel.build import build_bvh, treelet_roots, triangle_aabbs
 from ..core import math as m
 from ..core.frame import Frame
 from ..core.transform import Transform
@@ -45,6 +47,11 @@ BRUTE_FORCE_MAX_TRIS = 512
 # pointer between launches
 BVH_RESORT = (4, 24, 5)
 BVH_RESORT_SHADOW = (1, 16, 10)
+# the BVH kernel family (scene.py:62): "lane" (K3-K6) or "treelet" (K7)
+BVH_KERNEL = os.environ.get("MTS_BVH_KERNEL", "lane")
+BVH_KERNELS = ("lane", "treelet")
+# the treelet cut of the scene's BVH (scene.py:1524)
+TREELET_MAX_NODES = 4096
 
 
 class Scene(NamedTuple):
@@ -64,6 +71,10 @@ class Scene(NamedTuple):
     tri_emitter: torch.Tensor  # (T,) int32 (-1 none)
     tri_nee_pdf_area: torch.Tensor  # (T,) em_pmf * tri_pmf / area
     nodes: torch.Tensor        # (N, 12) BVH node table (ops/cuda_bvh.pack_nodes)
+    tl_root: torch.Tensor      # (K,) int32 treelet root rows
+    tl_skip: torch.Tensor      # (K,) int32 their skip links (end of the range)
+    tl_lo: torch.Tensor        # (K, 3) treelet root boxes
+    tl_hi: torch.Tensor        # (K, 3)
     aabb_lo: torch.Tensor      # (3,) scene bounds
     aabb_hi: torch.Tensor      # (3,)
     radius: torch.Tensor       # () bounding-sphere radius
@@ -142,10 +153,20 @@ def _ray_range(o, t_min, t_max, active):
 
 def _bvh_query(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
                presorted: bool, any_hit: bool):
-    """(hit, t, idx, u, v) through the lane kernels, with the JAX package's
-    dispatch (scene.py:195-226, 435-461): trees above LANE_VMEM_MAX_NODES go
-    to K5 (sorted unless presorted); presorted queries to K4 as they come;
-    the others through the resort schedule of K3 launches."""
+    """(hit, t, idx, u, v) through the BVH kernels, with the JAX package's
+    dispatch (scene.py:195-235, 435-470). ``BVH_KERNEL == "treelet"``: every
+    query goes to K7, sorted unless presorted, whatever the tree size. Else
+    trees above LANE_VMEM_MAX_NODES go to K5 (sorted unless presorted);
+    presorted queries to K4 as they come; the others through the resort
+    schedule of K3 launches."""
+    if BVH_KERNEL not in BVH_KERNELS:
+        raise ValueError(f"MTS_BVH_KERNEL={BVH_KERNEL!r}; expected one of "
+                         f"{BVH_KERNELS}")
+    if BVH_KERNEL == "treelet":
+        return cuda_bvh.bvh_traverse_treelets(
+            scene.nodes, scene.tl_root, scene.tl_skip, scene.tl_lo,
+            scene.tl_hi, o, d, t_min, t_max, scene.aabb_lo, scene.aabb_hi,
+            sort=not presorted, any_hit=any_hit)
     N = static.n_bvh_nodes
     args = (scene.nodes, N, o, d, t_min, t_max, scene.aabb_lo, scene.aabb_hi)
     if N > cuda_bvh.LANE_VMEM_MAX_NODES:
@@ -479,16 +500,22 @@ class SceneBuilder:
         env = (_build_envmap(self.emitters[env_index]) if env_index >= 0
                else _empty_env())
 
-        # BVH over the triangles' float64 bounds (scene.py:1495-1536)
+        # BVH over the triangles' float64 bounds and its treelet cut
+        # (scene.py:1495-1536)
         lo, hi = triangle_aabbs(tp0, tp0 + te1, tp0 + te2)
         nodes = np.zeros((1, cuda_bvh.NODE_COLS), np.float32)
         n_bvh_nodes = 0
+        tl_root, tl_skip = np.zeros(1, np.int32), np.ones(1, np.int32)
+        tl_lo = tl_hi = np.zeros((1, 3), np.float32)
         if use_bvh:
             host_bvh = build_bvh(lo, hi)
             nodes = cuda_bvh.pack_nodes(host_bvh, tp0.astype(np.float32),
                                         te1.astype(np.float32),
                                         te2.astype(np.float32))
             n_bvh_nodes = len(host_bvh.lo)
+            tl_root = treelet_roots(host_bvh, max_nodes=TREELET_MAX_NODES)
+            tl_skip = host_bvh.skip[tl_root].astype(np.int32)
+            tl_lo, tl_hi = host_bvh.lo[tl_root], host_bvh.hi[tl_root]
         scene_lo, scene_hi = lo.min(axis=0), hi.max(axis=0)
         radius = 0.5 * float(np.linalg.norm(scene_hi - scene_lo)) + 1e-3
 
@@ -504,7 +531,9 @@ class SceneBuilder:
             tri_uv0=f32(cat(UV0)), tri_uv1=f32(cat(UV1)), tri_uv2=f32(cat(UV2)),
             tri_gn=f32(cat(GN)), tri_mat=i32(cat(MAT)), tri_emitter=i32(tem),
             tri_nee_pdf_area=f32(tri_nee),
-            nodes=f32(nodes), aabb_lo=f32(scene_lo), aabb_hi=f32(scene_hi),
+            nodes=f32(nodes), tl_root=i32(tl_root), tl_skip=i32(tl_skip),
+            tl_lo=f32(tl_lo), tl_hi=f32(tl_hi),
+            aabb_lo=f32(scene_lo), aabb_hi=f32(scene_hi),
             radius=f32(radius),
             materials=bsdf_mod.MaterialTable(
                 type=i32([mm["type"] for mm in self.mats]),

@@ -61,7 +61,9 @@ TEX_FIELDS = ("type", "uv_scale", "uv_offset", "scale", "bitmap_idx", "stack",
 EM_FIELDS = ("type", "radiance", "pmf", "cdf", "etri_tri", "etri_cdf",
              "env_index", "env_map", "env_alias", "env_hw", "env_to_world",
              "env_scale")
-FIELD_PATHS = ([(f,) for f in TRI_FIELDS + ("aabb_lo", "aabb_hi", "radius")]
+TL_FIELDS = ("tl_root", "tl_skip", "tl_lo", "tl_hi")
+FIELD_PATHS = ([(f,) for f in TRI_FIELDS + ("aabb_lo", "aabb_hi", "radius")
+                + TL_FIELDS]
                + [("materials", f) for f in MAT_FIELDS]
                + [("textures", f) for f in TEX_FIELDS]
                + [("emitters", f) for f in EM_FIELDS])
@@ -110,8 +112,8 @@ def bunny_layout(builder, shapes, transform, n=24, tex=64, env_hw=(16, 32),
 
 def jax_scene_arrays(scene):
     """The JAX Scene's leaves that the port reads, as numpy, by field name."""
-    arrays = {f: np.asarray(getattr(scene, f)) for f in TRI_FIELDS + (
-        "aabb_lo", "aabb_hi", "radius", "bvh_pages")}
+    arrays = {f: np.asarray(getattr(scene, f)) for f in TRI_FIELDS + TL_FIELDS
+              + ("aabb_lo", "aabb_hi", "radius", "bvh_pages")}
     for table, fields in (("materials", MAT_FIELDS), ("textures", TEX_FIELDS),
                           ("emitters", EM_FIELDS)):
         arrays[table] = {f: np.asarray(getattr(getattr(scene, table), f))

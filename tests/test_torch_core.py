@@ -79,6 +79,35 @@ def test_vector_math(name):
     np.testing.assert_allclose(out, ref, **FLOAT_TOL)
 
 
+def test_sqrt_is_correctly_rounded():
+    """The port's CPU square root (the route around MKL's VML) is the
+    correctly rounded float32 root, as XLA's: 1,000,000 random positive
+    finite bit patterns and the special values."""
+    bits = np.random.default_rng(8).integers(0, 0x7F800000, 1_000_000)
+    x = bits.astype(np.uint32).view(np.float32)
+    out = tm.sqrt(_t(x)).numpy()
+    np.testing.assert_array_equal(out.view(np.uint32), np.sqrt(x).view(np.uint32))
+    sp = np.array([0.0, -0.0, np.inf, -1.0, np.nan, 4.0], np.float32)
+    with np.errstate(invalid="ignore"):
+        ref = np.sqrt(sp)
+    np.testing.assert_array_equal(tm.sqrt(_t(sp)).numpy(), ref)
+    assert np.signbit(tm.sqrt(_t(sp)).numpy()[1])
+
+
+def test_cpu_length_stays_off_torch_sqrt(monkeypatch):
+    """On the CPU, length and safe_sqrt never reach torch.sqrt (MKL's VML),
+    so its first-threaded-call race cannot touch them."""
+    def vml(*a, **k):
+        raise AssertionError("torch.sqrt called on the CPU")
+
+    monkeypatch.setattr(torch, "sqrt", vml)
+    a = _vecs(2)
+    out = tm.length(_t(a)).numpy()
+    np.testing.assert_allclose(out, np.asarray(jm.length(jnp.asarray(a))),
+                               **FLOAT_TOL)
+    assert tm.safe_sqrt(_t(np.float32([4.0, -1.0]))).tolist() == [2.0, 0.0]
+
+
 def test_safe_div_semantics():
     a = np.array([1.0, 2.0, -3.0, 4.0, 0.0], np.float32)
     b = np.array([2.0, 0.0, 1e-21, -1e-19, 0.0], np.float32)

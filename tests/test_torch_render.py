@@ -58,7 +58,8 @@ EM_FIELDS = ("type", "radiance", "pmf", "cdf", "etri_tri", "etri_cdf",
              "env_scale")
 TEX_FIELDS = ("type", "uv_scale", "uv_offset", "scale", "bitmap_idx", "stack",
               "stack_hw", "sizes", "mips", "mips_hw")
-SCENE_FIELDS = TRI_FIELDS + ("aabb_lo", "aabb_hi", "radius")
+SCENE_FIELDS = TRI_FIELDS + ("aabb_lo", "aabb_hi", "radius", "tl_root",
+                             "tl_skip", "tl_lo", "tl_hi")
 
 
 def _np_tree(nt, fields):
