@@ -14,33 +14,41 @@ Phases, each of which raises on failure (no phase is skipped):
      shared-memory tiling) -- and time kernel and plain version;
   4. BVH kernels on the bunny_x2 scene (bench.py:27-89; bunny.ply is not in
      the repository, so bench.py's fallback heightfield of 79,202 triangles
-     stands in for it, as in the JAX bench): hold K4
+     stands in for it, as in the JAX bench): time the octant packer; hold K4
      (bvh_traverse_lane_packed) against its plain version on the 262,144
-     camera rays, K3 (lane_chunk) on 262,144 bounce rays and shadow rays of
-     the first bounce (a bounded launch, then the resumed rest), bit for
-     bit; time them, and time the bounce query with the JAX resort schedule
-     against one unbounded K3 launch with and without the coherence sort;
+     camera rays, K3 (lane_chunk) on 262,144 bounce rays (closest hit, on
+     the octant tables) and shadow rays (any-hit, canonical table) of the
+     first bounce (a bounded launch, then the resumed rest), bit for bit;
+     hold K3's unbounded closest-hit walk against K4's canonical walk on the
+     same rays (hit and t, every mismatch printed as a near-tie or fatal),
+     compare their visits, time K3 in turns against K6 (the canonical walk,
+     K3's code before the octant tables) and print both kernels'
+     registers and occupancy; time the bounce query with the JAX resort
+     schedule against one unbounded K3 launch with and without the
+     coherence sort;
   5. the treelet kernel K7 (treelet_rounds) on the bunny scene's treelet
-     cut: held against its plain version bit for bit on the 262,144 camera
-     rays (as they come), the bounce rays and the shadow rays (any-hit),
-     both sorted as its query function sorts them; each launch timed, and
-     the bounce query through the K7 query function timed against the K3
-     resort query;
+     cut: held bit for bit against both plain versions (the JAX rounds and
+     the kernel's entry list) on the 262,144 camera rays (as they come), the
+     bounce rays and the shadow rays (any-hit), both sorted as its query
+     function sorts them; root-box tests per ray and the root boxes each ray
+     enters; each launch timed, and the bounce query through the K7 query
+     function timed against the K3 resort query;
   6. the fat-row kernel K8 (bvh_traverse_packed) on a leaf-4 tree of the
      same triangles: camera and bounce rays, closest and any-hit, and a
      bounded case with per-ray [start, end) ranges of the tree's treelets;
      then its sorting query bvh_traverse with the counts set to 0;
   7. the wide-page kernel K9 (lane_chunk_w) on pack_pages_w of the same
      triangles' leaf-1 tree: a bounded launch on the sorted bounce rays, then
-     the resumed rest, timed beside K3 on the same tree and rays; then its
-     query bvh_traverse_lane_resort_w with the counts set to 0;
+     the resumed rest, timed beside K3 on the same tree and rays and held
+     against K6's canonical walk there; then its query
+     bvh_traverse_lane_resort_w with the counts set to 0;
   8. large tier: 16 offset copies of the fallback mesh (bench.py:176-183;
      1,267,232 triangles, 2.53M nodes, above LANE_VMEM_MAX_NODES): hold K5
      (lane_hbm) and K6 (lane_chunk_hbm) against their plain versions on the
      262,144 rays of bench.py:205-212; then, with the counts set to 0, a
      closest-hit and a shadow query through the scene (K5) and bench's
-     resort query (K6, rounds 6, chunk 16); print build time, rays/s and
-     hit rate;
+     resort query (K6, rounds 6, chunk 16); print build time (and the
+     octant packer's), rays/s and hit rate;
   9. render: mitsuba_tpu_torch.render.api.render of the Cornell box at
      512x512, depth 5, 36 spp in passes of 4, seed 0 (bench.py's Cornell
      layout), with every launch count set to 0 just before and read just
@@ -51,6 +59,7 @@ Phases, each of which raises on failure (no phase is skipped):
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
      bounces 1-4 and 5 x (1 + 1) for shadow rays, per sample), none of
      K1/K2/K5/K6, and the image mean within 1% of the JAX package's value;
+     prints the mean's difference from PR 3's;
  11. the treelet render: the bunny render of phase 10 with
      render.scene.BVH_KERNEL = "treelet"; checks 100 launches of K7 (a
      closest-hit and a shadow query per bounce, 5 bounces, 10 samples) and
@@ -179,6 +188,14 @@ BUNNY_SPP, BUNNY_SPP_PER_PASS = 10, 2
 # [0.57589, 0.62661, 0.73416] is of the real bunny.ply, another scene.
 BUNNY_REF_MEAN_RGB = (0.48974, 0.53942, 0.6321)
 BUNNY_MEAN_RTOL = 1e-2
+# the bunny render's mean_rgb over every run of PR 3, bit-identical (its
+# kernels walked only the canonical table)
+PR3_BUNNY_MEAN_RGB = (0.48976483941078186, 0.539433479309082,
+                      0.6320508122444153)
+# an octant walk may miss a hit that the canonical walk finds (or find one
+# it misses) only where a box's rounded entry exceeds the hit's t: then the
+# two t differ by rounding, within this relative gap
+NEAR_TIE_RTOL = 1e-4
 # the JAX dispatch's launches per sample (scene.py BVH_RESORT*): K4 once
 # for bounce 0; K3 rounds + 1 per query, 4 x 5 closest + 5 x 2 shadow
 K3_PER_SPP = 4 * (scene_mod.BVH_RESORT[0] + 1) + 5 * (
@@ -192,6 +209,8 @@ LARGE_COPIES, LARGE_ROUNDS, LARGE_CHUNK = 16, 6, 16
 FLOPS_PER_BOX = 25
 K4_RAY_BYTES = 32 + 17            # o, d, t_min, t_max | hit, t, idx, u, v
 K3_RAY_BYTES = 48 + 20            # 7 ray floats + 5 state | t, idx, u, v, node
+K7_TREELET_BYTES = 4 * cb.TREELET_COLS  # a row of K7's shared table
+MAP_BYTES = 4                     # an Octants.leaf_row entry read on a tie
 K8_RANGE_BYTES = 8                # per-ray start, end of a bounded K8 call
 K9_LEAF_BYTES = 44                # a wide-page leaf: 11 component words
 # the treelet render: a closest-hit and a shadow query per bounce, each one
@@ -436,21 +455,30 @@ def _bound(nbytes, flops):
 
 
 def lane_bound_ms(nodes, R, visits, ray_bytes, leaf_bytes=48, extra_bytes=0,
-                  extra_flops=0):
+                  extra_flops=0, map_read=None):
     """Least time for a lane-kernel call on an H100: the larger of its bytes
     over HBM bandwidth and its fp32 operations over the fp32 peak. Bytes:
-    each node the call reads, once (32 bytes of an internal node, 48 of a
-    leaf, as the kernel loads them), and each ray's inputs and outputs once;
+    each row of ``nodes`` the call reads, once (32 bytes of an internal
+    node, 48 of a leaf, as the kernel loads them), each tie-rule map entry
+    it reads (``map_read``), and each ray's inputs and outputs once;
     operations: every visit's test. ``visits`` = (per-lane internal and leaf
-    visit counts, nodes read) from the plain version."""
+    visit counts, rows read) from the plain version; for a walk over the
+    octant tables ``nodes`` is their (8 N, 12) rows."""
     v_int, v_leaf, touched = visits[:3]
     leaf = nodes[:, 7] >= 0
     nbytes = (int((touched & ~leaf).sum()) * 32
               + int((touched & leaf).sum()) * leaf_bytes + R * ray_bytes
-              + extra_bytes)
+              + extra_bytes
+              + (0 if map_read is None else MAP_BYTES * int(map_read.sum())))
     flops = (int(v_int.sum()) * FLOPS_PER_BOX + int(v_leaf.sum()) * FLOPS_PER_TEST
              + extra_flops)
     return _bound(nbytes, flops)
+
+
+def octant_rows(octants):
+    """The rows of the 8 octant tables as one (8 N, 12) table, the layout
+    the plain versions' rows-read masks index."""
+    return octants.nodes.reshape(-1, cb.NODE_COLS)
 
 
 def _visits_line(visits, live):
@@ -508,21 +536,24 @@ def _root_state(N, rays, t_max):
 
 
 def check_chunk_kernel(name, kern, plain, nodes, N, rays, t_max, budget,
-                       any_hit, rec=None):
+                       any_hit, rec=None, octants=None):
     """K3/K6: a launch of ``budget`` visits from the root, then the resumed
-    rest: kernel == plain version bit for bit after each. On the first call
-    (rec None) also time one unbounded launch from the root, the kernel's
-    whole walk in one launch, and its plain version."""
+    rest: kernel == plain version bit for bit after each (K3's closest-hit
+    lanes on ``octants``). On the first call (rec None) also time one
+    unbounded launch from the root, the kernel's whole walk in one launch,
+    and its plain version."""
     new = rec is None
     if new:
         rec = dict(name=name, route="cuda", source=REPO_PATHS[name][0],
                    replaces=REPO_PATHS[name][1], max_abs_err=0.0)
+    kw = {} if octants is None else {"octants": octants}
     state = _root_state(N, rays, t_max)
     for step, steps in ((f"bounded ({budget} visits)", budget),
                         ("resumed to the end", 0)):
-        out = kern(nodes, N, *rays, *state, any_hit=any_hit, max_steps=steps)
+        out = kern(nodes, N, *rays, *state, any_hit=any_hit, max_steps=steps,
+                   **kw)
         ref = plain(nodes, N, *rays, *state, any_hit=any_hit, max_steps=steps,
-                    with_visits=True)
+                    with_visits=True, **kw)
         torch.cuda.synchronize()
         err, ulp = compare(f"{name}/any_hit={any_hit}/{step}", out, ref[:5],
                            n_exact=0, ulp_limit=0)
@@ -534,14 +565,16 @@ def check_chunk_kernel(name, kern, plain, nodes, N, rays, t_max, budget,
         state = (out[4], out[0], out[1], out[2], out[3])
     if new:
         root = _root_state(N, rays, t_max)
-        full = plain(nodes, N, *rays, *root, any_hit=any_hit, with_visits=True)
+        full = plain(nodes, N, *rays, *root, any_hit=any_hit, with_visits=True,
+                     **kw)
         rec["ms"] = cuda_ms(lambda: kern(nodes, N, *rays, *root,
-                                         any_hit=any_hit), reps=20)
+                                         any_hit=any_hit, **kw), reps=20)
         rec["plain_ms"] = cuda_ms(lambda: plain(nodes, N, *rays, *root,
-                                                any_hit=any_hit),
+                                                any_hit=any_hit, **kw),
                                   reps=1, warmup=1)
+        rows = nodes if octants is None or any_hit else octant_rows(octants)
         rec["bound_ms"], rec["bound_by"] = lane_bound_ms(
-            nodes, t_max.shape[0], full[5], K3_RAY_BYTES)
+            rows, t_max.shape[0], full[5], K3_RAY_BYTES, map_read=full[5][3])
         rec["library_ms"] = None  # no single PyTorch call computes it
         log(f"kernel {name} (one unbounded launch, any_hit={any_hit}): "
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
@@ -578,6 +611,83 @@ def first_bounce_rays(scene, static, o, d):
     return bounce, shadow
 
 
+def packer_line(label, scene):
+    """Time pack_nodes_octants on ``scene``'s canonical table again (the
+    builder ran it once) and print it with the tables' device bytes."""
+    nodes_np, roots = scene.nodes.cpu().numpy(), scene.tl_root.cpu().numpy()
+    t0 = time.perf_counter()
+    cb.pack_nodes_octants(nodes_np, roots)
+    dt = time.perf_counter() - t0
+    nbytes = sum(x.numel() * x.element_size() for x in scene.octants)
+    log(f"octant packer {label}: {nodes_np.shape[0]} nodes, {len(roots)} "
+        f"treelets, {dt:.3f} s on the host, tables {nbytes} bytes on the "
+        f"device")
+
+
+def against_canonical(label, out, ref):
+    """An octant walk's (hit, t, idx, u, v) against the canonical walk's on
+    the same rays: hit equal and t equal on every lane, except lanes whose
+    t differ by at most NEAR_TIE_RTOL (a box entry rounded past a hit),
+    each printed; idx/u/v mismatches where t is equal counted and printed.
+    Raises on anything else."""
+    hit, t, idx, u, v = out
+    rhit, rt, ridx, ru, rv = ref
+    if not torch.equal(hit, rhit):
+        raise AssertionError(f"{label}: {int((hit != rhit).sum())} lanes "
+                             f"differ on hit")
+    bad_t = hit & (t != rt)
+    gap = (t - rt).abs() / rt.abs().clamp(min=1e-30)
+    same = hit & (t == rt)
+    bad_i = same & ((idx != ridx) | (u != ru) | (v != rv))
+    for lane in torch.nonzero(bad_t | bad_i).squeeze(1).tolist()[:100]:
+        log(f"{label}: lane {lane}: t {float(t[lane])!r} (canonical "
+            f"{float(rt[lane])!r}, relative gap {float(gap[lane]):.3g}), idx "
+            f"{int(idx[lane])} (canonical {int(ridx[lane])})")
+    log(f"{label}: {int(hit.sum())} hits; t mismatches {int(bad_t.sum())} "
+        f"(near-ties), idx/u/v mismatches where t is equal "
+        f"{int(bad_i.sum())}")
+    if bool((gap[bad_t] > NEAR_TIE_RTOL).any()):
+        raise AssertionError(f"{label}: a t mismatch beyond a near-tie")
+
+
+def k3_octant_phase(nodes, N, octants, rays, tmx):
+    """K3's closest-hit walk on the octant tables against the canonical
+    walk on the same sorted bounce rays: one unbounded launch each against
+    K4 (hit and t), visits per live lane, and times in turns against K6,
+    which runs K3's code from before the octant tables."""
+    R = tmx.shape[0]
+    root = _root_state(N, rays, tmx)
+    live = root[0] < N
+    o, d = torch.stack(rays[0:3], -1), torch.stack(rays[3:6], -1)
+    k4 = cb.bvh_traverse_lane_packed(nodes, N, o, d, rays[6], tmx)
+    t, idx, u, v, _ = cb.lane_chunk(nodes, N, *rays, *root, octants=octants)
+    h = idx >= 0
+    against_canonical("K3 octant walk vs K4 canonical walk",
+                      (h, torch.where(h, t, torch.inf), idx, u, v), k4)
+    walks = {"octant (K3)": cb.lane_chunk_plain(
+                 nodes, N, *rays, *root, octants=octants, with_visits=True)[5],
+             "canonical (K6)": cb.lane_chunk_hbm_plain(
+                 nodes, N, *rays, *root, with_visits=True)[5]}
+    mean = {}
+    for name, vis in walks.items():
+        n = (vis[0] + vis[1])[live]
+        mean[name] = float(n.float().mean())
+        per_table = vis[2].reshape(-1, N).sum(dim=1).tolist()
+        log(f"K3 visits, {name} walk on the sorted bounce rays: mean "
+            f"{mean[name]:.3f} per live lane, max {int(n.max())}; distinct "
+            f"rows read {int(vis[2].sum())} (per table {per_table})")
+    if not mean["octant (K3)"] < mean["canonical (K6)"]:
+        raise AssertionError("the octant walk visits no fewer nodes than the "
+                             "canonical walk")
+    kern = {"K6": lambda: cb.lane_chunk_hbm(nodes, N, *rays, *root),
+            "K3": lambda: cb.lane_chunk(nodes, N, *rays, *root,
+                                        octants=octants)}
+    turns = [(k, cuda_ms(kern[k], reps=20)) for k in ("K6", "K3", "K3", "K6")]
+    log(f"K3 (octant tables) against K6 (canonical walk), one unbounded "
+        f"launch each on the same {R} sorted bounce rays, in turns: "
+        + ", ".join(f"{k} {ms:.4f} ms" for k, ms in turns))
+
+
 def bvh_kernel_phase(dev):
     """K4 and K3 on the bunny scene at the render's shapes; the coherence
     sort question. Returns {name: record} for the JSON line."""
@@ -588,6 +698,13 @@ def bvh_kernel_phase(dev):
     log(f"bunny scene: {static.n_tris} triangles (fallback heightfield), "
         f"{N} BVH nodes, built in {time.perf_counter() - t0:.2f} s")
     nodes, lo, hi = scene.nodes, scene.aabb_lo, scene.aabb_hi
+    octants = scene.octants
+    packer_line("bunny", scene)
+    for name in ("lane_chunk", "lane_chunk_hbm", "treelet_rounds"):
+        regs, blocks = cb.kernel_occupancy(name)
+        log(f"occupancy {name}: {regs} registers, {blocks} blocks of 128 per "
+            f"SM = {blocks * 128} threads; one wave holds "
+            f"{blocks * 128 * torch.cuda.get_device_properties(dev).multi_processor_count} rays")
     cam = camera_rays(sensor, dev)
     records = {"bvh_traverse_lane_packed": check_root_kernel(
         "bvh_traverse_lane_packed", cb.bvh_traverse_lane_packed,
@@ -602,25 +719,31 @@ def bvh_kernel_phase(dev):
         (*rays, tmx), _ = cb.sort_rays(o, d, t_min, t_max, lo, hi)
         rec = check_chunk_kernel("lane_chunk", cb.lane_chunk,
                                  cb.lane_chunk_plain, nodes, N, tuple(rays),
-                                 tmx, sched[1] * sched[2], any_hit, rec)
+                                 tmx, sched[1] * sched[2], any_hit, rec,
+                                 octants=octants)
+        if not any_hit:
+            k3_octant_phase(nodes, N, octants, tuple(rays), tmx)
         # does the coherence sort pay on the card? the whole query with the
         # JAX schedule, with the sort and one unbounded launch, and one
         # unbounded launch on the rays as they come
         rounds, chunk_nit, strip = sched
         t_sched = cuda_ms(lambda: cb.bvh_traverse_lane_resort(
             nodes, N, o, d, t_min, t_max, lo, hi, any_hit=any_hit,
-            rounds=rounds, chunk_nit=chunk_nit, strip=strip), reps=10)
+            rounds=rounds, chunk_nit=chunk_nit, strip=strip,
+            octants=octants), reps=10)
         t_sort1 = cuda_ms(lambda: cb.bvh_traverse_lane_resort(
             nodes, N, o, d, t_min, t_max, lo, hi, any_hit=any_hit,
-            rounds=0), reps=10)
+            rounds=0, octants=octants), reps=10)
         raw = tuple(x[:, k].contiguous() for x in (o, d) for k in range(3))
         raw = raw + (t_min,)
         root = _root_state(N, raw, t_max)
         t_raw = cuda_ms(lambda: cb.lane_chunk(nodes, N, *raw, *root,
-                                              any_hit=any_hit), reps=10)
+                                              any_hit=any_hit,
+                                              octants=octants), reps=10)
         t_one = cuda_ms(lambda: cb.lane_chunk(nodes, N, *rays,
                                               *_root_state(N, rays, tmx),
-                                              any_hit=any_hit), reps=10)
+                                              any_hit=any_hit,
+                                              octants=octants), reps=10)
         log(f"coherence {'shadow' if any_hit else 'bounce'} query "
             f"(R={o.shape[0]}, live {int((t_max > t_min).sum())}): schedule "
             f"{rounds},{chunk_nit},{strip} {t_sched:.4f} ms; sort + one "
@@ -673,8 +796,9 @@ def treelet_kernel_phase(scene, cam, bounce, shadow):
     (sorted as its query function sorts them); the bounce query through
     the K7 query function against the K3 resort query."""
     nodes, lo, hi = scene.nodes, scene.aabb_lo, scene.aabb_hi
+    octants = scene.octants
     tl = (scene.tl_root, scene.tl_skip, scene.tl_lo, scene.tl_hi)
-    tab = cb.treelet_table(*tl)
+    tab = cb.treelet_table(*tl, octants.tl_range)
     K = tab.shape[0]
     log(f"treelets: K={K} (treelet_roots max_nodes "
         f"{scene_mod.TREELET_MAX_NODES}), nodes {nodes.shape[0]}")
@@ -689,41 +813,60 @@ def treelet_kernel_phase(scene, cam, bounce, shadow):
                                  ("bounce", sorted_rays(*bounce), False),
                                  ("shadow", sorted_rays(*shadow), True)):
         o, d, t_min, t_max = rays
-        out = cb.treelet_rounds(nodes, tab, o, d, t_min, t_max, any_hit=any_hit)
+        kw = dict(any_hit=any_hit, octants=octants)
+        out = cb.treelet_rounds(nodes, tab, o, d, t_min, t_max, **kw)
         ref = cb.treelet_rounds_plain(nodes, tab, o, d, t_min, t_max,
-                                      any_hit=any_hit, with_visits=True)
+                                      with_visits=True, **kw)
+        lst = cb.treelet_list_plain(nodes, tab, o, d, t_min, t_max,
+                                    with_visits=True, **kw)
         torch.cuda.synchronize()
         err, ulp = compare(f"treelet_rounds/{label}", out, ref[:5], n_exact=1,
                            ulp_limit=0)
+        compare(f"treelet_rounds/{label} (entry list)", out, lst[:5],
+                n_exact=1, ulp_limit=0)
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         ms = cuda_ms(lambda: cb.treelet_rounds(nodes, tab, o, d, t_min, t_max,
-                                               any_hit=any_hit), reps=20)
-        visits = ref[5]
+                                               **kw), reps=20)
+        visits = lst[5]
+        live = t_max > t_min
         R = o.shape[0]
         bound, by = lane_bound_ms(
-            nodes, R, visits, K4_RAY_BYTES, extra_bytes=K * 32,
-            extra_flops=int(visits[3].sum()) * FLOPS_PER_BOX)
+            nodes if any_hit else octant_rows(octants), R, visits,
+            K4_RAY_BYTES, extra_bytes=K * K7_TREELET_BYTES,
+            extra_flops=int(visits[3].sum()) * FLOPS_PER_BOX,
+            map_read=visits[4])
+        entered = visits[5][live].float()
         log(f"kernel treelet_rounds {label} (any_hit={any_hit}): R={R} K={K} "
-            f"hit/idx mismatches 0, max |kernel-plain| {err:.3g} ({ulp} ulp), "
-            f"hit rate {float(out[0].float().mean()):.4f}, root-box tests "
+            f"hit/idx mismatches 0 against both plain versions, max "
+            f"|kernel-plain| {err:.3g} ({ulp} ulp), hit rate "
+            f"{float(out[0].float().mean()):.4f}, root-box tests "
             f"{int(visits[3].sum())} ({float(visits[3].float().mean()):.2f} "
-            f"per ray), {_visits_line(visits, t_max > t_min)}; {ms:.4f} ms, "
-            f"bound {bound:.5f} ms ({by})")
+            f"per ray, {float(visits[3][live].float().mean()):.2f} per live "
+            f"ray; the JAX rounds' {float(ref[5][3].float().mean()):.2f} per "
+            f"ray), root boxes entered per live ray mean "
+            f"{float(entered.mean()):.2f}, max {int(entered.max())}, share "
+            f"above {cb.TREELET_LIST} "
+            f"{float((entered > cb.TREELET_LIST).float().mean()):.4f}, "
+            f"{_visits_line(visits, live)}; {ms:.4f} ms, bound {bound:.5f} "
+            f"ms ({by})")
         if label == "bounce":
             _, rec["plain_ms"] = device_ms(lambda: cb.treelet_rounds_plain(
-                nodes, tab, o, d, t_min, t_max))
+                nodes, tab, o, d, t_min, t_max, octants=octants))
             rec.update(ms=ms, bound_ms=bound, bound_by=by, library_ms=None)
     o, d, t_min, t_max = bounce
     rounds, chunk_nit, strip = scene_mod.BVH_RESORT
     t_k7 = cuda_ms(lambda: cb.bvh_traverse_treelets(
-        nodes, *tl, o, d, t_min, t_max, lo, hi), reps=10)
+        nodes, *tl, o, d, t_min, t_max, lo, hi, octants=octants), reps=10)
     t_k3 = cuda_ms(lambda: cb.bvh_traverse_lane_resort(
         nodes, nodes.shape[0], o, d, t_min, t_max, lo, hi,
-        rounds=rounds, chunk_nit=chunk_nit, strip=strip), reps=10)
-    k7q = cb.bvh_traverse_treelets(nodes, *tl, o, d, t_min, t_max, lo, hi)
+        rounds=rounds, chunk_nit=chunk_nit, strip=strip, octants=octants),
+        reps=10)
+    k7q = cb.bvh_traverse_treelets(nodes, *tl, o, d, t_min, t_max, lo, hi,
+                                   octants=octants)
     k3q = cb.bvh_traverse_lane_resort(nodes, nodes.shape[0], o, d, t_min,
                                       t_max, lo, hi, rounds=rounds,
-                                      chunk_nit=chunk_nit, strip=strip)
+                                      chunk_nit=chunk_nit, strip=strip,
+                                      octants=octants)
     if not (torch.equal(k7q[0], k3q[0]) and torch.equal(k7q[1], k3q[1])):
         raise AssertionError("bounce query: K7 and K3 queries disagree on "
                              "hit or t")
@@ -832,14 +975,19 @@ def wide_kernel_phase(scene, bounce):
     """K9 on pack_pages_w of a leaf-1 tree of the bunny's triangles: a
     bounded launch on the sorted bounce rays and the resumed rest, kernel ==
     plain bit for bit; one unbounded launch timed beside K3 on the same tree
-    and rays; then its resort query with the counts set to 0."""
+    and rays, and held bit for bit against K6, which walks the canonical
+    table as K9 does (K3's closest-hit walk on the octant tables only
+    against hit and t, near-ties printed); then its resort query with the
+    counts set to 0."""
     dev = scene.nodes.device
     lo, hi = scene.aabb_lo, scene.aabb_hi
     tris, box = scene_tris(scene)
     bvh = build_bvh(*box)
     N = len(bvh.lo)
     pages = torch.as_tensor(cb.pack_pages_w(bvh, *tris), device=dev)
-    nodes = torch.as_tensor(cb.pack_nodes(bvh, *tris), device=dev)
+    nodes_np = cb.pack_nodes(bvh, *tris)
+    nodes = torch.as_tensor(nodes_np, device=dev)
+    octants = cb.octant_tables(nodes_np, device=dev)
     (*rays, tmx), _ = cb.sort_rays(*bounce, lo, hi)
     rays = tuple(rays)
     budget = 16 * cb.LSTRIP   # the resort query's default chunk_nit x strip
@@ -862,13 +1010,19 @@ def wide_kernel_phase(scene, bounce):
     root = _root_state(N, rays, tmx)
     full, rec["plain_ms"] = device_ms(lambda: cb.lane_chunk_w_plain(
         pages, N, *rays, *root, with_visits=True))
-    k3 = cb.lane_chunk(nodes, N, *rays, *root)
+    k9 = cb.lane_chunk_w(pages, N, *rays, *root)
     if not all(torch.equal(a, b) for a, b in zip(
-            cb.lane_chunk_w(pages, N, *rays, *root), k3)):
-        raise AssertionError("K9 and K3 disagree on the same tree")
+            k9, cb.lane_chunk_hbm(nodes, N, *rays, *root))):
+        raise AssertionError("K9 and K6 (the canonical walk) disagree on the "
+                             "same tree")
+    k3 = cb.lane_chunk(nodes, N, *rays, *root, octants=octants)
+    against_canonical("K3 octant walk vs K9", *(
+        (x[1] >= 0, torch.where(x[1] >= 0, x[0], torch.inf), *x[1:4])
+        for x in (k3, k9)))
     rec["ms"] = cuda_ms(lambda: cb.lane_chunk_w(pages, N, *rays, *root),
                         reps=20)
-    t_k3 = cuda_ms(lambda: cb.lane_chunk(nodes, N, *rays, *root), reps=20)
+    t_k3 = cuda_ms(lambda: cb.lane_chunk(nodes, N, *rays, *root,
+                                         octants=octants), reps=20)
     rec["bound_ms"], rec["bound_by"] = lane_bound_ms(
         nodes, tmx.shape[0], full[5], K3_RAY_BYTES, leaf_bytes=K9_LEAF_BYTES)
     rec["library_ms"] = None  # no single PyTorch call computes it
@@ -882,10 +1036,14 @@ def wide_kernel_phase(scene, bounce):
     launches = _check_launches("bvh_traverse_lane_resort_w (K9 query)",
                                {"lane_chunk_w": 3})
     rec["launches"] = launches["lane_chunk_w"]
-    ref = cb.bvh_traverse_lane_resort(nodes, N, *bounce, lo, hi, rounds=2,
-                                      chunk_nit=16)
+    ref = cb.bvh_traverse_lane_hbm_resort(nodes, N, *bounce, lo, hi,
+                                          rounds=2, chunk_nit=16)
     if not all(torch.equal(a, b) for a, b in zip(res, ref)):
-        raise AssertionError("K9 and K3 resort queries disagree")
+        raise AssertionError("K9 and K6 resort queries disagree")
+    against_canonical("K3 resort query vs K9 resort query",
+                      cb.bvh_traverse_lane_resort(nodes, N, *bounce, lo, hi,
+                                                  rounds=2, chunk_nit=16,
+                                                  octants=octants), res)
     return {"lane_chunk_w": rec}
 
 
@@ -914,7 +1072,8 @@ def large_tier_phase(dev):
         raise AssertionError(f"{N} nodes: the large tier must exceed "
                              f"{cb.LANE_VMEM_MAX_NODES}")
     log(f"large tier: {static.n_tris} triangles, {N} BVH nodes, scene built "
-        f"(BVH, packing, upload) in {build_s:.2f} s")
+        f"(BVH, packing, octant tables, upload) in {build_s:.2f} s")
+    packer_line("large tier", scene)
     nodes, lo, hi = scene.nodes, scene.aabb_lo, scene.aabb_hi
     # bench.py:205-212: 2^18 rays from a sphere around the scene, aimed at
     # a smaller sphere inside it
@@ -1168,6 +1327,9 @@ def main() -> int:
     log(f"render bunny treelet vs lane: {tl_ms:.3f} against {lane_ms:.3f} "
         f"ms/spp; mean_rgb difference "
         f"{[a - b for a, b in zip(tl_mean, lane_mean)]}")
+    for label, mean in (("lane", lane_mean), ("treelet", tl_mean)):
+        log(f"render bunny {label}: mean_rgb difference from PR 3's "
+            f"{[a - b for a, b in zip(mean, PR3_BUNNY_MEAN_RGB)]}")
     records["treelet_rounds"]["launches"] = treelet_launches["treelet_rounds"]
     kdbench_phase()
     # each kernel's count from the run of the path that drives it

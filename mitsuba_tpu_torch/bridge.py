@@ -109,7 +109,8 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
     ``static`` maps SceneStatic field names to values. The BVH comes across
     as the JAX scene's ``bvh_pages`` (the same tree, repacked by
     ``nodes_from_pages``), with its treelet cut (``tl_root``, ``tl_skip``,
-    ``tl_lo``, ``tl_hi``). Raises NotImplementedError for a scene the port
+    ``tl_lo``, ``tl_hi``); its octant tables are built from that table, as
+    the builder builds them. Raises NotImplementedError for a scene the port
     does not render.
     """
     dev = resolve_device(device)
@@ -126,6 +127,8 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
         raise ValueError(f"use_bvh={use_bvh} with {n_nodes} BVH nodes")
     nodes = (nodes_from_pages(arrays["bvh_pages"], n_nodes) if use_bvh
              else np.zeros((1, cuda_bvh.NODE_COLS), np.float32))
+    octants = (cuda_bvh.octant_tables(nodes, arrays["tl_root"], dev)
+               if use_bvh else None)
     mats, texs, ems = arrays["materials"], arrays["textures"], arrays["emitters"]
     has_textures = bool(static.get("has_textures", False))
     if has_textures and any(int(t) not in tex_mod.SUPPORTED_TYPES
@@ -137,6 +140,7 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
         nodes=_f32(nodes, dev),
         **{k: _i32(arrays[k], dev) for k in _TL_INT},
         **{k: _f32(arrays[k], dev) for k in _TL_FLOAT},
+        octants=octants,
         aabb_lo=_f32(arrays["aabb_lo"], dev),
         aabb_hi=_f32(arrays["aabb_hi"], dev),
         radius=_f32(arrays["radius"], dev),

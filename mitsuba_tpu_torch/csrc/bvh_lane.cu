@@ -38,15 +38,41 @@
 // the size of the tree they are given (the scene sends trees above 2.3M nodes
 // to K5).
 //
+// K3 and K7 on octant tables. The canonical walk always enters the left
+// child first, so a closest-hit ray enters boxes behind its eventual hit
+// until it finds it, and a launch lasts as long as its slowest lanes (503
+// visits where the mean is 10 on the bunny's sorted bounce rays), each visit
+// a dependent L2 round trip. So a closest-hit lane of K3 or K7 walks one of
+// eight copies of the tree (pack_nodes_octants), the one of its direction's
+// octant (bit k set where d[k] >= 0), in which each internal node's nearer
+// child comes first: the closest hit comes early, and the slab test's exit,
+// clamped by the best t, culls the boxes behind it. The per-visit arithmetic
+// is unchanged. The canonical walk keeps the first of several hits at equal
+// t, which is the one with the lowest canonical leaf row; the octant walk
+// keeps the same one by the tie rule: a hit at tt == best replaces the best
+// only where the lane is armed (K3: it has a best; K7: a best from the
+// treelet it is walking, since the JAX rounds keep a best from an earlier
+// treelet) and the leaf's canonical row (c.w of the octant rows) is below
+// leaf_row[idx], which is read only on such a tie. Any-hit lanes (shadow
+// rays) walk the canonical table: the JAX kernels return the first hit in
+// its order, and order does not help occlusion.
+//
 // K7 (treelets). The tree is cut into K <= 128 treelets, subtrees whose rows
-// are the range [root, skip) (accel/build.py:treelet_roots). Each round a lane
-// tests the root boxes of its pending treelets in index order with
-// _treelet_rounds' arithmetic (pallas_bvh.py:453-482: entry clamped by t_min,
-// exit by the best t so far, a strict < so ties go to the lowest index),
-// clears the nearest one's bit and walks its rows with the shared walk, which
-// retires the lane when its pointer reaches the treelet's end. The (K, 8)
-// table (lo, hi, root, skip) sits in shared memory, 4 KB; the pending set is
-// four 32-bit masks in registers. An any-hit lane stops at its first hit.
+// are the range [root, skip) (accel/build.py:treelet_roots), in every table
+// a contiguous range. _treelet_rounds (pallas_bvh.py:453-482) picks, each
+// round, the nearest pending root box the ray enters before its best hit
+// (lowest index on a tie) and walks that treelet. A box's entry does not
+// depend on the best, and its exit is min(exit, best) exactly, so that order
+// is the ascending (entry, index) order of the boxes the ray enters against
+// its t_max, cut at the first entry beyond the best. K7 therefore tests all K
+// root boxes once per ray, in a loop that is the same for every lane of a
+// warp (the (K, 24) table of lo, hi, root, skip and each octant's (root,
+// end), 12 KB, sits in shared memory and is read by broadcast), keeps the
+// TREELET_LIST nearest entered boxes as a sorted list in registers, and walks
+// them in order until an entry lies beyond the best (an any-hit lane: until
+// it hits). A ray that enters more boxes finishes with the old pending-mask
+// rounds over the entered treelets it has not walked, so the order stays the
+// JAX one whatever the list's size. Dead lanes start retired.
 // K8 (fat rows). Each node is fourteen float4s: lo.xyz | skip, hi.xyz | count,
 // then per triangle slot p0.xyz | id, e1.xyz | 0, e2.xyz | 0. Every node's box
 // is tested, leaves too; a hit box of a leaf tests its count triangles in slot
@@ -63,14 +89,17 @@
 // What bounds them on an H100. A visit reads 32 bytes of an internal node or
 // 48 of a leaf (K8: 32 plus 48 per tested triangle; K9: 32 or 44) and does a
 // slab test (25 fp32 operations) or a triangle test (46, one a division); K7
-// adds a slab test per pending treelet per round. A ray reads 32 bytes (K4,
-// K5, K7, K8) or 48 (K3, K6, K9) and writes 17 or 20. Counting each node a
-// launch reads once, bytes bound them: a few microseconds for the bunny's
-// 262,144 rays. The kernels take several times that, because each load
-// depends on the one before (the next node needs this one), repeat visits are
+// adds K slab tests per ray (and one per pending treelet per overflow
+// round). A ray reads 32 bytes (K4, K5, K7, K8) or 48 (K3, K6, K9) and writes
+// 17 or 20. Counting each node a launch reads once, bytes bound them: a few
+// microseconds for the bunny's 262,144 rays. The kernels take several times
+// that, because each load depends on the one before (the next node needs this one), repeat visits are
 // served from L1/L2, and a launch lasts as long as its slowest lanes
-// (hundreds of visits where the mean is 5-40). Shared-memory treelets, a
-// short stack or a wide BVH are later work.
+// (hundreds of visits where the mean is 5-40). The octant tables shorten K3's
+// and K7's longest chains (503 to 203 visits on the bunny's bounce rays); of
+// their 8 x 15.2 MB a launch there reads 114,000 distinct rows, 5.5 MB, well
+// inside the 50 MB L2. Shared-memory treelets, a short stack or a wide BVH
+// are later work.
 //
 // Compile with -fmad=false: the plain PyTorch versions round every operation,
 // and contraction into FMAs would flip edge hits between the two.
@@ -81,6 +110,18 @@
 namespace {
 
 constexpr int THREADS = 128;  // rays per block
+// K3's and K7's __launch_bounds__ minimum of resident blocks per SM. Left
+// free, K3 takes 48 registers (10 blocks of 128 per SM) and K7 64 (8 blocks),
+// so 262,144 rays take 1.6 and 1.9 waves; every higher minimum spills and
+// runs slower (scripts/torch_occupancy_sweep.py, which builds with others).
+#ifndef K3_MIN_BLOCKS
+#define K3_MIN_BLOCKS 1
+#endif
+#ifndef K7_MIN_BLOCKS
+#define K7_MIN_BLOCKS 1
+#endif
+// K7's list of entered treelets per ray (cuda_bvh.TREELET_LIST)
+constexpr int TREELET_LIST = 8;
 
 struct Lane {
   int node;
@@ -125,14 +166,13 @@ struct WidePages {
 };
 
 // Moeller-Trumbore on p0, e1, e2 (the TPU kernels' form and order): true and
-// (tt, uu, vv) when the ray hits within (t_min, best).
-__device__ __forceinline__ bool tri_hit(float ox, float oy, float oz, float dx,
+// (tt, uu, vv) when the ray hits the triangle beyond t_min, whatever the best.
+__device__ __forceinline__ bool tri_geo(float ox, float oy, float oz, float dx,
                                         float dy, float dz, float p0x,
                                         float p0y, float p0z, float e1x,
                                         float e1y, float e1z, float e2x,
                                         float e2y, float e2z, float t_min,
-                                        float best, float& tt, float& uu,
-                                        float& vv) {
+                                        float& tt, float& uu, float& vv) {
   const float pvx = dy * e2z - dz * e2y;
   const float pvy = dz * e2x - dx * e2z;
   const float pvz = dx * e2y - dy * e2x;
@@ -146,7 +186,19 @@ __device__ __forceinline__ bool tri_hit(float ox, float oy, float oz, float dx,
   const float qz = tvx * e1y - tvy * e1x;
   vv = (dx * qx + dy * qy + dz * qz) * invd;
   tt = (e2x * qx + e2y * qy + e2z * qz) * invd;
-  return ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > t_min &&
+  return ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > t_min;
+}
+
+// ... and within (t_min, best)
+__device__ __forceinline__ bool tri_hit(float ox, float oy, float oz, float dx,
+                                        float dy, float dz, float p0x,
+                                        float p0y, float p0z, float e1x,
+                                        float e1y, float e1z, float e2x,
+                                        float e2y, float e2z, float t_min,
+                                        float best, float& tt, float& uu,
+                                        float& vv) {
+  return tri_geo(ox, oy, oz, dx, dy, dz, p0x, p0y, p0z, e1x, e1y, e1z, e2x,
+                 e2y, e2z, t_min, tt, uu, vv) &&
          tt < best;
 }
 
@@ -166,13 +218,28 @@ __device__ __forceinline__ bool box_hit(float lox, float loy, float loz,
   return tnear <= tfar;
 }
 
+// The tie rule of the octant walks: leaf_row maps a triangle id to its
+// canonical leaf row (null: no tie rule, the canonical walks); armed says the
+// lane's best was found in this walk (K3) or treelet (K7).
+struct Tie {
+  const int* __restrict__ leaf_row;
+  bool armed;
+};
+
+// The direction's octant: bit k set where d[k] >= 0 (ray_sort_keys' code).
+__device__ __forceinline__ int octant_of(float dx, float dy, float dz) {
+  return (dx >= 0.0f ? 1 : 0) | (dy >= 0.0f ? 2 : 0) | (dz >= 0.0f ? 4 : 0);
+}
+
 // Walk one lane until its pointer passes the last node or reaches end (the
 // lane then retires: node = n_nodes), its any-hit lane finds a hit, or
-// max_steps visits are spent (0: no budget).
+// max_steps visits are spent (0: no budget). With tie.leaf_row, a hit at
+// t == best replaces an armed best from a leaf of a lower canonical row.
 template <class Table>
-__device__ void walk(const Table& table, int n_nodes, int end, float ox,
-                     float oy, float oz, float dx, float dy, float dz,
-                     float t_min, bool any_hit, int max_steps, Lane& s) {
+__device__ void walk(const Table& table, Tie& tie, int n_nodes, int end,
+                     float ox, float oy, float oz, float dx, float dy,
+                     float dz, float t_min, bool any_hit, int max_steps,
+                     Lane& s) {
   const float inx = safe_inv(dx), iny = safe_inv(dy), inz = safe_inv(dz);
   int steps = 0;
   while (s.node < n_nodes && (max_steps == 0 || steps < max_steps)) {
@@ -182,15 +249,20 @@ __device__ void walk(const Table& table, int n_nodes, int end, float ox,
     const int tid = static_cast<int>(b.w);
     int next = skip;
     if (tid >= 0) {
-      // leaf: p0 = a.xyz, e1 = b.xyz, e2 = c.xyz
+      // leaf: p0 = a.xyz, e1 = b.xyz, e2 = c.xyz (c.w: canonical row)
       const float4 c = table.c(s.node);
       float tt, uu, vv;
-      if (tri_hit(ox, oy, oz, dx, dy, dz, a.x, a.y, a.z, b.x, b.y, b.z, c.x,
-                  c.y, c.z, t_min, s.t, tt, uu, vv)) {
+      const bool geo = tri_geo(ox, oy, oz, dx, dy, dz, a.x, a.y, a.z, b.x,
+                               b.y, b.z, c.x, c.y, c.z, t_min, tt, uu, vv);
+      bool take = geo && tt < s.t;
+      if (tie.leaf_row && geo && tt == s.t && tie.armed)
+        take = static_cast<int>(c.w) < __ldg(tie.leaf_row + s.idx);
+      if (take) {
         s.t = tt;
         s.idx = tid;
         s.u = uu;
         s.v = vv;
+        tie.armed = true;
       }
     } else {
       // internal node: slab test on lo = a.xyz, hi = b.xyz
@@ -203,6 +275,17 @@ __device__ void walk(const Table& table, int n_nodes, int end, float ox,
     ++steps;
     if (any_hit && s.idx >= 0) s.node = n_nodes;
   }
+}
+
+// The canonical walk (no tie rule): K4-K6, K9 and any-hit lanes.
+template <class Table>
+__device__ __forceinline__ void walk(const Table& table, int n_nodes, int end,
+                                     float ox, float oy, float oz, float dx,
+                                     float dy, float dz, float t_min,
+                                     bool any_hit, int max_steps, Lane& s) {
+  Tie none{nullptr, false};
+  walk(table, none, n_nodes, end, ox, oy, oz, dx, dy, dz, t_min, any_hit,
+       max_steps, s);
 }
 
 // K4 and K5: from the root. A dead lane (t_max <= t_min) starts retired.
@@ -229,8 +312,8 @@ __device__ void root_lane(const float4* __restrict__ nodes, int n_nodes,
   v_out[r] = s.v;
 }
 
-// K3, K6 and K9: resume from (node, t, idx, u, v); rays as one array per
-// component, the layout the resort loop sorts.
+// K6 and K9 (K3 below): resume from (node, t, idx, u, v); rays as one array
+// per component, the layout the resort loop sorts.
 template <class Table>
 __device__ void chunk_lane(
     const Table& table, int n_nodes, const float* __restrict__ ox,
@@ -276,16 +359,37 @@ __global__ void lane_hbm_kernel(const float4* __restrict__ nodes, int n_nodes,
   root_lane(nodes, n_nodes, o, d, t_min, t_max, R, any_hit, hit, t, idx, u, v);
 }
 
-__global__ void lane_chunk_kernel(
-    const float4* __restrict__ nodes, int n_nodes, const float* ox,
-    const float* oy, const float* oz, const float* dx, const float* dy,
-    const float* dz, const float* t_min, const int* node_in,
-    const float* t_in, const int* i_in, const float* u_in, const float* v_in,
-    int R, bool any_hit, int max_steps, float* t, int* idx, float* u,
-    float* v, int* node) {
-  chunk_lane(NodeRows{nodes}, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
-             t_in, i_in, u_in, v_in, R, any_hit, max_steps, t, idx, u, v,
-             node);
+// K3: chunk_lane, with closest-hit lanes on their octant's table and the
+// tie rule.
+__global__ void __launch_bounds__(THREADS, K3_MIN_BLOCKS) lane_chunk_kernel(
+    const float4* __restrict__ nodes, const float4* __restrict__ oct,
+    const int* __restrict__ leaf_row, int n_nodes,
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ t_min, const int* __restrict__ node_in,
+    const float* __restrict__ t_in, const int* __restrict__ i_in,
+    const float* __restrict__ u_in, const float* __restrict__ v_in, int R,
+    bool any_hit, int max_steps, float* __restrict__ t_out,
+    int* __restrict__ idx_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, int* __restrict__ node_out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  Lane s{node_in[r], t_in[r], i_in[r], u_in[r], v_in[r]};
+  const float rdx = dx[r], rdy = dy[r], rdz = dz[r];
+  const float4* table = nodes;
+  Tie tie{nullptr, s.idx >= 0};
+  if (!any_hit) {
+    table = oct + 3 * static_cast<size_t>(n_nodes) * octant_of(rdx, rdy, rdz);
+    tie.leaf_row = leaf_row;
+  }
+  walk(NodeRows{table}, tie, n_nodes, n_nodes, ox[r], oy[r], oz[r], rdx, rdy,
+       rdz, t_min[r], any_hit, max_steps, s);
+  t_out[r] = s.t;
+  idx_out[r] = s.idx;
+  u_out[r] = s.u;
+  v_out[r] = s.v;
+  node_out[r] = s.node;
 }
 
 __global__ void lane_chunk_hbm_kernel(
@@ -313,15 +417,30 @@ __global__ void lane_chunk_w_kernel(
 }
 
 constexpr int MAX_TREELETS = 128;
-constexpr int TREELET_COLS = 8;  // lo.xyz, hi.xyz, root, skip
+// lo.xyz, hi.xyz, root, skip, then (root, end) in each octant's table
+constexpr int TREELET_COLS = 24;
 constexpr int PEND_WORDS = MAX_TREELETS / 32;
 
-__global__ void treelet_rounds_kernel(
-    const float4* __restrict__ nodes, int n_nodes,
-    const float* __restrict__ tab, int K, const float* __restrict__ o,
-    const float* __restrict__ d, const float* __restrict__ t_min,
-    const float* __restrict__ t_max, int R, bool any_hit, bool* hit,
-    float* t_out, int* idx_out, float* u_out, float* v_out) {
+// Clear bit k of a four-word mask held in registers (no dynamic index, so
+// the words stay in registers).
+__device__ __forceinline__ void clear_bit(unsigned (&mask)[PEND_WORDS],
+                                          int k) {
+#pragma unroll
+  for (int w = 0; w < PEND_WORDS; ++w)
+    if (w == (k >> 5)) mask[w] &= ~(1u << (k & 31));
+}
+
+__global__ void __launch_bounds__(THREADS, K7_MIN_BLOCKS)
+    treelet_rounds_kernel(const float4* __restrict__ nodes,
+                          const float4* __restrict__ oct,
+                          const int* __restrict__ leaf_row, int n_nodes,
+                          const float* __restrict__ tab, int K,
+                          const float* __restrict__ o,
+                          const float* __restrict__ d,
+                          const float* __restrict__ t_min,
+                          const float* __restrict__ t_max, int R,
+                          bool any_hit, bool* hit, float* t_out, int* idx_out,
+                          float* u_out, float* v_out) {
   __shared__ float s_tab[MAX_TREELETS * TREELET_COLS];
   for (int i = threadIdx.x; i < K * TREELET_COLS; i += blockDim.x)
     s_tab[i] = tab[i];
@@ -333,23 +452,93 @@ __global__ void treelet_rounds_kernel(
   const float tmin = t_min[r], tmax = t_max[r];
   const float inx = safe_inv(dx), iny = safe_inv(dy), inz = safe_inv(dz);
   Lane s{n_nodes, tmax, -1, 0.0f, 0.0f};
-  unsigned pend[PEND_WORDS];
-#pragma unroll
-  for (int w = 0; w < PEND_WORDS; ++w) {
-    const int left = K - 32 * w;
-    pend[w] = !(tmax > tmin) || left <= 0 ? 0u
-              : left >= 32                ? 0xFFFFFFFFu
-                                          : (1u << left) - 1u;
+  // any-hit lanes walk [root, skip) of the canonical table, closest-hit
+  // lanes their octant's (root, end) with the tie rule
+  const float4* table = nodes;
+  int col = 6;
+  Tie tie{nullptr, false};
+  if (!any_hit) {
+    const int oc = octant_of(dx, dy, dz);
+    table = oct + 3 * static_cast<size_t>(n_nodes) * oc;
+    col = 8 + 2 * oc;
+    tie.leaf_row = leaf_row;
   }
-  const NodeRows rows{nodes};
-  while (true) {
-    // the nearest pending treelet whose box the ray enters before its best
-    // hit; set bits in index order, so a tie keeps the lowest index
+  const NodeRows rows{table};
+
+  // one pass over the root boxes against t_max: the entered ones in a mask,
+  // the TREELET_LIST nearest by (entry, index) in a sorted register list
+  unsigned ent[PEND_WORDS] = {0u, 0u, 0u, 0u};
+  float lt[TREELET_LIST];
+  int lk[TREELET_LIST];
+#pragma unroll
+  for (int i = 0; i < TREELET_LIST; ++i) {
+    lt[i] = CUDART_INF_F;
+    lk[i] = 0;
+  }
+  int nl = 0;
+  if (tmax > tmin) {
+#pragma unroll
+    for (int w = 0; w < PEND_WORDS; ++w) {
+      for (int j = 0; j < 32; ++j) {
+        const int k = 32 * w + j;
+        if (k >= K) break;
+        const float* e = s_tab + TREELET_COLS * k;
+        float tn;
+        if (!box_hit(e[0], e[1], e[2], e[3], e[4], e[5], ox, oy, oz, inx, iny,
+                     inz, tmin, tmax, tn))
+          continue;
+        ent[w] |= 1u << j;
+        if (!(tn < CUDART_INF_F)) continue;
+        nl = min(nl + 1, TREELET_LIST);
+        // insert in (entry, index) order: k is larger than every index in
+        // the list, so an equal entry goes behind
+        float ct = tn;
+        int ck = k;
+#pragma unroll
+        for (int i = 0; i < TREELET_LIST; ++i) {
+          if (ct < lt[i]) {
+            const float ft = lt[i];
+            const int fk = lk[i];
+            lt[i] = ct;
+            lk[i] = ck;
+            ct = ft;
+            ck = fk;
+          }
+        }
+      }
+    }
+  }
+  // walk the list in order; an entry beyond the best ends the lane, since
+  // every later one is beyond it too
+  bool done = false;
+  for (int i = 0; i < nl && !done; ++i) {
+    if (lt[0] > s.t) {
+      done = true;
+      break;
+    }
+    const int k = lk[0];
+    clear_bit(ent, k);
+#pragma unroll
+    for (int j = 0; j + 1 < TREELET_LIST; ++j) {
+      lt[j] = lt[j + 1];
+      lk[j] = lk[j + 1];
+    }
+    lt[TREELET_LIST - 1] = CUDART_INF_F;
+    s.node = static_cast<int>(s_tab[TREELET_COLS * k + col]);
+    tie.armed = false;
+    walk(rows, tie, n_nodes, static_cast<int>(s_tab[TREELET_COLS * k + col + 1]),
+         ox, oy, oz, dx, dy, dz, tmin, any_hit, 0, s);
+    done = any_hit && s.idx >= 0;
+  }
+  // overflow: _treelet_rounds' rounds over the entered treelets not yet
+  // walked; each round the nearest one whose box the ray enters before its
+  // best hit, set bits in index order, so a tie keeps the lowest index
+  while (!done) {
     float best_e = CUDART_INF_F;
     int sel = -1;
 #pragma unroll
     for (int w = 0; w < PEND_WORDS; ++w) {
-      unsigned bits = pend[w];
+      unsigned bits = ent[w];
       while (bits) {
         const int k = 32 * w + __ffs(bits) - 1;
         bits &= bits - 1u;
@@ -364,13 +553,13 @@ __global__ void treelet_rounds_kernel(
       }
     }
     if (sel < 0) break;
-#pragma unroll
-    for (int w = 0; w < PEND_WORDS; ++w)
-      if (w == (sel >> 5)) pend[w] &= ~(1u << (sel & 31));
-    s.node = static_cast<int>(s_tab[TREELET_COLS * sel + 6]);
-    walk(rows, n_nodes, static_cast<int>(s_tab[TREELET_COLS * sel + 7]), ox,
-         oy, oz, dx, dy, dz, tmin, any_hit, 0, s);
-    if (any_hit && s.idx >= 0) break;
+    clear_bit(ent, sel);
+    s.node = static_cast<int>(s_tab[TREELET_COLS * sel + col]);
+    tie.armed = false;
+    walk(rows, tie, n_nodes,
+         static_cast<int>(s_tab[TREELET_COLS * sel + col + 1]), ox, oy, oz,
+         dx, dy, dz, tmin, any_hit, 0, s);
+    done = any_hit && s.idx >= 0;
   }
   const bool h = s.idx >= 0;
   hit[r] = h;
@@ -466,20 +655,26 @@ extern "C" int bvh_lane_hbm(const float* nodes, int n_nodes, const float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bvh_lane_chunk(const float* nodes, int n_nodes, const float* ox,
-                              const float* oy, const float* oz,
-                              const float* dx, const float* dy,
-                              const float* dz, const float* t_min,
-                              const int* node_in, const float* t_in,
-                              const int* i_in, const float* u_in,
-                              const float* v_in, int R, int any_hit,
-                              int max_steps, float* t, int* idx, float* u,
-                              float* v, int* node, void* stream) {
+// K3: oct is the (8, n_nodes, 12) float32 octant tables, 16-byte aligned,
+// and leaf_row the (T,) int32 map; both may be null for an any-hit call.
+extern "C" int bvh_lane_chunk(const float* nodes, const float* oct,
+                              const int* leaf_row, int n_nodes,
+                              const float* ox, const float* oy,
+                              const float* oz, const float* dx,
+                              const float* dy, const float* dz,
+                              const float* t_min, const int* node_in,
+                              const float* t_in, const int* i_in,
+                              const float* u_in, const float* v_in, int R,
+                              int any_hit, int max_steps, float* t, int* idx,
+                              float* u, float* v, int* node, void* stream) {
+  if (!any_hit && (!oct || !leaf_row))
+    return static_cast<int>(cudaErrorInvalidValue);
   lane_chunk_kernel<<<blocks_for(R), THREADS, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(nodes), n_nodes, ox, oy, oz, dx, dy, dz,
-      t_min, node_in, t_in, i_in, u_in, v_in, R, any_hit != 0, max_steps, t,
-      idx, u, v, node);
+      reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(oct), leaf_row, n_nodes, ox, oy, oz, dx,
+      dy, dz, t_min, node_in, t_in, i_in, u_in, v_in, R, any_hit != 0,
+      max_steps, t, idx, u, v, node);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -521,19 +716,22 @@ extern "C" int bvh_lane_chunk_w(const float* pages, int page, int n_nodes,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7: tab is the (K, 8) float32 treelet table, 1 <= K <= 128.
-extern "C" int bvh_treelet_rounds(const float* nodes, int n_nodes,
+// K7: tab is the (K, 24) float32 treelet table, 1 <= K <= 128; oct and
+// leaf_row as for K3.
+extern "C" int bvh_treelet_rounds(const float* nodes, const float* oct,
+                                  const int* leaf_row, int n_nodes,
                                   const float* tab, int K, const float* o,
                                   const float* d, const float* t_min,
                                   const float* t_max, int R, int any_hit,
                                   bool* hit, float* t, int* idx, float* u,
                                   float* v, void* stream) {
-  if (K < 1 || K > MAX_TREELETS)
+  if (K < 1 || K > MAX_TREELETS || (!any_hit && (!oct || !leaf_row)))
     return static_cast<int>(cudaErrorInvalidValue);
   treelet_rounds_kernel<<<blocks_for(R), THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(nodes), n_nodes, tab, K, o, d, t_min,
-      t_max, R, any_hit != 0, hit, t, idx, u, v);
+      reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(oct), leaf_row, n_nodes, tab, K, o, d,
+      t_min, t_max, R, any_hit != 0, hit, t, idx, u, v);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -550,4 +748,18 @@ extern "C" int bvh_fat_packed(const float* rows, int n_nodes, const float* o,
       reinterpret_cast<const float4*>(rows), n_nodes, o, d, t_min, t_max,
       start, end, R, any_hit != 0, hit, t, idx, u, v);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers per thread and resident blocks of THREADS per SM of K3 (which
+// 0), K7 (1) and K6 (2), for the occupancy the build's -Xptxas -v implies.
+extern "C" int bvh_kernel_occupancy(int which, int* regs, int* blocks) {
+  const void* fn = which == 0   ? reinterpret_cast<const void*>(lane_chunk_kernel)
+                   : which == 1 ? reinterpret_cast<const void*>(treelet_rounds_kernel)
+                                : reinterpret_cast<const void*>(lane_chunk_hbm_kernel);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn, THREADS, 0));
 }

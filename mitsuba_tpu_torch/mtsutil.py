@@ -62,7 +62,7 @@ def _rays(center, radius, R, seed=0):
 
 
 def kdbench(argv, device=None):
-    """Load a mesh, build its BVH and treelet cut, and time the treelet
+    """Load a mesh, build its BVH, treelet cut and octant tables, and time the treelet
     query (K7) and the lane-resort query (K3) on 2^18 coherent and 2^18
     incoherent rays. Runs on CUDA unless ``device`` names another device;
     times by host clock around calls that end in a synchronize."""
@@ -89,8 +89,10 @@ def kdbench(argv, device=None):
     bvh = build_bvh(lo, hi)
     t_build = time.perf_counter() - t0
     n_nodes = len(bvh.lo)
-    nodes = torch.as_tensor(cuda_bvh.pack_nodes(bvh, p0, e1, e2), device=dev)
+    nodes_np = cuda_bvh.pack_nodes(bvh, p0, e1, e2)
+    nodes = torch.as_tensor(nodes_np, device=dev)
     roots = treelet_roots(bvh, max_nodes=TREELET_MAX_NODES)
+    octants = cuda_bvh.octant_tables(nodes_np, roots, dev)
     tl = tuple(torch.as_tensor(x, device=dev) for x in (
         roots, bvh.skip[roots].astype(np.int32), bvh.lo[roots], bvh.hi[roots]))
     slo, shi = lo.min(axis=0), hi.max(axis=0)
@@ -113,9 +115,11 @@ def kdbench(argv, device=None):
         d = torch.as_tensor(d_np, device=dev)
         for kern, kname in (
             (lambda: cuda_bvh.bvh_traverse_treelets(
-                nodes, *tl, o, d, tmin, tmax, *bounds), "treelet"),
+                nodes, *tl, o, d, tmin, tmax, *bounds, octants=octants),
+             "treelet"),
             (lambda: cuda_bvh.bvh_traverse_lane_resort(
-                nodes, n_nodes, o, d, tmin, tmax, *bounds), "lane-resort"),
+                nodes, n_nodes, o, d, tmin, tmax, *bounds, octants=octants),
+             "lane-resort"),
         ):
             out = kern()
             sync()

@@ -21,10 +21,23 @@ node, see the source note in ``bvh_lane.cu``). K4/K5 walk from the root; K3/K6
 resume from per-lane state ``(node, t, idx, u, v)`` for at most ``max_steps``
 node visits (0: to the end). On the H100 there is no VMEM/HBM split: K5 and K6
 run K4's and K3's code, on trees above ``LANE_VMEM_MAX_NODES``. K7 walks the
-same table one treelet (a subtree's row range) at a time, nearest pending
+same tree one treelet (a subtree's row range) at a time, nearest entered
 treelet first; K8 walks fat rows of up to four triangles per leaf
 (``pack_nodes_fat``); K9 runs K3's walk over the JAX package's wide pages
 (``pack_pages_w``).
+
+Octant tables (``pack_nodes_octants``, ``Octants``). Closest-hit lanes of K3
+and K7 walk one of eight copies of the tree, the one of their direction's
+octant, in which every internal node's nearer child comes first; any-hit
+lanes walk the canonical table, whose order the JAX kernels' first hit
+depends on. The near-first walk finds the closest hit early, so the slab
+test culls the boxes behind it. Where two triangles are hit at the same t,
+the canonical walk keeps the one it reached first, which is the one with the
+lower canonical leaf row; the octant walk keeps that one too by the tie rule:
+a hit at t equal to the best replaces the best only if its leaf's canonical
+row (kept in the octant rows' column 11) is below the best triangle's
+(``Octants.leaf_row``), and in K7 only against a best found in the same
+treelet. So the result is the canonical walk's.
 
 Each wrapper checks its inputs (one device, dtype, shape, contiguity) on
 either device. On CUDA tensors it then allocates the outputs, launches its
@@ -37,6 +50,7 @@ without FMA contraction), so kernel and plain version agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,10 +60,16 @@ from . import build
 NODE_COLS = 12    # lo.xyz skip | hi.xyz tri | e2.xyz 0 (three float4s)
 MAX_NODES = 1 << 24   # skip links and triangle ids are exact float32 values
 LSTRIP = 10       # the TPU schedule's strip (pallas_bvh.py:893)
-# K7's treelet table: (K, 8) lo.xyz, hi.xyz, root, skip; K7 keeps it in
-# shared memory and the pending set in four 32-bit masks
-TREELET_COLS = 8
+# K7's treelet table: (K, 24) lo.xyz, hi.xyz, root, skip, then per octant
+# the treelet's (root, end) in that octant's table; K7 keeps it in shared
+# memory (12 KB at 128 treelets)
+TREELET_COLS = 24
 MAX_TREELETS = 128
+# K7's list of entered treelets per ray (csrc/bvh_lane.cu TREELET_LIST); a
+# ray that enters more finishes with pending-mask rounds
+TREELET_LIST = 8
+# the octants of a ray direction: bit k set where d[k] >= 0
+OCTANTS = 8
 # rays per chunk of the treelet sort key's dense (rays x K) box test
 TREELET_KEY_CHUNK = 1 << 15
 # K8's fat rows: lo.xyz skip | hi.xyz count | per slot p0.xyz id | e1.xyz 0 |
@@ -73,17 +93,33 @@ def _lib():
     if lib.bvh_lane_packed.argtypes is None:
         root = [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P]
         chunk = [_P, _I] + [_P] * 12 + [_I, _I, _I] + [_P] * 6
-        treelet = [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I] + [_P] * 6
+        # K3 and K7 take the canonical table, the octant tables and the map
+        treelet = [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I] + [_P] * 6
         fat = [_P, _I] + [_P] * 6 + [_I, _I] + [_P] * 6
         for fn, args in ((lib.bvh_lane_packed, root), (lib.bvh_lane_hbm, root),
-                         (lib.bvh_lane_chunk, chunk),
+                         (lib.bvh_lane_chunk, [_P, _P, _P] + chunk[1:]),
                          (lib.bvh_lane_chunk_hbm, chunk),
                          (lib.bvh_lane_chunk_w, [_P, _I] + chunk[1:]),
                          (lib.bvh_treelet_rounds, treelet),
                          (lib.bvh_fat_packed, fat)):
             fn.argtypes = args
             fn.restype = _I
+        lib.bvh_kernel_occupancy.argtypes = [_I, _P, _P]
+        lib.bvh_kernel_occupancy.restype = _I
     return lib
+
+
+def kernel_occupancy(name):
+    """(registers per thread, resident blocks of 128 threads per SM) of
+    ``lane_chunk`` (K3), ``treelet_rounds`` (K7) or ``lane_chunk_hbm`` (K6)
+    on the current card."""
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    which = ("lane_chunk", "treelet_rounds", "lane_chunk_hbm").index(name)
+    rc = _lib().bvh_kernel_occupancy(which, ctypes.byref(regs),
+                                     ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"bvh_kernel_occupancy failed: cudaError {rc}")
+    return regs.value, blocks.value
 
 
 # === host-side node table ==================================================
@@ -181,11 +217,110 @@ def pack_pages_w(bvh, p0, e1, e2, page: int = WIDE_PAGE) -> np.ndarray:
     return np.ascontiguousarray(out.reshape(n_pages * pcomp, 128))
 
 
-def treelet_table(tl_root, tl_skip, tl_lo, tl_hi):
-    """K7's (K, 8) float32 table: lo.xyz, hi.xyz, root, skip (ints exact
-    below 2^24), as the JAX function concatenates it (pallas_bvh.py:573)."""
+def octant_signs() -> np.ndarray:
+    """(8, 3) float64: the direction signs of octant o, +1 on axis k where
+    bit k of o is set (d[k] >= 0, as ``ray_sort_keys`` codes it), else -1."""
+    return np.where((np.arange(OCTANTS)[:, None] >> np.arange(3)) & 1, 1.0,
+                    -1.0)
+
+
+def pack_nodes_octants(nodes, tl_root=None):
+    """The eight octant tables of a node-major table, from that table alone.
+
+    ``nodes`` is the canonical (N, 12) table of a leaf_size=1 BVH
+    (``pack_nodes``): the left child of internal row n is n + 1, its right
+    child skip[n + 1]. Table o re-emits the same tree in depth-first order
+    with the near child first for directions of octant o: the child whose
+    centre c (the box centre of an internal row, the vertex mean p0 + (e1 +
+    e2) / 3 of a leaf) has the smaller s . c, with s = ``octant_signs()[o]``;
+    the left child on equal projections. Skip links are rewritten; leaf rows
+    are copied, with their canonical row in column 11 (an exact float).
+    Built level by level, all octants at once.
+
+    Returns (tables (8, N, 12) float32, leaf_row (T,) int32: the canonical
+    leaf row of triangle i, tl_range (8, K, 2) int32: treelet k's (root,
+    end) rows in table o, for the canonical treelet roots ``tl_root`` (K = 0
+    without them))."""
+    nodes = np.asarray(nodes, np.float32)
+    N = nodes.shape[0]
+    row = np.arange(N)
+    skip = nodes[:, 3].astype(np.int64)
+    tri = nodes[:, 7].astype(np.int64)
+    leaf = tri >= 0
+    size = skip - row
+    inner = row[~leaf]
+    left = inner + 1
+    if skip[0] != N or np.any(size < 1) or np.any(left >= N):
+        raise ValueError("nodes is not a threaded depth-first tree")
+    right = skip[left]
+    if np.any(right >= N) or np.any(skip[right] != skip[inner]):
+        raise ValueError("nodes is not a binary threaded tree")
+    if not np.array_equal(np.sort(tri[leaf]), np.arange(int(leaf.sum()))):
+        raise ValueError("the octant tables need a leaf_size=1 BVH over "
+                         "triangles 0..T-1")
+    a, b, c = (nodes[:, k:k + 3].astype(np.float64) for k in (0, 4, 8))
+    centre = np.where(leaf[:, None], a + (b + c) / 3.0, (a + b) / 2.0)
+    proj = centre @ octant_signs().T                      # (N, 8)
+    octs = np.arange(OCTANTS)[:, None]
+    pos = np.zeros((OCTANTS, N), np.int64)                # root at row 0
+    level = inner[:1] if N > 1 else inner[:0]
+    while level.size:
+        lc, rc = level + 1, skip[level + 1]
+        right_first = (proj[rc] < proj[lc]).T             # (8, n)
+        first = np.where(right_first, rc, lc)
+        second = np.where(right_first, lc, rc)
+        at = pos[:, level] + 1
+        pos[octs, first] = at
+        pos[octs, second] = at + size[first]
+        kids = np.concatenate([lc, rc])
+        level = kids[~leaf[kids]]
+    # rows carry their subtree size as skip (and a leaf its canonical row in
+    # column 11) into place as 48-byte records; row p's skip is p + size
+    src = nodes.copy()
+    src[:, 3] = size
+    src[:, 11] = np.where(leaf, row, 0)
+    record = np.dtype((np.void, 4 * NODE_COLS))
+    tables = np.empty((OCTANTS, N, NODE_COLS), np.float32)
+    tables.view(record)[octs, pos, 0] = src.view(record)[:, 0]
+    tables[:, :, 3] += row.astype(np.float32)
+    leaf_row = np.empty(int(leaf.sum()), np.int32)
+    leaf_row[tri[leaf]] = row[leaf]
+    roots = np.asarray([] if tl_root is None else tl_root, np.int64)
+    tl_range = np.stack([pos[:, roots], pos[:, roots] + size[roots]], axis=-1)
+    return tables, leaf_row, tl_range.astype(np.int32)
+
+
+class Octants(NamedTuple):
+    """A tree's octant tables (``pack_nodes_octants``) on the device that
+    closest-hit K3 and K7 run on."""
+
+    nodes: torch.Tensor     # (8, N, 12) float32, near child first
+    leaf_row: torch.Tensor  # (T,) int32 canonical leaf row of each triangle
+    tl_range: torch.Tensor  # (8, K, 2) int32 treelet (root, end) per octant
+
+
+def octant_tables(nodes, tl_root=None, device=None) -> Octants:
+    """``pack_nodes_octants`` of the canonical table ``nodes`` (numpy or a
+    tensor) as an ``Octants`` on ``device`` (that of ``nodes`` if None)."""
+    if isinstance(nodes, torch.Tensor):
+        device = nodes.device if device is None else device
+        nodes = nodes.cpu().numpy()
+    if isinstance(tl_root, torch.Tensor):
+        tl_root = tl_root.cpu().numpy()
+    return Octants(*(torch.as_tensor(x, device=device)
+                     for x in pack_nodes_octants(nodes, tl_root)))
+
+
+def treelet_table(tl_root, tl_skip, tl_lo, tl_hi, tl_range):
+    """K7's (K, 24) float32 table: lo.xyz, hi.xyz, root, skip, as the JAX
+    function concatenates them (pallas_bvh.py:573), then the (root, end) of
+    each octant's table from ``tl_range`` (8, K, 2); the ints are exact below
+    2^24."""
+    K = tl_root.shape[0]
+    oct_cols = tl_range.permute(1, 0, 2).reshape(K, 2 * OCTANTS)
     return torch.cat([tl_lo, tl_hi, tl_root[:, None].to(torch.float32),
-                      tl_skip[:, None].to(torch.float32)], dim=1).contiguous()
+                      tl_skip[:, None].to(torch.float32),
+                      oct_cols.to(torch.float32)], dim=1).contiguous()
 
 
 # === coherence sort key ====================================================
@@ -339,26 +474,43 @@ def _wide_pages(pages, page):
     return fetch
 
 
+def _octant(dx, dy, dz):
+    """Each lane's octant (int64): bit k set where d[k] >= 0."""
+    return ((dx >= 0).to(torch.int64) | ((dy >= 0).to(torch.int64) << 1)
+            | ((dz >= 0).to(torch.int64) << 2))
+
+
 def _walk_plain(fetch, n_nodes, rays, node, bt, bi, bu, bv, any_hit,
-                max_steps, end=None):
+                max_steps, end=None, base=None, n_rows=None, leaf_row=None,
+                armed=None):
     """The kernels' per-lane walk in tensor form over the table that
     ``fetch`` reads. ``rays`` = (ox, oy, oz, dx, dy, dz, t_min), each (R,).
     Each step advances every lane that is still walking by one node, with
     the kernel's operations in the kernel's order; a lane whose pointer
-    reaches its ``end`` (R,) retires (K7). Returns the new (node, t, idx, u,
-    v) and the visits: per-lane internal and leaf visit counts (int64) and
-    which nodes were read at all ((N,) bool)."""
+    reaches its ``end`` (R,) retires (K7). ``base`` (R,) offsets each lane's
+    node ids into the ``n_rows`` rows that ``fetch`` reads (a lane's octant
+    table). With ``leaf_row`` the walk keeps the tie rule: a hit at t equal
+    to the best replaces it where the lane is ``armed`` ((R,) bool, updated
+    in place: its best was found in this walk) and the leaf's canonical row
+    (column 11) is below ``leaf_row`` of the best triangle. Returns the new (node, t, idx,
+    u, v) and the visits: per-lane internal and leaf visit counts (int64),
+    which rows were read at all ((n_rows,) bool) and which ``leaf_row``
+    entries ((T,) bool, None without the tie rule)."""
     ox, oy, oz, dx, dy, dz, t_min = rays
     node, bt, bi, bu, bv = (x.clone() for x in (node, bt, bi, bu, bv))
     inx, iny, inz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
     v_int = torch.zeros(node.shape, dtype=torch.int64, device=node.device)
     v_leaf = torch.zeros_like(v_int)
-    touched = torch.zeros(n_nodes, dtype=torch.bool, device=node.device)
+    touched = torch.zeros(n_nodes if n_rows is None else n_rows,
+                          dtype=torch.bool, device=node.device)
+    map_read = None if leaf_row is None else torch.zeros(
+        leaf_row.shape, dtype=torch.bool, device=node.device)
     lane = torch.nonzero(node < n_nodes).squeeze(1)
     while lane.numel():
         n = node[lane].to(torch.int64)
-        touched[n] = True
-        g = fetch(n)
+        r = n if base is None else n + base[lane]
+        touched[r] = True
+        g = fetch(r)
         skip = g[3].to(torch.int64)
         tid = g[7].to(torch.int32)
         leaf = tid >= 0
@@ -379,8 +531,17 @@ def _walk_plain(fetch, n_nodes, rays, node, bt, bi, bu, bv, any_hit,
         qz = tvx * g[5] - tvy * g[4]
         vv = (ldx * qx + ldy * qy + ldz * qz) * invd
         tt = (g[8] * qx + g[9] * qy + g[10] * qz) * invd
-        h = (leaf & ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-             & (tt > tmin) & (tt < best))
+        geo = (leaf & ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+               & (tt > tmin))
+        h = geo & (tt < best)
+        if leaf_row is not None:
+            # the tie rule: read the map only on an exact tie
+            arm = armed[lane]
+            tie = geo & (tt == best) & arm
+            cur = torch.clamp(bi[lane], min=0).to(torch.int64)
+            map_read[cur[tie]] = True
+            h = h | (tie & (g[11].to(torch.int64) < leaf_row[cur]))
+            armed[lane] = arm | h
         # internal: slab test on lo = g0..2, hi = g4..6
         t0x, t1x = (g[0] - lox) * inx[lane], (g[4] - lox) * inx[lane]
         t0y, t1y = (g[1] - loy) * iny[lane], (g[5] - loy) * iny[lane]
@@ -409,7 +570,7 @@ def _walk_plain(fetch, n_nodes, rays, node, bt, bi, bu, bv, any_hit,
         if max_steps:
             go = go & (v_int[lane] + v_leaf[lane] < max_steps)
         lane = lane[go]
-    return (node, bt, bi, bu, bv), (v_int, v_leaf, touched)
+    return (node, bt, bi, bu, bv), (v_int, v_leaf, touched, map_read)
 
 
 def _root_plain(nodes, n_nodes, o, d, t_min, t_max, any_hit, with_visits):
@@ -450,16 +611,41 @@ def _chunk_plain(fetch, n_nodes, rays, state, any_hit, max_steps,
     return out + (visits,) if with_visits else out
 
 
+def _octant_walk(octants, n_nodes, rays):
+    """The walk arguments of closest-hit lanes: each lane's octant table in
+    the flattened (8 N, 12) tables and the tie rule's map."""
+    if octants is None:
+        raise ValueError("closest-hit queries of K3 and K7 walk the octant "
+                         "tables: pass octants (cuda_bvh.octant_tables)")
+    return dict(base=_octant(*rays[3:6]) * n_nodes,
+                n_rows=OCTANTS * n_nodes,
+                leaf_row=octants.leaf_row.to(torch.int64))
+
+
+def _octant_rows(octants):
+    return _node_rows(octants.nodes.reshape(-1, NODE_COLS))
+
+
 def lane_chunk_plain(nodes, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
                      t_in, i_in, u_in, v_in, any_hit=False, max_steps=0,
-                     with_visits=False):
+                     with_visits=False, octants=None):
     """Plain PyTorch version of K3: (t, idx, u, v, node) after at most
     ``max_steps`` visits per lane, and with ``with_visits`` this call's
-    visits (per-lane internal and leaf counts, nodes read)."""
-    return _chunk_plain(_node_rows(nodes), n_nodes,
-                        (ox, oy, oz, dx, dy, dz, t_min),
-                        (node_in, t_in, i_in, u_in, v_in), any_hit, max_steps,
-                        with_visits)
+    visits (per-lane internal and leaf counts, rows read, map entries read).
+    Any-hit lanes walk the canonical ``nodes``; closest-hit lanes walk their
+    octant's table of ``octants`` with the tie rule, and ``node`` is a row of
+    that table."""
+    rays = (ox, oy, oz, dx, dy, dz, t_min)
+    state = (node_in, t_in, i_in, u_in, v_in)
+    if any_hit:
+        return _chunk_plain(_node_rows(nodes), n_nodes, rays, state, any_hit,
+                            max_steps, with_visits)
+    walk = _octant_walk(octants, n_nodes, rays)
+    (node, bt, bi, bu, bv), visits = _walk_plain(
+        _octant_rows(octants), n_nodes, rays, *state, False, max_steps,
+        armed=i_in >= 0, **walk)
+    out = (bt, bi, bu, bv, node)
+    return out + (visits,) if with_visits else out
 
 
 def lane_chunk_hbm_plain(nodes, n_nodes, ox, oy, oz, dx, dy, dz, t_min,
@@ -496,51 +682,146 @@ def _box_plain(lox, loy, loz, hix, hiy, hiz, ox, oy, oz, inx, iny, inz, tmin,
     return tnear, tfar
 
 
-def treelet_rounds_plain(nodes, tab, o, d, t_min, t_max, any_hit=False,
-                         with_visits=False):
-    """Plain PyTorch version of K7: (hit, t, idx, u, v), and with
-    ``with_visits`` the visits (per-lane internal and leaf visit counts,
-    nodes read, per-lane root-box tests). Each round tests every live lane
-    against its pending treelets' root boxes at once, picks the nearest
-    (lowest index on a tie), and walks those treelets' row ranges."""
-    N, R, dev = nodes.shape[0], o.shape[0], o.device
-    rays = tuple(o[:, k] for k in range(3)) + tuple(d[:, k] for k in range(3))
-    inv = [_safe_inv(x) for x in rays[3:]]
-    lo, hi = tab[:, 0:3], tab[:, 3:6]
-    root, skip = tab[:, 6].to(torch.int64), tab[:, 7].to(torch.int64)
-    bt, bi = t_max.clone(), torch.full((R,), -1, dtype=torch.int32, device=dev)
-    bu, bv = torch.zeros(R, device=dev), torch.zeros(R, device=dev)
-    pend = (t_max > t_min)[:, None].repeat(1, tab.shape[0])
-    v_int = torch.zeros(R, dtype=torch.int64, device=dev)
-    v_leaf, v_root = torch.zeros_like(v_int), torch.zeros_like(v_int)
-    touched = torch.zeros(N, dtype=torch.bool, device=dev)
-    lane = torch.nonzero(pend.any(dim=1)).squeeze(1)
-    while lane.numel():
-        live = pend[lane]
-        v_root[lane] += live.sum(dim=1)
-        tn, tf = _box_plain(*lo.T[:, None, :], *hi.T[:, None, :],
-                            *(x[lane, None] for x in rays[:3]),
-                            *(x[lane, None] for x in inv),
-                            t_min[lane, None], bt[lane, None])
-        e = torch.where(live & (tn <= tf), tn, torch.inf)
-        best_e, sel = torch.min(e, dim=1)
-        keep = best_e < torch.inf    # a lane that enters no box retires
-        lane, sel = lane[keep], sel[keep]
-        pend[lane, sel] = False
-        node = torch.full((R,), N, dtype=torch.int32, device=dev)
-        end = torch.zeros(R, dtype=torch.int64, device=dev)
-        node[lane] = root[sel].to(torch.int32)
-        end[lane] = skip[sel]
-        (_, bt, bi, bu, bv), (vi, vl, tc) = _walk_plain(
-            _node_rows(nodes), N, rays + (t_min,), node, bt, bi, bu, bv,
-            any_hit, 0, end=end)
-        v_int += vi
-        v_leaf += vl
-        touched |= tc
+class _TreeletWalks:
+    """What both plain versions of K7 share: the lanes' best hits, their
+    treelet walks (a closest-hit lane over its octant's range with the tie
+    rule armed afresh in each treelet, an any-hit lane over the canonical
+    range) and the visits they make."""
+
+    def __init__(self, nodes, tab, o, d, t_min, t_max, any_hit, octants):
+        N, R, dev = nodes.shape[0], o.shape[0], o.device
+        self.N, self.tab, self.any_hit = N, tab, any_hit
+        self.rays = (tuple(o[:, k] for k in range(3))
+                     + tuple(d[:, k] for k in range(3)) + (t_min,))
+        self.inv = [_safe_inv(x) for x in self.rays[3:6]]
+        self.t_min = t_min
+        self.bt = t_max.clone()
+        self.bi = torch.full((R,), -1, dtype=torch.int32, device=dev)
+        self.bu, self.bv = torch.zeros(R, device=dev), torch.zeros(R, device=dev)
         if any_hit:
-            lane = lane[bi[lane] < 0]
-    out = _hit_result(bt, bi, bu, bv)
-    return out + ((v_int, v_leaf, touched, v_root),) if with_visits else out
+            self.fetch, self.walk = _node_rows(nodes), {}
+            self.col = torch.full((R,), 6, dtype=torch.int64, device=dev)
+        else:
+            self.walk = _octant_walk(octants, N, self.rays)
+            self.fetch = _octant_rows(octants)
+            self.col = 8 + 2 * _octant(*self.rays[3:6])
+        self.v_int = torch.zeros(R, dtype=torch.int64, device=dev)
+        self.v_leaf = torch.zeros_like(self.v_int)
+        self.v_root = torch.zeros_like(self.v_int)
+        self.touched = torch.zeros(self.walk.get("n_rows", N), dtype=torch.bool,
+                                   device=dev)
+        self.map_read = None if any_hit else torch.zeros(
+            octants.leaf_row.shape, dtype=torch.bool, device=dev)
+
+    def boxes(self, lane, best):
+        """Slab tests of ``lane`` against every root box: (tnear, tfar),
+        each (lanes, K)."""
+        lo, hi = self.tab[:, 0:3], self.tab[:, 3:6]
+        return _box_plain(*lo.T[:, None, :], *hi.T[:, None, :],
+                          *(x[lane, None] for x in self.rays[:3]),
+                          *(x[lane, None] for x in self.inv),
+                          self.t_min[lane, None], best[:, None])
+
+    def enter(self, lane, sel):
+        """Walk treelet ``sel`` (per lane) of each lane in ``lane``."""
+        R = self.bt.shape[0]
+        dev = self.bt.device
+        node = torch.full((R,), self.N, dtype=torch.int32, device=dev)
+        end = torch.zeros(R, dtype=torch.int64, device=dev)
+        col = self.col[lane]
+        node[lane] = self.tab[sel, col].to(torch.int32)
+        end[lane] = self.tab[sel, col + 1].to(torch.int64)
+        armed = torch.zeros(R, dtype=torch.bool, device=dev)
+        (_, self.bt, self.bi, self.bu, self.bv), (vi, vl, tc, mr) = _walk_plain(
+            self.fetch, self.N, self.rays, node, self.bt, self.bi, self.bu,
+            self.bv, self.any_hit, 0, end=end, armed=armed, **self.walk)
+        self.v_int += vi
+        self.v_leaf += vl
+        self.touched |= tc
+        if mr is not None:
+            self.map_read |= mr
+
+    def rounds(self, pend, lane):
+        """_treelet_rounds' dense selection: each round every lane in
+        ``lane`` tests its pending treelets' root boxes (``pend`` (R, K),
+        updated in place) against its best hit, walks the nearest (lowest
+        index on a tie) and retires when it enters none."""
+        while lane.numel():
+            live = pend[lane]
+            self.v_root[lane] += live.sum(dim=1)
+            tn, tf = self.boxes(lane, self.bt[lane])
+            e = torch.where(live & (tn <= tf), tn, torch.inf)
+            best_e, sel = torch.min(e, dim=1)
+            keep = best_e < torch.inf    # a lane that enters no box retires
+            lane, sel = lane[keep], sel[keep]
+            pend[lane, sel] = False
+            self.enter(lane, sel)
+            if self.any_hit:
+                lane = lane[self.bi[lane] < 0]
+
+    def result(self, with_visits, extra=()):
+        out = _hit_result(self.bt, self.bi, self.bu, self.bv)
+        visits = (self.v_int, self.v_leaf, self.touched, self.v_root,
+                  self.map_read) + tuple(extra)
+        return out + (visits,) if with_visits else out
+
+
+def treelet_rounds_plain(nodes, tab, o, d, t_min, t_max, any_hit=False,
+                         with_visits=False, octants=None):
+    """Plain PyTorch version of K7 in the JAX kernel's form: (hit, t, idx, u,
+    v), and with ``with_visits`` the visits (per-lane internal and leaf
+    visit counts, rows read, per-lane root-box tests, map entries read).
+    Each round tests every live lane against its pending treelets' root
+    boxes at once, picks the nearest (lowest index on a tie), and walks
+    those treelets' row ranges: closest-hit lanes in their octant's table
+    (``octants``), any-hit lanes in ``nodes``."""
+    w = _TreeletWalks(nodes, tab, o, d, t_min, t_max, any_hit, octants)
+    pend = (t_max > t_min)[:, None].repeat(1, tab.shape[0])
+    w.rounds(pend, torch.nonzero(pend.any(dim=1)).squeeze(1))
+    return w.result(with_visits)
+
+
+def treelet_list_plain(nodes, tab, o, d, t_min, t_max, any_hit=False,
+                       with_visits=False, octants=None,
+                       list_size=TREELET_LIST):
+    """Plain PyTorch version of K7 in the kernel's form: each live lane
+    tests all K root boxes once against its t_max, keeps the entered ones
+    with a finite entry as a list of the ``list_size`` smallest (tnear,
+    index), and walks them in that order until an entry lies beyond its
+    best hit (or, any-hit, until a hit); a lane whose list ran out finishes
+    with ``treelet_rounds_plain``'s rounds over the entered treelets not yet
+    walked. The same treelets in the same order as the dense rounds, so the
+    same result. With ``with_visits`` the visits as ``treelet_rounds_plain``
+    gives them (root-box tests as the kernel makes them) and the number of
+    root boxes each lane enters."""
+    w = _TreeletWalks(nodes, tab, o, d, t_min, t_max, any_hit, octants)
+    R, K = o.shape[0], tab.shape[0]
+    dev = o.device
+    live = t_max > t_min
+    lane = torch.nonzero(live).squeeze(1)
+    tn, tf = w.boxes(lane, t_max[lane])
+    entered = tn <= tf
+    w.v_root[lane] += K
+    n_entered = torch.zeros(R, dtype=torch.int64, device=dev)
+    n_entered[lane] = entered.sum(dim=1)
+    key = torch.where(entered & (tn < torch.inf), tn, torch.inf)
+    order = torch.argsort(key, dim=1, stable=True)[:, :list_size]
+    okey = torch.gather(key, 1, order)
+    pend = torch.zeros((R, K), dtype=torch.bool, device=dev)
+    pend[lane] = entered
+    walking = live.clone()
+    for i in range(min(list_size, K)):
+        at = walking[lane] & (okey[:, i] < torch.inf)
+        beyond = at & (okey[:, i] > w.bt[lane])
+        walking[lane[beyond]] = False    # every later entry is beyond too
+        at &= ~beyond
+        go, sel = lane[at], order[at, i]
+        pend[go, sel] = False
+        w.enter(go, sel)
+        if any_hit:
+            walking[go[w.bi[go] >= 0]] = False
+    w.rounds(pend, torch.nonzero(walking & pend.any(dim=1)).squeeze(1))
+    return w.result(with_visits, (n_entered,))
 
 
 def bvh_traverse_packed_plain(nodes, o, d, t_min, t_max, start=None, end=None,
@@ -700,8 +981,8 @@ def _check_pages(pages, n_nodes, page):
 
 def _launch_chunk(fn_name, plain, wrapper, table, n_nodes, rays, state,
                   any_hit, max_steps, page=None):
-    """A resumable walk over the node-major ``table`` (K3, K6) or, given
-    ``page``, over wide pages of that many nodes (K9)."""
+    """A resumable walk over the canonical node-major ``table`` (K6) or,
+    given ``page``, over wide pages of that many nodes (K9)."""
     dev = table.device
     if page is None:
         _check_nodes(table, n_nodes)
@@ -720,16 +1001,48 @@ def _launch_chunk(fn_name, plain, wrapper, table, n_nodes, rays, state,
         int(any_hit), int(max_steps)), _chunk_outputs(R, dev))
 
 
+def _check_octants(octants, n_nodes, dev):
+    """An ``Octants`` of ``n_nodes``-row tables on ``dev``."""
+    if not isinstance(octants, Octants):
+        raise ValueError("closest-hit queries of K3 and K7 walk the octant "
+                         "tables: pass octants (cuda_bvh.octant_tables)")
+    _check("octants.nodes", octants.nodes, torch.float32,
+           (OCTANTS, n_nodes, NODE_COLS), dev)
+    if dev.type == "cuda" and octants.nodes.data_ptr() % 16:
+        raise ValueError("octants.nodes must be 16-byte aligned (float4 loads)")
+    T = octants.leaf_row.shape[0] if octants.leaf_row.dim() == 1 else -1
+    _check("octants.leaf_row", octants.leaf_row, torch.int32, (T,), dev)
+
+
 def lane_chunk(nodes, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in, t_in,
-               i_in, u_in, v_in, any_hit=False, max_steps=0):
+               i_in, u_in, v_in, any_hit=False, max_steps=0, octants=None):
     """K3: resume each lane's walk from (node_in, t_in, i_in, u_in, v_in) for
     at most ``max_steps`` node visits (0: to the end). Rays come as one (R,)
     float32 array per component; node and idx are int32. ``t_in`` is the
     search bound (the best hit so far, or t_max). Returns the updated
-    (t, idx, u, v, node); a lane is done when node >= n_nodes."""
-    return _launch_chunk("bvh_lane_chunk", lane_chunk_plain, lane_chunk, nodes,
-                         n_nodes, (ox, oy, oz, dx, dy, dz, t_min),
-                         (node_in, t_in, i_in, u_in, v_in), any_hit, max_steps)
+    (t, idx, u, v, node); a lane is done when node >= n_nodes.
+
+    Any-hit lanes walk the canonical table ``nodes``; closest-hit lanes walk
+    the table of their direction's octant in ``octants`` (required for a
+    closest-hit call), so their ``node`` is a row of that table, and keep the
+    canonical walk's result by the tie rule."""
+    dev = _check_nodes(nodes, n_nodes)
+    if not any_hit:
+        _check_octants(octants, n_nodes, dev)
+    rays = (ox, oy, oz, dx, dy, dz, t_min)
+    state = (node_in, t_in, i_in, u_in, v_in)
+    R = _check_chunk_state(rays, state, dev)
+    if max_steps < 0:
+        raise ValueError(f"max_steps {max_steps} < 0")
+    if dev.type == "cpu":
+        return lane_chunk_plain(nodes, n_nodes, *rays, *state, any_hit=any_hit,
+                                max_steps=max_steps, octants=octants)
+    oct_ptrs = (None, None) if any_hit else (octants.nodes.data_ptr(),
+                                             octants.leaf_row.data_ptr())
+    return _launch("bvh_lane_chunk", lane_chunk, dev, (
+        nodes.data_ptr(), *oct_ptrs, n_nodes,
+        *(x.data_ptr() for x in rays + state), R, int(any_hit),
+        int(max_steps)), _chunk_outputs(R, dev))
 
 
 lane_chunk.launches = 0
@@ -760,26 +1073,34 @@ def lane_chunk_w(pages, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in, t_in,
 lane_chunk_w.launches = 0
 
 
-def treelet_rounds(nodes, tab, o, d, t_min, t_max, any_hit=False):
+def treelet_rounds(nodes, tab, o, d, t_min, t_max, any_hit=False,
+                   octants=None):
     """K7: closest hit (or, with ``any_hit``, the first hit found) of rays
-    o, d (R, 3) within (t_min, t_max) (R,), walking one treelet at a time:
-    each round the nearest pending treelet whose root box (``tab``, (K, 8),
-    ``treelet_table``) the ray enters before its best hit, over its rows
-    [root, skip) of the node-major table ``nodes`` (N, 12). Returns (hit,
-    t, idx, u, v) as K4 does; a lane with t_max <= t_min misses."""
+    o, d (R, 3) within (t_min, t_max) (R,), walking one treelet at a time in
+    the order of ``_treelet_rounds``: the nearest root box (``tab``, (K, 24),
+    ``treelet_table``) the ray enters before its best hit, lowest index on a
+    tie. Any-hit lanes walk the treelet's rows [root, skip) of the canonical
+    table ``nodes`` (N, 12); closest-hit lanes walk its range in their
+    octant's table of ``octants`` (required for a closest-hit call) with the
+    tie rule. Returns (hit, t, idx, u, v) as K4 does; a lane with t_max <=
+    t_min misses."""
     dev = nodes.device
     N = _check_table("nodes", nodes, NODE_COLS, dev)
     K = tab.shape[0] if tab.dim() == 2 else 0
     if not 0 < K <= MAX_TREELETS:
         raise ValueError(f"{K} treelets; K7 takes 1..{MAX_TREELETS}")
     _check("tab", tab, torch.float32, (K, TREELET_COLS), dev)
+    if not any_hit:
+        _check_octants(octants, N, dev)
     R = _check_root_rays(o, d, t_min, t_max, dev)
     if dev.type == "cpu":
         return treelet_rounds_plain(nodes, tab, o, d, t_min, t_max,
-                                    any_hit=any_hit)
+                                    any_hit=any_hit, octants=octants)
+    oct_ptrs = (None, None) if any_hit else (octants.nodes.data_ptr(),
+                                             octants.leaf_row.data_ptr())
     return _launch("bvh_treelet_rounds", treelet_rounds, dev, (
-        nodes.data_ptr(), N, tab.data_ptr(), K, o.data_ptr(), d.data_ptr(),
-        t_min.data_ptr(), t_max.data_ptr(), R, int(any_hit)),
+        nodes.data_ptr(), *oct_ptrs, N, tab.data_ptr(), K, o.data_ptr(),
+        d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), R, int(any_hit)),
         _root_outputs(R, dev))
 
 
@@ -865,13 +1186,16 @@ def _resort(chunk, nodes, n_nodes, o, d, t_min, t_max, scene_lo, scene_hi,
 
 def bvh_traverse_lane_resort(nodes, n_nodes, o, d, t_min, t_max, scene_lo,
                              scene_hi, any_hit=False, strip=LSTRIP, rounds=2,
-                             chunk_nit=48):
+                             chunk_nit=48, octants=None):
     """Traversal with mid-traversal re-sorts (pallas_bvh.py:1203): sort the
     rays by ``ray_sort_keys``; ``rounds`` K3 launches of ``chunk_nit * strip``
     node visits, each followed by a re-sort by node pointer; a final
-    unbounded K3 launch; unsort. Returns (hit, t, idx, u, v); the result
-    does not depend on the schedule."""
-    return _resort(lane_chunk, nodes, n_nodes, o, d, t_min, t_max, scene_lo,
+    unbounded K3 launch; unsort. Closest-hit queries need ``octants``.
+    Returns (hit, t, idx, u, v); the result does not depend on the
+    schedule."""
+    def chunk(*args, **kw):
+        return lane_chunk(*args, octants=octants, **kw)
+    return _resort(chunk, nodes, n_nodes, o, d, t_min, t_max, scene_lo,
                    scene_hi, any_hit, strip, rounds, chunk_nit)
 
 
@@ -922,21 +1246,24 @@ def bvh_traverse_lane_resort_w(pages, n_nodes, o, d, t_min, t_max, scene_lo,
 
 
 def bvh_traverse_treelets(nodes, tl_root, tl_skip, tl_lo, tl_hi, o, d, t_min,
-                          t_max, scene_lo, scene_hi, sort=True, any_hit=False):
+                          t_max, scene_lo, scene_hi, sort=True, any_hit=False,
+                          *, octants):
     """Two-level traversal through K7 (pallas_bvh.py:514): with ``sort``,
     the rays are sorted once by ``treelet_sort_keys`` (nearest treelet,
     octant, origin Morton code; dead lanes last), traversed by one K7
     launch and unsorted. ``tl_*`` are the treelets' root rows, skip links
-    and root boxes (``accel.build.treelet_roots``). Returns (hit, t, idx, u,
-    v); the result does not depend on the order."""
-    tab = treelet_table(tl_root, tl_skip, tl_lo, tl_hi)
+    and root boxes (``accel.build.treelet_roots``); ``octants`` the tree's
+    octant tables with their treelet ranges. Returns (hit, t, idx, u, v);
+    the result does not depend on the order."""
+    tab = treelet_table(tl_root, tl_skip, tl_lo, tl_hi, octants.tl_range)
     if not sort:
-        return treelet_rounds(nodes, tab, o, d, t_min, t_max, any_hit=any_hit)
+        return treelet_rounds(nodes, tab, o, d, t_min, t_max, any_hit=any_hit,
+                              octants=octants)
     key = treelet_sort_keys(o, d, t_min, t_max, tl_lo, tl_hi, scene_lo,
                             scene_hi)
     orig = torch.argsort(key, stable=True)
     res = treelet_rounds(nodes, tab, o[orig], d[orig], t_min[orig],
-                         t_max[orig], any_hit=any_hit)
+                         t_max[orig], any_hit=any_hit, octants=octants)
     return tuple(_unsort(orig, *res))
 
 

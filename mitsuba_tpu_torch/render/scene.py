@@ -75,6 +75,10 @@ class Scene(NamedTuple):
     tl_skip: torch.Tensor      # (K,) int32 their skip links (end of the range)
     tl_lo: torch.Tensor        # (K, 3) treelet root boxes
     tl_hi: torch.Tensor        # (K, 3)
+    # the octant tables of the BVH with their treelet ranges, which
+    # closest-hit K3 and K7 walk (ops/cuda_bvh.octant_tables); None without
+    # a BVH
+    octants: Optional[cuda_bvh.Octants]
     aabb_lo: torch.Tensor      # (3,) scene bounds
     aabb_hi: torch.Tensor      # (3,)
     radius: torch.Tensor       # () bounding-sphere radius
@@ -158,7 +162,8 @@ def _bvh_query(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
     query goes to K7, sorted unless presorted, whatever the tree size. Else
     trees above LANE_VMEM_MAX_NODES go to K5 (sorted unless presorted);
     presorted queries to K4 as they come; the others through the resort
-    schedule of K3 launches."""
+    schedule of K3 launches. Closest-hit K3 and K7 walk the scene's octant
+    tables."""
     if BVH_KERNEL not in BVH_KERNELS:
         raise ValueError(f"MTS_BVH_KERNEL={BVH_KERNEL!r}; expected one of "
                          f"{BVH_KERNELS}")
@@ -166,7 +171,7 @@ def _bvh_query(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
         return cuda_bvh.bvh_traverse_treelets(
             scene.nodes, scene.tl_root, scene.tl_skip, scene.tl_lo,
             scene.tl_hi, o, d, t_min, t_max, scene.aabb_lo, scene.aabb_hi,
-            sort=not presorted, any_hit=any_hit)
+            sort=not presorted, any_hit=any_hit, octants=scene.octants)
     N = static.n_bvh_nodes
     args = (scene.nodes, N, o, d, t_min, t_max, scene.aabb_lo, scene.aabb_hi)
     if N > cuda_bvh.LANE_VMEM_MAX_NODES:
@@ -177,7 +182,7 @@ def _bvh_query(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
     rounds, chunk_nit, strip = BVH_RESORT_SHADOW if any_hit else BVH_RESORT
     return cuda_bvh.bvh_traverse_lane_resort(
         *args, any_hit=any_hit, strip=strip, rounds=rounds,
-        chunk_nit=chunk_nit)
+        chunk_nit=chunk_nit, octants=scene.octants)
 
 
 def ray_intersect(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
@@ -507,6 +512,7 @@ class SceneBuilder:
         n_bvh_nodes = 0
         tl_root, tl_skip = np.zeros(1, np.int32), np.ones(1, np.int32)
         tl_lo = tl_hi = np.zeros((1, 3), np.float32)
+        octants = None
         if use_bvh:
             host_bvh = build_bvh(lo, hi)
             nodes = cuda_bvh.pack_nodes(host_bvh, tp0.astype(np.float32),
@@ -516,6 +522,7 @@ class SceneBuilder:
             tl_root = treelet_roots(host_bvh, max_nodes=TREELET_MAX_NODES)
             tl_skip = host_bvh.skip[tl_root].astype(np.int32)
             tl_lo, tl_hi = host_bvh.lo[tl_root], host_bvh.hi[tl_root]
+            octants = cuda_bvh.octant_tables(nodes, tl_root, dev)
         scene_lo, scene_hi = lo.min(axis=0), hi.max(axis=0)
         radius = 0.5 * float(np.linalg.norm(scene_hi - scene_lo)) + 1e-3
 
@@ -532,7 +539,7 @@ class SceneBuilder:
             tri_gn=f32(cat(GN)), tri_mat=i32(cat(MAT)), tri_emitter=i32(tem),
             tri_nee_pdf_area=f32(tri_nee),
             nodes=f32(nodes), tl_root=i32(tl_root), tl_skip=i32(tl_skip),
-            tl_lo=f32(tl_lo), tl_hi=f32(tl_hi),
+            tl_lo=f32(tl_lo), tl_hi=f32(tl_hi), octants=octants,
             aabb_lo=f32(scene_lo), aabb_hi=f32(scene_hi),
             radius=f32(radius),
             materials=bsdf_mod.MaterialTable(

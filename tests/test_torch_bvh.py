@@ -78,8 +78,9 @@ def soup():
     bvh = jbuild.build_bvh(lo, hi, leaf_size=1)
     N = len(bvh.lo)
     pages = jpb.pack_pages(bvh, p0, e1, e2)
+    nodes = cb.pack_nodes(bvh, p0, e1, e2)
     return dict(tris=(p0, e1, e2), bvh=bvh, N=N, pages=pages,
-                nodes=torch.from_numpy(cb.pack_nodes(bvh, p0, e1, e2)),
+                nodes=torch.from_numpy(nodes), octants=cb.octant_tables(nodes),
                 lo=lo.min(0), hi=hi.max(0), rays=_rays(1024, 22))
 
 
@@ -199,7 +200,8 @@ def k3(soup, request):
     out = cb.bvh_traverse_lane_resort(
         soup["nodes"], soup["N"], *_t(o, d, t_min, t_max),
         *_t(soup["lo"].astype(np.float32), soup["hi"].astype(np.float32)),
-        any_hit=any_hit, strip=1, rounds=2, chunk_nit=3)
+        any_hit=any_hit, strip=1, rounds=2, chunk_nit=3,
+        octants=soup["octants"])
     return ref, out
 
 
@@ -210,6 +212,178 @@ def test_k3_plain_matches_pallas(k3, field):
     ref, out = k3
     i = OUT.index(field)
     _compare(out[i].numpy(), ref[i], field)
+
+
+# --- octant tables ----------------------------------------------------------
+
+def _preorder(table):
+    """The rows of a threaded table in the order a depth-first walk from the
+    root reaches them (left child n + 1, right child skip[n + 1]), each with
+    the row after its subtree; raises where the threading is broken."""
+    N = table.shape[0]
+    skip = table[:, 3].astype(np.int64)
+    leaf = table[:, 7] >= 0
+    order, after = [], {}
+
+    def visit(n):
+        order.append(n)
+        if not leaf[n]:
+            r = skip[n + 1]
+            visit(n + 1)
+            assert order[-1] < r and len(order) == r, "left subtree not contiguous"
+            visit(r)
+        after[n] = len(order)
+
+    visit(0)
+    assert order == list(range(N))
+    return np.asarray([after[n] for n in range(N)])
+
+
+@pytest.fixture(scope="module")
+def octant_tables(soup):
+    roots = jbuild.treelet_roots(soup["bvh"], max_nodes=128, max_roots=64)
+    return roots, cb.pack_nodes_octants(soup["nodes"].numpy(), roots)
+
+
+@pytest.mark.parametrize("octant", range(cb.OCTANTS))
+def test_octant_table_threads_the_same_tree_near_child_first(
+        soup, octant_tables, octant):
+    """Table o holds the canonical rows (leaves with their canonical row in
+    column 11), threaded depth first (every subtree contiguous, skip = the
+    row after it), each internal row's near child first by the centre
+    projection on o's signs, the left (lower canonical rows) on a tie; and
+    each treelet's range covers the same rows as its canonical range."""
+    nodes = soup["nodes"].numpy()
+    N = nodes.shape[0]
+    roots, (tables, leaf_row, tl_range) = octant_tables
+    table = tables[octant]
+    leaf = table[:, 7] >= 0
+    canon = table[leaf, 11].astype(np.int64)
+    np.testing.assert_array_equal(leaf_row[table[leaf, 7].astype(np.int64)],
+                                  canon)
+    np.testing.assert_array_equal(np.delete(table[leaf], [3, 11], axis=1),
+                                  np.delete(nodes[canon], [3, 11], axis=1))
+    assert not table[~leaf, 11].any()
+    internal = lambda x: np.delete(x[x[:, 7] < 0], 3, axis=1)  # noqa: E731
+    np.testing.assert_array_equal(np.unique(internal(table), axis=0),
+                                  np.unique(internal(nodes), axis=0))
+    after = _preorder(table)
+    np.testing.assert_array_equal(table[:, 3], after)
+    # near child first: centre projection on the octant's signs, ties to the
+    # subtree of lower canonical leaf rows (the canonical left child)
+    s = cb.octant_signs()[octant]
+    a, b, c = (table[:, k:k + 3].astype(np.float64) for k in (0, 4, 8))
+    proj = np.where(leaf[:, None], a + (b + c) / 3.0, (a + b) / 2.0) @ s
+    low = np.where(leaf, table[:, 11], np.inf)
+    for n in range(N - 1, -1, -1):     # children come after their parent
+        if not leaf[n]:
+            low[n] = min(low[n + 1], low[after[n + 1]])
+    for n in np.nonzero(~leaf)[0]:
+        near, far = n + 1, after[n + 1]
+        assert proj[near] < proj[far] or (proj[near] == proj[far]
+                                          and low[near] < low[far])
+    # treelet ranges: the same rows as the canonical subtree, contiguous
+    for k, r in enumerate(roots):
+        start, end = tl_range[octant, k]
+        assert end - start == soup["bvh"].skip[r] - r == after[start] - start
+        rows = table[start:end]
+        ref = nodes[r:soup["bvh"].skip[r]]
+        np.testing.assert_array_equal(
+            np.unique(np.delete(rows, [3, 11], axis=1), axis=0),
+            np.unique(np.delete(ref, [3, 11], axis=1), axis=0))
+
+
+def test_octant_tables_from_the_bridge_equal_the_builders(soup):
+    """The bridge rebuilds the canonical table from the JAX pages; the
+    octant tables depend on nothing else, so both routes give equal ones."""
+    roots = jbuild.treelet_roots(soup["bvh"], max_nodes=128, max_roots=64)
+    out = cb.pack_nodes_octants(bridge.nodes_from_pages(soup["pages"],
+                                                        soup["N"]), roots)
+    ref = cb.pack_nodes_octants(soup["nodes"].numpy(), roots)
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+def _tie_grid():
+    """A tie-heavy mesh of 600 triangles (the soup's count, so the same
+    Pallas compile serves it): two overlapping planar grids of 15 x 10
+    quads of side 1/8 at z = 0 and z = 1/2, split along alternating
+    diagonals; and 1,024 rays aimed at their vertices and edge midpoints
+    along dyadic directions of all eight octants. Every coordinate has a
+    few bits, so each ray hits the triangles around its target at exactly
+    the same t (up to six at a vertex, two on an edge)."""
+    h = 1 / 8
+    tris = []
+    for z, x0, y0 in ((0.0, 0.0, 0.0), (0.5, 0.5, 0.25)):
+        for i in range(15):
+            for j in range(10):
+                a = np.array([x0 + i * h, y0 + j * h, z])
+                b, c, d = a + [h, 0, 0], a + [h, h, 0], a + [0, h, 0]
+                tris += ([(a, b, c), (a, c, d)] if (i + j) % 2
+                         else [(a, b, d), (b, c, d)])
+    t = np.asarray(tris)
+    p0, e1, e2 = (x.astype(np.float32) for x in (t[:, 0], t[:, 1] - t[:, 0],
+                                                 t[:, 2] - t[:, 0]))
+    rs = np.random.default_rng(31)
+    R = 1024
+    layer = rs.integers(0, 2, R)
+    target = np.stack([(rs.integers(0, 31, R) / 16 + 0.5 * layer),
+                       (rs.integers(0, 21, R) / 16 + 0.25 * layer),
+                       0.5 * layer], axis=1)
+    d = np.stack([rs.choice([-1 / 4, -1 / 8, 0.0, 1 / 8, 1 / 4], R),
+                  rs.choice([-1 / 4, -1 / 16, 0.0, 1 / 16, 1 / 4], R),
+                  rs.choice([-1.0, 1.0], R)], axis=1)
+    o = (target - 2 * d).astype(np.float32)
+    return (p0, e1, e2), (o, d.astype(np.float32))
+
+
+@pytest.fixture(scope="module")
+def tie_grid():
+    """The grid's tree and octant tables, and three closest-hit queries on
+    it: the port's resort query over the octant tables (K3's plain version,
+    mid-walk resumes), the Pallas resort query in interpret mode (the
+    soup's compile: rounds=2, chunk_nit=3, strip=1) and the XLA walk."""
+    (p0, e1, e2), (o, d) = _tie_grid()
+    lo, hi = jbuild.triangle_aabbs(p0, p0 + e1, p0 + e2)
+    bvh = jbuild.build_bvh(lo, hi, leaf_size=1)
+    N = len(bvh.lo)
+    nodes = cb.pack_nodes(bvh, p0, e1, e2)
+    R = len(o)
+    t_min, t_max = np.zeros(R, np.float32), np.full(R, np.inf, np.float32)
+    bounds = (lo.min(0), hi.max(0))
+    ref = jpb.bvh_traverse_lane_resort(
+        jnp.asarray(jpb.pack_pages(bvh, p0, e1, e2)), N,
+        *(jnp.asarray(x) for x in (o, d, t_min, t_max, *bounds)),
+        strip=1, rounds=2, chunk_nit=3, interpret=True)
+    xla = jax.jit(bvh_closest_hit)(DeviceBVH.from_host(bvh, p0, e1, e2),
+                                   *(jnp.asarray(x) for x in (o, d, t_min,
+                                                              t_max)))
+    octants = cb.octant_tables(nodes)
+    args = (torch.from_numpy(nodes), N, *_t(o, d, t_min, t_max, *bounds))
+    out = cb.bvh_traverse_lane_resort(*args, strip=1, rounds=2, chunk_nit=3,
+                                      octants=octants)
+    # the octant walk without the tie rule: no leaf row is below -1
+    no_tie = octants._replace(leaf_row=torch.full_like(octants.leaf_row, -1))
+    first = cb.bvh_traverse_lane_resort(*args, strip=1, rounds=2,
+                                        chunk_nit=3, octants=no_tie)
+    return dict(ref=[np.asarray(x) for x in ref],
+                xla=[np.asarray(x) for x in xla], out=out, first=first)
+
+
+@pytest.mark.parametrize("field", OUT)
+def test_k3_octant_walk_keeps_the_canonical_tie_break(tie_grid, field):
+    """On exact ties the octant walk's result is the JAX kernel's and the
+    XLA walk's (the first of the tied triangles in canonical order), bit for
+    bit, idx included; without the tie rule it would not be."""
+    i = OUT.index(field)
+    out = tie_grid["out"][i].numpy()
+    np.testing.assert_array_equal(out, tie_grid["ref"][i], err_msg=field)
+    np.testing.assert_array_equal(out, tie_grid["xla"][i], err_msg=field)
+    if field == "hit":
+        assert out.mean() > 0.9
+    if field == "idx":
+        assert (tie_grid["first"][2].numpy() != out).sum() > 20
 
 
 # --- K5 and K6 against the XLA walk ---------------------------------------
@@ -292,7 +466,8 @@ def unbounded(soup, request):
     any_hit = request.param
     nodes, N = soup["nodes"], soup["N"]
     rays, state = _chunk_args(soup, 256)
-    full = cb.lane_chunk(nodes, N, *rays, *state, any_hit=any_hit)
+    full = cb.lane_chunk(nodes, N, *rays, *state, any_hit=any_hit,
+                         octants=soup["octants"])
     o, d, t_min, t_max = _t(*(x[:256] for x in soup["rays"]))
     ref = cb.bvh_traverse_lane(nodes, N, o, d, t_min, t_max, *_bounds(soup),
                                sort=False, any_hit=any_hit)
@@ -309,7 +484,8 @@ def test_budgeted_walk_equals_unbounded(soup, unbounded, budget):
     launches = 0
     while bool((state[0] < N).any()):
         t, i, u, v, node = cb.lane_chunk(nodes, N, *rays, *state,
-                                         any_hit=any_hit, max_steps=budget)
+                                         any_hit=any_hit, max_steps=budget,
+                                         octants=soup["octants"])
         state = (node, t, i, u, v)
         launches += 1
         assert launches < 10_000
@@ -319,7 +495,8 @@ def test_budgeted_walk_equals_unbounded(soup, unbounded, budget):
     o, d, t_min, t_max = _t(*(x[:256] for x in soup["rays"]))
     res = cb.bvh_traverse_lane_resort(nodes, N, o, d, t_min, t_max,
                                       *_bounds(soup), any_hit=any_hit,
-                                      rounds=3, chunk_nit=budget, strip=1)
+                                      rounds=3, chunk_nit=budget, strip=1,
+                                      octants=soup["octants"])
     for a, b in zip(res, ref):
         assert torch.equal(a, b)
 
@@ -329,8 +506,9 @@ def test_visit_counts_add_up(soup):
     the nodes read are marked."""
     rays, state = _chunk_args(soup)
     nodes, N = soup["nodes"], soup["N"]
-    *_, node, (v_int, v_leaf, touched) = cb.lane_chunk_plain(
-        nodes, N, *rays, *state, max_steps=5, with_visits=True)
+    *_, node, (v_int, v_leaf, touched, _) = cb.lane_chunk_plain(
+        nodes, N, *rays, *state, max_steps=5, with_visits=True,
+        octants=soup["octants"])
     live = state[0] < N
     assert int((v_int + v_leaf)[~live].sum()) == 0
     assert int((v_int + v_leaf).max()) == 5
@@ -348,7 +526,8 @@ def test_cpu_calls_run_plain_and_count_no_launch(soup):
     before = [w.launches for w in wrappers]
     a = cb.bvh_traverse_lane_packed(soup["nodes"], soup["N"], o, d, t_min, t_max)
     b = cb.lane_hbm(soup["nodes"], soup["N"], o, d, t_min, t_max)
-    c = cb.lane_chunk(soup["nodes"], soup["N"], *rays, *state)
+    c = cb.lane_chunk(soup["nodes"], soup["N"], *rays, *state,
+                      octants=soup["octants"])
     e = cb.lane_chunk_hbm(soup["nodes"], soup["N"], *rays, *state)
     assert [w.launches for w in wrappers] == before
     for x, y in zip(a, b):
@@ -384,7 +563,8 @@ def test_wrappers_check_inputs_on_the_cpu_too(soup, bad, error):
         chunk["max_steps"] = -1
     with pytest.raises(error):
         if bad in ("idx_dtype", "max_steps"):
-            cb.lane_chunk(nodes, N, *rays, node, t, i, u, v, **chunk)
+            cb.lane_chunk(nodes, N, *rays, node, t, i, u, v,
+                          octants=soup["octants"], **chunk)
         else:
             cb.bvh_traverse_lane_packed(**root)
 

@@ -45,6 +45,7 @@ from mitsuba_tpu_torch.render import scene as tscene
 from mitsuba_tpu_torch.render import sensor as tsensor
 from mitsuba_tpu_torch.render import shapes as tshapes
 from mitsuba_tpu_torch.render.integrators import common as tcommon
+from test_torch_bvh import _tie_grid
 
 TOL = {"t": dict(rtol=1e-5, atol=1e-6), "u": dict(rtol=1e-5, atol=1e-5),
        "v": dict(rtol=1e-5, atol=1e-5)}
@@ -93,9 +94,11 @@ def soup():
     bvh4 = jbuild.build_bvh(lo, hi, leaf_size=4)
     tl = (roots, bvh.skip[roots].astype(np.int32), bvh.lo[roots],
           bvh.hi[roots])
+    nodes = cb.pack_nodes(bvh, p0, e1, e2)
+    octants = cb.octant_tables(nodes, roots)
     return dict(
         tris=(p0, e1, e2), box=(lo, hi), bvh=bvh, N=len(bvh.lo), tl=tl,
-        nodes=torch.from_numpy(cb.pack_nodes(bvh, p0, e1, e2)),
+        nodes=torch.from_numpy(nodes), octants=octants,
         slim=jpb.pack_nodes_slim(bvh, p0, e1, e2),
         bvh4=bvh4, fat=torch.from_numpy(cb.pack_nodes_fat(bvh4, p0, e1, e2)),
         pages_w=torch.from_numpy(cb.pack_pages_w(bvh, p0, e1, e2)),
@@ -193,7 +196,7 @@ def k7(soup, request):
         interpret=True, slim=True, strip=4)
     out = cb.bvh_traverse_treelets(soup["nodes"], *_t(*soup["tl"]),
                                    *_t(o, d, t_min, t_max, *soup["bounds"]),
-                                   any_hit=any_hit)
+                                   any_hit=any_hit, octants=soup["octants"])
     return any_hit, ref, out
 
 
@@ -222,7 +225,7 @@ def test_k7_closest_t_equals_k4(soup, sort):
                                       t_max)
     out = cb.bvh_traverse_treelets(soup["nodes"], *_t(*soup["tl"]), o, d,
                                    t_min, t_max, *_t(*soup["bounds"]),
-                                   sort=sort)
+                                   sort=sort, octants=soup["octants"])
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
     differ = out[2] != ref[2]
     assert int(differ.sum()) <= 2
@@ -245,10 +248,73 @@ def test_k7_edge_cases(soup):
     d = np.asarray([[0, 0, -1], [0, 0, -1], [1, 0, 0], [0, 0, -1]], np.float32)
     t_min = np.asarray([0, 0, 0, 5], np.float32)
     t_max = np.asarray([np.inf, 2.0, np.inf, 1.0], np.float32)
-    hit, t, idx, _, _ = cb.treelet_rounds(soup["nodes"], cb.treelet_table(*tl),
-                                          *_t(o, d, t_min, t_max))
+    tl_range = cb.pack_nodes_octants(soup["nodes"].numpy(), [leaf])[2]
+    tab = cb.treelet_table(*tl, torch.from_numpy(tl_range))
+    hit, t, idx, _, _ = cb.treelet_rounds(soup["nodes"], tab,
+                                          *_t(o, d, t_min, t_max),
+                                          octants=soup["octants"])
     assert hit.tolist() == [True, False, False, False]
     assert int(idx[0]) == tri and abs(float(t[0]) - 3.0) < 1e-4
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize("list_size", [1, 2, cb.TREELET_LIST])
+def test_k7_entry_list_equals_the_dense_rounds(soup, list_size, any_hit):
+    """The kernel's selection (all root boxes tested once, the nearest
+    ``list_size`` entered ones walked in (entry, index) order, then the
+    dense rounds over the rest) walks the same treelets in the same order as
+    _treelet_rounds' rounds: the same result and visits bit for bit. Lists
+    of 1 and 2 overflow; a lane that does not overflow tests each root box
+    once."""
+    o, d, t_min, t_max = _t(*soup["rays"])
+    tab = cb.treelet_table(*_t(*soup["tl"]), soup["octants"].tl_range)
+    kw = dict(any_hit=any_hit, octants=soup["octants"], with_visits=True)
+    ref = cb.treelet_rounds_plain(soup["nodes"], tab, o, d, t_min, t_max, **kw)
+    out = cb.treelet_list_plain(soup["nodes"], tab, o, d, t_min, t_max,
+                                list_size=list_size, **kw)
+    for a, b in zip(out[:5] + out[5][:3], ref[:5] + ref[5][:3]):
+        assert torch.equal(a, b)
+    entered, live = out[5][5], t_max > t_min
+    overflow = entered > list_size
+    assert bool(overflow.any()) == (list_size < cb.TREELET_LIST)
+    assert bool((out[5][3][live & ~overflow] == tab.shape[0]).all())
+
+
+@pytest.fixture(scope="module")
+def k7_tie_grid():
+    """test_torch_bvh's tie-heavy grid through the treelet query: the port's
+    (K7's plain version over the octant tables) and the Pallas kernel in
+    interpret mode (the k7 fixture's compile: 8 treelets of the same row
+    count)."""
+    (p0, e1, e2), (o, d) = _tie_grid()
+    lo, hi = jbuild.triangle_aabbs(p0, p0 + e1, p0 + e2)
+    bvh = jbuild.build_bvh(lo, hi, leaf_size=1)
+    roots = jbuild.treelet_roots(bvh, max_nodes=256, max_roots=64)
+    tl = (roots, bvh.skip[roots].astype(np.int32), bvh.lo[roots],
+          bvh.hi[roots])
+    R = len(o)
+    rays = (o, d, np.full(R, 1e-4, np.float32), np.full(R, np.inf, np.float32),
+            lo.min(0), hi.max(0))
+    ref = jpb.bvh_traverse_treelets(
+        jnp.asarray(jpb.pack_nodes_slim(bvh, p0, e1, e2)), *_j(*tl),
+        *_j(*rays), interpret=True, slim=True, strip=4)
+    nodes = cb.pack_nodes(bvh, p0, e1, e2)
+    out = cb.bvh_traverse_treelets(torch.from_numpy(nodes), *_t(*tl),
+                                   *_t(*rays),
+                                   octants=cb.octant_tables(nodes, roots))
+    return len(roots), ref, out
+
+
+@pytest.mark.parametrize("field", OUT)
+def test_k7_octant_walks_keep_the_jax_tie_break(k7_tie_grid, field):
+    """On exact ties K7's octant walks return the JAX rounds' triangle: the
+    lowest canonical row within a treelet, the earlier treelet's across
+    treelets."""
+    K, ref, out = k7_tie_grid
+    i = OUT.index(field)
+    assert K > 1
+    np.testing.assert_array_equal(out[i].numpy(), np.asarray(ref[i]),
+                                  err_msg=field)
 
 
 # --- K8 ----------------------------------------------------------------------
@@ -367,7 +433,8 @@ def test_k9_plain_equals_k3(soup, any_hit):
              torch.full((R,), -1, dtype=torch.int32), torch.zeros(R),
              torch.zeros(R))
     full = cb.lane_chunk_w(soup["pages_w"], N, *rays, *state, any_hit=any_hit)
-    k3 = cb.lane_chunk(soup["nodes"], N, *rays, *state, any_hit=any_hit)
+    k3 = cb.lane_chunk(soup["nodes"], N, *rays, *state, any_hit=any_hit,
+                       octants=soup["octants"])
     for a, b in zip(full, k3):
         assert torch.equal(a, b)
     t, i, u, v, node = cb.lane_chunk_w(soup["pages_w"], N, *rays, *state,
@@ -385,8 +452,9 @@ def test_cpu_calls_run_plain_and_count_no_launch(soup):
     o, d, t_min, t_max = _t(*(x[:16] for x in soup["rays"]))
     wrappers = (cb.treelet_rounds, cb.bvh_traverse_packed, cb.lane_chunk_w)
     before = [w.launches for w in wrappers]
-    tab = cb.treelet_table(*_t(*soup["tl"]))
-    hit = cb.treelet_rounds(soup["nodes"], tab, o, d, t_min, t_max)[0]
+    tab = cb.treelet_table(*_t(*soup["tl"]), soup["octants"].tl_range)
+    hit = cb.treelet_rounds(soup["nodes"], tab, o, d, t_min, t_max,
+                            octants=soup["octants"])[0]
     cb.bvh_traverse_packed(soup["fat"], o, d, t_min, t_max)
     cb.bvh_traverse_lane_resort_w(soup["pages_w"], soup["N"], o, d, t_min,
                                   t_max, *_t(*soup["bounds"]), rounds=0)
@@ -398,7 +466,7 @@ def test_cpu_calls_run_plain_and_count_no_launch(soup):
                                  "pages_short"])
 def test_wrappers_check_inputs_on_the_cpu_too(soup, bad):
     o, d, t_min, t_max = _t(*(x[:64] for x in soup["rays"]))
-    tab = cb.treelet_table(*_t(*soup["tl"]))
+    tab = cb.treelet_table(*_t(*soup["tl"]), soup["octants"].tl_range)
     start = torch.zeros(64, dtype=torch.int32)
     rays = tuple(o[:, k].contiguous() for k in range(3)) + tuple(
         d[:, k].contiguous() for k in range(3)) + (t_min,)
@@ -407,9 +475,11 @@ def test_wrappers_check_inputs_on_the_cpu_too(soup, bad):
              torch.zeros(64))
     calls = {
         "tab_rows": lambda: cb.treelet_rounds(
-            soup["nodes"], tab.repeat(cb.MAX_TREELETS, 1), o, d, t_min, t_max),
+            soup["nodes"], tab.repeat(cb.MAX_TREELETS, 1), o, d, t_min, t_max,
+            octants=soup["octants"]),
         "tab_cols": lambda: cb.treelet_rounds(soup["nodes"], tab[:, :7],
-                                              o, d, t_min, t_max),
+                                              o, d, t_min, t_max,
+                                              octants=soup["octants"]),
         "fat_cols": lambda: cb.bvh_traverse_packed(soup["nodes"], o, d, t_min,
                                                    t_max),
         "start_only": lambda: cb.bvh_traverse_packed(soup["fat"], o, d, t_min,
