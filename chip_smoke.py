@@ -8,10 +8,17 @@ Phases, each of which raises on failure (no phase is skipped):
   2. build every CUDA source of the port with nvcc (sm_90a), all at once;
   3. brute-force kernels: hold K1 (brute_force_interaction) and K2
      (brute_force_closest_hit) against their plain PyTorch versions on the
-     card -- on the 262,144 camera rays of the 512x512 Cornell view (the
-     render's shapes) and on 262,144 random rays against a random
-     4096-triangle soup (the kernels' full contract, which exercises the
-     shared-memory tiling) -- and time kernel and plain version;
+     card, bit for bit, on the 262,144 camera rays of the 512x512 Cornell
+     view (the render's shapes), on 262,144 random rays against a random
+     4096-triangle soup (the kernels' full contract, several shared-memory
+     tiles), on a grid of exact ties, on 262,147 rays inside the Cornell box
+     of which 70% are dead, and on random soups of 1, 37 and 4,096
+     triangles under 100,003 rays; time the kernels on every case (with
+     the bound and the exact-arithmetic floor) and the plain versions at
+     the render's shapes; print registers, resident blocks and the inner
+     loop's instruction slots per test (cuobjdump -sass); and hold the
+     kernels' fast reciprocal against 1.0f / x on every float where they
+     use it;
   4. BVH kernels on the bunny_x2 scene (bench.py:27-89; bunny.ply is not in
      the repository, so bench.py's fallback heightfield of 79,202 triangles
      stands in for it, as in the JAX bench): time the octant packer; hold K4
@@ -53,7 +60,8 @@ Phases, each of which raises on failure (no phase is skipped):
      512x512, depth 5, 36 spp in passes of 4, seed 0 (bench.py's Cornell
      layout), with every launch count set to 0 just before and read just
      after; checks 180 launches of K1 and of K2 and the image mean against
-     the JAX package's value;
+     the JAX package's value; then the same render once more, counting the
+     live lanes (t_max > t_min) of each K1 and K2 launch;
  10. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
      2, seed 0 (bench.py:289-293); checks 10 launches of K4 and 300 of K3
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
@@ -71,8 +79,8 @@ Phases, each of which raises on failure (no phase is skipped):
      treelet and lane-resort kernels report the same hit rate on each batch
      and that K7 and K3 launched as the utility drives them;
  13. profile: one render pass of each scene (the bunny in both BVH modes)
-     under torch.profiler, printing the device's busy share of the wall time
-     and the kernels that take it.
+     under torch.profiler, printing the device's busy share of the wall time,
+     the kernels that take it and each port kernel's render mean per launch.
 
 The second-to-last line of output is the kernels' JSON record, the last
 {"ok": true, "device": {...}}. Without CUDA the script exits nonzero before
@@ -83,10 +91,13 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -136,6 +147,15 @@ K2_OUT_BYTES = 17                 # hit, t, idx, u, v
 K1_OUT_BYTES = 17 + 12 + 12 + 8 + 12  # + n_sh, gn, uv, mat/em/nee
 K2_TRI_BYTES = 36                 # p0, e1, e2
 K1_TRI_BYTES = 120                # + n0 n1 n2 gn (36), uv0-2 (24), mat em nee
+# fp32 without FMA contraction issues at half the fp32 peak: the floor of a
+# kernel that rounds each of a test's 46 operations as the plain version does
+PEAK_FP32_NO_FMA = PEAK_FP32 / 2
+LANES_PER_SM = 128                # fp32 lanes: 4 schedulers x 32
+# the brute-force kernels' odd-size cases: not a multiple of any block's
+# ray slots; the dead-heavy case's share of dead lanes
+ODD_R = W * H + 3
+ODD_SOUP_R = 100_003
+DEAD_SHARE = 0.7
 REPO_PATHS = {
     "brute_force_interaction": (
         "mitsuba_tpu_torch/csrc/brute_force.cu",
@@ -280,29 +300,119 @@ def camera_rays(sensor, dev):
             torch.full((R,), 1e-4, device=dev), torch.full((R,), torch.inf, device=dev))
 
 
-def random_soup(dev, T=4096, R=W * H, seed=7):
-    """A random soup of T triangles in the unit cube with full per-triangle
-    records, and R rays from around it (numpy, fixed seed)."""
-    rs = np.random.default_rng(seed)
-    f32 = np.float32
-    p0 = rs.uniform(0, 1, (T, 3)).astype(f32)
-    e1 = rs.normal(scale=0.05, size=(T, 3)).astype(f32)
-    e2 = rs.normal(scale=0.05, size=(T, 3)).astype(f32)
+def _records(p0, e1, e2, rs):
+    """K1's 13 triangle arrays: p0, e1, e2 and random normals, uvs, ids and
+    NEE pdfs drawn from ``rs`` (numpy)."""
+    T, f32 = len(p0), np.float32
     n = [rs.normal(size=(T, 3)).astype(f32) for _ in range(4)]
     uvs = [rs.random((T, 2)).astype(f32) for _ in range(3)]
     mat = rs.integers(0, 4, T).astype(np.int32)
     em = rs.integers(-1, 2, T).astype(np.int32)
     nee = rs.random(T).astype(f32)
+    return (p0, e1, e2, n[0], n[1], n[2], *uvs, n[3], mat, em, nee)
+
+
+def _on(dev, tris, rays):
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    return tuple(t(x) for x in tris), tuple(t(x) for x in rays)
+
+
+def _kill(rs, t_min, t_max, share):
+    """Inactive lanes as the integrator sends them (t_max = t_min), each
+    lane with probability ``share``, independently, as roulette and escape
+    leave them."""
+    dead = rs.random(len(t_max)) < share
+    t_max[dead] = t_min[dead]
+
+
+def random_soup(dev, T=4096, R=W * H, seed=7, dead=0.1, huge=0):
+    """A random soup of T triangles in the unit cube with full per-triangle
+    records, and R rays from around it (numpy, fixed seed); the edges of
+    the first ``huge`` triangles scaled by 2^67."""
+    rs = np.random.default_rng(seed)
+    f32 = np.float32
+    p0 = rs.uniform(0, 1, (T, 3)).astype(f32)
+    e1 = rs.normal(scale=0.05, size=(T, 3)).astype(f32)
+    e2 = rs.normal(scale=0.05, size=(T, 3)).astype(f32)
+    e1[:huge] *= f32(2.0 ** 67)
+    e2[:huge] *= f32(2.0 ** 67)
+    tris = _records(p0, e1, e2, rs)
     o = rs.uniform(-0.5, 1.5, (R, 3)).astype(f32)
     d = rs.normal(size=(R, 3))
     d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(f32)
     t_min = np.full(R, 1e-4, f32)
     t_max = np.full(R, np.inf, f32)
-    dead = rs.random(R) < 0.1  # inactive lanes, as the integrator sends them
-    t_max[dead] = t_min[dead]
-    tris = (p0, e1, e2, n[0], n[1], n[2], *uvs, n[3], mat, em, nee)
-    t = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
-    return tuple(t(x) for x in tris), tuple(t(x) for x in (o, d, t_min, t_max))
+    _kill(rs, t_min, t_max, dead)
+    return _on(dev, tris, (o, d, t_min, t_max))
+
+
+def tie_grid(dev):
+    """tests/test_torch_bvh.py:_tie_grid, copied (the script imports no
+    test): 600 triangles of two planar grids of quads of side 1/8, split
+    along alternating diagonals, and 1,024 rays aimed at their vertices and
+    edge midpoints along dyadic directions, so each ray hits up to six
+    triangles at exactly the same t; random K1 records (seed 32)."""
+    h = 1 / 8
+    tris = []
+    for z, x0, y0 in ((0.0, 0.0, 0.0), (0.5, 0.5, 0.25)):
+        for i in range(15):
+            for j in range(10):
+                a = np.array([x0 + i * h, y0 + j * h, z])
+                b, c, d = a + [h, 0, 0], a + [h, h, 0], a + [0, h, 0]
+                tris += ([(a, b, c), (a, c, d)] if (i + j) % 2
+                         else [(a, b, d), (b, c, d)])
+    t = np.asarray(tris)
+    p0, e1, e2 = (x.astype(np.float32) for x in (t[:, 0], t[:, 1] - t[:, 0],
+                                                 t[:, 2] - t[:, 0]))
+    rs = np.random.default_rng(31)
+    R = 1024
+    layer = rs.integers(0, 2, R)
+    target = np.stack([(rs.integers(0, 31, R) / 16 + 0.5 * layer),
+                       (rs.integers(0, 21, R) / 16 + 0.25 * layer),
+                       0.5 * layer], axis=1)
+    d = np.stack([rs.choice([-1 / 4, -1 / 8, 0.0, 1 / 8, 1 / 4], R),
+                  rs.choice([-1 / 4, -1 / 16, 0.0, 1 / 16, 1 / 4], R),
+                  rs.choice([-1.0, 1.0], R)], axis=1)
+    o = (target - 2 * d).astype(np.float32)
+    rays = (o, d.astype(np.float32), np.zeros(R, np.float32),
+            np.full(R, np.inf, np.float32))
+    return _on(dev, _records(p0, e1, e2, np.random.default_rng(32)), rays)
+
+
+def dead_heavy(dev, scene, R=ODD_R, seed=41):
+    """The Cornell box's 36 triangles and R rays from random points inside
+    the box in random directions (the render's later bounces), DEAD_SHARE of
+    them dead, scattered lane by lane."""
+    rs = np.random.default_rng(seed)
+    f32 = np.float32
+    o = rs.uniform(0.02, 0.98, (R, 3)).astype(f32)
+    d = rs.normal(size=(R, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(f32)
+    t_min = np.full(R, 1e-4, f32)
+    t_max = np.full(R, np.inf, f32)
+    _kill(rs, t_min, t_max, DEAD_SHARE)
+    rays = tuple(torch.from_numpy(x).to(dev) for x in (o, d, t_min, t_max))
+    return tri_args(scene), rays
+
+
+def bf_cases(dev):
+    """{case: (K1's triangle arguments, rays)} of the kernel phase: the
+    render's shapes (cornell_camera), the contract's 4,096 triangles,
+    exact ties, a dead-heavy batch of an odd size, and T = 1, 37 and 4,096
+    on an odd number of rays."""
+    scene, _, sensor = cornell(dev)
+    cases = {
+        "cornell_camera": (tri_args(scene), camera_rays(sensor, dev)),
+        "soup4096": random_soup(dev),
+        "tie_grid": tie_grid(dev),
+        "dead_heavy": dead_heavy(dev, scene),
+    }
+    for T in (1, 37, 4096):
+        # at 37, four triangles 2^67 times larger: determinants past 2^126,
+        # which take the exact division
+        cases[f"odd_T{T}"] = random_soup(dev, T=T, R=ODD_SOUP_R, seed=50 + T,
+                                         huge=4 if T == 37 else 0)
+    return cases
 
 
 def compare(name, out, ref, n_exact, ulp_limit=1):
@@ -343,56 +453,195 @@ def bound_ms(kernel, R, T, n_hit):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def floor_ms(R, T):
+    """The exact-arithmetic floor: R x T tests of 46 fp32 operations at the
+    rate without FMA contraction (half the peak)."""
+    return FLOPS_PER_TEST * R * T / PEAK_FP32_NO_FMA * 1e3
+
+
+def sm_clock_during(fn):
+    """fn() while nvidia-smi reads the SM clock once, 0.2 s in; returns
+    (fn's result, MHz)."""
+    box = {}
+
+    def read():
+        time.sleep(0.2)
+        box["mhz"] = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True,
+            timeout=60).stdout.split()[0])
+
+    th = threading.Thread(target=read)
+    th.start()
+    out = fn()
+    th.join()
+    return out, box["mhz"]
+
+
+def loop_slots(kernel):
+    """Instructions per ray-triangle test in ``kernel``'s inner loop, read
+    from ``cuobjdump -sass`` of the built library. The inner loop is the
+    smallest loop (a predicated backward branch and its body) that holds
+    the most MUFU.RCP on its common path (each test issues one); code that
+    a forward branch in it jumps over and that CALLs out (the reciprocal's
+    slow path) is left out. Returns (body instructions, slow-path
+    instructions, tests per pass, slots per test)."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path("brute_force"))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    body = next(f for f in text.split("Function : ")[1:]
+                if kernel in f.split("\n", 1)[0])
+    ins, labels, pending = [], {}, []
+    for line in body.splitlines():
+        m_lab = re.match(r"^\s*(\.L_x_\d+):", line)
+        if m_lab:
+            pending.append(m_lab.group(1))
+            continue
+        m_ins = re.match(r"^\s*/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;", line)
+        if m_ins:
+            addr = int(m_ins.group(1), 16)
+            for lab in pending:
+                labels[lab] = addr
+            pending = []
+            ins.append((addr, m_ins.group(2)))
+
+    def target(op):
+        m_bra = re.search(r"\bBRA\b.*?(\.L_x_\d+|0x[0-9a-f]+)", op)
+        if not m_bra:
+            return None
+        tgt = m_bra.group(1)
+        return labels.get(tgt) if tgt.startswith(".L") else int(tgt, 16)
+
+    best = None
+    for addr, op in ins:
+        # a loop closes with a predicated backward branch; the reciprocal's
+        # slow-path subroutine (RET) and the kernel's exits are no loops
+        tgt = target(op)
+        if not op.startswith("@") or tgt is None or tgt > addr:
+            continue
+        loop = [(a, o) for a, o in ins if tgt <= a <= addr]
+        if any("RET" in o or "EXIT" in o for _, o in loop):
+            continue
+        # code inside the loop that a forward branch jumps over and that
+        # CALLs out: the reciprocal's slow path, off the common path
+        stub = set()
+        for a_br, o_br in loop:
+            t_br = target(o_br)
+            if t_br is not None and a_br < t_br <= addr:
+                skipped = [(a, o) for a, o in loop if a_br < a < t_br]
+                if any("CALL" in o for _, o in skipped):
+                    stub.update(a for a, _ in skipped)
+        rcp = sum("MUFU.RCP" in o for a, o in loop if a not in stub)
+        key = (-rcp, len(loop))
+        if rcp and (best is None or key < best[0]):
+            best = (key, loop, len(stub), rcp)
+    _, loop, stub, rcp = best
+    n_body = len(loop)
+    return n_body, stub, rcp, (n_body - stub) / rcp
+
+
 def kernel_phase(dev):
-    """Hold each kernel against its plain version on two inputs; time both
-    at the render's shapes. Returns {name: record} for the JSON line."""
-    scene, _, sensor = cornell(dev)
-    rays = camera_rays(sensor, dev)
-    soup_tris, soup_rays = random_soup(dev)
-    cases = {
-        "cornell_camera": (tri_args(scene), rays),
-        "soup4096": (soup_tris, soup_rays),
-    }
+    """Hold each brute-force kernel against its plain version, bit for bit,
+    on every case of ``bf_cases``; time both at the render's shapes and the
+    kernel on every case; print registers, occupancy and slots per test.
+    Returns {name: record} for the JSON line."""
+    cases = bf_cases(dev)
     kernels = {
         "brute_force_interaction": (bf.brute_force_interaction,
-                                    bf.brute_force_interaction_plain, True),
+                                    bf.brute_force_interaction_plain, True,
+                                    "interaction_kernel"),
         "brute_force_closest_hit": (bf.brute_force_closest_hit,
-                                    bf.brute_force_closest_hit_plain, False),
+                                    bf.brute_force_closest_hit_plain, False,
+                                    "closest_hit_kernel"),
     }
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bad = bf.reciprocal_mismatches(dev)
+    log(f"reciprocal: the kernels' fast 1/x differs from 1.0f / x on {bad} "
+        f"of the floats with 2^-126 <= |x| < 2^126")
+    if bad:
+        raise AssertionError(f"the kernels' reciprocal is off on {bad} floats")
     records = {}
-    for name, (kern, plain, full) in kernels.items():
-        rec = dict(name=name, route="cuda", source=REPO_PATHS[name][0],
-                   replaces=REPO_PATHS[name][1], max_abs_err=0.0)
+    for name, (kern, plain, full, fn_name) in kernels.items():
+        rec = _new_record(name)
+        for T in (36, 4096):
+            regs, blocks, threads = bf.kernel_occupancy(name, T)
+            log(f"occupancy {name} at T={T}: {regs} registers, {blocks} "
+                f"blocks of {threads} per SM")
+        n_body, stub, rcp, slots = loop_slots(fn_name)
+        log(f"sass {name}: inner loop {n_body} instructions, {stub} in the "
+            f"reciprocal's slow-path stubs, {rcp} tests per pass: "
+            f"{slots:.2f} slots per test")
         for case, (tris, r) in cases.items():
             args = (tris if full else tris[:3]) + r
+            R, T = r[0].shape[0], tris[0].shape[0]
             out = kern(*args)
             ref = plain(*args)
             torch.cuda.synchronize()
-            err, ulp = compare(f"{name}/{case}", out, ref, n_exact=1)
+            err, ulp = compare(f"{name}/{case}", out, ref, n_exact=1,
+                               ulp_limit=0)
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
-            hit_rate = float(out[0].float().mean())
-            log(f"kernel {name} on {case}: R={r[0].shape[0]} T={tris[0].shape[0]} "
-                f"hit/idx mismatches 0, max |kernel-plain| {err:.3g} "
-                f"({ulp} ulp), hit rate {hit_rate:.4f}")
+            live = int((r[3] > r[2]).sum())
+            reps = 20 if R * T > 10 ** 8 else 400
+            ms, mhz = sm_clock_during(lambda: cuda_ms(lambda: kern(*args),
+                                                      reps=reps))
+            bound, by = bound_ms(name, R, T, int(out[0].sum()))
+            # lane issue slots the card offered per live test in that time
+            offered = (ms * 1e-3 * sms * LANES_PER_SM * mhz * 1e6
+                       / max(live * T, 1))
+            log(f"kernel {name} on {case}: R={R} T={T} live {live} "
+                f"({live / R:.4f}), hit rate {float(out[0].float().mean()):.4f}, "
+                f"hit/idx mismatches 0, max |kernel-plain| {err:.3g} ({ulp} "
+                f"ulp); {ms:.4f} ms at {mhz:.0f} MHz, bound {bound:.5f} ms "
+                f"({by}), exact-arithmetic floor {floor_ms(live, T):.5f} ms; "
+                f"{offered:.1f} lane slots per live test")
             if case == "cornell_camera":
-                # the render's shapes: 262,144 lanes x 36 triangles
-                rec["ms"] = cuda_ms(lambda: kern(*args), reps=50)
+                rec["ms"] = ms
                 rec["plain_ms"] = cuda_ms(lambda: plain(*args), reps=5, warmup=1)
-                rec["bound_ms"], rec["bound_by"] = bound_ms(
-                    name, r[0].shape[0], tris[0].shape[0], int(out[0].sum()))
+                rec["bound_ms"], rec["bound_by"] = bound, by
                 rec["library_ms"] = None  # no single PyTorch call computes it
-            else:
-                soup_ms = cuda_ms(lambda: kern(*args), reps=10)
+            elif case == "soup4096":
                 soup_plain = cuda_ms(lambda: plain(*args), reps=2, warmup=1)
-                soup_bound, soup_by = bound_ms(name, r[0].shape[0],
-                                               tris[0].shape[0], int(out[0].sum()))
-                log(f"kernel {name} on {case}: {soup_ms:.4f} ms, plain "
-                    f"{soup_plain:.4f} ms, bound {soup_bound:.4f} ms ({soup_by})")
+                log(f"kernel {name} on {case}: plain {soup_plain:.4f} ms")
         log(f"kernel {name} on cornell_camera: {rec['ms']:.4f} ms, plain "
-            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
             f"({rec['bound_by']})")
         records[name] = rec
     return records
+
+
+def live_share_phase(dev, scene, static, sensor):
+    """The live share of the Cornell render's K1 and K2 launches: the same
+    render as the render phase, with the scene module's handle on the
+    wrappers swapped for one that sums each call's live lanes
+    (t_max > t_min) on the device before it calls the wrapper."""
+    cfg = IntegratorConfig(type=PATH, max_depth=DEPTH)
+    settings = api.RenderSettings(width=W, height=H, spp=SPP,
+                                  spp_per_pass=SPP_PER_PASS, seed=SEED)
+    names = ("brute_force_interaction", "brute_force_closest_hit")
+    live = {n: torch.zeros((), dtype=torch.int64, device=dev) for n in names}
+    slots = dict.fromkeys(names, 0)
+
+    def counting(n):
+        fn = getattr(bf, n)
+
+        def call(*args):
+            live[n] += (args[-1] > args[-2]).sum()
+            slots[n] += args[-1].shape[0]
+            return fn(*args)
+        return call
+
+    real = scene_mod.bf
+    scene_mod.bf = types.SimpleNamespace(**{n: counting(n) for n in names})
+    try:
+        api.render(scene, static, sensor, cfg, settings, device=dev)
+    finally:
+        scene_mod.bf = real
+    for n in names:
+        lv = int(live[n])
+        log(f"render cornell live lanes of {n}: {lv} of {slots[n]} "
+            f"({lv / max(slots[n], 1):.4f})")
 
 
 def fallback_mesh():
@@ -1244,7 +1493,8 @@ def kdbench_phase():
 
 def profile_phase(dev, label, scene, static, sensor, spp):
     """Device time by kernel over one render pass of ``spp`` samples
-    (torch.profiler)."""
+    (torch.profiler). Returns {kernel: (ms, launches)} of the port's kernels
+    that ran (empty if the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1270,19 +1520,25 @@ def profile_phase(dev, label, scene, static, sensor, spp):
         log(f"profile   {us / 1e3:9.3f} ms  {k[:90]}")
     calls_of = {e.key: e.count for e in events
                 if e.device_type == DeviceType.CUDA}
+    per_kernel = {}
     for kernel in ("interaction_kernel", "closest_hit_kernel",
                    "lane_packed_kernel", "lane_chunk_kernel",
                    "treelet_rounds_kernel"):
         hits = [k for k in dev_us if f"::{kernel}(" in k]
         if hits or not dev_us:
-            took = (f"{sum(dev_us[k] for k in hits) / 1e3:.3f} ms in "
-                    f"{sum(calls_of[k] for k in hits)} launches" if dev_us
+            ms = sum(dev_us[k] for k in hits) / 1e3
+            n = sum(calls_of[k] for k in hits)
+            took = (f"{ms:.3f} ms in {n} launches, render mean "
+                    f"{ms / max(n, 1):.5f} ms per launch" if dev_us
                     else "not measured")
             log(f"profile   {kernel}: {took}")
+            if dev_us:
+                per_kernel[kernel] = (ms, n)
     # host dispatch: the PyTorch ops the pass issues, by count
     calls = sorted(((e.key, e.count) for e in events if e.key.startswith("aten::")),
                    key=lambda kv: -kv[1])[:8]
     log("profile   op calls: " + ", ".join(f"{k} {n}" for k, n in calls))
+    return per_kernel
 
 
 def main() -> int:
@@ -1313,6 +1569,7 @@ def main() -> int:
         REF_MEAN_RGB, MEAN_RTOL,
         {"brute_force_interaction": DEPTH * SPP,
          "brute_force_closest_hit": DEPTH * SPP})
+    live_share_phase(dev, *cornell_scene)
     bunny_scene = bunny(dev)
     bunny_launches, lane_mean, lane_ms = render_phase(
         dev, "bunny", *bunny_scene, BUNNY_EYE, BUNNY_AT, BUNNY_FOV,

@@ -4,21 +4,37 @@ and K2 (``csrc/brute_force.cu``), their wrappers and their plain versions.
 K1 ``brute_force_interaction`` replaces the Pallas kernel
 ``mitsuba_tpu/ops/pallas_intersect.py:brute_force_interaction`` and K2
 ``brute_force_closest_hit`` replaces ``brute_force_closest_hit`` there; both
-TPU kernels share the loop body ``_mt_loop``. The source note in
-``brute_force.cu`` gives the design and what bounds the kernels on an H100.
+TPU kernels share the loop body ``_mt_loop``.
+
+What bounds them on an H100: fp32 instruction issue. A test is 46
+operations; built without FMA contraction (so that they round like the
+plain versions) they cannot go below 46 operations per live test at half
+the 67 TFLOP/s peak, twice the bound (13.0 us for the Cornell box's
+262,144 camera rays x 36 triangles, 1.47 ms at the 4,096-triangle
+contract). What the design does about it (the note in ``brute_force.cu``
+has it in full): each block packs its live rays (t_max > t_min) into a
+dense list, so warps past the live count skip the loop; each thread tests
+two rays against every triangle row it loads, and the rows are staged in
+shared memory as float4s, read once per warp for both tests; the
+reciprocal's exact division runs only when a divisor leaves the range of
+ptxas's fast path; results go out by slot at the end, in whole rows. The
+design choices that lost, with their times, are in that note and in
+``PERF.md`` (``scripts/torch_bf_sweep.py``).
 
 Each wrapper checks its inputs (one device, dtype, shape, contiguity) on
 either device, so the CPU tests hold callers to the kernel's contract. On
 CUDA tensors it then allocates the outputs, launches its kernel on the current
 stream and counts the launch in its ``launches`` attribute; it never falls
-back. On CPU tensors it runs the plain version (``*_plain``), which repeats
-the kernel's float32
-arithmetic operation by operation (the kernels are compiled without FMA
-contraction), so the two agree exactly on hit and idx.
+back and does no per-call packing: the kernel stages its own rows from the
+(T, 3) arrays. On CPU tensors it runs the plain version (``*_plain``), which
+repeats the kernel's float32 arithmetic operation by operation (the kernels
+are compiled without FMA contraction), so the two agree exactly on hit and
+idx.
 
 The plain versions follow the kernel, not ``ops/intersect.py``: the kernel
 inverts the determinant as ``1 / where(|det| > 1e-12, det, 1)`` where the
-XLA form uses ``safe_div``. Ties go to the lowest triangle index.
+XLA form uses ``safe_div``. Ties go to the lowest triangle index. A dead
+lane (t_max <= t_min, or either NaN) is a miss.
 """
 from __future__ import annotations
 
@@ -44,7 +60,38 @@ def _lib():
         lib.bf_interaction.argtypes = ([_P] * 13 + [_I] + [_P] * 4 + [_I]
                                        + [_P] * 12)
         lib.bf_interaction.restype = _I
+        lib.bf_kernel_occupancy.argtypes = [_I, _I, _P, _P, _P]
+        lib.bf_kernel_occupancy.restype = _I
+        lib.bf_rcp_mismatches.argtypes = [_P, _P]
+        lib.bf_rcp_mismatches.restype = _I
     return lib
+
+
+def reciprocal_mismatches(device):
+    """The number of floats x with 2^-126 <= |x| < 2^126 on which the
+    kernels' fast reciprocal differs from 1.0f / x on the card: a check
+    that the kernels' inverse determinant is correctly rounded (0 when it
+    is). Synchronizes."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    with torch.cuda.device(bad.device):
+        rc = _lib().bf_rcp_mismatches(
+            bad.data_ptr(), torch.cuda.current_stream(bad.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bf_rcp_mismatches launch failed: cudaError {rc}")
+    return int(bad.item())
+
+
+def kernel_occupancy(name, T):
+    """(registers per thread, resident blocks per SM, threads per block) of
+    ``brute_force_closest_hit`` (K2) or ``brute_force_interaction`` (K1) at
+    T triangles (which set the shared-memory tile) on the current card."""
+    regs, blocks, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    which = ("brute_force_closest_hit", "brute_force_interaction").index(name)
+    rc = _lib().bf_kernel_occupancy(which, T, ctypes.byref(regs),
+                                    ctypes.byref(blocks), ctypes.byref(threads))
+    if rc != 0:
+        raise RuntimeError(f"bf_kernel_occupancy failed: cudaError {rc}")
+    return regs.value, blocks.value, threads.value
 
 
 def _check(name, t, dtype, shape, device):

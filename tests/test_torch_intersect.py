@@ -15,6 +15,7 @@ version is held against the same call's closest hit (``_mt_loop``, shared by
 both TPU kernels). The triangles are the Cornell box's and degenerate ones
 (see ``case``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -243,3 +244,100 @@ def test_wrapper_rejects_other_devices():
         bf.brute_force_closest_hit(*(x.to("meta") for x in (p0, e1, e2, o, d)),
                                    torch.zeros(16, device="meta"),
                                    torch.zeros(16, device="meta"))
+
+
+# --- contract edges of the redesigned kernels (live-ray compaction, several
+# rays per thread): the plain version the card holds K1/K2 against, checked
+# against the JAX package's XLA form. hit and idx are exact (both test the
+# triangles in index order with a strict <, and argmin takes the first
+# minimum); t to TOL, since XLA may contract a*b+c into an FMA; a miss's u, v
+# differ by design (the XLA form gathers them at argmin = 0), so they are
+# held to the kernel's contract (0) instead.
+
+_xla_brute_force = jax.jit(jisect.ray_brute_force_tris)
+
+
+def _xla(p0, e1, e2, o, d, t_min, t_max):
+    return [np.asarray(x) for x in _xla_brute_force(
+        *(jnp.asarray(x) for x in (o, d, p0, e1, e2, t_min, t_max)))]
+
+
+def _check_against_xla(p0, e1, e2, o, d, t_min, t_max):
+    ref = _xla(p0, e1, e2, o, d, t_min, t_max)
+    tt = [torch.from_numpy(x) for x in (p0, e1, e2, o, d, t_min, t_max)]
+    out = [x.numpy() for x in bf.brute_force_closest_hit(*tt)]
+    np.testing.assert_array_equal(out[0], ref[0])
+    np.testing.assert_array_equal(out[2], ref[2])
+    np.testing.assert_allclose(out[1], ref[1], **TOL)
+    hit = ref[0]
+    for a, b in zip(out[3:], ref[3:]):
+        np.testing.assert_allclose(a[hit], b[hit], **TOL)
+        assert (a[~hit] == 0.0).all()
+    return out
+
+
+def test_all_dead_batch_is_all_misses():
+    """Every lane dead (t_max = t_min), as a block of the last bounce may
+    be: each gets the miss outputs, K1's record defaults included."""
+    p0, e1, e2, o, d = _soup(37, 515, seed=8)
+    t_min = np.full(515, 1e-4, np.float32)
+    out = _check_against_xla(p0, e1, e2, o, d, t_min, t_min.copy())
+    assert not out[0].any() and (out[2] == -1).all()
+    assert np.isinf(out[1]).all()
+    rec = bf.brute_force_interaction(
+        *(torch.from_numpy(x) for x in (p0, e1, e2)),
+        *(torch.zeros(37, 3) for _ in range(3)), *(torch.zeros(37, 2) for _ in range(3)),
+        torch.ones(37, 3), torch.ones(37, dtype=torch.int32),
+        torch.ones(37, dtype=torch.int32), torch.ones(37),
+        *(torch.from_numpy(x) for x in (o, d, t_min, t_min.copy())))
+    assert (rec[5].numpy() == [0, 0, 1]).all() and (rec[6].numpy() == [0, 0, 1]).all()
+    assert (rec[7].numpy() == 0).all() and (rec[8].numpy() == 0).all()
+    assert (rec[9].numpy() == -1).all() and (rec[10].numpy() == 0).all()
+
+
+def test_ray_count_off_every_block_size():
+    """1,031 rays (not a multiple of 4, 32 or 256; the kernel packs a
+    block's slots in groups of 32 per ray a thread holds), most of them
+    dead and scattered, one with a NaN t_max and one with a NaN t_min."""
+    p0, e1, e2, o, d = _soup(64, 1031, seed=9)
+    rs = np.random.default_rng(10)
+    t_min = np.full(1031, 1e-4, np.float32)
+    t_max = np.full(1031, np.inf, np.float32)
+    dead = rs.random(1031) < 0.7
+    t_max[dead] = t_min[dead]
+    t_max[3], t_min[5] = np.nan, np.nan
+    out = _check_against_xla(p0, e1, e2, o, d, t_min, t_max)
+    assert 10 < out[0].sum() < int((~dead).sum())
+    assert not out[0][[3, 5]].any() and not out[0][dead].any()
+
+
+def test_one_triangle():
+    p0, e1, e2, o, d = _soup(1, 1000, seed=12)
+    # aim half the rays at the triangle's centroid, within 40 degrees of its
+    # normal (grazing rays amplify XLA's FMA contraction past TOL)
+    n = np.cross(e1, e2)
+    n /= np.linalg.norm(n)
+    a = n + 0.4 * np.random.default_rng(13).uniform(-1, 1, (500, 3))
+    d[:500] = a / np.linalg.norm(a, axis=-1, keepdims=True)
+    o[:500] = p0 + (e1 + e2) / 3 - 2 * d[:500]
+    out = _check_against_xla(p0, e1, e2, o, d, np.zeros(1000, np.float32),
+                             np.full(1000, np.inf, np.float32))
+    assert out[0][:500].mean() > 0.9 and set(np.unique(out[2])) <= {-1, 0}
+
+
+@pytest.mark.parametrize("a, b", [(3, 5), (5, 3)])
+def test_shared_edge_goes_to_the_lower_index(a, b):
+    """Two triangles that share an edge, at indices a and b among 8, and a
+    ray through the edge's midpoint: both report t = 1 exactly (dyadic
+    coordinates), and the lower index wins whichever triangle it holds."""
+    p0 = np.full((8, 3), 50.0, np.float32)  # far away: never hit
+    e1 = np.tile(np.float32([[1, 0, 0]]), (8, 1))
+    e2 = np.tile(np.float32([[0, 1, 0]]), (8, 1))
+    p0[a], e1[a], e2[a] = [0, 0, 1], [1, 0, 0], [0, 1, 0]
+    p0[b], e1[b], e2[b] = [1, 0, 1], [0, 1, 0], [-1, 1, 0]
+    o = np.float32([[0.5, 0.5, 0.0], [0.25, 0.25, 0.0], [0.75, 0.75, 0.0]])
+    d = np.tile(np.float32([[0, 0, 1]]), (3, 1))
+    out = _check_against_xla(p0, e1, e2, o, d, np.zeros(3, np.float32),
+                             np.full(3, np.inf, np.float32))
+    assert out[0].all() and (out[1] == 1.0).all()
+    assert out[2].tolist() == [min(a, b), a, b]
