@@ -28,11 +28,10 @@ Phases, each of which raises on failure (no phase is skipped):
      first bounce (a bounded launch, then the resumed rest), bit for bit;
      hold K3's unbounded closest-hit walk against K4's canonical walk on the
      same rays (hit and t, every mismatch printed as a near-tie or fatal),
-     compare their visits, time K3 in turns against K6 (the canonical walk,
-     K3's code before the octant tables) and print both kernels'
-     registers and occupancy; time the bounce query with the JAX resort
-     schedule against one unbounded K3 launch with and without the
-     coherence sort;
+     compare their visits, time K3 in turns against K4 (the canonical walk
+     from the root) and print K3's and K7's registers and occupancy; time
+     the bounce query with the JAX resort schedule against one unbounded K3
+     launch with and without the coherence sort;
   5. the treelet kernel K7 (treelet_rounds) on the bunny scene's treelet
      cut: held bit for bit against both plain versions (the JAX rounds and
      the kernel's entry list) on the 262,144 camera rays (as they come), the
@@ -47,15 +46,25 @@ Phases, each of which raises on failure (no phase is skipped):
   7. the wide-page kernel K9 (lane_chunk_w) on pack_pages_w of the same
      triangles' leaf-1 tree: a bounded launch on the sorted bounce rays, then
      the resumed rest, timed beside K3 on the same tree and rays and held
-     against K6's canonical walk there; then its query
-     bvh_traverse_lane_resort_w with the counts set to 0;
+     bit for bit against K4's canonical walk there; then its query
+     bvh_traverse_lane_resort_w with the counts set to 0, held bit for bit
+     against K4's sorted query bvh_traverse_lane;
   8. large tier: 16 offset copies of the fallback mesh (bench.py:176-183;
-     1,267,232 triangles, 2.53M nodes, above LANE_VMEM_MAX_NODES): hold K5
-     (lane_hbm) and K6 (lane_chunk_hbm) against their plain versions on the
-     262,144 rays of bench.py:205-212; then, with the counts set to 0, a
-     closest-hit and a shadow query through the scene (K5) and bench's
-     resort query (K6, rounds 6, chunk 16); print build time (and the
-     octant packer's), rays/s and hit rate;
+     1,267,232 triangles, 2.53M nodes, above LANE_VMEM_MAX_NODES), on the
+     262,144 rays of bench.py:205-212 sorted as the queries sort them: print
+     K5's and K6's registers, resident blocks and launch grid; hold K5
+     (lane_hbm: closest hit on the octant tables, any-hit) and K6
+     (lane_chunk_hbm: a bounded launch, then the resumed rest, closest and
+     any-hit) against their plain versions bit for bit; hold their closest
+     hits against K4's canonical walk of the same tree and rays (hit, and t
+     except near-ties within NEAR_TIE_RTOL, each printed); print visits
+     (mean and max per live lane), distinct rows read and their MB, and the
+     warp efficiency of the octant and canonical walks; time K5 (closest,
+     any-hit) and K6 (closest, one unbounded launch) in turns with K4; then,
+     with the counts set to 0, a closest-hit and a shadow query through the
+     scene (K5, 2 launches) and bench's resort query (K6, rounds 6, chunk
+     16: 7 launches); print build time (and the octant packer's), rays/s
+     and the hit rate, which must be 0.6073;
   9. render: mitsuba_tpu_torch.render.api.render of the Cornell box at
      512x512, depth 5, 36 spp in passes of 4, seed 0 (bench.py's Cornell
      layout), with every launch count set to 0 just before and read just
@@ -220,8 +229,10 @@ NEAR_TIE_RTOL = 1e-4
 # for bounce 0; K3 rounds + 1 per query, 4 x 5 closest + 5 x 2 shadow
 K3_PER_SPP = 4 * (scene_mod.BVH_RESORT[0] + 1) + 5 * (
     scene_mod.BVH_RESORT_SHADOW[0] + 1)
-# bench.py's large-scene tier (bench.py:176-224)
+# bench.py's large-scene tier (bench.py:176-224), and its hit rate on
+# bench's rays in every run of the port so far
 LARGE_COPIES, LARGE_ROUNDS, LARGE_CHUNK = 16, 6, 16
+LARGE_HIT_RATE = "0.6073"
 
 # per node visit of the lane kernels (csrc/bvh_lane.cu): a slab test is 25
 # fp32 operations (6 sub, 6 mul, 12 min/max, 1 compare), a triangle test the
@@ -730,10 +741,19 @@ def octant_rows(octants):
     return octants.nodes.reshape(-1, cb.NODE_COLS)
 
 
+def warp_efficiency(total):
+    """Lane visits over 32 x the sum of each warp's longest lane, for warps
+    of 32 consecutive lanes in the launch's ray order: the share of a
+    one-thread-per-ray launch's lane slots that walk."""
+    w = torch.cat([total, total.new_zeros(-total.numel() % 32)]).reshape(-1, 32)
+    return int(total.sum()) / max(32 * int(w.amax(dim=1).sum()), 1)
+
+
 def _visits_line(visits, live):
     total = visits[0] + visits[1]
     n = int(total.sum())
     n_live = max(int(live.sum()), 1)
+    rows = int(visits[2].sum())
     # what HBM would move if no visit hit a cache (the kernel reads 32 bytes
     # of an internal node, 48 of a leaf)
     uncached_ms = (int(visits[0].sum()) * 32 + int(visits[1].sum()) * 48) \
@@ -741,20 +761,26 @@ def _visits_line(visits, live):
     return (f"visits {n} ({float(total.float().mean()):.2f} per ray, "
             f"{n / n_live:.2f} per live ray, max {int(total.max())}, leaf "
             f"share {int(visits[1].sum()) / max(n, 1):.3f}), "
-            f"{int(visits[2].sum())} distinct nodes, uncached node traffic "
+            f"{rows} distinct nodes ({rows * 4 * cb.NODE_COLS / 1e6:.1f} MB "
+            f"of 48-byte rows; L2 50 MB), warp efficiency "
+            f"{warp_efficiency(total):.3f}, uncached node traffic "
             f"{uncached_ms:.4f} ms at peak bandwidth")
 
 
-def check_root_kernel(name, kern, plain, nodes, N, o, d, t_min, t_max):
+def check_root_kernel(name, kern, plain, nodes, N, o, d, t_min, t_max,
+                      octants=None):
     """K4/K5: kernel == plain version bit for bit (hit/idx exact, floats 0
-    ulp) on closest and any-hit queries; time both on the closest query."""
+    ulp) on closest and any-hit queries (K5's closest-hit lanes on
+    ``octants``); time both on the closest query. Returns the record and
+    the closest query's (result, visits)."""
     rec = dict(name=name, route="cuda", source=REPO_PATHS[name][0],
                replaces=REPO_PATHS[name][1], max_abs_err=0.0)
+    kw = {} if octants is None else {"octants": octants}
     R = o.shape[0]
     for any_hit in (False, True):
-        out = kern(nodes, N, o, d, t_min, t_max, any_hit=any_hit)
+        out = kern(nodes, N, o, d, t_min, t_max, any_hit=any_hit, **kw)
         ref = plain(nodes, N, o, d, t_min, t_max, any_hit=any_hit,
-                    with_visits=True)
+                    with_visits=True, **kw)
         torch.cuda.synchronize()
         err, ulp = compare(f"{name}/any_hit={any_hit}", out, ref[:5],
                            n_exact=1, ulp_limit=0)
@@ -764,16 +790,20 @@ def check_root_kernel(name, kern, plain, nodes, N, o, d, t_min, t_max):
             f"{float(out[0].float().mean()):.4f}, "
             f"{_visits_line(ref[5], t_max > t_min)}")
         if not any_hit:
+            closest = out, ref[5]
             visits = ref[5]
-    rec["ms"] = cuda_ms(lambda: kern(nodes, N, o, d, t_min, t_max), reps=20)
-    rec["plain_ms"] = cuda_ms(lambda: plain(nodes, N, o, d, t_min, t_max),
-                              reps=1, warmup=1)
-    rec["bound_ms"], rec["bound_by"] = lane_bound_ms(nodes, R, visits,
-                                                     K4_RAY_BYTES)
+    rec["ms"] = cuda_ms(lambda: kern(nodes, N, o, d, t_min, t_max, **kw),
+                        reps=20)
+    rec["plain_ms"] = cuda_ms(lambda: plain(nodes, N, o, d, t_min, t_max,
+                                            **kw), reps=1, warmup=1)
+    rows = nodes if octants is None else octant_rows(octants)
+    rec["bound_ms"], rec["bound_by"] = lane_bound_ms(rows, R, visits,
+                                                     K4_RAY_BYTES,
+                                                     map_read=visits[3])
     rec["library_ms"] = None  # no single PyTorch call computes it
     log(f"kernel {name}: {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
         f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
-    return rec
+    return rec, closest
 
 
 def _root_state(N, rays, t_max):
@@ -787,10 +817,10 @@ def _root_state(N, rays, t_max):
 def check_chunk_kernel(name, kern, plain, nodes, N, rays, t_max, budget,
                        any_hit, rec=None, octants=None):
     """K3/K6: a launch of ``budget`` visits from the root, then the resumed
-    rest: kernel == plain version bit for bit after each (K3's closest-hit
-    lanes on ``octants``). On the first call (rec None) also time one
-    unbounded launch from the root, the kernel's whole walk in one launch,
-    and its plain version."""
+    rest: kernel == plain version bit for bit after each (closest-hit lanes
+    on ``octants``). On the first call (rec None) also time one unbounded
+    launch from the root, the kernel's whole walk in one launch, and its
+    plain version."""
     new = rec is None
     if new:
         rec = dict(name=name, route="cuda", source=REPO_PATHS[name][0],
@@ -814,13 +844,11 @@ def check_chunk_kernel(name, kern, plain, nodes, N, rays, t_max, budget,
         state = (out[4], out[0], out[1], out[2], out[3])
     if new:
         root = _root_state(N, rays, t_max)
-        full = plain(nodes, N, *rays, *root, any_hit=any_hit, with_visits=True,
-                     **kw)
+        # one plain call gives the visits and the plain version's time
+        full, rec["plain_ms"] = device_ms(lambda: plain(
+            nodes, N, *rays, *root, any_hit=any_hit, with_visits=True, **kw))
         rec["ms"] = cuda_ms(lambda: kern(nodes, N, *rays, *root,
                                          any_hit=any_hit, **kw), reps=20)
-        rec["plain_ms"] = cuda_ms(lambda: plain(nodes, N, *rays, *root,
-                                                any_hit=any_hit, **kw),
-                                  reps=1, warmup=1)
         rows = nodes if octants is None or any_hit else octant_rows(octants)
         rec["bound_ms"], rec["bound_by"] = lane_bound_ms(
             rows, t_max.shape[0], full[5], K3_RAY_BYTES, map_read=full[5][3])
@@ -899,42 +927,64 @@ def against_canonical(label, out, ref):
         raise AssertionError(f"{label}: a t mismatch beyond a near-tie")
 
 
-def k3_octant_phase(nodes, N, octants, rays, tmx):
-    """K3's closest-hit walk on the octant tables against the canonical
-    walk on the same sorted bounce rays: one unbounded launch each against
-    K4 (hit and t), visits per live lane, and times in turns against K6,
-    which runs K3's code from before the octant tables."""
-    R = tmx.shape[0]
-    root = _root_state(N, rays, tmx)
-    live = root[0] < N
-    o, d = torch.stack(rays[0:3], -1), torch.stack(rays[3:6], -1)
-    k4 = cb.bvh_traverse_lane_packed(nodes, N, o, d, rays[6], tmx)
-    t, idx, u, v, _ = cb.lane_chunk(nodes, N, *rays, *root, octants=octants)
-    h = idx >= 0
-    against_canonical("K3 octant walk vs K4 canonical walk",
-                      (h, torch.where(h, t, torch.inf), idx, u, v), k4)
-    walks = {"octant (K3)": cb.lane_chunk_plain(
-                 nodes, N, *rays, *root, octants=octants, with_visits=True)[5],
-             "canonical (K6)": cb.lane_chunk_hbm_plain(
-                 nodes, N, *rays, *root, with_visits=True)[5]}
+def chunk_result(out):
+    """A resumable kernel's (t, idx, u, v, node) after its walk as the
+    (hit, t, idx, u, v) of a walk from the root."""
+    h = out[1] >= 0
+    return h, torch.where(h, out[0], torch.inf), out[1], out[2], out[3]
+
+
+def walk_visits(label, walks, live, N):
+    """Print each walk's visits per live lane and distinct rows read per
+    table; returns {walk: mean visits per live lane}."""
     mean = {}
     for name, vis in walks.items():
         n = (vis[0] + vis[1])[live]
         mean[name] = float(n.float().mean())
         per_table = vis[2].reshape(-1, N).sum(dim=1).tolist()
-        log(f"K3 visits, {name} walk on the sorted bounce rays: mean "
-            f"{mean[name]:.3f} per live lane, max {int(n.max())}; distinct "
-            f"rows read {int(vis[2].sum())} (per table {per_table})")
-    if not mean["octant (K3)"] < mean["canonical (K6)"]:
+        log(f"{label} visits, {name} walk: mean {mean[name]:.3f} per live "
+            f"lane, max {int(n.max())}; distinct rows read "
+            f"{int(vis[2].sum())} (per table {per_table})")
+    return mean
+
+
+def in_turns(label, kern, reps=20):
+    """Device time of each of ``kern``'s two calls (yardstick first) in the
+    order yardstick, kernel, kernel, yardstick; printed and returned."""
+    (a, fa), (b, fb) = kern.items()
+    turns = [(k, cuda_ms(f, reps=reps)) for k, f in
+             ((a, fa), (b, fb), (b, fb), (a, fa))]
+    log(f"{label}, in turns: " + ", ".join(f"{k} {ms:.4f} ms"
+                                           for k, ms in turns))
+    return turns
+
+
+def k3_octant_phase(nodes, N, octants, rays, tmx):
+    """K3's closest-hit walk on the octant tables against the canonical
+    walk on the same sorted bounce rays: one unbounded launch each against
+    K4 (hit and t), visits per live lane, and times in turns against K4,
+    which walks the canonical table from the root."""
+    R = tmx.shape[0]
+    root = _root_state(N, rays, tmx)
+    live = root[0] < N
+    o, d = torch.stack(rays[0:3], -1), torch.stack(rays[3:6], -1)
+    k4 = cb.bvh_traverse_lane_packed(nodes, N, o, d, rays[6], tmx)
+    against_canonical("K3 octant walk vs K4 canonical walk", chunk_result(
+        cb.lane_chunk(nodes, N, *rays, *root, octants=octants)), k4)
+    mean = walk_visits("K3 on the sorted bounce rays", {
+        "octant (K3)": cb.lane_chunk_plain(
+            nodes, N, *rays, *root, octants=octants, with_visits=True)[5],
+        "canonical (K4)": cb.bvh_traverse_lane_packed_plain(
+            nodes, N, o, d, rays[6], tmx, with_visits=True)[5]}, live, N)
+    if not mean["octant (K3)"] < mean["canonical (K4)"]:
         raise AssertionError("the octant walk visits no fewer nodes than the "
                              "canonical walk")
-    kern = {"K6": lambda: cb.lane_chunk_hbm(nodes, N, *rays, *root),
-            "K3": lambda: cb.lane_chunk(nodes, N, *rays, *root,
-                                        octants=octants)}
-    turns = [(k, cuda_ms(kern[k], reps=20)) for k in ("K6", "K3", "K3", "K6")]
-    log(f"K3 (octant tables) against K6 (canonical walk), one unbounded "
-        f"launch each on the same {R} sorted bounce rays, in turns: "
-        + ", ".join(f"{k} {ms:.4f} ms" for k, ms in turns))
+    in_turns(f"K3 (octant tables) against K4 (canonical walk), one "
+             f"unbounded launch each on the same {R} sorted bounce rays", {
+                 "K4": lambda: cb.bvh_traverse_lane_packed(nodes, N, o, d,
+                                                           rays[6], tmx),
+                 "K3": lambda: cb.lane_chunk(nodes, N, *rays, *root,
+                                             octants=octants)})
 
 
 def bvh_kernel_phase(dev):
@@ -949,7 +999,7 @@ def bvh_kernel_phase(dev):
     nodes, lo, hi = scene.nodes, scene.aabb_lo, scene.aabb_hi
     octants = scene.octants
     packer_line("bunny", scene)
-    for name in ("lane_chunk", "lane_chunk_hbm", "treelet_rounds"):
+    for name in ("lane_chunk", "treelet_rounds"):
         regs, blocks = cb.kernel_occupancy(name)
         log(f"occupancy {name}: {regs} registers, {blocks} blocks of 128 per "
             f"SM = {blocks * 128} threads; one wave holds "
@@ -957,7 +1007,7 @@ def bvh_kernel_phase(dev):
     cam = camera_rays(sensor, dev)
     records = {"bvh_traverse_lane_packed": check_root_kernel(
         "bvh_traverse_lane_packed", cb.bvh_traverse_lane_packed,
-        cb.bvh_traverse_lane_packed_plain, nodes, N, *cam)}
+        cb.bvh_traverse_lane_packed_plain, nodes, N, *cam)[0]}
 
     bounce, shadow = first_bounce_rays(scene, static, cam[0], cam[1])
     rec = None
@@ -1224,10 +1274,10 @@ def wide_kernel_phase(scene, bounce):
     """K9 on pack_pages_w of a leaf-1 tree of the bunny's triangles: a
     bounded launch on the sorted bounce rays and the resumed rest, kernel ==
     plain bit for bit; one unbounded launch timed beside K3 on the same tree
-    and rays, and held bit for bit against K6, which walks the canonical
-    table as K9 does (K3's closest-hit walk on the octant tables only
-    against hit and t, near-ties printed); then its resort query with the
-    counts set to 0."""
+    and rays, and held bit for bit against K4, which walks the canonical
+    table from the root as K9 does (K3's closest-hit walk on the octant
+    tables only against hit and t, near-ties printed); then its resort query
+    with the counts set to 0, held bit for bit against K4's sorted query."""
     dev = scene.nodes.device
     lo, hi = scene.aabb_lo, scene.aabb_hi
     tris, box = scene_tris(scene)
@@ -1259,15 +1309,15 @@ def wide_kernel_phase(scene, bounce):
     root = _root_state(N, rays, tmx)
     full, rec["plain_ms"] = device_ms(lambda: cb.lane_chunk_w_plain(
         pages, N, *rays, *root, with_visits=True))
-    k9 = cb.lane_chunk_w(pages, N, *rays, *root)
+    k9 = chunk_result(cb.lane_chunk_w(pages, N, *rays, *root))
     if not all(torch.equal(a, b) for a, b in zip(
-            k9, cb.lane_chunk_hbm(nodes, N, *rays, *root))):
-        raise AssertionError("K9 and K6 (the canonical walk) disagree on the "
+            k9, cb.bvh_traverse_lane_packed(
+                nodes, N, torch.stack(rays[0:3], -1),
+                torch.stack(rays[3:6], -1), rays[6], tmx))):
+        raise AssertionError("K9 and K4 (the canonical walk) disagree on the "
                              "same tree")
-    k3 = cb.lane_chunk(nodes, N, *rays, *root, octants=octants)
-    against_canonical("K3 octant walk vs K9", *(
-        (x[1] >= 0, torch.where(x[1] >= 0, x[0], torch.inf), *x[1:4])
-        for x in (k3, k9)))
+    against_canonical("K3 octant walk vs K9", chunk_result(
+        cb.lane_chunk(nodes, N, *rays, *root, octants=octants)), k9)
     rec["ms"] = cuda_ms(lambda: cb.lane_chunk_w(pages, N, *rays, *root),
                         reps=20)
     t_k3 = cuda_ms(lambda: cb.lane_chunk(nodes, N, *rays, *root,
@@ -1285,10 +1335,10 @@ def wide_kernel_phase(scene, bounce):
     launches = _check_launches("bvh_traverse_lane_resort_w (K9 query)",
                                {"lane_chunk_w": 3})
     rec["launches"] = launches["lane_chunk_w"]
-    ref = cb.bvh_traverse_lane_hbm_resort(nodes, N, *bounce, lo, hi,
-                                          rounds=2, chunk_nit=16)
+    ref = cb.bvh_traverse_lane(nodes, N, *bounce, lo, hi, sort=True)
     if not all(torch.equal(a, b) for a, b in zip(res, ref)):
-        raise AssertionError("K9 and K6 resort queries disagree")
+        raise AssertionError("K9's resort query and K4's sorted query "
+                             "disagree")
     against_canonical("K3 resort query vs K9 resort query",
                       cb.bvh_traverse_lane_resort(nodes, N, *bounce, lo, hi,
                                                   rounds=2, chunk_nit=16,
@@ -1309,24 +1359,13 @@ def large_scene(dev):
     return b.build(device=dev)
 
 
-def large_tier_phase(dev):
-    """K5 and K6 above LANE_VMEM_MAX_NODES: kernel == plain, then the tier's
-    queries with the launch counts read. Returns ({name: record}, launches)."""
-    t0 = time.perf_counter()
-    scene, static = large_scene(dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    N = static.n_bvh_nodes
-    if N <= cb.LANE_VMEM_MAX_NODES:
-        raise AssertionError(f"{N} nodes: the large tier must exceed "
-                             f"{cb.LANE_VMEM_MAX_NODES}")
-    log(f"large tier: {static.n_tris} triangles, {N} BVH nodes, scene built "
-        f"(BVH, packing, octant tables, upload) in {build_s:.2f} s")
-    packer_line("large tier", scene)
-    nodes, lo, hi = scene.nodes, scene.aabb_lo, scene.aabb_hi
-    # bench.py:205-212: 2^18 rays from a sphere around the scene, aimed at
-    # a smaller sphere inside it
-    lo_np, hi_np = (x.cpu().numpy().astype(np.float64) for x in (lo, hi))
+def large_tier_rays(scene):
+    """bench.py:205-212: 2^18 rays from a sphere around the scene, aimed at
+    a smaller sphere inside it, on the scene's device: (o, d, t_min,
+    t_max)."""
+    dev = scene.nodes.device
+    lo_np, hi_np = (x.cpu().numpy().astype(np.float64)
+                    for x in (scene.aabb_lo, scene.aabb_hi))
     center = (lo_np + hi_np) / 2
     radius = 0.5 * float(np.linalg.norm(hi_np - lo_np))
     R = 1 << 18
@@ -1338,23 +1377,87 @@ def large_tier_phase(dev):
     o_np = (center + radius * a).astype(np.float32)
     d_np = ((center + 0.4 * radius * b2) - o_np).astype(np.float32)
     d_np /= np.linalg.norm(d_np, axis=1, keepdims=True)
-    o = torch.from_numpy(o_np).to(dev)
-    d = torch.from_numpy(d_np).to(dev)
-    t_min = torch.full((R,), 1e-4, device=dev)
-    t_max = torch.full((R,), 1e9, device=dev)
+    return (torch.from_numpy(o_np).to(dev), torch.from_numpy(d_np).to(dev),
+            torch.full((R,), 1e-4, device=dev),
+            torch.full((R,), 1e9, device=dev))
+
+
+def large_tier_phase(dev):
+    """K5 and K6 above LANE_VMEM_MAX_NODES on bench's 262,144 sorted rays:
+    kernel == plain version bit for bit (K5 closest and any-hit; K6 bounded,
+    then resumed, closest and any-hit); their closest hits against K4's
+    canonical walk of the same tree and rays; visits against K4's; each
+    timed in turns with K4; then the tier's queries with the launch counts
+    read. Returns ({name: record}, launches)."""
+    t0 = time.perf_counter()
+    scene, static = large_scene(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    N = static.n_bvh_nodes
+    if N <= cb.LANE_VMEM_MAX_NODES:
+        raise AssertionError(f"{N} nodes: the large tier must exceed "
+                             f"{cb.LANE_VMEM_MAX_NODES}")
+    log(f"large tier: {static.n_tris} triangles, {N} BVH nodes, scene built "
+        f"(BVH, packing, octant tables, upload) in {build_s:.2f} s")
+    packer_line("large tier", scene)
+    nodes, lo, hi, octants = scene.nodes, scene.aabb_lo, scene.aabb_hi, \
+        scene.octants
+    o, d, t_min, t_max = large_tier_rays(scene)
+    R = o.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name in ("lane_hbm", "lane_chunk_hbm", "lane_hbm any_hit",
+                 "lane_chunk_hbm any_hit"):
+        regs, blocks = cb.kernel_occupancy(name)
+        log(f"occupancy {name}: {regs} registers, {blocks} blocks of 128 per "
+            f"SM; grid of {-(-R // 128)} blocks for {R} rays "
+            f"(one wave: {blocks * sms} blocks, {blocks * sms * 128} lanes)")
 
     # the kernels see sorted rays, as their query functions hand them over
     (*rays, tmx), _ = cb.sort_rays(o, d, t_min, t_max, lo, hi)
     rays = tuple(rays)
-    records = {
-        "lane_hbm": check_root_kernel(
-            "lane_hbm", cb.lane_hbm, cb.lane_hbm_plain, nodes, N,
-            torch.stack(rays[0:3], -1), torch.stack(rays[3:6], -1), rays[6],
-            tmx),
-        "lane_chunk_hbm": check_chunk_kernel(
-            "lane_chunk_hbm", cb.lane_chunk_hbm, cb.lane_chunk_hbm_plain,
-            nodes, N, rays, tmx, LARGE_CHUNK * cb.LSTRIP, any_hit=False),
-    }
+    so, sd = torch.stack(rays[0:3], -1), torch.stack(rays[3:6], -1)
+    k5, (k5_out, k5_visits) = check_root_kernel(
+        "lane_hbm", cb.lane_hbm, cb.lane_hbm_plain, nodes, N, so, sd, rays[6],
+        tmx, octants=octants)
+    k6 = None
+    for any_hit in (False, True):
+        k6 = check_chunk_kernel("lane_chunk_hbm", cb.lane_chunk_hbm,
+                                cb.lane_chunk_hbm_plain, nodes, N, rays, tmx,
+                                LARGE_CHUNK * cb.LSTRIP, any_hit, k6,
+                                octants=octants)
+    # the redesigned walks against K4's canonical walk of the same tree and
+    # rays (K4 was K5's code before): results, visits, times in turns
+    root = _root_state(N, rays, tmx)
+    live = root[0] < N
+    k4 = {a: lambda a=a: cb.bvh_traverse_lane_packed(nodes, N, so, sd,
+                                                     rays[6], tmx, any_hit=a)
+          for a in (False, True)}
+    canonical = k4[False]()
+    against_canonical("K5 octant walk vs K4 canonical walk", k5_out,
+                      canonical)
+    against_canonical("K6 octant walk (one unbounded launch) vs K4 canonical "
+                      "walk", chunk_result(cb.lane_chunk_hbm(
+                          nodes, N, *rays, *root, octants=octants)), canonical)
+    canon = cb.bvh_traverse_lane_packed_plain(nodes, N, so, sd, rays[6], tmx,
+                                              with_visits=True)[5]
+    log(f"large tier, K4 canonical walk (closest hit): "
+        f"{_visits_line(canon, live)}")
+    walk_visits("large tier, closest hit", {"octant (K5, K6)": k5_visits,
+                                            "canonical (K4)": canon}, live, N)
+    label = f"one unbounded launch each on the same {R} sorted rays"
+    in_turns(f"K5 closest hit against K4, {label}", {
+        "K4": k4[False],
+        "K5": lambda: cb.lane_hbm(nodes, N, so, sd, rays[6], tmx,
+                                  octants=octants)})
+    in_turns(f"K5 any-hit against K4, {label}", {
+        "K4": k4[True],
+        "K5": lambda: cb.lane_hbm(nodes, N, so, sd, rays[6], tmx,
+                                  any_hit=True)})
+    in_turns(f"K6 closest hit against K4, {label}", {
+        "K4": k4[False],
+        "K6": lambda: cb.lane_chunk_hbm(nodes, N, *rays, *root,
+                                        octants=octants)})
+    records = {"lane_hbm": k5, "lane_chunk_hbm": k6}
 
     # the tier's queries: scene closest hit and shadow ray (K5), bench's
     # resort query (K6), with the counts set to 0 just before
@@ -1363,7 +1466,8 @@ def large_tier_phase(dev):
     occ = scene_mod.occluded(scene, static, o, d, 1e-4, 1e9)
     res = cb.bvh_traverse_lane_hbm_resort(nodes, N, o, d, t_min, t_max, lo, hi,
                                           rounds=LARGE_ROUNDS,
-                                          chunk_nit=LARGE_CHUNK)
+                                          chunk_nit=LARGE_CHUNK,
+                                          octants=octants)
     torch.cuda.synchronize()
     launches = _check_launches("large tier", {"lane_hbm": 2,
                                               "lane_chunk_hbm": LARGE_ROUNDS + 1})
@@ -1373,13 +1477,17 @@ def large_tier_phase(dev):
     hit_rate = float(res[0].float().mean())
     t_k6 = cuda_ms(lambda: cb.bvh_traverse_lane_hbm_resort(
         nodes, N, o, d, t_min, t_max, lo, hi, rounds=LARGE_ROUNDS,
-        chunk_nit=LARGE_CHUNK), reps=3, warmup=1)
+        chunk_nit=LARGE_CHUNK, octants=octants), reps=3, warmup=1)
     t_k5 = cuda_ms(lambda: cb.bvh_traverse_lane_hbm(
-        nodes, N, o, d, t_min, t_max, lo, hi, sort=True), reps=3, warmup=1)
+        nodes, N, o, d, t_min, t_max, lo, hi, sort=True, octants=octants),
+        reps=3, warmup=1)
     log(f"large tier: hit rate {hit_rate:.4f}; resort query (K6, rounds "
         f"{LARGE_ROUNDS}, chunk {LARGE_CHUNK}) {t_k6:.3f} ms = "
         f"{R / t_k6 * 1e3:.1f} rays/s; sorted query (K5) {t_k5:.3f} ms = "
         f"{R / t_k5 * 1e3:.1f} rays/s")
+    if f"{hit_rate:.4f}" != LARGE_HIT_RATE:
+        raise AssertionError(f"large tier: hit rate {hit_rate:.4f}, expected "
+                             f"{LARGE_HIT_RATE}")
     return records, launches
 
 

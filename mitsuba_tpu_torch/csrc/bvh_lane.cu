@@ -34,15 +34,16 @@
 // K3 and K6 resume from per-lane state (node, t, idx, u, v) and stop after
 // max_steps node visits (0: to the end); the TPU's budget counted outer page
 // iterations of a 1024-lane block instead, which has no meaning here. On the
-// H100 there is no VMEM/HBM split, so K5 and K6 differ from K4 and K3 only by
-// the size of the tree they are given (the scene sends trees above 2.3M nodes
-// to K5).
+// H100 there is no VMEM/HBM split, so K5 and K6 compute what K3 computes
+// (K5 from the root) on the trees above 2.3M nodes that the scene sends them,
+// with their own schedule (below).
 //
-// K3 and K7 on octant tables. The canonical walk always enters the left
-// child first, so a closest-hit ray enters boxes behind its eventual hit
+// K3, K5, K6 and K7 on octant tables. The canonical walk always enters the
+// left child first, so a closest-hit ray enters boxes behind its eventual hit
 // until it finds it, and a launch lasts as long as its slowest lanes (503
-// visits where the mean is 10 on the bunny's sorted bounce rays), each visit
-// a dependent L2 round trip. So a closest-hit lane of K3 or K7 walks one of
+// visits where the mean is 10 on the bunny's sorted bounce rays, 553 where it
+// is 40.5 on the large tier's rays), each visit a dependent L2 or HBM round
+// trip. So a closest-hit lane of K3, K5, K6 or K7 walks one of
 // eight copies of the tree (pack_nodes_octants), the one of its direction's
 // octant (bit k set where d[k] >= 0), in which each internal node's nearer
 // child comes first: the closest hit comes early, and the slab test's exit,
@@ -50,12 +51,27 @@
 // is unchanged. The canonical walk keeps the first of several hits at equal
 // t, which is the one with the lowest canonical leaf row; the octant walk
 // keeps the same one by the tie rule: a hit at tt == best replaces the best
-// only where the lane is armed (K3: it has a best; K7: a best from the
-// treelet it is walking, since the JAX rounds keep a best from an earlier
+// only where the lane is armed (K3, K5, K6: it has a best; K7: a best from
+// the treelet it is walking, since the JAX rounds keep a best from an earlier
 // treelet) and the leaf's canonical row (c.w of the octant rows) is below
 // leaf_row[idx], which is read only on such a tie. Any-hit lanes (shadow
 // rays) walk the canonical table: the JAX kernels return the first hit in
 // its order, and order does not help occlusion.
+//
+// K5 and K6 (the large tier: 2.53M nodes, 262,144 rays, a 122 MB canonical
+// table and 978 MB of octant tables against the 50 MB L2). Their
+// closest-hit lanes walk the octant tables too: 24% fewer visits and a 29%
+// shorter longest chain, for 59% more distinct rows read (2.0M, 98 MB
+// against 1.3M, 62 MB). Any-hit launches run their own instantiation, so
+// that an any-hit lane holds no octant table or tie rule in registers; both
+// run one thread per ray in blocks of 128, 12 resident per SM
+// (HBM_MIN_BLOCKS). Latency bounds them, so resident warps count. The
+// persistent design of Aila & Laine ("Understanding the Efficiency of Ray
+// Traversal on GPUs", HPG 2009), one wave of blocks whose lanes take the
+// next ray index from a counter when their ray is done, ran 28-52% slower
+// on an NVIDIA H100 80GB HBM3 at 700 W: the per-visit warp votes and extra
+// registers cost more than the idle lanes they reclaim, and a refilled lane
+// no longer walks beside the rays sorted next to its own.
 //
 // K7 (treelets). The tree is cut into K <= 128 treelets, subtrees whose rows
 // are the range [root, skip) (accel/build.py:treelet_roots), in every table
@@ -93,13 +109,17 @@
 // round). A ray reads 32 bytes (K4, K5, K7, K8) or 48 (K3, K6, K9) and writes
 // 17 or 20. Counting each node a launch reads once, bytes bound them: a few
 // microseconds for the bunny's 262,144 rays. The kernels take several times
-// that, because each load depends on the one before (the next node needs this one), repeat visits are
-// served from L1/L2, and a launch lasts as long as its slowest lanes
-// (hundreds of visits where the mean is 5-40). The octant tables shorten K3's
-// and K7's longest chains (503 to 203 visits on the bunny's bounce rays); of
-// their 8 x 15.2 MB a launch there reads 114,000 distinct rows, 5.5 MB, well
-// inside the 50 MB L2. Shared-memory treelets, a short stack or a wide BVH
-// are later work.
+// that, because each load depends on the one before (the next node needs
+// this one), repeat visits are served from L1/L2, and a launch lasts as
+// long as its slowest lanes (hundreds of visits where the mean is 5-40).
+// The octant tables shorten K3's and K7's longest chains (503 to 203 visits
+// on the bunny's bounce rays); of their 8 x 15.2 MB a launch there reads
+// 114,000 distinct rows, 5.5 MB, well inside the 50 MB L2. On the large
+// tier K5's and K6's closest-hit lanes read twice the L2 (98 MB of rows),
+// and the octant walk gains little there: 2-3% over the canonical walk at
+// the registers the compiler takes, and K5 2.5% more from the launch
+// bounds (NVIDIA H100 80GB HBM3, 700 W; scripts/torch_hbm_sweep.py).
+// Shared-memory treelets, a short stack or a wide BVH are later work.
 //
 // Compile with -fmad=false: the plain PyTorch versions round every operation,
 // and contraction into FMAs would flip edge hits between the two.
@@ -119,6 +139,13 @@ constexpr int THREADS = 128;  // rays per block
 #endif
 #ifndef K7_MIN_BLOCKS
 #define K7_MIN_BLOCKS 1
+#endif
+// K5's and K6's __launch_bounds__ minimum of resident blocks per SM: 12
+// holds them to 40 registers (a few bytes spill), where the compiler left
+// free takes 44-51 (9-10 blocks); 16 spills and runs slower
+// (scripts/torch_hbm_sweep.py builds with others)
+#ifndef HBM_MIN_BLOCKS
+#define HBM_MIN_BLOCKS 12
 #endif
 // K7's list of entered treelets per ray (cuda_bvh.TREELET_LIST)
 constexpr int TREELET_LIST = 8;
@@ -277,7 +304,7 @@ __device__ void walk(const Table& table, Tie& tie, int n_nodes, int end,
   }
 }
 
-// The canonical walk (no tie rule): K4-K6, K9 and any-hit lanes.
+// The canonical walk (no tie rule): K4, K9 and any-hit lanes.
 template <class Table>
 __device__ __forceinline__ void walk(const Table& table, int n_nodes, int end,
                                      float ox, float oy, float oz, float dx,
@@ -288,7 +315,7 @@ __device__ __forceinline__ void walk(const Table& table, int n_nodes, int end,
        max_steps, s);
 }
 
-// K4 and K5: from the root. A dead lane (t_max <= t_min) starts retired.
+// K4: from the root. A dead lane (t_max <= t_min) starts retired.
 __device__ void root_lane(const float4* __restrict__ nodes, int n_nodes,
                           const float* __restrict__ o,
                           const float* __restrict__ d,
@@ -312,7 +339,7 @@ __device__ void root_lane(const float4* __restrict__ nodes, int n_nodes,
   v_out[r] = s.v;
 }
 
-// K6 and K9 (K3 below): resume from (node, t, idx, u, v); rays as one array
+// K9 (K3, K6 below): resume from (node, t, idx, u, v); rays as one array
 // per component, the layout the resort loop sorts.
 template <class Table>
 __device__ void chunk_lane(
@@ -349,19 +376,9 @@ __global__ void lane_packed_kernel(const float4* __restrict__ nodes,
   root_lane(nodes, n_nodes, o, d, t_min, t_max, R, any_hit, hit, t, idx, u, v);
 }
 
-__global__ void lane_hbm_kernel(const float4* __restrict__ nodes, int n_nodes,
-                                const float* __restrict__ o,
-                                const float* __restrict__ d,
-                                const float* __restrict__ t_min,
-                                const float* __restrict__ t_max, int R,
-                                bool any_hit, bool* hit, float* t, int* idx,
-                                float* u, float* v) {
-  root_lane(nodes, n_nodes, o, d, t_min, t_max, R, any_hit, hit, t, idx, u, v);
-}
-
-// K3: chunk_lane, with closest-hit lanes on their octant's table and the
-// tie rule.
-__global__ void __launch_bounds__(THREADS, K3_MIN_BLOCKS) lane_chunk_kernel(
+// K3 and K6: chunk_lane, with closest-hit lanes on their octant's table and
+// the tie rule, armed where the lane has a best (i_in >= 0).
+__device__ __forceinline__ void octant_chunk_lane(
     const float4* __restrict__ nodes, const float4* __restrict__ oct,
     const int* __restrict__ leaf_row, int n_nodes,
     const float* __restrict__ ox, const float* __restrict__ oy,
@@ -370,9 +387,10 @@ __global__ void __launch_bounds__(THREADS, K3_MIN_BLOCKS) lane_chunk_kernel(
     const float* __restrict__ t_min, const int* __restrict__ node_in,
     const float* __restrict__ t_in, const int* __restrict__ i_in,
     const float* __restrict__ u_in, const float* __restrict__ v_in, int R,
-    bool any_hit, int max_steps, float* __restrict__ t_out,
-    int* __restrict__ idx_out, float* __restrict__ u_out,
-    float* __restrict__ v_out, int* __restrict__ node_out) {
+    bool any_hit, int max_steps,
+    float* __restrict__ t_out, int* __restrict__ idx_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ node_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   Lane s{node_in[r], t_in[r], i_in[r], u_in[r], v_in[r]};
@@ -392,16 +410,80 @@ __global__ void __launch_bounds__(THREADS, K3_MIN_BLOCKS) lane_chunk_kernel(
   node_out[r] = s.node;
 }
 
-__global__ void lane_chunk_hbm_kernel(
-    const float4* __restrict__ nodes, int n_nodes, const float* ox,
-    const float* oy, const float* oz, const float* dx, const float* dy,
-    const float* dz, const float* t_min, const int* node_in,
-    const float* t_in, const int* i_in, const float* u_in, const float* v_in,
-    int R, bool any_hit, int max_steps, float* t, int* idx, float* u,
-    float* v, int* node) {
-  chunk_lane(NodeRows{nodes}, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
-             t_in, i_in, u_in, v_in, R, any_hit, max_steps, t, idx, u, v,
-             node);
+// K3
+__global__ void __launch_bounds__(THREADS, K3_MIN_BLOCKS) lane_chunk_kernel(
+    const float4* __restrict__ nodes, const float4* __restrict__ oct,
+    const int* __restrict__ leaf_row, int n_nodes,
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ t_min, const int* __restrict__ node_in,
+    const float* __restrict__ t_in, const int* __restrict__ i_in,
+    const float* __restrict__ u_in, const float* __restrict__ v_in, int R,
+    bool any_hit, int max_steps,
+    float* __restrict__ t_out, int* __restrict__ idx_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ node_out) {
+  octant_chunk_lane(
+      nodes, oct, leaf_row, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
+      t_in, i_in, u_in, v_in, R, any_hit, max_steps, t_out, idx_out, u_out,
+      v_out, node_out);
+}
+
+// K5: from the root (row 0 of every table), closest-hit lanes on their
+// octant's table with the tie rule, unarmed; a dead lane starts retired.
+// Any-hit and closest-hit launches are separate instantiations, so that an
+// any-hit lane carries no octant table or tie rule in its registers.
+template <bool any_hit>
+__global__ void __launch_bounds__(THREADS, HBM_MIN_BLOCKS) lane_hbm_kernel(
+    const float4* __restrict__ nodes, const float4* __restrict__ oct,
+    const int* __restrict__ leaf_row, int n_nodes,
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ t_min, const float* __restrict__ t_max, int R,
+    bool* __restrict__ hit, float* __restrict__ t_out,
+    int* __restrict__ idx_out, float* __restrict__ u_out,
+    float* __restrict__ v_out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const float tmin = t_min[r], tmax = t_max[r];
+  const float rdx = d[3 * r], rdy = d[3 * r + 1], rdz = d[3 * r + 2];
+  Lane s{tmax > tmin ? 0 : n_nodes, tmax, -1, 0.0f, 0.0f};
+  const float4* table = nodes;
+  Tie tie{nullptr, false};
+  if (!any_hit) {
+    table = oct + 3 * static_cast<size_t>(n_nodes) * octant_of(rdx, rdy, rdz);
+    tie.leaf_row = leaf_row;
+  }
+  walk(NodeRows{table}, tie, n_nodes, n_nodes, o[3 * r], o[3 * r + 1],
+       o[3 * r + 2], rdx, rdy, rdz, tmin, any_hit, 0, s);
+  const bool h = s.idx >= 0;
+  hit[r] = h;
+  t_out[r] = h ? s.t : CUDART_INF_F;
+  idx_out[r] = s.idx;
+  u_out[r] = s.u;
+  v_out[r] = s.v;
+}
+
+// K6: K3's lane under K5's launch bounds, an instantiation per query kind.
+template <bool any_hit>
+__global__ void __launch_bounds__(THREADS, HBM_MIN_BLOCKS)
+    lane_chunk_hbm_kernel(
+    const float4* __restrict__ nodes, const float4* __restrict__ oct,
+    const int* __restrict__ leaf_row, int n_nodes,
+    const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx,
+    const float* __restrict__ dy, const float* __restrict__ dz,
+    const float* __restrict__ t_min, const int* __restrict__ node_in,
+    const float* __restrict__ t_in, const int* __restrict__ i_in,
+    const float* __restrict__ u_in, const float* __restrict__ v_in, int R,
+    int max_steps,
+    float* __restrict__ t_out, int* __restrict__ idx_out,
+    float* __restrict__ u_out, float* __restrict__ v_out,
+    int* __restrict__ node_out) {
+  octant_chunk_lane(
+      nodes, oct, leaf_row, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
+      t_in, i_in, u_in, v_in, R, any_hit, max_steps, t_out, idx_out, u_out,
+      v_out, node_out);
 }
 
 __global__ void lane_chunk_w_kernel(
@@ -643,18 +725,6 @@ extern "C" int bvh_lane_packed(const float* nodes, int n_nodes, const float* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bvh_lane_hbm(const float* nodes, int n_nodes, const float* o,
-                            const float* d, const float* t_min,
-                            const float* t_max, int R, int any_hit, bool* hit,
-                            float* t, int* idx, float* u, float* v,
-                            void* stream) {
-  lane_hbm_kernel<<<blocks_for(R), THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(nodes), n_nodes, o, d, t_min, t_max, R,
-      any_hit != 0, hit, t, idx, u, v);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // K3: oct is the (8, n_nodes, 12) float32 octant tables, 16-byte aligned,
 // and leaf_row the (T,) int32 map; both may be null for an any-hit call.
 extern "C" int bvh_lane_chunk(const float* nodes, const float* oct,
@@ -678,7 +748,25 @@ extern "C" int bvh_lane_chunk(const float* nodes, const float* oct,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int bvh_lane_chunk_hbm(const float* nodes, int n_nodes,
+// K5 and K6: oct and leaf_row as for K3.
+extern "C" int bvh_lane_hbm(const float* nodes, const float* oct,
+                            const int* leaf_row, int n_nodes, const float* o,
+                            const float* d, const float* t_min,
+                            const float* t_max, int R, int any_hit, bool* hit,
+                            float* t, int* idx, float* u, float* v,
+                            void* stream) {
+  if (!any_hit && (!oct || !leaf_row))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = any_hit ? lane_hbm_kernel<true> : lane_hbm_kernel<false>;
+  kernel<<<blocks_for(R), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(oct), leaf_row, n_nodes, o, d, t_min,
+      t_max, R, hit, t, idx, u, v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int bvh_lane_chunk_hbm(const float* nodes, const float* oct,
+                                  const int* leaf_row, int n_nodes,
                                   const float* ox, const float* oy,
                                   const float* oz, const float* dx,
                                   const float* dy, const float* dz,
@@ -688,11 +776,15 @@ extern "C" int bvh_lane_chunk_hbm(const float* nodes, int n_nodes,
                                   int any_hit, int max_steps, float* t,
                                   int* idx, float* u, float* v, int* node,
                                   void* stream) {
-  lane_chunk_hbm_kernel<<<blocks_for(R), THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(nodes), n_nodes, ox, oy, oz, dx, dy, dz,
-      t_min, node_in, t_in, i_in, u_in, v_in, R, any_hit != 0, max_steps, t,
-      idx, u, v, node);
+  if (!any_hit && (!oct || !leaf_row))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = any_hit ? lane_chunk_hbm_kernel<true>
+                        : lane_chunk_hbm_kernel<false>;
+  kernel<<<blocks_for(R), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(oct), leaf_row, n_nodes, ox, oy, oz, dx,
+      dy, dz, t_min, node_in, t_in, i_in, u_in, v_in, R, max_steps, t, idx, u,
+      v, node);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -751,11 +843,18 @@ extern "C" int bvh_fat_packed(const float* rows, int n_nodes, const float* o,
 }
 
 // Registers per thread and resident blocks of THREADS per SM of K3 (which
-// 0), K7 (1) and K6 (2), for the occupancy the build's -Xptxas -v implies.
+// 0), K7 (1), K6 (2) and K5 (3) closest hit, K6 (4) and K5 (5) any-hit, for
+// the occupancy the build's -Xptxas -v implies.
 extern "C" int bvh_kernel_occupancy(int which, int* regs, int* blocks) {
-  const void* fn = which == 0   ? reinterpret_cast<const void*>(lane_chunk_kernel)
-                   : which == 1 ? reinterpret_cast<const void*>(treelet_rounds_kernel)
-                                : reinterpret_cast<const void*>(lane_chunk_hbm_kernel);
+  const void* fns[] = {
+      reinterpret_cast<const void*>(lane_chunk_kernel),
+      reinterpret_cast<const void*>(treelet_rounds_kernel),
+      reinterpret_cast<const void*>(lane_chunk_hbm_kernel<false>),
+      reinterpret_cast<const void*>(lane_hbm_kernel<false>),
+      reinterpret_cast<const void*>(lane_chunk_hbm_kernel<true>),
+      reinterpret_cast<const void*>(lane_hbm_kernel<true>)};
+  if (which < 0 || which >= 6) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn = fns[which];
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);

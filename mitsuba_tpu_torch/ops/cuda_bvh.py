@@ -20,14 +20,16 @@ node-major table of ``(N, 12)`` float32 (``pack_nodes``; three float4s per
 node, see the source note in ``bvh_lane.cu``). K4/K5 walk from the root; K3/K6
 resume from per-lane state ``(node, t, idx, u, v)`` for at most ``max_steps``
 node visits (0: to the end). On the H100 there is no VMEM/HBM split: K5 and K6
-run K4's and K3's code, on trees above ``LANE_VMEM_MAX_NODES``. K7 walks the
+compute what K3 computes (K5 from the root) on trees above
+``LANE_VMEM_MAX_NODES``, with their own launch bounds and an any-hit
+instantiation of their own. K7 walks the
 same tree one treelet (a subtree's row range) at a time, nearest entered
 treelet first; K8 walks fat rows of up to four triangles per leaf
 (``pack_nodes_fat``); K9 runs K3's walk over the JAX package's wide pages
 (``pack_pages_w``).
 
-Octant tables (``pack_nodes_octants``, ``Octants``). Closest-hit lanes of K3
-and K7 walk one of eight copies of the tree, the one of their direction's
+Octant tables (``pack_nodes_octants``, ``Octants``). Closest-hit lanes of K3,
+K5, K6 and K7 walk one of eight copies of the tree, the one of their direction's
 octant, in which every internal node's nearer child comes first; any-hit
 lanes walk the canonical table, whose order the JAX kernels' first hit
 depends on. The near-first walk finds the closest hit early, so the slab
@@ -37,7 +39,8 @@ lower canonical leaf row; the octant walk keeps that one too by the tie rule:
 a hit at t equal to the best replaces the best only if its leaf's canonical
 row (kept in the octant rows' column 11) is below the best triangle's
 (``Octants.leaf_row``), and in K7 only against a best found in the same
-treelet. So the result is the canonical walk's.
+treelet. So the result is the canonical walk's; only a hit whose box entry
+rounds past its t can differ (a near-tie).
 
 Each wrapper checks its inputs (one device, dtype, shape, contiguity) on
 either device. On CUDA tensors it then allocates the outputs, launches its
@@ -93,12 +96,15 @@ def _lib():
     if lib.bvh_lane_packed.argtypes is None:
         root = [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P]
         chunk = [_P, _I] + [_P] * 12 + [_I, _I, _I] + [_P] * 6
-        # K3 and K7 take the canonical table, the octant tables and the map
-        treelet = [_P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _I] + [_P] * 6
+        # K3, K5, K6 and K7 take the canonical table, the octant tables and
+        # the map
+        octs = [_P, _P, _P]
+        treelet = octs + [_I, _P, _I, _P, _P, _P, _P, _I, _I] + [_P] * 6
         fat = [_P, _I] + [_P] * 6 + [_I, _I] + [_P] * 6
-        for fn, args in ((lib.bvh_lane_packed, root), (lib.bvh_lane_hbm, root),
-                         (lib.bvh_lane_chunk, [_P, _P, _P] + chunk[1:]),
-                         (lib.bvh_lane_chunk_hbm, chunk),
+        for fn, args in ((lib.bvh_lane_packed, root),
+                         (lib.bvh_lane_hbm, octs + root[1:]),
+                         (lib.bvh_lane_chunk, octs + chunk[1:]),
+                         (lib.bvh_lane_chunk_hbm, octs + chunk[1:]),
                          (lib.bvh_lane_chunk_w, [_P, _I] + chunk[1:]),
                          (lib.bvh_treelet_rounds, treelet),
                          (lib.bvh_fat_packed, fat)):
@@ -109,14 +115,21 @@ def _lib():
     return lib
 
 
+# bvh_kernel_occupancy's kernel numbers: K5 and K6 have a closest-hit and
+# an any-hit instantiation
+_OCCUPANCY = ("lane_chunk", "treelet_rounds", "lane_chunk_hbm", "lane_hbm",
+              "lane_chunk_hbm any_hit", "lane_hbm any_hit")
+
+
 def kernel_occupancy(name):
     """(registers per thread, resident blocks of 128 threads per SM) of
-    ``lane_chunk`` (K3), ``treelet_rounds`` (K7) or ``lane_chunk_hbm`` (K6)
-    on the current card."""
+    ``lane_chunk`` (K3), ``treelet_rounds`` (K7), ``lane_chunk_hbm`` (K6) or
+    ``lane_hbm`` (K5) on the current card; K5's and K6's any-hit
+    instantiations as ``"lane_hbm any_hit"`` and ``"lane_chunk_hbm
+    any_hit"``."""
     regs, blocks = ctypes.c_int(), ctypes.c_int()
-    which = ("lane_chunk", "treelet_rounds", "lane_chunk_hbm").index(name)
-    rc = _lib().bvh_kernel_occupancy(which, ctypes.byref(regs),
-                                     ctypes.byref(blocks))
+    rc = _lib().bvh_kernel_occupancy(_OCCUPANCY.index(name),
+                                     ctypes.byref(regs), ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"bvh_kernel_occupancy failed: cudaError {rc}")
     return regs.value, blocks.value
@@ -573,17 +586,27 @@ def _walk_plain(fetch, n_nodes, rays, node, bt, bi, bu, bv, any_hit,
     return (node, bt, bi, bu, bv), (v_int, v_leaf, touched, map_read)
 
 
-def _root_plain(nodes, n_nodes, o, d, t_min, t_max, any_hit, with_visits):
+def _root_plain(nodes, n_nodes, o, d, t_min, t_max, any_hit, with_visits,
+                octants=None):
+    """A walk from the root (row 0): over the canonical ``nodes``, or with
+    ``octants`` (closest hit) over each lane's octant table with the tie
+    rule, unarmed."""
     R = o.shape[0]
     dev = o.device
     node = torch.where(t_max > t_min, 0, n_nodes).to(torch.int32)
     rays = tuple(o[:, k] for k in range(3)) + tuple(d[:, k] for k in range(3))
+    rays = rays + (t_min,)
+    fetch, walk = _node_rows(nodes), {}
+    if octants is not None:
+        fetch = _octant_rows(octants)
+        walk = _octant_walk(octants, n_nodes, rays)
+        walk["armed"] = torch.zeros(R, dtype=torch.bool, device=dev)
     (_, bt, bi, bu, bv), visits = _walk_plain(
-        _node_rows(nodes), n_nodes, rays + (t_min,), node, t_max,
+        fetch, n_nodes, rays, node, t_max,
         torch.full((R,), -1, dtype=torch.int32, device=dev),
-        torch.zeros(R, device=dev), torch.zeros(R, device=dev), any_hit, 0)
-    hit = bi >= 0
-    out = (hit, torch.where(hit, bt, torch.inf), bi, bu, bv)
+        torch.zeros(R, device=dev), torch.zeros(R, device=dev), any_hit, 0,
+        **walk)
+    out = _hit_result(bt, bi, bu, bv)
     return out + (visits,) if with_visits else out
 
 
@@ -597,10 +620,16 @@ def bvh_traverse_lane_packed_plain(nodes, n_nodes, o, d, t_min, t_max,
 
 
 def lane_hbm_plain(nodes, n_nodes, o, d, t_min, t_max, any_hit=False,
-                   with_visits=False):
-    """Plain PyTorch version of K5 (the same walk as K4)."""
+                   with_visits=False, octants=None):
+    """Plain PyTorch version of K5: any-hit lanes walk K4's walk over the
+    canonical ``nodes``; closest-hit lanes walk their octant's table of
+    ``octants`` from its row 0 with the tie rule (K3's walk from the root).
+    Returns (hit, t, idx, u, v), and with ``with_visits`` the visits as
+    ``lane_chunk_plain`` gives them."""
+    if not any_hit and octants is None:
+        raise ValueError(_NEED_OCTANTS)
     return _root_plain(nodes, n_nodes, o, d, t_min, t_max, any_hit,
-                       with_visits)
+                       with_visits, None if any_hit else octants)
 
 
 def _chunk_plain(fetch, n_nodes, rays, state, any_hit, max_steps,
@@ -611,12 +640,15 @@ def _chunk_plain(fetch, n_nodes, rays, state, any_hit, max_steps,
     return out + (visits,) if with_visits else out
 
 
+_NEED_OCTANTS = ("closest-hit queries of K3, K5, K6 and K7 walk the octant "
+                 "tables: pass octants (cuda_bvh.octant_tables)")
+
+
 def _octant_walk(octants, n_nodes, rays):
     """The walk arguments of closest-hit lanes: each lane's octant table in
     the flattened (8 N, 12) tables and the tie rule's map."""
     if octants is None:
-        raise ValueError("closest-hit queries of K3 and K7 walk the octant "
-                         "tables: pass octants (cuda_bvh.octant_tables)")
+        raise ValueError(_NEED_OCTANTS)
     return dict(base=_octant(*rays[3:6]) * n_nodes,
                 n_rows=OCTANTS * n_nodes,
                 leaf_row=octants.leaf_row.to(torch.int64))
@@ -648,14 +680,10 @@ def lane_chunk_plain(nodes, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
     return out + (visits,) if with_visits else out
 
 
-def lane_chunk_hbm_plain(nodes, n_nodes, ox, oy, oz, dx, dy, dz, t_min,
-                         node_in, t_in, i_in, u_in, v_in, any_hit=False,
-                         max_steps=0, with_visits=False):
-    """Plain PyTorch version of K6 (the same walk as K3)."""
-    return _chunk_plain(_node_rows(nodes), n_nodes,
-                        (ox, oy, oz, dx, dy, dz, t_min),
-                        (node_in, t_in, i_in, u_in, v_in), any_hit, max_steps,
-                        with_visits)
+# Plain PyTorch version of K6: K3's walk (closest-hit lanes on ``octants``);
+# the two kernels differ only in their schedule on the card.
+lane_chunk_hbm_plain = lane_chunk_plain
+
 
 def lane_chunk_w_plain(pages, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
                        t_in, i_in, u_in, v_in, any_hit=False, max_steps=0,
@@ -929,38 +957,56 @@ def _launch(fn_name, wrapper, dev, args, outs):
     return outs
 
 
-def _launch_root(fn_name, plain, wrapper, nodes, n_nodes, o, d, t_min, t_max,
-                 any_hit):
+def bvh_traverse_lane_packed(nodes, n_nodes, o, d, t_min, t_max,
+                             any_hit=False):
+    """K4: closest hit (or, with ``any_hit``, the first hit found) of rays
+    o, d (R, 3) within (t_min, t_max) (R,), walking the canonical table from
+    the root.
+
+    Returns (hit bool, t float32 (inf on a miss), idx int32 original triangle
+    id (-1 on a miss), u, v float32 (0 on a miss)), each (R,). A lane with
+    t_max <= t_min is dead and misses."""
     dev = _check_nodes(nodes, n_nodes)
     R = _check_root_rays(o, d, t_min, t_max, dev)
     if dev.type == "cpu":
-        return plain(nodes, n_nodes, o, d, t_min, t_max, any_hit=any_hit)
-    return _launch(fn_name, wrapper, dev, (
+        return bvh_traverse_lane_packed_plain(nodes, n_nodes, o, d, t_min,
+                                              t_max, any_hit=any_hit)
+    return _launch("bvh_lane_packed", bvh_traverse_lane_packed, dev, (
         nodes.data_ptr(), n_nodes, o.data_ptr(), d.data_ptr(),
         t_min.data_ptr(), t_max.data_ptr(), R, int(any_hit)),
         _root_outputs(R, dev))
 
 
-def bvh_traverse_lane_packed(nodes, n_nodes, o, d, t_min, t_max,
-                             any_hit=False):
-    """K4: closest hit (or, with ``any_hit``, the first hit found) of rays
-    o, d (R, 3) within (t_min, t_max) (R,), walking from the root.
-
-    Returns (hit bool, t float32 (inf on a miss), idx int32 original triangle
-    id (-1 on a miss), u, v float32 (0 on a miss)), each (R,). A lane with
-    t_max <= t_min is dead and misses."""
-    return _launch_root("bvh_lane_packed", bvh_traverse_lane_packed_plain,
-                        bvh_traverse_lane_packed, nodes, n_nodes, o, d, t_min,
-                        t_max, any_hit)
-
-
 bvh_traverse_lane_packed.launches = 0
 
 
-def lane_hbm(nodes, n_nodes, o, d, t_min, t_max, any_hit=False):
-    """K5: K4 for trees above ``LANE_VMEM_MAX_NODES``; same contract."""
-    return _launch_root("bvh_lane_hbm", lane_hbm_plain, lane_hbm, nodes,
-                        n_nodes, o, d, t_min, t_max, any_hit)
+def _octant_ptrs(octants, any_hit):
+    """The octant tables' and the map's pointers of a K3, K5, K6 or K7
+    launch (null for an any-hit call, which walks the canonical table)."""
+    if any_hit:
+        return None, None
+    return octants.nodes.data_ptr(), octants.leaf_row.data_ptr()
+
+
+def lane_hbm(nodes, n_nodes, o, d, t_min, t_max, any_hit=False,
+             octants=None):
+    """K5: K4's contract (closest hit of rays o, d (R, 3) within (t_min,
+    t_max), or the first hit found; returns (hit, t, idx, u, v)) for trees
+    above ``LANE_VMEM_MAX_NODES``. Any-hit lanes walk the canonical table
+    ``nodes`` from the root; closest-hit lanes walk their direction's octant
+    table of ``octants`` (required for a closest-hit call) from its root
+    with the tie rule, which keeps the canonical walk's result."""
+    dev = _check_nodes(nodes, n_nodes)
+    if not any_hit:
+        _check_octants(octants, n_nodes, dev)
+    R = _check_root_rays(o, d, t_min, t_max, dev)
+    if dev.type == "cpu":
+        return lane_hbm_plain(nodes, n_nodes, o, d, t_min, t_max,
+                              any_hit=any_hit, octants=octants)
+    return _launch("bvh_lane_hbm", lane_hbm, dev, (
+        nodes.data_ptr(), *_octant_ptrs(octants, any_hit), n_nodes,
+        o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), R,
+        int(any_hit)), _root_outputs(R, dev))
 
 
 lane_hbm.launches = 0
@@ -979,33 +1025,18 @@ def _check_pages(pages, n_nodes, page):
                          f"{page} nodes")
 
 
-def _launch_chunk(fn_name, plain, wrapper, table, n_nodes, rays, state,
-                  any_hit, max_steps, page=None):
-    """A resumable walk over the canonical node-major ``table`` (K6) or,
-    given ``page``, over wide pages of that many nodes (K9)."""
-    dev = table.device
-    if page is None:
-        _check_nodes(table, n_nodes)
-    else:
-        _check_pages(table, n_nodes, page)
+def _check_resume(rays, state, max_steps, dev):
+    """A resumable walk's rays, state and budget (K3, K6, K9); returns R."""
     R = _check_chunk_state(rays, state, dev)
     if max_steps < 0:
         raise ValueError(f"max_steps {max_steps} < 0")
-    kw = {} if page is None else {"page": page}
-    if dev.type == "cpu":
-        return plain(table, n_nodes, *rays, *state, any_hit=any_hit,
-                     max_steps=max_steps, **kw)
-    lead = (n_nodes,) if page is None else (page, n_nodes)
-    return _launch(fn_name, wrapper, dev, (
-        table.data_ptr(), *lead, *(x.data_ptr() for x in rays + state), R,
-        int(any_hit), int(max_steps)), _chunk_outputs(R, dev))
+    return R
 
 
 def _check_octants(octants, n_nodes, dev):
     """An ``Octants`` of ``n_nodes``-row tables on ``dev``."""
     if not isinstance(octants, Octants):
-        raise ValueError("closest-hit queries of K3 and K7 walk the octant "
-                         "tables: pass octants (cuda_bvh.octant_tables)")
+        raise ValueError(_NEED_OCTANTS)
     _check("octants.nodes", octants.nodes, torch.float32,
            (OCTANTS, n_nodes, NODE_COLS), dev)
     if dev.type == "cuda" and octants.nodes.data_ptr() % 16:
@@ -1026,21 +1057,25 @@ def lane_chunk(nodes, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in, t_in,
     the table of their direction's octant in ``octants`` (required for a
     closest-hit call), so their ``node`` is a row of that table, and keep the
     canonical walk's result by the tie rule."""
+    return _octant_chunk("bvh_lane_chunk", lane_chunk_plain, lane_chunk,
+                         nodes, n_nodes, (ox, oy, oz, dx, dy, dz, t_min),
+                         (node_in, t_in, i_in, u_in, v_in), any_hit,
+                         max_steps, octants)
+
+
+def _octant_chunk(fn_name, plain, wrapper, nodes, n_nodes, rays, state,
+                  any_hit, max_steps, octants):
+    """K3's and K6's launch: checks, the plain version on the CPU, else the
+    kernel with the octant pointers."""
     dev = _check_nodes(nodes, n_nodes)
     if not any_hit:
         _check_octants(octants, n_nodes, dev)
-    rays = (ox, oy, oz, dx, dy, dz, t_min)
-    state = (node_in, t_in, i_in, u_in, v_in)
-    R = _check_chunk_state(rays, state, dev)
-    if max_steps < 0:
-        raise ValueError(f"max_steps {max_steps} < 0")
+    R = _check_resume(rays, state, max_steps, dev)
     if dev.type == "cpu":
-        return lane_chunk_plain(nodes, n_nodes, *rays, *state, any_hit=any_hit,
-                                max_steps=max_steps, octants=octants)
-    oct_ptrs = (None, None) if any_hit else (octants.nodes.data_ptr(),
-                                             octants.leaf_row.data_ptr())
-    return _launch("bvh_lane_chunk", lane_chunk, dev, (
-        nodes.data_ptr(), *oct_ptrs, n_nodes,
+        return plain(nodes, n_nodes, *rays, *state, any_hit=any_hit,
+                     max_steps=max_steps, octants=octants)
+    return _launch(fn_name, wrapper, dev, (
+        nodes.data_ptr(), *_octant_ptrs(octants, any_hit), n_nodes,
         *(x.data_ptr() for x in rays + state), R, int(any_hit),
         int(max_steps)), _chunk_outputs(R, dev))
 
@@ -1049,12 +1084,19 @@ lane_chunk.launches = 0
 
 
 def lane_chunk_hbm(nodes, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
-                   t_in, i_in, u_in, v_in, any_hit=False, max_steps=0):
-    """K6: K3 for trees above ``LANE_VMEM_MAX_NODES``; same contract."""
-    return _launch_chunk("bvh_lane_chunk_hbm", lane_chunk_hbm_plain,
+                   t_in, i_in, u_in, v_in, any_hit=False, max_steps=0,
+                   octants=None):
+    """K6: K3's contract for trees above ``LANE_VMEM_MAX_NODES``: resume
+    each lane from (node_in, t_in, i_in, u_in, v_in) for at most
+    ``max_steps`` visits; closest-hit lanes on their octant's table of
+    ``octants`` (required for a closest-hit call, and ``node`` is a row of
+    that table), any-hit lanes on the canonical ``nodes``. Returns (t, idx,
+    u, v, node)."""
+    return _octant_chunk("bvh_lane_chunk_hbm", lane_chunk_hbm_plain,
                          lane_chunk_hbm, nodes, n_nodes,
                          (ox, oy, oz, dx, dy, dz, t_min),
-                         (node_in, t_in, i_in, u_in, v_in), any_hit, max_steps)
+                         (node_in, t_in, i_in, u_in, v_in), any_hit,
+                         max_steps, octants)
 
 
 lane_chunk_hbm.launches = 0
@@ -1064,10 +1106,19 @@ def lane_chunk_w(pages, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in, t_in,
                  i_in, u_in, v_in, any_hit=False, max_steps=0, page=WIDE_PAGE):
     """K9: K3's contract (resume for at most ``max_steps`` node visits) over
     the wide pages of ``pack_pages_w`` with ``page`` nodes per page."""
-    return _launch_chunk("bvh_lane_chunk_w", lane_chunk_w_plain, lane_chunk_w,
-                         pages, n_nodes, (ox, oy, oz, dx, dy, dz, t_min),
-                         (node_in, t_in, i_in, u_in, v_in), any_hit, max_steps,
-                         page=page)
+    dev = pages.device
+    _check_pages(pages, n_nodes, page)
+    rays = (ox, oy, oz, dx, dy, dz, t_min)
+    state = (node_in, t_in, i_in, u_in, v_in)
+    R = _check_resume(rays, state, max_steps, dev)
+    if dev.type == "cpu":
+        return lane_chunk_w_plain(pages, n_nodes, *rays, *state,
+                                  any_hit=any_hit, max_steps=max_steps,
+                                  page=page)
+    return _launch("bvh_lane_chunk_w", lane_chunk_w, dev, (
+        pages.data_ptr(), page, n_nodes,
+        *(x.data_ptr() for x in rays + state), R, int(any_hit),
+        int(max_steps)), _chunk_outputs(R, dev))
 
 
 lane_chunk_w.launches = 0
@@ -1096,11 +1147,10 @@ def treelet_rounds(nodes, tab, o, d, t_min, t_max, any_hit=False,
     if dev.type == "cpu":
         return treelet_rounds_plain(nodes, tab, o, d, t_min, t_max,
                                     any_hit=any_hit, octants=octants)
-    oct_ptrs = (None, None) if any_hit else (octants.nodes.data_ptr(),
-                                             octants.leaf_row.data_ptr())
     return _launch("bvh_treelet_rounds", treelet_rounds, dev, (
-        nodes.data_ptr(), *oct_ptrs, N, tab.data_ptr(), K, o.data_ptr(),
-        d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), R, int(any_hit)),
+        nodes.data_ptr(), *_octant_ptrs(octants, any_hit), N, tab.data_ptr(),
+        K, o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), R,
+        int(any_hit)),
         _root_outputs(R, dev))
 
 
@@ -1201,19 +1251,26 @@ def bvh_traverse_lane_resort(nodes, n_nodes, o, d, t_min, t_max, scene_lo,
 
 def bvh_traverse_lane_hbm_resort(nodes, n_nodes, o, d, t_min, t_max,
                                  scene_lo, scene_hi, any_hit=False,
-                                 strip=LSTRIP, rounds=3, chunk_nit=24):
-    """``bvh_traverse_lane_resort`` through K6 (pallas_bvh.py:1587)."""
-    return _resort(lane_chunk_hbm, nodes, n_nodes, o, d, t_min, t_max,
-                   scene_lo, scene_hi, any_hit, strip, rounds, chunk_nit)
+                                 strip=LSTRIP, rounds=3, chunk_nit=24,
+                                 octants=None):
+    """``bvh_traverse_lane_resort`` through K6 (pallas_bvh.py:1587); a
+    closest-hit query needs ``octants``. Returns (hit, t, idx, u, v); the
+    result does not depend on the schedule."""
+    def chunk(*args, **kw):
+        return lane_chunk_hbm(*args, octants=octants, **kw)
+    return _resort(chunk, nodes, n_nodes, o, d, t_min, t_max, scene_lo,
+                   scene_hi, any_hit, strip, rounds, chunk_nit)
 
 
 def _traverse_root(kernel, nodes, n_nodes, o, d, t_min, t_max, scene_lo,
-                   scene_hi, sort, any_hit):
+                   scene_hi, sort, any_hit, **kw):
     if not sort:
-        return kernel(nodes, n_nodes, o, d, t_min, t_max, any_hit=any_hit)
+        return kernel(nodes, n_nodes, o, d, t_min, t_max, any_hit=any_hit,
+                      **kw)
     (*rays, tmx), orig = sort_rays(o, d, t_min, t_max, scene_lo, scene_hi)
     res = kernel(nodes, n_nodes, torch.stack(rays[0:3], -1),
-                 torch.stack(rays[3:6], -1), rays[6], tmx, any_hit=any_hit)
+                 torch.stack(rays[3:6], -1), rays[6], tmx, any_hit=any_hit,
+                 **kw)
     return tuple(_unsort(orig, *res))
 
 
@@ -1226,10 +1283,13 @@ def bvh_traverse_lane(nodes, n_nodes, o, d, t_min, t_max, scene_lo, scene_hi,
 
 
 def bvh_traverse_lane_hbm(nodes, n_nodes, o, d, t_min, t_max, scene_lo,
-                          scene_hi, *, sort, any_hit=False):
-    """K5 with an optional coherence sort (pallas_bvh.py:1423)."""
+                          scene_hi, *, sort, any_hit=False, octants=None):
+    """K5 with an optional coherence sort (pallas_bvh.py:1423); a
+    closest-hit query needs ``octants`` (the sort key's top bits group the
+    rays by octant, so a launch walks the tables one after another).
+    Returns (hit, t, idx, u, v)."""
     return _traverse_root(lane_hbm, nodes, n_nodes, o, d, t_min, t_max,
-                          scene_lo, scene_hi, sort, any_hit)
+                          scene_lo, scene_hi, sort, any_hit, octants=octants)
 
 
 def bvh_traverse_lane_resort_w(pages, n_nodes, o, d, t_min, t_max, scene_lo,

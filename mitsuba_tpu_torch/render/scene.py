@@ -162,8 +162,8 @@ def _bvh_query(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
     query goes to K7, sorted unless presorted, whatever the tree size. Else
     trees above LANE_VMEM_MAX_NODES go to K5 (sorted unless presorted);
     presorted queries to K4 as they come; the others through the resort
-    schedule of K3 launches. Closest-hit K3 and K7 walk the scene's octant
-    tables."""
+    schedule of K3 launches. Closest-hit K3, K5 and K7 walk the scene's
+    octant tables."""
     if BVH_KERNEL not in BVH_KERNELS:
         raise ValueError(f"MTS_BVH_KERNEL={BVH_KERNEL!r}; expected one of "
                          f"{BVH_KERNELS}")
@@ -176,7 +176,8 @@ def _bvh_query(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
     args = (scene.nodes, N, o, d, t_min, t_max, scene.aabb_lo, scene.aabb_hi)
     if N > cuda_bvh.LANE_VMEM_MAX_NODES:
         return cuda_bvh.bvh_traverse_lane_hbm(*args, sort=not presorted,
-                                              any_hit=any_hit)
+                                              any_hit=any_hit,
+                                              octants=scene.octants)
     if presorted:
         return cuda_bvh.bvh_traverse_lane(*args, sort=False, any_hit=any_hit)
     rounds, chunk_nit, strip = BVH_RESORT_SHADOW if any_hit else BVH_RESORT

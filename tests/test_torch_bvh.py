@@ -15,7 +15,9 @@ Tolerances:
     than this file's time budget): hit exact, idx on 99% of hits, t to
     rtol 1e-4 (the XLA walk tests a leaf's box before its triangle and
     inverts the determinant through safe_div, so grazing hits can differ);
-  * a budgeted and resumed walk against the unbounded one: bit for bit.
+  * a budgeted and resumed walk against the unbounded one, K5 and K6
+    against K3's and K4's plain walks, and the octant walks' tie rule
+    against the JAX kernel and the XLA walk: bit for bit.
 
 The Pallas calls run with strip=1: a lane's node sequence does not depend on
 the strip, and the smaller kernel body compiles in a third of the time.
@@ -361,29 +363,43 @@ def tie_grid():
                                                               t_max)))
     octants = cb.octant_tables(nodes)
     args = (torch.from_numpy(nodes), N, *_t(o, d, t_min, t_max, *bounds))
-    out = cb.bvh_traverse_lane_resort(*args, strip=1, rounds=2, chunk_nit=3,
-                                      octants=octants)
     # the octant walk without the tie rule: no leaf row is below -1
     no_tie = octants._replace(leaf_row=torch.full_like(octants.leaf_row, -1))
-    first = cb.bvh_traverse_lane_resort(*args, strip=1, rounds=2,
-                                        chunk_nit=3, octants=no_tie)
+    queries = {
+        "k3": lambda oc: cb.bvh_traverse_lane_resort(
+            *args, strip=1, rounds=2, chunk_nit=3, octants=oc),
+        # K5 from the root; K6 bounded (3 visits), re-sorted and resumed
+        "k5": lambda oc: cb.bvh_traverse_lane_hbm(*args, sort=True,
+                                                  octants=oc),
+        "k6": lambda oc: cb.bvh_traverse_lane_hbm_resort(
+            *args, strip=1, rounds=2, chunk_nit=3, octants=oc),
+    }
     return dict(ref=[np.asarray(x) for x in ref],
-                xla=[np.asarray(x) for x in xla], out=out, first=first)
+                xla=[np.asarray(x) for x in xla],
+                out={k: q(octants) for k, q in queries.items()},
+                first={k: q(no_tie) for k, q in queries.items()})
 
 
-@pytest.mark.parametrize("field", OUT)
-def test_k3_octant_walk_keeps_the_canonical_tie_break(tie_grid, field):
-    """On exact ties the octant walk's result is the JAX kernel's and the
-    XLA walk's (the first of the tied triangles in canonical order), bit for
-    bit, idx included; without the tie rule it would not be."""
+# K3's cases keep their ids; K5's and K6's walk the same octant tables
+TIE_CASES = [pytest.param("k3", f, id=f) for f in OUT] + [
+    pytest.param(k, f, id=f"{k}-{f}") for k in ("k5", "k6") for f in OUT]
+
+
+@pytest.mark.parametrize("kernel,field", TIE_CASES)
+def test_k3_octant_walk_keeps_the_canonical_tie_break(tie_grid, kernel, field):
+    """On exact ties the octant walk's result (K3's resort query, K5's
+    query from the root, K6's bounded and resumed resort query) is the JAX
+    kernel's and the XLA walk's (the first of the tied triangles in
+    canonical order), bit for bit, idx included; without the tie rule it
+    would not be."""
     i = OUT.index(field)
-    out = tie_grid["out"][i].numpy()
+    out = tie_grid["out"][kernel][i].numpy()
     np.testing.assert_array_equal(out, tie_grid["ref"][i], err_msg=field)
     np.testing.assert_array_equal(out, tie_grid["xla"][i], err_msg=field)
     if field == "hit":
         assert out.mean() > 0.9
     if field == "idx":
-        assert (tie_grid["first"][2].numpy() != out).sum() > 20
+        assert (tie_grid["first"][kernel][2].numpy() != out).sum() > 20
 
 
 # --- K5 and K6 against the XLA walk ---------------------------------------
@@ -408,21 +424,24 @@ def big_soup():
     ref = jax.jit(bvh_closest_hit)(DeviceBVH.from_host(bvh, p0, e1, e2),
                                    *(jnp.asarray(x) for x in (o, d, t_min,
                                                               t_max)))
-    nodes = torch.from_numpy(cb.pack_nodes(bvh, p0, e1, e2))
+    nodes = cb.pack_nodes(bvh, p0, e1, e2)
     bounds = _t(lo.min(0).astype(np.float32), hi.max(0).astype(np.float32))
-    return dict(ref=[np.asarray(x) for x in ref], nodes=nodes, N=len(bvh.lo),
-                rays=_t(o, d, t_min, t_max), bounds=bounds)
+    return dict(ref=[np.asarray(x) for x in ref],
+                nodes=torch.from_numpy(nodes), octants=cb.octant_tables(nodes),
+                N=len(bvh.lo), rays=_t(o, d, t_min, t_max), bounds=bounds)
 
 
 @pytest.mark.parametrize("kernel", ["k5", "k6"])
 def test_k5_k6_plain_match_xla(big_soup, kernel):
-    nodes, N, rays, bounds = (big_soup[k] for k in ("nodes", "N", "rays",
-                                                    "bounds"))
+    nodes, N, rays, bounds, octants = (big_soup[k] for k in (
+        "nodes", "N", "rays", "bounds", "octants"))
     if kernel == "k5":
-        out = cb.bvh_traverse_lane_hbm(nodes, N, *rays, *bounds, sort=True)
+        out = cb.bvh_traverse_lane_hbm(nodes, N, *rays, *bounds, sort=True,
+                                       octants=octants)
     else:
         out = cb.bvh_traverse_lane_hbm_resort(nodes, N, *rays, *bounds,
-                                              rounds=2, chunk_nit=6)
+                                              rounds=2, chunk_nit=6,
+                                              octants=octants)
     hit, t, idx = (x.numpy() for x in out[:3])
     h_x, t_x, i_x = big_soup["ref"][:3]
     assert 0.3 < hit.mean()
@@ -432,27 +451,71 @@ def test_k5_k6_plain_match_xla(big_soup, kernel):
 
 
 def test_k5_k6_run_k4_k3_arithmetic(big_soup):
-    """On the card K5/K6 differ from K4/K3 only by tree size: their plain
-    versions are the same walk."""
-    nodes, N, (o, d, t_min, t_max), _ = (big_soup[k] for k in (
-        "nodes", "N", "rays", "bounds"))
-    for a, b in zip(cb.lane_hbm_plain(nodes, N, o, d, t_min, t_max),
-                    cb.bvh_traverse_lane_packed_plain(nodes, N, o, d, t_min,
-                                                      t_max)):
+    """K5's plain version is K3's plain octant walk from the root, unbounded,
+    for closest hits and K4's canonical walk for any-hit queries; K6's is
+    K3's own, for both query kinds and any budget. (On the card K5 and K6
+    differ from them only by their schedule.)"""
+    nodes, N, rays, octants = (big_soup[k] for k in ("nodes", "N", "rays",
+                                                     "octants"))
+    lanes, root = _lanes(*rays, N)
+    t, idx, u, v, _ = cb.lane_chunk_plain(nodes, N, *lanes, *root,
+                                          octants=octants)
+    hit = idx >= 0
+    k3 = (hit, torch.where(hit, t, torch.inf), idx, u, v)
+    for a, b in zip(cb.lane_hbm_plain(nodes, N, *rays, octants=octants), k3):
         assert torch.equal(a, b)
+    for a, b in zip(cb.lane_hbm_plain(nodes, N, *rays, any_hit=True),
+                    cb.bvh_traverse_lane_packed_plain(nodes, N, *rays,
+                                                      any_hit=True)):
+        assert torch.equal(a, b)
+    assert cb.lane_chunk_hbm_plain is cb.lane_chunk_plain
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+def test_k6_resort_query_equals_one_walk(big_soup, monkeypatch, any_hit):
+    """The K6 resort query (launches of 4 visits, each followed by a re-sort
+    by node pointer, a row of the lane's own octant table for a closest-hit
+    lane, retired lanes last) gives bit for bit the result of one unbounded
+    plain walk from the root on the same rays, and every launch after the
+    first sees its lanes in that order."""
+    nodes, N, rays, bounds, octants = (big_soup[k] for k in (
+        "nodes", "N", "rays", "bounds", "octants"))
+    keys = []
+    chunk = cb.lane_chunk_hbm
+
+    def spy(nodes, N, ox, oy, oz, dx, dy, dz, t_min, node, *rest, **kw):
+        keys.append(node)
+        return chunk(nodes, N, ox, oy, oz, dx, dy, dz, t_min, node, *rest, **kw)
+
+    monkeypatch.setattr(cb, "lane_chunk_hbm", spy)
+    res = cb.bvh_traverse_lane_hbm_resort(nodes, N, *rays, *bounds,
+                                          any_hit=any_hit, strip=1, rounds=3,
+                                          chunk_nit=4, octants=octants)
+    ref = cb.lane_hbm_plain(nodes, N, *rays, any_hit=any_hit, octants=octants)
+    for a, b in zip(res, ref):
+        assert torch.equal(a, b)
+    assert len(keys) == 4
+    for key in keys[1:]:
+        assert bool((key[1:] >= key[:-1]).all())
+    assert int((keys[-1] < N).sum()) > 0
 
 
 # --- the schedule does not change the result ------------------------------
 
-def _chunk_args(soup, n=None):
-    o, d, t_min, t_max = _t(*(x[:n] for x in soup["rays"]))
+def _lanes(o, d, t_min, t_max, N):
+    """The resumable kernels' rays (one array per component) and their
+    state at the root."""
     R = o.shape[0]
     rays = tuple(o[:, k].contiguous() for k in range(3)) + tuple(
         d[:, k].contiguous() for k in range(3)) + (t_min,)
-    state = (torch.where(t_max > t_min, 0, soup["N"]).to(torch.int32), t_max,
+    state = (torch.where(t_max > t_min, 0, N).to(torch.int32), t_max,
              torch.full((R,), -1, dtype=torch.int32), torch.zeros(R),
              torch.zeros(R))
     return rays, state
+
+
+def _chunk_args(soup, n=None):
+    return _lanes(*_t(*(x[:n] for x in soup["rays"])), soup["N"])
 
 
 def _bounds(soup):
@@ -525,10 +588,12 @@ def test_cpu_calls_run_plain_and_count_no_launch(soup):
                 cb.lane_chunk_hbm)
     before = [w.launches for w in wrappers]
     a = cb.bvh_traverse_lane_packed(soup["nodes"], soup["N"], o, d, t_min, t_max)
-    b = cb.lane_hbm(soup["nodes"], soup["N"], o, d, t_min, t_max)
+    b = cb.lane_hbm(soup["nodes"], soup["N"], o, d, t_min, t_max,
+                    octants=soup["octants"])
     c = cb.lane_chunk(soup["nodes"], soup["N"], *rays, *state,
                       octants=soup["octants"])
-    e = cb.lane_chunk_hbm(soup["nodes"], soup["N"], *rays, *state)
+    e = cb.lane_chunk_hbm(soup["nodes"], soup["N"], *rays, *state,
+                          octants=soup["octants"])
     assert [w.launches for w in wrappers] == before
     for x, y in zip(a, b):
         assert torch.equal(x, y)
@@ -567,6 +632,26 @@ def test_wrappers_check_inputs_on_the_cpu_too(soup, bad, error):
                           octants=soup["octants"], **chunk)
         else:
             cb.bvh_traverse_lane_packed(**root)
+
+
+def test_k5_k6_closest_hit_needs_octants(soup):
+    """A closest-hit K5 or K6 call without the octant tables raises (on the
+    CPU too), as do their plain versions; an any-hit call needs none."""
+    nodes, N = soup["nodes"], soup["N"]
+    o, d, t_min, t_max = _t(*(x[:64] for x in soup["rays"]))
+    rays, state = _chunk_args(soup, 64)
+    for call in (lambda **k: cb.lane_hbm(nodes, N, o, d, t_min, t_max, **k),
+                 lambda **k: cb.lane_hbm_plain(nodes, N, o, d, t_min, t_max,
+                                               **k),
+                 lambda **k: cb.lane_chunk_hbm(nodes, N, *rays, *state, **k),
+                 lambda **k: cb.lane_chunk_hbm_plain(nodes, N, *rays, *state,
+                                                     **k)):
+        with pytest.raises(ValueError, match="pass octants"):
+            call()
+        assert call(any_hit=True)[0].shape == (64,)
+    with pytest.raises(ValueError, match="pass octants"):
+        cb.bvh_traverse_lane_hbm(nodes, N, o, d, t_min, t_max, *_bounds(soup),
+                                 sort=True)
 
 
 def test_wrappers_reject_other_devices(soup):
