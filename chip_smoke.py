@@ -21,17 +21,24 @@ Phases, each of which raises on failure (no phase is skipped):
      use it;
   4. BVH kernels on the bunny_x2 scene (bench.py:27-89; bunny.ply is not in
      the repository, so bench.py's fallback heightfield of 79,202 triangles
-     stands in for it, as in the JAX bench): time the octant packer; hold K4
-     (bvh_traverse_lane_packed) against its plain version on the 262,144
-     camera rays, K3 (lane_chunk) on 262,144 bounce rays (closest hit, on
-     the octant tables) and shadow rays (any-hit, canonical table) of the
-     first bounce (a bounded launch, then the resumed rest), bit for bit;
-     hold K3's unbounded closest-hit walk against K4's canonical walk on the
-     same rays (hit and t, every mismatch printed as a near-tie or fatal),
-     compare their visits, time K3 in turns against K4 (the canonical walk
-     from the root) and print K3's and K7's registers and occupancy; time
-     the bounce query with the JAX resort schedule against one unbounded K3
-     launch with and without the coherence sort;
+     stands in for it, as in the JAX bench): time the octant packer; print
+     the registers and occupancy of K3, K4 (both instantiations) and K7;
+     hold K4 (bvh_traverse_lane_packed: closest hit and any-hit on the
+     canonical table, an instantiation each) against its plain version on
+     the 262,144 camera rays, bit for bit; hold the octant walk from the
+     root (K5's) against it there (hit, and t except near-ties within
+     NEAR_TIE_RTOL, each printed), with the visits and distinct rows of both
+     walks, and time K4 in turns with K5; time K4 back to back and with the
+     L2 flushed before each launch, and on the camera rays of each sample
+     the render traces (the render mean's gap, phase 13); hold K3
+     (lane_chunk) on 262,144 bounce rays (closest hit, on the octant tables)
+     and shadow rays (any-hit, canonical table) of the first bounce (a
+     bounded launch, then the resumed rest), bit for bit; hold K3's
+     unbounded closest-hit walk against the canonical plain walk on the
+     card on the same rays, compare their visits, and time K3 in turns with
+     K4 (the canonical walk from the root); time the bounce query with the
+     JAX resort schedule against one unbounded K3 launch with and without
+     the coherence sort;
   5. the treelet kernel K7 (treelet_rounds) on the bunny scene's treelet
      cut: held bit for bit against both plain versions (the JAX rounds and
      the kernel's entry list) on the 262,144 camera rays (as they come), the
@@ -43,12 +50,20 @@ Phases, each of which raises on failure (no phase is skipped):
      same triangles: camera and bounce rays, closest and any-hit, and a
      bounded case with per-ray [start, end) ranges of the tree's treelets;
      then its sorting query bvh_traverse with the counts set to 0;
-  7. the wide-page kernel K9 (lane_chunk_w) on pack_pages_w of the same
-     triangles' leaf-1 tree: a bounded launch on the sorted bounce rays, then
-     the resumed rest, timed beside K3 on the same tree and rays and held
-     bit for bit against K4's canonical walk there; then its query
-     bvh_traverse_lane_resort_w with the counts set to 0, held bit for bit
-     against K4's sorted query bvh_traverse_lane;
+  7. the wide-page kernel K9 (lane_chunk_w) on the same triangles' leaf-1
+     tree, closest hit on its octant tables laid out as wide pages
+     (pack_pages_w_octants), any-hit on pack_pages_w: its registers and
+     occupancy; on the sorted bounce rays a bounded launch, then the
+     resumed rest, bit for bit against its plain version, closest and
+     any-hit, with visits and distinct rows; one unbounded launch of each
+     kind bit for bit against K3's on the same tree and rays (closest, on
+     the same octant tables) and the canonical any-hit walk (K4), its
+     closest hits against the canonical plain walk (near-ties printed), and
+     timed in turns with K3 and with K6 (node rows, an instantiation per
+     query kind); then its query bvh_traverse_lane_resort_w with
+     the counts set to 0, held bit for bit against K3's resort query and
+     against K4's sorted query bvh_traverse_lane (near-ties printed), and
+     timed in turns with K3's;
   8. large tier: 16 offset copies of the fallback mesh (bench.py:176-183;
      1,267,232 triangles, 2.53M nodes, above LANE_VMEM_MAX_NODES), on the
      262,144 rays of bench.py:205-212 sorted as the queries sort them: print
@@ -56,11 +71,12 @@ Phases, each of which raises on failure (no phase is skipped):
      (lane_hbm: closest hit on the octant tables, any-hit) and K6
      (lane_chunk_hbm: a bounded launch, then the resumed rest, closest and
      any-hit) against their plain versions bit for bit; hold their closest
-     hits against K4's canonical walk of the same tree and rays (hit, and t
-     except near-ties within NEAR_TIE_RTOL, each printed); print visits
-     (mean and max per live lane), distinct rows read and their MB, and the
-     warp efficiency of the octant and canonical walks; time K5 (closest,
-     any-hit) and K6 (closest, one unbounded launch) in turns with K4; then,
+     hits against the canonical plain walk of the same tree and rays on the
+     card (hit, and t except near-ties within NEAR_TIE_RTOL, each printed);
+     print visits (mean and max per live lane), distinct rows read and their
+     MB, and the warp efficiency of the octant and canonical walks; time K5
+     (closest, any-hit) and K6 (closest, one unbounded launch) in turns with
+     K4 (the canonical walk from the root); then,
      with the counts set to 0, a closest-hit and a shadow query through the
      scene (K5, 2 launches) and bench's resort query (K6, rounds 6, chunk
      16: 7 launches); print build time (and the octant packer's), rays/s
@@ -89,7 +105,8 @@ Phases, each of which raises on failure (no phase is skipped):
      and that K7 and K3 launched as the utility drives them;
  13. profile: one render pass of each scene (the bunny in both BVH modes)
      under torch.profiler, printing the device's busy share of the wall time,
-     the kernels that take it and each port kernel's render mean per launch.
+     the kernels that take it and each port kernel's render mean per launch;
+     K4's render mean beside its times of phase 4.
 
 The second-to-last line of output is the kernels' JSON record, the last
 {"ok": true, "device": {...}}. Without CUDA the script exits nonzero before
@@ -165,6 +182,9 @@ LANES_PER_SM = 128                # fp32 lanes: 4 schedulers x 32
 ODD_R = W * H + 3
 ODD_SOUP_R = 100_003
 DEAD_SHARE = 0.7
+# each kernel's source and the TPU kernel it replaces (the function that
+# reaches pl.pallas_call); every BVH kernel is one __global__ (K4, K5, K6,
+# K9: one per query kind) in bvh_lane.cu
 REPO_PATHS = {
     "brute_force_interaction": (
         "mitsuba_tpu_torch/csrc/brute_force.cu",
@@ -244,6 +264,9 @@ K7_TREELET_BYTES = 4 * cb.TREELET_COLS  # a row of K7's shared table
 MAP_BYTES = 4                     # an Octants.leaf_row entry read on a tie
 K8_RANGE_BYTES = 8                # per-ray start, end of a bounded K8 call
 K9_LEAF_BYTES = 44                # a wide-page leaf: 11 component words
+# a buffer larger than the 50 MB L2, written before a launch that must find
+# the L2 cold, as a render pass's other work leaves it
+FLUSH_BYTES = 256 << 20
 # the treelet render: a closest-hit and a shadow query per bounce, each one
 # K7 launch (render/scene.py _bvh_query)
 K7_PER_SPP = 2 * DEPTH
@@ -282,6 +305,25 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def cold_ms(fn, reps: int, flush) -> float:
+    """Mean device time of fn() with the L2 cold: each call comes after a
+    write of ``flush`` (larger than the L2), and CUDA events bracket the
+    call alone. A device-side sleep queued first lets the host enqueue
+    every call before the device reaches them, as in ``cuda_ms``."""
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1_000_000_000)
+    for start, end in events:
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
 def cornell(dev):
     b = SceneBuilder()
     shapes.cornell_box(b)
@@ -299,11 +341,11 @@ def tri_args(scene):
             scene.tri_nee_pdf_area)
 
 
-def camera_rays(sensor, dev):
-    """The 512x512 camera rays of sample 0, as the render makes them."""
+def camera_rays(sensor, dev, sample=0):
+    """The 512x512 camera rays of ``sample``, as the render makes them."""
     settings = api.RenderSettings(width=W, height=H)
     pix = torch.arange(W * H, dtype=torch.int64, device=dev)
-    pos = api.pixel_sample_positions(settings, pix, 0, SEED)
+    pos = api.pixel_sample_positions(settings, pix, sample, SEED)
     uv = pos / torch.tensor([W, H], dtype=torch.float32, device=dev)
     o, d = sensor_mod.sample_ray(sensor, uv, torch.zeros_like(uv))
     R = o.shape[0]
@@ -815,12 +857,16 @@ def _root_state(N, rays, t_max):
 
 
 def check_chunk_kernel(name, kern, plain, nodes, N, rays, t_max, budget,
-                       any_hit, rec=None, octants=None):
-    """K3/K6: a launch of ``budget`` visits from the root, then the resumed
-    rest: kernel == plain version bit for bit after each (closest-hit lanes
-    on ``octants``). On the first call (rec None) also time one unbounded
-    launch from the root, the kernel's whole walk in one launch, and its
-    plain version."""
+                       any_hit, rec=None, octants=None, bound_rows=None,
+                       leaf_bytes=48):
+    """K3/K6/K9: a launch of ``budget`` visits from the root, then the
+    resumed rest: kernel == plain version bit for bit after each
+    (closest-hit lanes on ``octants``). On the first call (rec None) also
+    time one unbounded launch from the root, the kernel's whole walk in one
+    launch, and its plain version; the bound charges the rows of
+    ``bound_rows`` (node-major, as the plain version's rows-read mask
+    indexes them; default the table the walk reads) that it reads,
+    ``leaf_bytes`` per leaf."""
     new = rec is None
     if new:
         rec = dict(name=name, route="cuda", source=REPO_PATHS[name][0],
@@ -849,9 +895,12 @@ def check_chunk_kernel(name, kern, plain, nodes, N, rays, t_max, budget,
             nodes, N, *rays, *root, any_hit=any_hit, with_visits=True, **kw))
         rec["ms"] = cuda_ms(lambda: kern(nodes, N, *rays, *root,
                                          any_hit=any_hit, **kw), reps=20)
-        rows = nodes if octants is None or any_hit else octant_rows(octants)
+        rows = bound_rows
+        if rows is None:
+            rows = nodes if octants is None or any_hit else octant_rows(octants)
         rec["bound_ms"], rec["bound_by"] = lane_bound_ms(
-            rows, t_max.shape[0], full[5], K3_RAY_BYTES, map_read=full[5][3])
+            rows, t_max.shape[0], full[5], K3_RAY_BYTES, leaf_bytes=leaf_bytes,
+            map_read=full[5][3])
         rec["library_ms"] = None  # no single PyTorch call computes it
         log(f"kernel {name} (one unbounded launch, any_hit={any_hit}): "
             f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
@@ -961,22 +1010,23 @@ def in_turns(label, kern, reps=20):
 
 def k3_octant_phase(nodes, N, octants, rays, tmx):
     """K3's closest-hit walk on the octant tables against the canonical
-    walk on the same sorted bounce rays: one unbounded launch each against
-    K4 (hit and t), visits per live lane, and times in turns against K4,
-    which walks the canonical table from the root."""
+    walk on the same sorted bounce rays: one unbounded launch against the
+    canonical plain walk (hit and t), visits per live lane, and times in
+    turns with K4, which walks the canonical table from the root."""
     R = tmx.shape[0]
     root = _root_state(N, rays, tmx)
     live = root[0] < N
     o, d = torch.stack(rays[0:3], -1), torch.stack(rays[3:6], -1)
-    k4 = cb.bvh_traverse_lane_packed(nodes, N, o, d, rays[6], tmx)
-    against_canonical("K3 octant walk vs K4 canonical walk", chunk_result(
-        cb.lane_chunk(nodes, N, *rays, *root, octants=octants)), k4)
+    canonical = cb.canonical_walk_plain(nodes, N, o, d, rays[6], tmx,
+                                        with_visits=True)
+    against_canonical("K3 octant walk vs the canonical walk", chunk_result(
+        cb.lane_chunk(nodes, N, *rays, *root, octants=octants)),
+        canonical[:5])
     mean = walk_visits("K3 on the sorted bounce rays", {
         "octant (K3)": cb.lane_chunk_plain(
             nodes, N, *rays, *root, octants=octants, with_visits=True)[5],
-        "canonical (K4)": cb.bvh_traverse_lane_packed_plain(
-            nodes, N, o, d, rays[6], tmx, with_visits=True)[5]}, live, N)
-    if not mean["octant (K3)"] < mean["canonical (K4)"]:
+        "canonical": canonical[5]}, live, N)
+    if not mean["octant (K3)"] < mean["canonical"]:
         raise AssertionError("the octant walk visits no fewer nodes than the "
                              "canonical walk")
     in_turns(f"K3 (octant tables) against K4 (canonical walk), one "
@@ -985,6 +1035,53 @@ def k3_octant_phase(nodes, N, octants, rays, tmx):
                                                            rays[6], tmx),
                  "K3": lambda: cb.lane_chunk(nodes, N, *rays, *root,
                                              octants=octants)})
+
+
+def k4_phase(dev, nodes, N, octants, sensor, cam):
+    """K4 on the camera rays: kernel == plain version bit for bit (closest
+    hit and any-hit, both on the canonical table); its closest hits and
+    visits against the octant walk from the root (K5's walk) on the same
+    rays, and the two kernels timed in turns; then K4's time back to back
+    (the L2 warm), with the L2 flushed before each launch, and on the camera
+    rays of each sample the bunny render traces. Returns the record, with
+    the warm and cold times under "warm_ms" and "cold_ms"."""
+    rec, (out, visits) = check_root_kernel(
+        "bvh_traverse_lane_packed", cb.bvh_traverse_lane_packed,
+        cb.bvh_traverse_lane_packed_plain, nodes, N, *cam)
+    octant = cb.lane_hbm_plain(nodes, N, *cam, octants=octants,
+                               with_visits=True)
+    against_canonical("the octant walk (K5's) vs K4 on the camera rays",
+                      octant[:5], out)
+    live = cam[3] > cam[2]
+    log(f"camera rays, octant walk (K5's): {_visits_line(octant[5], live)}; "
+        f"rays per octant {torch.bincount(cb._octant(*cam[1].T), minlength=cb.OCTANTS).tolist()}")
+    walk_visits("camera rays", {"canonical (K4)": visits,
+                                "octant (K5's)": octant[5]}, live, N)
+    in_turns("K4 (canonical walk) against K5 (octant walk from the root), "
+             f"one launch each on the same {cam[0].shape[0]} camera rays", {
+                 "K4": lambda: cb.bvh_traverse_lane_packed(nodes, N, *cam),
+                 "K5": lambda: cb.lane_hbm(nodes, N, *cam, octants=octants)})
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+
+    def k4(rays):
+        return lambda: cb.bvh_traverse_lane_packed(nodes, N, *rays)
+    rec["warm_ms"], mhz_warm = sm_clock_during(lambda: cuda_ms(k4(cam),
+                                                               reps=200))
+    rec["cold_ms"], mhz_cold = sm_clock_during(lambda: cold_ms(
+        k4(cam), reps=200, flush=flush))
+    log(f"kernel bvh_traverse_lane_packed on the camera rays of sample 0: "
+        f"{rec['warm_ms']:.4f} ms back to back ({mhz_warm:.0f} MHz), "
+        f"{rec['cold_ms']:.4f} ms with {FLUSH_BYTES >> 20} MB written "
+        f"before each launch ({mhz_cold:.0f} MHz)")
+    per_sample = []
+    for sample in range(BUNNY_SPP):
+        rays = camera_rays(sensor, dev, sample)
+        per_sample.append((cuda_ms(k4(rays), reps=20),
+                           cold_ms(k4(rays), reps=20, flush=flush)))
+    log("kernel bvh_traverse_lane_packed on the camera rays of samples 0-"
+        f"{BUNNY_SPP - 1} (warm, cold ms): "
+        + ", ".join(f"({w:.4f}, {c:.4f})" for w, c in per_sample))
+    return rec
 
 
 def bvh_kernel_phase(dev):
@@ -999,15 +1096,15 @@ def bvh_kernel_phase(dev):
     nodes, lo, hi = scene.nodes, scene.aabb_lo, scene.aabb_hi
     octants = scene.octants
     packer_line("bunny", scene)
-    for name in ("lane_chunk", "treelet_rounds"):
+    for name in ("lane_chunk", "treelet_rounds", "bvh_traverse_lane_packed",
+                 "bvh_traverse_lane_packed any_hit"):
         regs, blocks = cb.kernel_occupancy(name)
         log(f"occupancy {name}: {regs} registers, {blocks} blocks of 128 per "
             f"SM = {blocks * 128} threads; one wave holds "
             f"{blocks * 128 * torch.cuda.get_device_properties(dev).multi_processor_count} rays")
     cam = camera_rays(sensor, dev)
-    records = {"bvh_traverse_lane_packed": check_root_kernel(
-        "bvh_traverse_lane_packed", cb.bvh_traverse_lane_packed,
-        cb.bvh_traverse_lane_packed_plain, nodes, N, *cam)[0]}
+    records = {"bvh_traverse_lane_packed": k4_phase(dev, nodes, N, octants,
+                                                    sensor, cam)}
 
     bounce, shadow = first_bounce_rays(scene, static, cam[0], cam[1])
     rec = None
@@ -1271,13 +1368,16 @@ def fat_kernel_phase(scene, cam, bounce):
 
 
 def wide_kernel_phase(scene, bounce):
-    """K9 on pack_pages_w of a leaf-1 tree of the bunny's triangles: a
-    bounded launch on the sorted bounce rays and the resumed rest, kernel ==
-    plain bit for bit; one unbounded launch timed beside K3 on the same tree
-    and rays, and held bit for bit against K4, which walks the canonical
-    table from the root as K9 does (K3's closest-hit walk on the octant
-    tables only against hit and t, near-ties printed); then its resort query
-    with the counts set to 0, held bit for bit against K4's sorted query."""
+    """K9 on a leaf-1 tree of the bunny's triangles, closest hit on its
+    octant tables as wide pages, any-hit on pack_pages_w: a bounded launch
+    on the sorted bounce rays and the resumed rest, kernel == plain bit for
+    bit, closest and any-hit; one unbounded launch of each kind bit for bit
+    against K3's (closest) and K4's canonical any-hit walk on the same tree
+    and rays, the closest hits against the canonical plain walk (near-ties
+    printed), each timed in turns with K3 and K6; then its resort query with the
+    counts set to 0, bit for bit against K3's resort query and against K4's
+    sorted query (the canonical walk: near-ties printed), and timed in turns
+    with K3's."""
     dev = scene.nodes.device
     lo, hi = scene.aabb_lo, scene.aabb_hi
     tris, box = scene_tris(scene)
@@ -1287,62 +1387,81 @@ def wide_kernel_phase(scene, bounce):
     nodes_np = cb.pack_nodes(bvh, *tris)
     nodes = torch.as_tensor(nodes_np, device=dev)
     octants = cb.octant_tables(nodes_np, device=dev)
+    t0 = time.perf_counter()
+    wide = cb.wide_octant_pages(octants)
+    torch.cuda.synchronize()
+    log(f"wide pages: {N} nodes, page {cb.WIDE_PAGE}: canonical "
+        f"{pages.numel() * 4} bytes, octant pages {wide.pages.numel() * 4} "
+        f"bytes, packed in {time.perf_counter() - t0:.3f} s")
+    for name in ("lane_chunk_w", "lane_chunk_w any_hit"):
+        regs, blocks = cb.kernel_occupancy(name)
+        log(f"occupancy {name}: {regs} registers, {blocks} blocks of 128 per "
+            f"SM")
     (*rays, tmx), _ = cb.sort_rays(*bounce, lo, hi)
     rays = tuple(rays)
+    so, sd = torch.stack(rays[0:3], -1), torch.stack(rays[3:6], -1)
     budget = 16 * cb.LSTRIP   # the resort query's default chunk_nit x strip
-    rec = _new_record("lane_chunk_w")
-    state = _root_state(N, rays, tmx)
-    for step, steps in ((f"bounded ({budget} visits)", budget),
-                        ("resumed to the end", 0)):
-        out = cb.lane_chunk_w(pages, N, *rays, *state, max_steps=steps)
-        ref = cb.lane_chunk_w_plain(pages, N, *rays, *state, max_steps=steps,
-                                    with_visits=True)
-        torch.cuda.synchronize()
-        err, ulp = compare(f"lane_chunk_w/{step}", out, ref[:5], n_exact=0,
-                           ulp_limit=0)
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        log(f"kernel lane_chunk_w {step}: R={tmx.shape[0]} N={N} page "
-            f"{cb.WIDE_PAGE} ({pages.shape[0]} rows) idx/node mismatches 0, "
-            f"max |kernel-plain| {err:.3g} ({ulp} ulp), lanes still walking "
-            f"{int((out[4] < N).sum())}, {_visits_line(ref[5], state[0] < N)}")
-        state = (out[4], out[0], out[1], out[2], out[3])
+    rec = None
+    for any_hit in (False, True):
+        rec = check_chunk_kernel(
+            "lane_chunk_w", cb.lane_chunk_w, cb.lane_chunk_w_plain, pages, N,
+            rays, tmx, budget, any_hit, rec, octants=wide,
+            bound_rows=octant_rows(octants), leaf_bytes=K9_LEAF_BYTES)
     root = _root_state(N, rays, tmx)
-    full, rec["plain_ms"] = device_ms(lambda: cb.lane_chunk_w_plain(
-        pages, N, *rays, *root, with_visits=True))
-    k9 = chunk_result(cb.lane_chunk_w(pages, N, *rays, *root))
-    if not all(torch.equal(a, b) for a, b in zip(
-            k9, cb.bvh_traverse_lane_packed(
-                nodes, N, torch.stack(rays[0:3], -1),
-                torch.stack(rays[3:6], -1), rays[6], tmx))):
-        raise AssertionError("K9 and K4 (the canonical walk) disagree on the "
-                             "same tree")
-    against_canonical("K3 octant walk vs K9", chunk_result(
-        cb.lane_chunk(nodes, N, *rays, *root, octants=octants)), k9)
-    rec["ms"] = cuda_ms(lambda: cb.lane_chunk_w(pages, N, *rays, *root),
-                        reps=20)
-    t_k3 = cuda_ms(lambda: cb.lane_chunk(nodes, N, *rays, *root,
-                                         octants=octants), reps=20)
-    rec["bound_ms"], rec["bound_by"] = lane_bound_ms(
-        nodes, tmx.shape[0], full[5], K3_RAY_BYTES, leaf_bytes=K9_LEAF_BYTES)
-    rec["library_ms"] = None  # no single PyTorch call computes it
+    k9 = {a: cb.lane_chunk_w(pages, N, *rays, *root, any_hit=a, octants=wide)
+          for a in (False, True)}
+    k3 = cb.lane_chunk(nodes, N, *rays, *root, octants=octants)
+    if not all(torch.equal(a, b) for a, b in zip(k9[False], k3)):
+        raise AssertionError("K9 and K3 disagree on the same octant tables")
+    if not all(torch.equal(a, b) for a, b in zip(chunk_result(k9[True]),
+               cb.bvh_traverse_lane_packed(nodes, N, so, sd, rays[6], tmx,
+                                           any_hit=True))):
+        raise AssertionError("K9 any-hit and K4 any-hit (the canonical walk) "
+                             "disagree on the same tree")
+    against_canonical("K9 octant walk vs the canonical walk",
+                      chunk_result(k9[False]), cb.canonical_walk_plain(
+                          nodes, N, so, sd, rays[6], tmx))
+    label = f"one unbounded launch each on the same {tmx.shape[0]} sorted " \
+        "bounce rays and tree"
+    for any_hit in (False, True):
+        kw = dict(any_hit=any_hit, octants=octants)
+
+        def k9(a=any_hit):
+            return cb.lane_chunk_w(pages, N, *rays, *root, any_hit=a,
+                                   octants=wide)
+        in_turns(f"K9 against K3, any_hit={any_hit}, {label}", {
+            "K3": lambda kw=kw: cb.lane_chunk(nodes, N, *rays, *root, **kw),
+            "K9": k9})
+        # the same walk over node rows, an instantiation per query kind
+        in_turns(f"K9 against K6, any_hit={any_hit}, {label}", {
+            "K6": lambda kw=kw: cb.lane_chunk_hbm(nodes, N, *rays, *root,
+                                                  **kw),
+            "K9": k9})
     log(f"kernel lane_chunk_w (one unbounded launch, sorted bounce rays): "
-        f"{rec['ms']:.4f} ms, K3 on the same tree and rays {t_k3:.4f} ms, "
-        f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
-        f"({rec['bound_by']}), {_visits_line(full[5], root[0] < N)}")
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     _zero_counts()
-    res = cb.bvh_traverse_lane_resort_w(pages, N, *bounce, lo, hi)
+    res = cb.bvh_traverse_lane_resort_w(pages, N, *bounce, lo, hi,
+                                        octants=wide)
     torch.cuda.synchronize()
     launches = _check_launches("bvh_traverse_lane_resort_w (K9 query)",
                                {"lane_chunk_w": 3})
     rec["launches"] = launches["lane_chunk_w"]
-    ref = cb.bvh_traverse_lane(nodes, N, *bounce, lo, hi, sort=True)
-    if not all(torch.equal(a, b) for a, b in zip(res, ref)):
-        raise AssertionError("K9's resort query and K4's sorted query "
-                             "disagree")
-    against_canonical("K3 resort query vs K9 resort query",
-                      cb.bvh_traverse_lane_resort(nodes, N, *bounce, lo, hi,
-                                                  rounds=2, chunk_nit=16,
-                                                  octants=octants), res)
+
+    def k3_query():
+        return cb.bvh_traverse_lane_resort(nodes, N, *bounce, lo, hi,
+                                           rounds=2, chunk_nit=16,
+                                           octants=octants)
+    if not all(torch.equal(a, b) for a, b in zip(res, k3_query())):
+        raise AssertionError("K9's resort query and K3's disagree")
+    against_canonical("K9 resort query vs K4's sorted query (the canonical "
+                      "walk)", res, cb.bvh_traverse_lane(nodes, N, *bounce, lo,
+                                                         hi, sort=True))
+    in_turns("K9 resort query against K3's (rounds 2, chunk_nit 16)", {
+        "K3": k3_query,
+        "K9": lambda: cb.bvh_traverse_lane_resort_w(pages, N, *bounce, lo,
+                                                    hi, octants=wide)},
+        reps=10)
     return {"lane_chunk_w": rec}
 
 
@@ -1385,9 +1504,9 @@ def large_tier_rays(scene):
 def large_tier_phase(dev):
     """K5 and K6 above LANE_VMEM_MAX_NODES on bench's 262,144 sorted rays:
     kernel == plain version bit for bit (K5 closest and any-hit; K6 bounded,
-    then resumed, closest and any-hit); their closest hits against K4's
-    canonical walk of the same tree and rays; visits against K4's; each
-    timed in turns with K4; then the tier's queries with the launch counts
+    then resumed, closest and any-hit); their closest hits against the
+    canonical plain walk of the same tree and rays; visits against its;
+    each timed in turns with K4; then the tier's queries with the launch counts
     read. Returns ({name: record}, launches)."""
     t0 = time.perf_counter()
     scene, static = large_scene(dev)
@@ -1425,25 +1544,25 @@ def large_tier_phase(dev):
                                 cb.lane_chunk_hbm_plain, nodes, N, rays, tmx,
                                 LARGE_CHUNK * cb.LSTRIP, any_hit, k6,
                                 octants=octants)
-    # the redesigned walks against K4's canonical walk of the same tree and
-    # rays (K4 was K5's code before): results, visits, times in turns
+    # the redesigned walks against the canonical plain walk of the same tree
+    # and rays: results and visits; times in turns with K4, the canonical
+    # walk from the root
     root = _root_state(N, rays, tmx)
     live = root[0] < N
     k4 = {a: lambda a=a: cb.bvh_traverse_lane_packed(nodes, N, so, sd,
                                                      rays[6], tmx, any_hit=a)
           for a in (False, True)}
-    canonical = k4[False]()
-    against_canonical("K5 octant walk vs K4 canonical walk", k5_out,
+    *canonical, canon = cb.canonical_walk_plain(nodes, N, so, sd, rays[6], tmx,
+                                                with_visits=True)
+    against_canonical("K5 octant walk vs the canonical walk", k5_out,
                       canonical)
-    against_canonical("K6 octant walk (one unbounded launch) vs K4 canonical "
+    against_canonical("K6 octant walk (one unbounded launch) vs the canonical "
                       "walk", chunk_result(cb.lane_chunk_hbm(
                           nodes, N, *rays, *root, octants=octants)), canonical)
-    canon = cb.bvh_traverse_lane_packed_plain(nodes, N, so, sd, rays[6], tmx,
-                                              with_visits=True)[5]
-    log(f"large tier, K4 canonical walk (closest hit): "
+    log(f"large tier, canonical walk (closest hit): "
         f"{_visits_line(canon, live)}")
     walk_visits("large tier, closest hit", {"octant (K5, K6)": k5_visits,
-                                            "canonical (K4)": canon}, live, N)
+                                            "canonical": canon}, live, N)
     label = f"one unbounded launch each on the same {R} sorted rays"
     in_turns(f"K5 closest hit against K4, {label}", {
         "K4": k4[False],
@@ -1632,7 +1751,8 @@ def profile_phase(dev, label, scene, static, sensor, spp):
     for kernel in ("interaction_kernel", "closest_hit_kernel",
                    "lane_packed_kernel", "lane_chunk_kernel",
                    "treelet_rounds_kernel"):
-        hits = [k for k in dev_us if f"::{kernel}(" in k]
+        # a template's name carries its arguments: kernel<false>(...)
+        hits = [k for k in dev_us if re.search(rf"::{kernel}[<(]", k)]
         if hits or not dev_us:
             ms = sum(dev_us[k] for k in hits) / 1e3
             n = sum(calls_of[k] for k in hits)
@@ -1705,7 +1825,14 @@ def main() -> int:
     for name in ("lane_hbm", "lane_chunk_hbm"):
         records[name]["launches"] = large_launches[name]
     profile_phase(dev, "cornell", *cornell_scene, SPP_PER_PASS)
-    profile_phase(dev, "bunny", *bunny_scene, BUNNY_SPP_PER_PASS)
+    bunny_profile = profile_phase(dev, "bunny", *bunny_scene,
+                                  BUNNY_SPP_PER_PASS)
+    k4 = records["bvh_traverse_lane_packed"]
+    ms, n = bunny_profile.get("lane_packed_kernel", (None, 0))
+    log(f"K4 render mean {'not measured' if not n else f'{ms / n:.5f}'} ms "
+        f"per launch; on sample 0's camera rays {k4['warm_ms']:.5f} ms back to "
+        f"back, {k4['cold_ms']:.5f} ms with the L2 flushed before each "
+        f"launch (phase 4)")
     with bvh_kernel("treelet"):
         profile_phase(dev, "bunny treelet", *bunny_scene, BUNNY_SPP_PER_PASS)
 

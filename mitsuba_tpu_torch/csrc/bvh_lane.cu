@@ -38,25 +38,36 @@
 // (K5 from the root) on the trees above 2.3M nodes that the scene sends them,
 // with their own schedule (below).
 //
-// K3, K5, K6 and K7 on octant tables. The canonical walk always enters the
-// left child first, so a closest-hit ray enters boxes behind its eventual hit
-// until it finds it, and a launch lasts as long as its slowest lanes (503
-// visits where the mean is 10 on the bunny's sorted bounce rays, 553 where it
-// is 40.5 on the large tier's rays), each visit a dependent L2 or HBM round
-// trip. So a closest-hit lane of K3, K5, K6 or K7 walks one of
-// eight copies of the tree (pack_nodes_octants), the one of its direction's
-// octant (bit k set where d[k] >= 0), in which each internal node's nearer
-// child comes first: the closest hit comes early, and the slab test's exit,
-// clamped by the best t, culls the boxes behind it. The per-visit arithmetic
-// is unchanged. The canonical walk keeps the first of several hits at equal
-// t, which is the one with the lowest canonical leaf row; the octant walk
-// keeps the same one by the tie rule: a hit at tt == best replaces the best
-// only where the lane is armed (K3, K5, K6: it has a best; K7: a best from
-// the treelet it is walking, since the JAX rounds keep a best from an earlier
-// treelet) and the leaf's canonical row (c.w of the octant rows) is below
-// leaf_row[idx], which is read only on such a tie. Any-hit lanes (shadow
-// rays) walk the canonical table: the JAX kernels return the first hit in
-// its order, and order does not help occlusion.
+// The octant tables. The canonical walk always enters the left child first,
+// so a closest-hit ray enters boxes behind its eventual hit until it finds
+// it, and a launch lasts as long as its slowest lanes (503 visits where the
+// mean is 10 on the bunny's sorted bounce rays, 553 where it is 40.5 on the
+// large tier's rays), each visit a dependent L2 or HBM round trip. So a
+// closest-hit lane of K3, K5, K6, K7 and K9 walks one of eight copies of the
+// tree (pack_nodes_octants), the one of its direction's octant (bit k set
+// where d[k] >= 0), in which each internal node's nearer child comes first:
+// the closest hit comes early, and the slab test's exit, clamped by the best
+// t, culls the boxes behind it. K5 starts at row 0 of that table, K3, K6 and
+// K9 resume at a row of it, K7 walks a treelet's range of it; K9 reads the
+// same tables laid out as wide pages (pack_pages_w_octants). The per-visit
+// arithmetic is unchanged. K4 walks the canonical table: on the camera rays
+// it serves (the render's presorted bounce 0, coherent, whose canonical walk
+// is nearly near-first already: the octant walk saves 8% of their visits)
+// the octant walk ran 10% slower than the canonical one and the canonical
+// walk in an instantiation of its own 4% faster than K4's shared one (while
+// on the sorted bounce rays the octant walk took K4 from 0.130 to 0.061 ms;
+// NVIDIA H100 80GB HBM3, 700 W; scripts/torch_lane_sweep.py).
+// The canonical walk keeps the first of several hits at equal t, which is
+// the one with the lowest canonical leaf row; the octant walk keeps the same
+// one by the tie rule: a hit at tt == best replaces the best only where the
+// lane is armed (K3, K5, K6, K9: it has a best; K7: a best from the treelet
+// it is walking, since the JAX rounds keep a best from an earlier treelet)
+// and the leaf's canonical row (c.w of the octant rows; on K9's wide pages,
+// which have no word for it, leaf_row[tid], exact on a leaf-1 tree) is below
+// leaf_row[idx]; the map is read only on such a tie. Any-hit lanes (shadow
+// rays) walk the canonical table, each kernel in an instantiation of its own
+// but K3's and K7's: the JAX kernels return the first hit in its order, and
+// order does not help occlusion.
 //
 // K5 and K6 (the large tier: 2.53M nodes, 262,144 rays, a 122 MB canonical
 // table and 978 MB of octant tables against the 50 MB L2). Their
@@ -94,11 +105,13 @@
 // is tested, leaves too; a hit box of a leaf tests its count triangles in slot
 // order (pallas_bvh.py:140-191). Optional per-ray [start, end) bounds retire a
 // lane whose pointer leaves the range (a subtree is such a range).
-// K9 (wide pages, pack_pages_w). K3's walk, reading component c of node n
-// from row (n / page) * 11 * vpp + c * vpp + (n % page) / 128, lane n % 128:
-// neighbouring threads on neighbouring nodes load neighbouring words, where
-// K3 loads 48-byte rows. It answers whether that structure-of-arrays layout
-// pays on the card.
+// K9 (wide pages, pack_pages_w; pages of WIDE_PAGE = 256 nodes, the JAX
+// default, fixed at compile time). K3's chunk, reading component c of node n
+// from row (n / 256) * 22 + 2 c + (n % 256) / 128, lane n % 128: neighbouring
+// threads on neighbouring nodes load neighbouring words, where K3 loads
+// 48-byte rows. A visit computes the node's word once and loads eight words
+// (lo, hi, skip, tri id) or, at a leaf, eleven, each 1 KB from the next. It
+// answers whether that structure-of-arrays layout pays on the card.
 // Dead lanes (t_max <= t_min) start retired in every kernel: no triangle can
 // pass t_min < t < t_max, so the outputs are the TPU kernels' (a miss).
 //
@@ -147,8 +160,19 @@ constexpr int THREADS = 128;  // rays per block
 #ifndef HBM_MIN_BLOCKS
 #define HBM_MIN_BLOCKS 12
 #endif
+// K4's and K9's __launch_bounds__ minimum of resident blocks per SM
+// (scripts/torch_lane_sweep.py builds with others)
+#ifndef K4_MIN_BLOCKS
+#define K4_MIN_BLOCKS 1
+#endif
+#ifndef K9_MIN_BLOCKS
+#define K9_MIN_BLOCKS 1
+#endif
 // K7's list of entered treelets per ray (cuda_bvh.TREELET_LIST)
 constexpr int TREELET_LIST = 8;
+// K9's nodes per wide page (cuda_bvh.WIDE_PAGE) and component rows per page
+constexpr int WIDE_PAGE = 256;
+constexpr int PCOMP = 11;
 
 struct Lane {
   int node;
@@ -163,32 +187,58 @@ __device__ __forceinline__ float safe_inv(float x) {
   return 1.0f / (fabsf(x) < 1e-12f ? (x < 0.0f ? -1e-12f : 1e-12f) : x);
 }
 
+// A table layout: row(n) is where node n lies, computed once per visit; ab
+// and c load its three float4s; canon is a leaf's canonical row for the tie
+// rule; plus(k) is the table k elements further (an octant's table).
 // The node-major table: three float4s per node.
 struct NodeRows {
   const float4* __restrict__ nodes;
-  __device__ __forceinline__ void ab(int n, float4& a, float4& b) const {
-    a = __ldg(nodes + 3 * n);
-    b = __ldg(nodes + 3 * n + 1);
+  using Row = const float4*;
+  __device__ __forceinline__ Row row(int n) const { return nodes + 3 * n; }
+  __device__ __forceinline__ static void ab(Row r, float4& a, float4& b) {
+    a = __ldg(r);
+    b = __ldg(r + 1);
   }
-  __device__ __forceinline__ float4 c(int n) const {
-    return __ldg(nodes + 3 * n + 2);
+  __device__ __forceinline__ static float4 c(Row r) { return __ldg(r + 2); }
+  // the octant rows carry it in c.w
+  __device__ __forceinline__ static int canon(const float4& c,
+                                              const int* __restrict__, int) {
+    return static_cast<int>(c.w);
+  }
+  __device__ __forceinline__ NodeRows plus(size_t k) const {
+    return NodeRows{nodes + k};
   }
 };
 
-// K9's wide pages: the same three float4s, gathered from component rows.
+// K9's wide pages of WIDE_PAGE nodes: component k of node n is the word
+// STRIDE * k after row(n).
 struct WidePages {
   const float* __restrict__ pages;
-  int page, vpp;
-  __device__ __forceinline__ float at(int n, int comp) const {
-    const int p = n / page, r = n - p * page;
-    return __ldg(pages + ((p * 11 + comp) * vpp + (r >> 7)) * 128 + (r & 127));
+  using Row = const float*;
+  static constexpr int VPP = WIDE_PAGE / 128;
+  static constexpr int STRIDE = VPP * 128;
+  __device__ __forceinline__ Row row(int n) const {
+    const int p = n / WIDE_PAGE, r = n % WIDE_PAGE;
+    return pages + (p * PCOMP * VPP + (r >> 7)) * 128 + (r & 127);
   }
-  __device__ __forceinline__ void ab(int n, float4& a, float4& b) const {
-    a = make_float4(at(n, 0), at(n, 1), at(n, 2), at(n, 9));
-    b = make_float4(at(n, 3), at(n, 4), at(n, 5), at(n, 10));
+  __device__ __forceinline__ static void ab(Row r, float4& a, float4& b) {
+    a = make_float4(__ldg(r), __ldg(r + STRIDE), __ldg(r + 2 * STRIDE),
+                    __ldg(r + 9 * STRIDE));
+    b = make_float4(__ldg(r + 3 * STRIDE), __ldg(r + 4 * STRIDE),
+                    __ldg(r + 5 * STRIDE), __ldg(r + 10 * STRIDE));
   }
-  __device__ __forceinline__ float4 c(int n) const {
-    return make_float4(at(n, 6), at(n, 7), at(n, 8), 0.0f);
+  __device__ __forceinline__ static float4 c(Row r) {
+    return make_float4(__ldg(r + 6 * STRIDE), __ldg(r + 7 * STRIDE),
+                       __ldg(r + 8 * STRIDE), 0.0f);
+  }
+  // no word for it: the map, exact on a leaf-1 tree
+  __device__ __forceinline__ static int canon(const float4&,
+                                              const int* __restrict__ leaf_row,
+                                              int tid) {
+    return __ldg(leaf_row + tid);
+  }
+  __device__ __forceinline__ WidePages plus(size_t k) const {
+    return WidePages{pages + k};
   }
 };
 
@@ -270,20 +320,22 @@ __device__ void walk(const Table& table, Tie& tie, int n_nodes, int end,
   const float inx = safe_inv(dx), iny = safe_inv(dy), inz = safe_inv(dz);
   int steps = 0;
   while (s.node < n_nodes && (max_steps == 0 || steps < max_steps)) {
+    const typename Table::Row row = table.row(s.node);
     float4 a, b;
-    table.ab(s.node, a, b);
+    Table::ab(row, a, b);
     const int skip = static_cast<int>(a.w);
     const int tid = static_cast<int>(b.w);
     int next = skip;
     if (tid >= 0) {
-      // leaf: p0 = a.xyz, e1 = b.xyz, e2 = c.xyz (c.w: canonical row)
-      const float4 c = table.c(s.node);
+      // leaf: p0 = a.xyz, e1 = b.xyz, e2 = c.xyz
+      const float4 c = Table::c(row);
       float tt, uu, vv;
       const bool geo = tri_geo(ox, oy, oz, dx, dy, dz, a.x, a.y, a.z, b.x,
                                b.y, b.z, c.x, c.y, c.z, t_min, tt, uu, vv);
       bool take = geo && tt < s.t;
       if (tie.leaf_row && geo && tt == s.t && tie.armed)
-        take = static_cast<int>(c.w) < __ldg(tie.leaf_row + s.idx);
+        take = Table::canon(c, tie.leaf_row, tid) <
+               __ldg(tie.leaf_row + s.idx);
       if (take) {
         s.t = tt;
         s.idx = tid;
@@ -304,33 +356,33 @@ __device__ void walk(const Table& table, Tie& tie, int n_nodes, int end,
   }
 }
 
-// The canonical walk (no tie rule): K4, K9 and any-hit lanes.
-template <class Table>
-__device__ __forceinline__ void walk(const Table& table, int n_nodes, int end,
-                                     float ox, float oy, float oz, float dx,
-                                     float dy, float dz, float t_min,
-                                     bool any_hit, int max_steps, Lane& s) {
-  Tie none{nullptr, false};
-  walk(table, none, n_nodes, end, ox, oy, oz, dx, dy, dz, t_min, any_hit,
-       max_steps, s);
-}
-
-// K4: from the root. A dead lane (t_max <= t_min) starts retired.
-__device__ void root_lane(const float4* __restrict__ nodes, int n_nodes,
-                          const float* __restrict__ o,
-                          const float* __restrict__ d,
-                          const float* __restrict__ t_min,
-                          const float* __restrict__ t_max, int R, bool any_hit,
-                          bool* __restrict__ hit, float* __restrict__ t_out,
-                          int* __restrict__ idx_out, float* __restrict__ u_out,
-                          float* __restrict__ v_out) {
+// K4 and K5: from the root (row 0 of every table); a dead lane (t_max <=
+// t_min) starts retired. With octant (K5), closest-hit lanes walk their
+// octant's table with the tie rule, unarmed; K4's walk the canonical table.
+// Any-hit and closest-hit launches are separate instantiations, so that an
+// any-hit lane carries no octant table or tie rule in its registers.
+template <bool any_hit, bool octant>
+__device__ __forceinline__ void root_lane(
+    const float4* __restrict__ nodes, const float4* __restrict__ oct,
+    const int* __restrict__ leaf_row, int n_nodes,
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ t_min, const float* __restrict__ t_max, int R,
+    bool* __restrict__ hit, float* __restrict__ t_out,
+    int* __restrict__ idx_out, float* __restrict__ u_out,
+    float* __restrict__ v_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const float tmin = t_min[r], tmax = t_max[r];
+  const float rdx = d[3 * r], rdy = d[3 * r + 1], rdz = d[3 * r + 2];
   Lane s{tmax > tmin ? 0 : n_nodes, tmax, -1, 0.0f, 0.0f};
-  walk(NodeRows{nodes}, n_nodes, n_nodes, o[3 * r], o[3 * r + 1],
-       o[3 * r + 2], d[3 * r], d[3 * r + 1], d[3 * r + 2], tmin, any_hit, 0,
-       s);
+  const float4* table = nodes;
+  Tie tie{nullptr, false};
+  if (!any_hit && octant) {
+    table = oct + 3 * static_cast<size_t>(n_nodes) * octant_of(rdx, rdy, rdz);
+    tie.leaf_row = leaf_row;
+  }
+  walk(NodeRows{table}, tie, n_nodes, n_nodes, o[3 * r], o[3 * r + 1],
+       o[3 * r + 2], rdx, rdy, rdz, tmin, any_hit, 0, s);
   const bool h = s.idx >= 0;
   hit[r] = h;
   t_out[r] = h ? s.t : CUDART_INF_F;
@@ -339,47 +391,28 @@ __device__ void root_lane(const float4* __restrict__ nodes, int n_nodes,
   v_out[r] = s.v;
 }
 
-// K9 (K3, K6 below): resume from (node, t, idx, u, v); rays as one array
-// per component, the layout the resort loop sorts.
-template <class Table>
-__device__ void chunk_lane(
-    const Table& table, int n_nodes, const float* __restrict__ ox,
-    const float* __restrict__ oy, const float* __restrict__ oz,
-    const float* __restrict__ dx, const float* __restrict__ dy,
-    const float* __restrict__ dz, const float* __restrict__ t_min,
-    const int* __restrict__ node_in, const float* __restrict__ t_in,
-    const int* __restrict__ i_in, const float* __restrict__ u_in,
-    const float* __restrict__ v_in, int R, bool any_hit, int max_steps,
-    float* __restrict__ t_out, int* __restrict__ idx_out,
-    float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ node_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  Lane s{node_in[r], t_in[r], i_in[r], u_in[r], v_in[r]};
-  walk(table, n_nodes, n_nodes, ox[r], oy[r], oz[r], dx[r], dy[r], dz[r],
-       t_min[r], any_hit, max_steps, s);
-  t_out[r] = s.t;
-  idx_out[r] = s.idx;
-  u_out[r] = s.u;
-  v_out[r] = s.v;
-  node_out[r] = s.node;
-}
-
 // One __global__ per TPU kernel, so each has its own name in a profile.
-__global__ void lane_packed_kernel(const float4* __restrict__ nodes,
-                                   int n_nodes, const float* __restrict__ o,
-                                   const float* __restrict__ d,
-                                   const float* __restrict__ t_min,
-                                   const float* __restrict__ t_max, int R,
-                                   bool any_hit, bool* hit, float* t, int* idx,
-                                   float* u, float* v) {
-  root_lane(nodes, n_nodes, o, d, t_min, t_max, R, any_hit, hit, t, idx, u, v);
+// K4: the canonical walk, an instantiation per query kind.
+template <bool any_hit>
+__global__ void __launch_bounds__(THREADS, K4_MIN_BLOCKS) lane_packed_kernel(
+    const float4* __restrict__ nodes, int n_nodes,
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ t_min, const float* __restrict__ t_max, int R,
+    bool* __restrict__ hit, float* __restrict__ t_out,
+    int* __restrict__ idx_out, float* __restrict__ u_out,
+    float* __restrict__ v_out) {
+  root_lane<any_hit, false>(nodes, nullptr, nullptr, n_nodes, o, d, t_min,
+                            t_max, R, hit, t_out, idx_out, u_out, v_out);
 }
 
-// K3 and K6: chunk_lane, with closest-hit lanes on their octant's table and
-// the tie rule, armed where the lane has a best (i_in >= 0).
+// K3, K6 and K9: resume from (node, t, idx, u, v) for at most max_steps
+// visits; rays as one array per component, the layout the resort loop
+// sorts. Any-hit lanes walk canon; closest-hit lanes their octant's table
+// (oct.plus(stride * octant)) with the tie rule, armed where the lane has a
+// best (i_in >= 0).
+template <class Table>
 __device__ __forceinline__ void octant_chunk_lane(
-    const float4* __restrict__ nodes, const float4* __restrict__ oct,
+    const Table& canon, const Table& oct, size_t stride,
     const int* __restrict__ leaf_row, int n_nodes,
     const float* __restrict__ ox, const float* __restrict__ oy,
     const float* __restrict__ oz, const float* __restrict__ dx,
@@ -395,14 +428,14 @@ __device__ __forceinline__ void octant_chunk_lane(
   if (r >= R) return;
   Lane s{node_in[r], t_in[r], i_in[r], u_in[r], v_in[r]};
   const float rdx = dx[r], rdy = dy[r], rdz = dz[r];
-  const float4* table = nodes;
+  Table table = canon;
   Tie tie{nullptr, s.idx >= 0};
   if (!any_hit) {
-    table = oct + 3 * static_cast<size_t>(n_nodes) * octant_of(rdx, rdy, rdz);
+    table = oct.plus(stride * octant_of(rdx, rdy, rdz));
     tie.leaf_row = leaf_row;
   }
-  walk(NodeRows{table}, tie, n_nodes, n_nodes, ox[r], oy[r], oz[r], rdx, rdy,
-       rdz, t_min[r], any_hit, max_steps, s);
+  walk(table, tie, n_nodes, n_nodes, ox[r], oy[r], oz[r], rdx, rdy, rdz,
+       t_min[r], any_hit, max_steps, s);
   t_out[r] = s.t;
   idx_out[r] = s.idx;
   u_out[r] = s.u;
@@ -410,30 +443,33 @@ __device__ __forceinline__ void octant_chunk_lane(
   node_out[r] = s.node;
 }
 
+// The arguments K3, K6 and K9 share after their tables.
+#define CHUNK_PARAMS                                                        \
+  const int* __restrict__ leaf_row, int n_nodes,                            \
+      const float* __restrict__ ox, const float* __restrict__ oy,           \
+      const float* __restrict__ oz, const float* __restrict__ dx,           \
+      const float* __restrict__ dy, const float* __restrict__ dz,           \
+      const float* __restrict__ t_min, const int* __restrict__ node_in,     \
+      const float* __restrict__ t_in, const int* __restrict__ i_in,         \
+      const float* __restrict__ u_in, const float* __restrict__ v_in, int R
+#define CHUNK_OUTS                                                          \
+  float *__restrict__ t_out, int *__restrict__ idx_out,                     \
+      float *__restrict__ u_out, float *__restrict__ v_out,                 \
+      int *__restrict__ node_out
+#define CHUNK_ARGS                                                          \
+  leaf_row, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in, t_in, i_in,    \
+      u_in, v_in, R
+#define CHUNK_OUT_ARGS t_out, idx_out, u_out, v_out, node_out
+
 // K3
 __global__ void __launch_bounds__(THREADS, K3_MIN_BLOCKS) lane_chunk_kernel(
     const float4* __restrict__ nodes, const float4* __restrict__ oct,
-    const int* __restrict__ leaf_row, int n_nodes,
-    const float* __restrict__ ox, const float* __restrict__ oy,
-    const float* __restrict__ oz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ t_min, const int* __restrict__ node_in,
-    const float* __restrict__ t_in, const int* __restrict__ i_in,
-    const float* __restrict__ u_in, const float* __restrict__ v_in, int R,
-    bool any_hit, int max_steps,
-    float* __restrict__ t_out, int* __restrict__ idx_out,
-    float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ node_out) {
-  octant_chunk_lane(
-      nodes, oct, leaf_row, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
-      t_in, i_in, u_in, v_in, R, any_hit, max_steps, t_out, idx_out, u_out,
-      v_out, node_out);
+    CHUNK_PARAMS, bool any_hit, int max_steps, CHUNK_OUTS) {
+  octant_chunk_lane(NodeRows{nodes}, NodeRows{oct}, 3 * size_t(n_nodes),
+                    CHUNK_ARGS, any_hit, max_steps, CHUNK_OUT_ARGS);
 }
 
-// K5: from the root (row 0 of every table), closest-hit lanes on their
-// octant's table with the tie rule, unarmed; a dead lane starts retired.
-// Any-hit and closest-hit launches are separate instantiations, so that an
-// any-hit lane carries no octant table or tie rule in its registers.
+// K5: K4's lane on the octant tables, under launch bounds of its own.
 template <bool any_hit>
 __global__ void __launch_bounds__(THREADS, HBM_MIN_BLOCKS) lane_hbm_kernel(
     const float4* __restrict__ nodes, const float4* __restrict__ oct,
@@ -443,59 +479,28 @@ __global__ void __launch_bounds__(THREADS, HBM_MIN_BLOCKS) lane_hbm_kernel(
     bool* __restrict__ hit, float* __restrict__ t_out,
     int* __restrict__ idx_out, float* __restrict__ u_out,
     float* __restrict__ v_out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const float tmin = t_min[r], tmax = t_max[r];
-  const float rdx = d[3 * r], rdy = d[3 * r + 1], rdz = d[3 * r + 2];
-  Lane s{tmax > tmin ? 0 : n_nodes, tmax, -1, 0.0f, 0.0f};
-  const float4* table = nodes;
-  Tie tie{nullptr, false};
-  if (!any_hit) {
-    table = oct + 3 * static_cast<size_t>(n_nodes) * octant_of(rdx, rdy, rdz);
-    tie.leaf_row = leaf_row;
-  }
-  walk(NodeRows{table}, tie, n_nodes, n_nodes, o[3 * r], o[3 * r + 1],
-       o[3 * r + 2], rdx, rdy, rdz, tmin, any_hit, 0, s);
-  const bool h = s.idx >= 0;
-  hit[r] = h;
-  t_out[r] = h ? s.t : CUDART_INF_F;
-  idx_out[r] = s.idx;
-  u_out[r] = s.u;
-  v_out[r] = s.v;
+  root_lane<any_hit, true>(nodes, oct, leaf_row, n_nodes, o, d, t_min,
+                           t_max, R, hit, t_out, idx_out, u_out, v_out);
 }
 
 // K6: K3's lane under K5's launch bounds, an instantiation per query kind.
 template <bool any_hit>
 __global__ void __launch_bounds__(THREADS, HBM_MIN_BLOCKS)
-    lane_chunk_hbm_kernel(
-    const float4* __restrict__ nodes, const float4* __restrict__ oct,
-    const int* __restrict__ leaf_row, int n_nodes,
-    const float* __restrict__ ox, const float* __restrict__ oy,
-    const float* __restrict__ oz, const float* __restrict__ dx,
-    const float* __restrict__ dy, const float* __restrict__ dz,
-    const float* __restrict__ t_min, const int* __restrict__ node_in,
-    const float* __restrict__ t_in, const int* __restrict__ i_in,
-    const float* __restrict__ u_in, const float* __restrict__ v_in, int R,
-    int max_steps,
-    float* __restrict__ t_out, int* __restrict__ idx_out,
-    float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ node_out) {
-  octant_chunk_lane(
-      nodes, oct, leaf_row, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
-      t_in, i_in, u_in, v_in, R, any_hit, max_steps, t_out, idx_out, u_out,
-      v_out, node_out);
+    lane_chunk_hbm_kernel(const float4* __restrict__ nodes,
+                          const float4* __restrict__ oct, CHUNK_PARAMS,
+                          int max_steps, CHUNK_OUTS) {
+  octant_chunk_lane(NodeRows{nodes}, NodeRows{oct}, 3 * size_t(n_nodes),
+                    CHUNK_ARGS, any_hit, max_steps, CHUNK_OUT_ARGS);
 }
 
-__global__ void lane_chunk_w_kernel(
-    const float* __restrict__ pages, int page, int n_nodes, const float* ox,
-    const float* oy, const float* oz, const float* dx, const float* dy,
-    const float* dz, const float* t_min, const int* node_in,
-    const float* t_in, const int* i_in, const float* u_in, const float* v_in,
-    int R, bool any_hit, int max_steps, float* t, int* idx, float* u,
-    float* v, int* node) {
-  chunk_lane(WidePages{pages, page, page / 128}, n_nodes, ox, oy, oz, dx, dy,
-             dz, t_min, node_in, t_in, i_in, u_in, v_in, R, any_hit,
-             max_steps, t, idx, u, v, node);
+// K9: K3's lane over wide pages (closest hit: each octant's table laid out
+// as wide pages, stride words apart), an instantiation per query kind.
+template <bool any_hit>
+__global__ void __launch_bounds__(THREADS, K9_MIN_BLOCKS) lane_chunk_w_kernel(
+    const float* __restrict__ pages, const float* __restrict__ oct,
+    size_t stride, CHUNK_PARAMS, int max_steps, CHUNK_OUTS) {
+  octant_chunk_lane(WidePages{pages}, WidePages{oct}, stride, CHUNK_ARGS,
+                    any_hit, max_steps, CHUNK_OUT_ARGS);
 }
 
 constexpr int MAX_TREELETS = 128;
@@ -718,10 +723,10 @@ extern "C" int bvh_lane_packed(const float* nodes, int n_nodes, const float* o,
                                const float* t_max, int R, int any_hit,
                                bool* hit, float* t, int* idx, float* u,
                                float* v, void* stream) {
-  lane_packed_kernel<<<blocks_for(R), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = any_hit ? lane_packed_kernel<true> : lane_packed_kernel<false>;
+  kernel<<<blocks_for(R), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       reinterpret_cast<const float4*>(nodes), n_nodes, o, d, t_min, t_max, R,
-      any_hit != 0, hit, t, idx, u, v);
+      hit, t, idx, u, v);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -788,9 +793,12 @@ extern "C" int bvh_lane_chunk_hbm(const float* nodes, const float* oct,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K9: pages is the (n_pages * 11 * page / 128, 128) float32 table of
-// pack_pages_w; page a positive multiple of 128.
-extern "C" int bvh_lane_chunk_w(const float* pages, int page, int n_nodes,
+// K9: pages is the (n_pages * 22, 128) float32 table of pack_pages_w at
+// page == WIDE_PAGE (256 nodes), n_pages >= ceil(n_nodes / 256), and oct the
+// (8, ceil(n_nodes / 256) * 22, 128) float32 tables of pack_pages_w_octants;
+// oct and leaf_row may be null for an any-hit call.
+extern "C" int bvh_lane_chunk_w(const float* pages, const float* oct,
+                                const int* leaf_row, int page, int n_nodes,
                                 const float* ox, const float* oy,
                                 const float* oz, const float* dx,
                                 const float* dy, const float* dz,
@@ -800,11 +808,15 @@ extern "C" int bvh_lane_chunk_w(const float* pages, int page, int n_nodes,
                                 int any_hit, int max_steps, float* t,
                                 int* idx, float* u, float* v, int* node,
                                 void* stream) {
-  if (page <= 0 || page % 128) return static_cast<int>(cudaErrorInvalidValue);
-  lane_chunk_w_kernel<<<blocks_for(R), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      pages, page, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in, t_in,
-      i_in, u_in, v_in, R, any_hit != 0, max_steps, t, idx, u, v, node);
+  if (page != WIDE_PAGE || (!any_hit && (!oct || !leaf_row)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t stride = static_cast<size_t>((n_nodes + WIDE_PAGE - 1) /
+                                            WIDE_PAGE) * PCOMP * WIDE_PAGE;
+  auto kernel = any_hit ? lane_chunk_w_kernel<true>
+                        : lane_chunk_w_kernel<false>;
+  kernel<<<blocks_for(R), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      pages, oct, stride, leaf_row, n_nodes, ox, oy, oz, dx, dy, dz, t_min,
+      node_in, t_in, i_in, u_in, v_in, R, max_steps, t, idx, u, v, node);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -843,8 +855,9 @@ extern "C" int bvh_fat_packed(const float* rows, int n_nodes, const float* o,
 }
 
 // Registers per thread and resident blocks of THREADS per SM of K3 (which
-// 0), K7 (1), K6 (2) and K5 (3) closest hit, K6 (4) and K5 (5) any-hit, for
-// the occupancy the build's -Xptxas -v implies.
+// 0), K7 (1), K6 (2), K5 (3), K4 (6) and K9 (8) closest hit, K6 (4), K5 (5),
+// K4 (7) and K9 (9) any-hit, for the occupancy the build's -Xptxas -v
+// implies.
 extern "C" int bvh_kernel_occupancy(int which, int* regs, int* blocks) {
   const void* fns[] = {
       reinterpret_cast<const void*>(lane_chunk_kernel),
@@ -852,8 +865,14 @@ extern "C" int bvh_kernel_occupancy(int which, int* regs, int* blocks) {
       reinterpret_cast<const void*>(lane_chunk_hbm_kernel<false>),
       reinterpret_cast<const void*>(lane_hbm_kernel<false>),
       reinterpret_cast<const void*>(lane_chunk_hbm_kernel<true>),
-      reinterpret_cast<const void*>(lane_hbm_kernel<true>)};
-  if (which < 0 || which >= 6) return static_cast<int>(cudaErrorInvalidValue);
+      reinterpret_cast<const void*>(lane_hbm_kernel<true>),
+      reinterpret_cast<const void*>(lane_packed_kernel<false>),
+      reinterpret_cast<const void*>(lane_packed_kernel<true>),
+      reinterpret_cast<const void*>(lane_chunk_w_kernel<false>),
+      reinterpret_cast<const void*>(lane_chunk_w_kernel<true>)};
+  constexpr int n_fns = sizeof(fns) / sizeof(fns[0]);
+  if (which < 0 || which >= n_fns)
+    return static_cast<int>(cudaErrorInvalidValue);
   const void* fn = fns[which];
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);

@@ -20,27 +20,30 @@ node-major table of ``(N, 12)`` float32 (``pack_nodes``; three float4s per
 node, see the source note in ``bvh_lane.cu``). K4/K5 walk from the root; K3/K6
 resume from per-lane state ``(node, t, idx, u, v)`` for at most ``max_steps``
 node visits (0: to the end). On the H100 there is no VMEM/HBM split: K5 and K6
-compute what K3 computes (K5 from the root) on trees above
-``LANE_VMEM_MAX_NODES``, with their own launch bounds and an any-hit
-instantiation of their own. K7 walks the
-same tree one treelet (a subtree's row range) at a time, nearest entered
-treelet first; K8 walks fat rows of up to four triangles per leaf
-(``pack_nodes_fat``); K9 runs K3's walk over the JAX package's wide pages
-(``pack_pages_w``).
+compute what K4 and K3 compute on trees above ``LANE_VMEM_MAX_NODES``, with
+their own launch bounds. K7 walks the same tree one treelet (a subtree's row
+range) at a time, nearest entered treelet first; K8 walks fat rows of up to
+four triangles per leaf (``pack_nodes_fat``); K9 runs K3's walk over the JAX
+package's wide pages (``pack_pages_w``, and for closest hits
+``pack_pages_w_octants``).
 
-Octant tables (``pack_nodes_octants``, ``Octants``). Closest-hit lanes of K3,
-K5, K6 and K7 walk one of eight copies of the tree, the one of their direction's
-octant, in which every internal node's nearer child comes first; any-hit
-lanes walk the canonical table, whose order the JAX kernels' first hit
-depends on. The near-first walk finds the closest hit early, so the slab
+Octant tables (``pack_nodes_octants``, ``Octants``). Closest-hit lanes of
+K3, K5, K6, K7 and K9 walk one of eight copies of the tree, the one of their
+direction's octant, in which every internal node's nearer child comes first;
+any-hit lanes walk the canonical table, whose order the JAX kernels' first
+hit depends on, and so do K4's closest-hit lanes (on the coherent camera rays
+that the render sends it the octant walk ran slower, see ``bvh_lane.cu``).
+The near-first walk finds the closest hit early, so the slab
 test culls the boxes behind it. Where two triangles are hit at the same t,
 the canonical walk keeps the one it reached first, which is the one with the
 lower canonical leaf row; the octant walk keeps that one too by the tie rule:
 a hit at t equal to the best replaces the best only if its leaf's canonical
-row (kept in the octant rows' column 11) is below the best triangle's
-(``Octants.leaf_row``), and in K7 only against a best found in the same
-treelet. So the result is the canonical walk's; only a hit whose box entry
-rounds past its t can differ (a near-tie).
+row (kept in the octant rows' column 11; K9's wide pages have no word for it
+and read ``Octants.leaf_row`` of the hit triangle) is below the best
+triangle's (``Octants.leaf_row``), and in K7 only against a best found in
+the same treelet. So the result is the canonical walk's
+(``canonical_walk_plain``); only a hit whose box entry rounds past its t can
+differ (a near-tie).
 
 Each wrapper checks its inputs (one device, dtype, shape, contiguity) on
 either device. On CUDA tensors it then allocates the outputs, launches its
@@ -96,8 +99,8 @@ def _lib():
     if lib.bvh_lane_packed.argtypes is None:
         root = [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P]
         chunk = [_P, _I] + [_P] * 12 + [_I, _I, _I] + [_P] * 6
-        # K3, K5, K6 and K7 take the canonical table, the octant tables and
-        # the map
+        # K3, K5, K6, K7 and K9 take the canonical table, the octant tables
+        # and the map
         octs = [_P, _P, _P]
         treelet = octs + [_I, _P, _I, _P, _P, _P, _P, _I, _I] + [_P] * 6
         fat = [_P, _I] + [_P] * 6 + [_I, _I] + [_P] * 6
@@ -105,7 +108,7 @@ def _lib():
                          (lib.bvh_lane_hbm, octs + root[1:]),
                          (lib.bvh_lane_chunk, octs + chunk[1:]),
                          (lib.bvh_lane_chunk_hbm, octs + chunk[1:]),
-                         (lib.bvh_lane_chunk_w, [_P, _I] + chunk[1:]),
+                         (lib.bvh_lane_chunk_w, octs + [_I] + chunk[1:]),
                          (lib.bvh_treelet_rounds, treelet),
                          (lib.bvh_fat_packed, fat)):
             fn.argtypes = args
@@ -115,18 +118,20 @@ def _lib():
     return lib
 
 
-# bvh_kernel_occupancy's kernel numbers: K5 and K6 have a closest-hit and
-# an any-hit instantiation
+# bvh_kernel_occupancy's kernel numbers: K4, K5, K6 and K9 have a
+# closest-hit and an any-hit instantiation
 _OCCUPANCY = ("lane_chunk", "treelet_rounds", "lane_chunk_hbm", "lane_hbm",
-              "lane_chunk_hbm any_hit", "lane_hbm any_hit")
+              "lane_chunk_hbm any_hit", "lane_hbm any_hit",
+              "bvh_traverse_lane_packed", "bvh_traverse_lane_packed any_hit",
+              "lane_chunk_w", "lane_chunk_w any_hit")
 
 
 def kernel_occupancy(name):
     """(registers per thread, resident blocks of 128 threads per SM) of
-    ``lane_chunk`` (K3), ``treelet_rounds`` (K7), ``lane_chunk_hbm`` (K6) or
-    ``lane_hbm`` (K5) on the current card; K5's and K6's any-hit
-    instantiations as ``"lane_hbm any_hit"`` and ``"lane_chunk_hbm
-    any_hit"``."""
+    ``lane_chunk`` (K3), ``bvh_traverse_lane_packed`` (K4), ``lane_hbm``
+    (K5), ``lane_chunk_hbm`` (K6), ``treelet_rounds`` (K7) or
+    ``lane_chunk_w`` (K9) on the current card; the any-hit instantiations of
+    K4, K5, K6 and K9 as ``"<name> any_hit"``."""
     regs, blocks = ctypes.c_int(), ctypes.c_int()
     rc = _lib().bvh_kernel_occupancy(_OCCUPANCY.index(name),
                                      ctypes.byref(regs), ctypes.byref(blocks))
@@ -195,39 +200,46 @@ def pack_nodes_fat(bvh, p0, e1, e2) -> np.ndarray:
 
 
 def pack_pages_w(bvh, p0, e1, e2, page: int = WIDE_PAGE) -> np.ndarray:
-    """(n_pages * 11 * vpp, 128) float32 wide-page rows (leaf_size=1 BVH), a
-    copy of pallas_bvh.py:1655. Page p, component c, vreg k lives at row
+    """(n_pages * 11 * vpp, 128) float32 wide-page rows (leaf_size=1 BVH), the
+    values of pallas_bvh.py:1655. Page p, component c, vreg k lives at row
     p*(11*vpp) + c*vpp + k and holds nodes [p*page + k*128, p*page +
     (k+1)*128); padding slots carry skip = N and tri id -1."""
+    _check_page(page)
+    return _wide_from_rows(pack_nodes(bvh, p0, e1, e2), page)
+
+
+def _check_page(page):
     if page <= 0 or page % 128:
         raise ValueError(f"page {page} is not a positive multiple of 128")
+
+
+# the node-major columns of wide-page components 0..10: lo/p0, hi/e1, e2,
+# skip, tri id
+_WIDE_COLS = [0, 1, 2, 4, 5, 6, 8, 9, 10, 3, 7]
+
+
+def _wide_from_rows(rows, page):
+    """A node-major (N, 12) table laid out as wide pages of ``page`` nodes."""
+    N = rows.shape[0]
     vpp = page // 128
-    pcomp = PCOMP * vpp
-    N = len(bvh.lo)
-    counts = np.where(bvh.prim_first >= 0, bvh.prim_count, 0)
-    if counts.max() > 1:
-        raise ValueError("the lane kernels need a leaf_size=1 BVH")
-    _check_ids(N, len(p0))
     n_pages = -(-N // page)
     comp = np.zeros((PCOMP, n_pages * page), np.float32)
     comp[9, :] = float(N)
     comp[10, :] = -1.0
-    inner = counts == 0
-    leaf = ~inner
-    tri = np.zeros(N, np.int64)
-    tri[leaf] = bvh.prim_order[bvh.prim_first[leaf]]
-    idx = np.arange(N)
-    for c in range(3):
-        comp[c, idx[inner]] = bvh.lo[inner, c]
-        comp[3 + c, idx[inner]] = bvh.hi[inner, c]
-        comp[c, idx[leaf]] = p0[tri[leaf], c]
-        comp[3 + c, idx[leaf]] = e1[tri[leaf], c]
-        comp[6 + c, idx[leaf]] = e2[tri[leaf], c]
-    comp[9, idx] = bvh.skip.astype(np.float32)
-    comp[10, idx] = np.where(leaf, tri, -1).astype(np.float32)
+    comp[:, :N] = rows[:, _WIDE_COLS].T
     # (c, p, k, lane) -> (p, c, k, lane): the loop of the JAX packer
     out = comp.reshape(PCOMP, n_pages, vpp, 128).transpose(1, 0, 2, 3)
-    return np.ascontiguousarray(out.reshape(n_pages * pcomp, 128))
+    return np.ascontiguousarray(out.reshape(n_pages * PCOMP * vpp, 128))
+
+
+def pack_pages_w_octants(tables, page: int = WIDE_PAGE) -> np.ndarray:
+    """(8, n_pages * 11 * vpp, 128) float32: each octant table of
+    ``pack_nodes_octants`` laid out as ``pack_pages_w`` lays out the
+    canonical one (its skip links, which are rows of that table; no word for
+    a leaf's canonical row, which K9's tie rule reads from the map)."""
+    _check_page(page)
+    return np.stack([_wide_from_rows(np.asarray(t, np.float32), page)
+                     for t in tables])
 
 
 def octant_signs() -> np.ndarray:
@@ -305,7 +317,7 @@ def pack_nodes_octants(nodes, tl_root=None):
 
 class Octants(NamedTuple):
     """A tree's octant tables (``pack_nodes_octants``) on the device that
-    closest-hit K3 and K7 run on."""
+    closest-hit K3, K5, K6 and K7 run on."""
 
     nodes: torch.Tensor     # (8, N, 12) float32, near child first
     leaf_row: torch.Tensor  # (T,) int32 canonical leaf row of each triangle
@@ -322,6 +334,20 @@ def octant_tables(nodes, tl_root=None, device=None) -> Octants:
         tl_root = tl_root.cpu().numpy()
     return Octants(*(torch.as_tensor(x, device=device)
                      for x in pack_nodes_octants(nodes, tl_root)))
+
+
+class WideOctants(NamedTuple):
+    """A tree's octant tables as wide pages, for closest-hit K9."""
+
+    pages: torch.Tensor     # (8, n_pages * 11 * vpp, 128) float32
+    leaf_row: torch.Tensor  # (T,) int32 canonical leaf row of each triangle
+
+
+def wide_octant_pages(octants: Octants, page: int = WIDE_PAGE) -> WideOctants:
+    """``pack_pages_w_octants`` of ``octants`` on their device."""
+    pages = pack_pages_w_octants(octants.nodes.cpu().numpy(), page)
+    return WideOctants(torch.as_tensor(pages, device=octants.nodes.device),
+                       octants.leaf_row)
 
 
 def treelet_table(tl_root, tl_skip, tl_lo, tl_hi, tl_range):
@@ -471,17 +497,23 @@ def _node_rows(nodes):
     return fetch
 
 
-def _wide_pages(pages, page):
+def _wide_pages(pages, page, n_nodes=None):
     """Node ids -> the same 12 columns gathered from K9's wide pages:
     component c of node n at row (n // page) * 11 * vpp + c * vpp + (n %
-    page) // 128, lane n % 128."""
+    page) // 128, lane n % 128 (column 11, which the layout lacks, zero).
+    For the (8, rows, 128) octant pages, ids are octant * n_nodes + n, the
+    rows of ``pack_nodes_octants``' tables."""
     vpp = page // 128
     flat = pages.reshape(-1)
+    table = pages[0].numel() if pages.dim() == 3 else 0
 
     def fetch(n):
+        base = 0
+        if table:
+            base, n = n // n_nodes * table, n % n_nodes
         r = n % page
-        base = (n // page) * (PCOMP * vpp) + r // 128
-        g = [flat[(base + c * vpp) * 128 + r % 128] for c in range(PCOMP)]
+        word = base + ((n // page) * (PCOMP * vpp) + r // 128) * 128 + r % 128
+        g = [flat[word + c * vpp * 128] for c in range(PCOMP)]
         return (g[0:3] + [g[9]] + g[3:6] + [g[10]] + g[6:9]
                 + [torch.zeros_like(g[0])])
     return fetch
@@ -495,7 +527,7 @@ def _octant(dx, dy, dz):
 
 def _walk_plain(fetch, n_nodes, rays, node, bt, bi, bu, bv, any_hit,
                 max_steps, end=None, base=None, n_rows=None, leaf_row=None,
-                armed=None):
+                armed=None, canon_by_map=False):
     """The kernels' per-lane walk in tensor form over the table that
     ``fetch`` reads. ``rays`` = (ox, oy, oz, dx, dy, dz, t_min), each (R,).
     Each step advances every lane that is still walking by one node, with
@@ -505,7 +537,8 @@ def _walk_plain(fetch, n_nodes, rays, node, bt, bi, bu, bv, any_hit,
     table). With ``leaf_row`` the walk keeps the tie rule: a hit at t equal
     to the best replaces it where the lane is ``armed`` ((R,) bool, updated
     in place: its best was found in this walk) and the leaf's canonical row
-    (column 11) is below ``leaf_row`` of the best triangle. Returns the new (node, t, idx,
+    (column 11, or with ``canon_by_map`` ``leaf_row`` of the hit triangle)
+    is below ``leaf_row`` of the best triangle. Returns the new (node, t, idx,
     u, v) and the visits: per-lane internal and leaf visit counts (int64),
     which rows were read at all ((n_rows,) bool) and which ``leaf_row``
     entries ((T,) bool, None without the tie rule)."""
@@ -553,7 +586,12 @@ def _walk_plain(fetch, n_nodes, rays, node, bt, bi, bu, bv, any_hit,
             tie = geo & (tt == best) & arm
             cur = torch.clamp(bi[lane], min=0).to(torch.int64)
             map_read[cur[tie]] = True
-            h = h | (tie & (g[11].to(torch.int64) < leaf_row[cur]))
+            canon = g[11].to(torch.int64)
+            if canon_by_map:
+                hit_tri = torch.clamp(tid, min=0).to(torch.int64)
+                map_read[hit_tri[tie]] = True
+                canon = leaf_row[hit_tri]
+            h = h | (tie & (canon < leaf_row[cur]))
             armed[lane] = arm | h
         # internal: slab test on lo = g0..2, hi = g4..6
         t0x, t1x = (g[0] - lox) * inx[lane], (g[4] - lox) * inx[lane]
@@ -610,13 +648,20 @@ def _root_plain(nodes, n_nodes, o, d, t_min, t_max, any_hit, with_visits,
     return out + (visits,) if with_visits else out
 
 
-def bvh_traverse_lane_packed_plain(nodes, n_nodes, o, d, t_min, t_max,
-                                   any_hit=False, with_visits=False):
-    """Plain PyTorch version of K4: (hit, t, idx, u, v), and with
-    ``with_visits`` the visits (per-lane internal and leaf counts, nodes
-    read)."""
+def canonical_walk_plain(nodes, n_nodes, o, d, t_min, t_max, any_hit=False,
+                         with_visits=False):
+    """The canonical walk from the root over ``nodes``, left child first:
+    the JAX K4's (hit, t, idx, u, v), and with ``with_visits`` the visits
+    (per-lane internal and leaf counts, nodes read). The yardstick that the
+    octant walks' closest hits equal except at near-ties; any-hit queries of
+    every kernel but K7 and K8 return its result."""
     return _root_plain(nodes, n_nodes, o, d, t_min, t_max, any_hit,
                        with_visits)
+
+
+# Plain PyTorch version of K4, whose closest-hit and any-hit lanes both walk
+# the canonical table
+bvh_traverse_lane_packed_plain = canonical_walk_plain
 
 
 def lane_hbm_plain(nodes, n_nodes, o, d, t_min, t_max, any_hit=False,
@@ -640,8 +685,9 @@ def _chunk_plain(fetch, n_nodes, rays, state, any_hit, max_steps,
     return out + (visits,) if with_visits else out
 
 
-_NEED_OCTANTS = ("closest-hit queries of K3, K5, K6 and K7 walk the octant "
-                 "tables: pass octants (cuda_bvh.octant_tables)")
+_NEED_OCTANTS = ("closest-hit queries of K3, K5, K6, K7 and K9 walk the "
+                 "octant tables: pass octants (cuda_bvh.octant_tables; K9: "
+                 "cuda_bvh.wide_octant_pages)")
 
 
 def _octant_walk(octants, n_nodes, rays):
@@ -687,12 +733,27 @@ lane_chunk_hbm_plain = lane_chunk_plain
 
 def lane_chunk_w_plain(pages, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in,
                        t_in, i_in, u_in, v_in, any_hit=False, max_steps=0,
-                       page=WIDE_PAGE, with_visits=False):
-    """Plain PyTorch version of K9: K3's walk over the wide pages."""
-    return _chunk_plain(_wide_pages(pages, page), n_nodes,
-                        (ox, oy, oz, dx, dy, dz, t_min),
-                        (node_in, t_in, i_in, u_in, v_in), any_hit, max_steps,
-                        with_visits)
+                       page=WIDE_PAGE, with_visits=False, octants=None):
+    """Plain PyTorch version of K9: K3's walk over wide pages. Any-hit lanes
+    walk the canonical ``pages``; closest-hit lanes walk their octant's pages
+    of ``octants`` (a ``WideOctants``) with the tie rule, the canonical row
+    of a leaf read from the map, and ``node`` is a row of that octant's
+    table. The rows read that ``with_visits`` marks are rows of the eight
+    tables stacked, as ``lane_chunk_plain`` marks them."""
+    rays = (ox, oy, oz, dx, dy, dz, t_min)
+    state = (node_in, t_in, i_in, u_in, v_in)
+    if any_hit:
+        return _chunk_plain(_wide_pages(pages, page), n_nodes, rays, state,
+                            True, max_steps, with_visits)
+    if octants is None:
+        raise ValueError(_NEED_OCTANTS)
+    (node, bt, bi, bu, bv), visits = _walk_plain(
+        _wide_pages(octants.pages, page, n_nodes), n_nodes, rays, *state,
+        False, max_steps, base=_octant(dx, dy, dz) * n_nodes,
+        n_rows=OCTANTS * n_nodes, leaf_row=octants.leaf_row.to(torch.int64),
+        armed=i_in >= 0, canon_by_map=True)
+    out = (bt, bi, bu, bv, node)
+    return out + (visits,) if with_visits else out
 
 
 def _box_plain(lox, loy, loz, hix, hiy, hiz, ox, oy, oz, inx, iny, inz, tmin,
@@ -961,7 +1022,7 @@ def bvh_traverse_lane_packed(nodes, n_nodes, o, d, t_min, t_max,
                              any_hit=False):
     """K4: closest hit (or, with ``any_hit``, the first hit found) of rays
     o, d (R, 3) within (t_min, t_max) (R,), walking the canonical table from
-    the root.
+    the root, in a kernel instantiation of each query kind.
 
     Returns (hit bool, t float32 (inf on a miss), idx int32 original triangle
     id (-1 on a miss), u, v float32 (0 on a miss)), each (R,). A lane with
@@ -981,11 +1042,13 @@ bvh_traverse_lane_packed.launches = 0
 
 
 def _octant_ptrs(octants, any_hit):
-    """The octant tables' and the map's pointers of a K3, K5, K6 or K7
+    """The octant tables' and the map's pointers of a K3, K5, K6, K7 or K9
     launch (null for an any-hit call, which walks the canonical table)."""
     if any_hit:
         return None, None
-    return octants.nodes.data_ptr(), octants.leaf_row.data_ptr()
+    tables = octants.pages if isinstance(octants, WideOctants) \
+        else octants.nodes
+    return tables.data_ptr(), octants.leaf_row.data_ptr()
 
 
 def lane_hbm(nodes, n_nodes, o, d, t_min, t_max, any_hit=False,
@@ -1013,10 +1076,10 @@ lane_hbm.launches = 0
 
 
 def _check_pages(pages, n_nodes, page):
-    """K9's wide pages: whole pages of ``page`` nodes that hold
-    ``n_nodes``."""
-    if page <= 0 or page % 128:
-        raise ValueError(f"page {page} is not a positive multiple of 128")
+    """K9's wide pages: whole pages of ``WIDE_PAGE`` nodes (the page the
+    kernel is compiled for) that hold ``n_nodes``."""
+    if page != WIDE_PAGE:
+        raise ValueError(f"K9 takes pages of {WIDE_PAGE} nodes, not {page}")
     rows = _check_table("pages", pages, 128, pages.device)
     per_page = PCOMP * page // 128
     if rows % per_page or not 0 < n_nodes <= rows // per_page * page \
@@ -1041,8 +1104,23 @@ def _check_octants(octants, n_nodes, dev):
            (OCTANTS, n_nodes, NODE_COLS), dev)
     if dev.type == "cuda" and octants.nodes.data_ptr() % 16:
         raise ValueError("octants.nodes must be 16-byte aligned (float4 loads)")
-    T = octants.leaf_row.shape[0] if octants.leaf_row.dim() == 1 else -1
-    _check("octants.leaf_row", octants.leaf_row, torch.int32, (T,), dev)
+    _check_map(octants.leaf_row, dev)
+
+
+def _check_map(leaf_row, dev):
+    T = leaf_row.shape[0] if leaf_row.dim() == 1 else -1
+    _check("octants.leaf_row", leaf_row, torch.int32, (T,), dev)
+
+
+def _check_wide_octants(octants, n_nodes, dev):
+    """A ``WideOctants`` of ``n_nodes``-node tables in pages of
+    ``WIDE_PAGE`` on ``dev``."""
+    if not isinstance(octants, WideOctants):
+        raise ValueError(_NEED_OCTANTS)
+    rows = -(-n_nodes // WIDE_PAGE) * PCOMP * WIDE_PAGE // 128
+    _check("octants.pages", octants.pages, torch.float32,
+           (OCTANTS, rows, 128), dev)
+    _check_map(octants.leaf_row, dev)
 
 
 def lane_chunk(nodes, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in, t_in,
@@ -1103,20 +1181,27 @@ lane_chunk_hbm.launches = 0
 
 
 def lane_chunk_w(pages, n_nodes, ox, oy, oz, dx, dy, dz, t_min, node_in, t_in,
-                 i_in, u_in, v_in, any_hit=False, max_steps=0, page=WIDE_PAGE):
+                 i_in, u_in, v_in, any_hit=False, max_steps=0, page=WIDE_PAGE,
+                 octants=None):
     """K9: K3's contract (resume for at most ``max_steps`` node visits) over
-    the wide pages of ``pack_pages_w`` with ``page`` nodes per page."""
+    wide pages of ``page`` == ``WIDE_PAGE`` nodes: any-hit lanes over the
+    canonical ``pages`` of ``pack_pages_w``, closest-hit lanes over their
+    octant's pages in ``octants`` (``wide_octant_pages``, required for a
+    closest-hit call), so their ``node`` is a row of that octant's table,
+    with the tie rule."""
     dev = pages.device
     _check_pages(pages, n_nodes, page)
+    if not any_hit:
+        _check_wide_octants(octants, n_nodes, dev)
     rays = (ox, oy, oz, dx, dy, dz, t_min)
     state = (node_in, t_in, i_in, u_in, v_in)
     R = _check_resume(rays, state, max_steps, dev)
     if dev.type == "cpu":
         return lane_chunk_w_plain(pages, n_nodes, *rays, *state,
                                   any_hit=any_hit, max_steps=max_steps,
-                                  page=page)
+                                  page=page, octants=octants)
     return _launch("bvh_lane_chunk_w", lane_chunk_w, dev, (
-        pages.data_ptr(), page, n_nodes,
+        pages.data_ptr(), *_octant_ptrs(octants, any_hit), page, n_nodes,
         *(x.data_ptr() for x in rays + state), R, int(any_hit),
         int(max_steps)), _chunk_outputs(R, dev))
 
@@ -1294,13 +1379,15 @@ def bvh_traverse_lane_hbm(nodes, n_nodes, o, d, t_min, t_max, scene_lo,
 
 def bvh_traverse_lane_resort_w(pages, n_nodes, o, d, t_min, t_max, scene_lo,
                                scene_hi, any_hit=False, strip=LSTRIP, rounds=2,
-                               chunk_nit=16, page=WIDE_PAGE):
+                               chunk_nit=16, page=WIDE_PAGE, octants=None):
     """``bvh_traverse_lane_resort`` through K9 over wide pages
     (pallas_bvh.py:1870): sort, ``rounds`` K9 launches of ``chunk_nit *
     strip`` node visits with a re-sort by node pointer after each, a final
-    unbounded launch, unsort. Returns (hit, t, idx, u, v)."""
+    unbounded launch, unsort; a closest-hit query needs ``octants``
+    (``wide_octant_pages``). Returns (hit, t, idx, u, v); the result does
+    not depend on the schedule."""
     def chunk(*args, **kw):
-        return lane_chunk_w(*args, page=page, **kw)
+        return lane_chunk_w(*args, page=page, octants=octants, **kw)
     return _resort(chunk, pages, n_nodes, o, d, t_min, t_max, scene_lo,
                    scene_hi, any_hit, strip, rounds, chunk_nit)
 

@@ -76,8 +76,8 @@ class Scene(NamedTuple):
     tl_lo: torch.Tensor        # (K, 3) treelet root boxes
     tl_hi: torch.Tensor        # (K, 3)
     # the octant tables of the BVH with their treelet ranges, which
-    # closest-hit K3 and K7 walk (ops/cuda_bvh.octant_tables); None without
-    # a BVH
+    # closest-hit K3 and K5-K7 walk (ops/cuda_bvh.octant_tables); None
+    # without a BVH
     octants: Optional[cuda_bvh.Octants]
     aabb_lo: torch.Tensor      # (3,) scene bounds
     aabb_hi: torch.Tensor      # (3,)

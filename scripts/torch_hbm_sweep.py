@@ -11,9 +11,10 @@ closest-hit and any-hit instantiations, and, on the 262,144 sorted rays of
 the large tier (2,534,463 nodes): K5 closest hit, K5 any-hit and one
 unbounded K6 closest-hit launch, each held bit for bit against its plain
 version (K6 also bounded by chip_smoke's budget, then resumed) and timed in
-turns with K4, whose canonical one-thread-per-ray walk from the root is
-the same on every tree; then the tier's sorted K5 query and K6 resort query,
-twice each, and, where closest-hit K6 walks the octant tables, the resort
+turns with K4, the canonical one-thread-per-ray walk from the root (the
+same code in every design of a tree; another tree's K4 may be built
+otherwise and time differently); then the tier's sorted K5 query and K6
+resort query, twice each, and, where closest-hit K6 walks the octant tables, the resort
 query again with its lanes re-sorted by their row in all eight tables
 (octant * N + node; the library re-sorts by node alone), held bit for bit
 against the library's. The source's default design runs first and last,

@@ -5,19 +5,20 @@ K3-K6 (mitsuba_tpu_torch.ops.cuda_bvh) against the JAX package on the CPU.
 Tolerances:
   * builder, packer and sort keys: exact (the same arithmetic on the same
     inputs, copied code);
-  * K4 and K3 against the Pallas kernels in interpret mode: hit and idx
-    exact (both walk the same nodes in the same order with the same strict
-    comparisons), t to rtol 1e-5 / atol 1e-6 and the barycentrics u, v in
-    [0, 1] to atol 1e-5 (XLA may contract a*b+c into an FMA where the plain
-    version rounds each operation; measured up to 4.5e-6 on u, v);
+  * K4, K3 and the canonical walk against the Pallas kernels in interpret
+    mode: hit and idx exact (both find the same hit with the same strict
+    comparisons; the octant walks keep the canonical walk's by the tie
+    rule), t to rtol 1e-5 / atol 1e-6 and the barycentrics u, v in [0, 1]
+    to atol 1e-5 (XLA may contract a*b+c into an FMA where the plain version
+    rounds each operation; measured up to 4.5e-6 on u, v);
   * K5 and K6 against the XLA walk ``accel/traverse.py:bvh_closest_hit``
     (their Pallas kernels take 3-5 s each to compile in interpret mode, more
     than this file's time budget): hit exact, idx on 99% of hits, t to
     rtol 1e-4 (the XLA walk tests a leaf's box before its triangle and
     inverts the determinant through safe_div, so grazing hits can differ);
-  * a budgeted and resumed walk against the unbounded one, K5 and K6
-    against K3's and K4's plain walks, and the octant walks' tie rule
-    against the JAX kernel and the XLA walk: bit for bit.
+  * a budgeted and resumed walk against the unbounded one, K4, K5 and K6
+    against K3's plain walk and the canonical walk, and the octant walks'
+    tie rule against the JAX kernel and the XLA walk: bit for bit.
 
 The Pallas calls run with strip=1: a lane's node sequence does not depend on
 the strip, and the smaller kernel body compiles in a third of the time.
@@ -163,48 +164,85 @@ def test_ray_sort_keys_match_jax(soup):
 
 @pytest.fixture(scope="module")
 def k4(soup):
+    """The Pallas K4 (closest hit), the port's K4 and the canonical plain
+    walk on the soup's rays."""
     o, d, t_min, t_max = soup["rays"]
     ref = jpb.bvh_traverse_lane_packed(
         jnp.asarray(soup["pages"]), soup["N"], *(jnp.asarray(x) for x in
                                                  (o, d, t_min, t_max)),
         interpret=True, strip=1)
-    out = cb.bvh_traverse_lane_packed(soup["nodes"], soup["N"],
-                                      *_t(o, d, t_min, t_max))
-    return ref, out
+    rays = _t(o, d, t_min, t_max)
+    out = cb.bvh_traverse_lane_packed(soup["nodes"], soup["N"], *rays)
+    canonical = cb.canonical_walk_plain(soup["nodes"], soup["N"], *rays)
+    return ref, out, canonical
 
 
-@pytest.mark.parametrize("field", OUT)
-def test_k4_plain_matches_pallas(k4, field):
-    ref, out = k4
+@pytest.fixture(scope="module")
+def resort_queries(soup):
+    """{any_hit: (Pallas, port)} of the resort query (rounds=2, chunk_nit=3:
+    lanes resume mid-walk) on the port's K3 plain version and on the Pallas
+    _lane_chunk, closest and any-hit, on the soup's rays with t_min = 0 and
+    t_max = inf; and under "k4 any_hit" the port's any-hit K4 on the same
+    rays."""
+    o, d, _, _ = soup["rays"]
+    R = len(o)
+    t_min, t_max = np.zeros(R, np.float32), np.full(R, np.inf, np.float32)
+    out = {}
+    for any_hit in (False, True):
+        ref = jpb.bvh_traverse_lane_resort(
+            jnp.asarray(soup["pages"]), soup["N"],
+            *(jnp.asarray(x) for x in (o, d, t_min, t_max, soup["lo"],
+                                       soup["hi"])),
+            any_hit=any_hit, strip=1, rounds=2, chunk_nit=3, interpret=True)
+        out[any_hit] = ref, cb.bvh_traverse_lane_resort(
+            soup["nodes"], soup["N"], *_t(o, d, t_min, t_max),
+            *_t(soup["lo"].astype(np.float32), soup["hi"].astype(np.float32)),
+            any_hit=any_hit, strip=1, rounds=2, chunk_nit=3,
+            octants=soup["octants"])
+    out["k4 any_hit"] = cb.bvh_traverse_lane_packed(
+        soup["nodes"], soup["N"], *_t(o, d, t_min, t_max), any_hit=True)
+    return out
+
+
+# the closest-hit cases keep their ids
+K4_CASES = [pytest.param(False, f, id=f) for f in OUT] + [
+    pytest.param(True, f, id=f"any_hit-{f}") for f in OUT]
+
+
+@pytest.mark.parametrize("any_hit,field", K4_CASES)
+def test_k4_plain_matches_pallas(k4, resort_queries, any_hit, field):
+    """Closest hit: K4 against the Pallas K4. Any-hit: the first hit in
+    canonical order, against the Pallas resort query's any-hit on the same
+    rays (this module's one any-hit compile; the canonical walk's first hit
+    does not depend on how the walk is chunked)."""
     i = OUT.index(field)
+    if any_hit:
+        ref, out = resort_queries[True][0], resort_queries["k4 any_hit"]
+    else:
+        ref, out, _ = k4
     _compare(out[i].numpy(), ref[i], field)
 
 
+@pytest.mark.parametrize("field", OUT)
+def test_canonical_walk_matches_pallas(k4, field):
+    """The yardstick of the octant walks: the canonical plain walk is the
+    Pallas K4's walk."""
+    ref, _, canonical = k4
+    i = OUT.index(field)
+    _compare(canonical[i].numpy(), ref[i], field)
+
+
 def test_k4_rays_cover_hits_misses_and_dead_lanes(soup, k4):
-    _, (hit, *_) = k4
+    _, (hit, *_), _ = k4
     _, _, t_min, t_max = soup["rays"]
     assert 0.3 < hit.float().mean() < 0.95
     assert not hit.numpy()[t_max == t_min].any()
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["closest", "any_hit"])
-def k3(soup, request):
-    """The resort query (rounds=2, chunk_nit=3: lanes resume mid-walk) on
-    the port's K3 plain version and on the Pallas _lane_chunk."""
-    o, d, _, _ = soup["rays"]
-    R = len(o)
-    t_min, t_max = np.zeros(R, np.float32), np.full(R, np.inf, np.float32)
-    any_hit = request.param
-    ref = jpb.bvh_traverse_lane_resort(
-        jnp.asarray(soup["pages"]), soup["N"],
-        *(jnp.asarray(x) for x in (o, d, t_min, t_max, soup["lo"], soup["hi"])),
-        any_hit=any_hit, strip=1, rounds=2, chunk_nit=3, interpret=True)
-    out = cb.bvh_traverse_lane_resort(
-        soup["nodes"], soup["N"], *_t(o, d, t_min, t_max),
-        *_t(soup["lo"].astype(np.float32), soup["hi"].astype(np.float32)),
-        any_hit=any_hit, strip=1, rounds=2, chunk_nit=3,
-        octants=soup["octants"])
-    return ref, out
+def k3(resort_queries, request):
+    """The resort query of ``resort_queries`` of one query kind."""
+    return resort_queries[request.param]
 
 
 @pytest.mark.parametrize("field", OUT)
@@ -368,6 +406,9 @@ def tie_grid():
     queries = {
         "k3": lambda oc: cb.bvh_traverse_lane_resort(
             *args, strip=1, rounds=2, chunk_nit=3, octants=oc),
+        # K4 from the root on the rays as they come (a presorted query),
+        # over the canonical table
+        "k4": lambda oc: cb.bvh_traverse_lane(*args, sort=False),
         # K5 from the root; K6 bounded (3 visits), re-sorted and resumed
         "k5": lambda oc: cb.bvh_traverse_lane_hbm(*args, sort=True,
                                                   octants=oc),
@@ -380,9 +421,11 @@ def tie_grid():
                 first={k: q(no_tie) for k, q in queries.items()})
 
 
-# K3's cases keep their ids; K5's and K6's walk the same octant tables
+# K3's cases keep their ids; K5's and K6's walk the same octant tables, K4's
+# the canonical table
 TIE_CASES = [pytest.param("k3", f, id=f) for f in OUT] + [
-    pytest.param(k, f, id=f"{k}-{f}") for k in ("k5", "k6") for f in OUT]
+    pytest.param(k, f, id=f"{k}-{f}") for k in ("k5", "k6", "k4")
+    for f in OUT]
 
 
 @pytest.mark.parametrize("kernel,field", TIE_CASES)
@@ -391,14 +434,15 @@ def test_k3_octant_walk_keeps_the_canonical_tie_break(tie_grid, kernel, field):
     query from the root, K6's bounded and resumed resort query) is the JAX
     kernel's and the XLA walk's (the first of the tied triangles in
     canonical order), bit for bit, idx included; without the tie rule it
-    would not be."""
+    would not be. So is K4's, which walks the canonical table (it has no
+    tie rule to take away)."""
     i = OUT.index(field)
     out = tie_grid["out"][kernel][i].numpy()
     np.testing.assert_array_equal(out, tie_grid["ref"][i], err_msg=field)
     np.testing.assert_array_equal(out, tie_grid["xla"][i], err_msg=field)
     if field == "hit":
         assert out.mean() > 0.9
-    if field == "idx":
+    if field == "idx" and kernel != "k4":
         assert (tie_grid["first"][kernel][2].numpy() != out).sum() > 20
 
 
@@ -452,9 +496,9 @@ def test_k5_k6_plain_match_xla(big_soup, kernel):
 
 def test_k5_k6_run_k4_k3_arithmetic(big_soup):
     """K5's plain version is K3's plain octant walk from the root, unbounded,
-    for closest hits and K4's canonical walk for any-hit queries; K6's is
-    K3's own, for both query kinds and any budget. (On the card K5 and K6
-    differ from them only by their schedule.)"""
+    for closest hits and K4's, the canonical walk, for any-hit queries; K6's
+    is K3's own, for both query kinds and any budget. (On the card K5 and
+    K6 differ from them only by their schedule.)"""
     nodes, N, rays, octants = (big_soup[k] for k in ("nodes", "N", "rays",
                                                      "octants"))
     lanes, root = _lanes(*rays, N)
@@ -468,6 +512,7 @@ def test_k5_k6_run_k4_k3_arithmetic(big_soup):
                     cb.bvh_traverse_lane_packed_plain(nodes, N, *rays,
                                                       any_hit=True)):
         assert torch.equal(a, b)
+    assert cb.bvh_traverse_lane_packed_plain is cb.canonical_walk_plain
     assert cb.lane_chunk_hbm_plain is cb.lane_chunk_plain
 
 
@@ -652,6 +697,7 @@ def test_k5_k6_closest_hit_needs_octants(soup):
     with pytest.raises(ValueError, match="pass octants"):
         cb.bvh_traverse_lane_hbm(nodes, N, o, d, t_min, t_max, *_bounds(soup),
                                  sort=True)
+
 
 
 def test_wrappers_reject_other_devices(soup):

@@ -14,6 +14,7 @@ Tolerances:
   * K7's and K9's plain versions against K4's and K3's on the same tree: bit
     for bit where the contract fixes the result (closest t and hit, K9's
     every output); K7's idx may differ from K4's only where t ties;
+  * K9's octant wide pages against the octant tables' rows: exact;
   * the treelet render against the port's lane render of the same scene:
     bit for bit (the same closest hits; the lane render's agreement with the
     JAX render is tests/test_torch_bunny.py's).
@@ -99,6 +100,7 @@ def soup():
     return dict(
         tris=(p0, e1, e2), box=(lo, hi), bvh=bvh, N=len(bvh.lo), tl=tl,
         nodes=torch.from_numpy(nodes), octants=octants,
+        wide=cb.wide_octant_pages(octants),
         slim=jpb.pack_nodes_slim(bvh, p0, e1, e2),
         bvh4=bvh4, fat=torch.from_numpy(cb.pack_nodes_fat(bvh4, p0, e1, e2)),
         pages_w=torch.from_numpy(cb.pack_pages_w(bvh, p0, e1, e2)),
@@ -219,7 +221,8 @@ def test_k7_rays_cover_hits_misses_and_dead_lanes(soup, k7):
 @pytest.mark.parametrize("sort", [False, True], ids=["as_they_come", "sorted"])
 def test_k7_closest_t_equals_k4(soup, sort):
     """The treelet order changes which nodes a lane visits, not the closest
-    hit: t and hit equal K4's bit for bit; idx differs only on a t tie."""
+    hit: t and hit equal K4's (the canonical walk's) bit for bit; idx
+    differs only on a t tie."""
     o, d, t_min, t_max = _t(*(x[:256] for x in soup["rays"]))
     ref = cb.bvh_traverse_lane_packed(soup["nodes"], soup["N"], o, d, t_min,
                                       t_max)
@@ -385,11 +388,25 @@ def _root_state(N, t_min, t_max):
             np.zeros(R, np.float32))
 
 
+def _k9_lanes(soup, n):
+    """The first ``n`` rays as K9 takes them (one array per component), and
+    their state at the root."""
+    o, d, t_min, t_max = _t(*(x[:n] for x in soup["rays"]))
+    rays = tuple(o[:, k].contiguous() for k in range(3)) + tuple(
+        d[:, k].contiguous() for k in range(3)) + (t_min,)
+    return rays, _t(*_root_state(soup["N"], t_min.numpy(), t_max.numpy()))
+
+
 def test_k9_plain_matches_pallas(soup):
     """The Pallas wide-page chunk (interpret mode, strip 1; one compile,
-    unbounded) from the root and from the port's bounded state, against the
-    port's resumed walk and its resort query (rounds 1, chunk_nit 3: lanes
-    resume mid-walk). Chunking changes no lane's result."""
+    closest hit, unbounded) from the root against the port's closest-hit
+    walk, bounded (3 visits) and resumed, whose state is a row of its
+    octant's table; and resumed from the port's bounded any-hit state (rows
+    of the canonical pages), where every lane that has no hit yet is where
+    a closest-hit canonical walk is, against the port's resumed any-hit
+    walk: the same lanes hit, none nearer than the closest hit. The port's
+    resort query (rounds 1, chunk_nit 3: lanes resume mid-walk) against the
+    Pallas walk from the root. Chunking changes no lane's result."""
     o, d = (x[:512] for x in soup["rays"][:2])
     R, N = len(o), soup["N"]
     t_min, t_max = np.zeros(R, np.float32), np.full(R, np.inf, np.float32)
@@ -401,19 +418,41 @@ def test_k9_plain_matches_pallas(soup):
         return jpb._lane_chunk_w(pages, N, *_j(*rays, *state), strip=1,
                                  max_nit=0, interpret=True)
 
-    bounded = cb.lane_chunk_w(soup["pages_w"], N, *_t(*rays),
-                              *_t(*_root_state(N, t_min, t_max)), max_steps=3)
+    def port(state, any_hit, max_steps=0):
+        return cb.lane_chunk_w(soup["pages_w"], N, *_t(*rays), *_t(*state),
+                               any_hit=any_hit, max_steps=max_steps,
+                               octants=soup["wide"])
+
+    root = _root_state(N, t_min, t_max)
+    ref = pallas(root)
+    bounded = port(root, False, max_steps=3)
     assert bool((bounded[4] < N).any())
-    state = tuple(x.numpy() for x in bounded[4:] + bounded[:4])
-    rest = cb.lane_chunk_w(soup["pages_w"], N, *_t(*rays), *_t(*state))
-    ref = pallas(state)
+    rest = port(tuple(x.numpy() for x in bounded[4:] + bounded[:4]), False)
     for i, field in enumerate(("t", "idx", "u", "v")):
         _compare(rest[i].numpy(), ref[i], field)
-    ref = pallas(_root_state(N, t_min, t_max))
+    # any-hit: the port's canonical state handed to the Pallas chunk
+    bounded = port(root, True, max_steps=3)
+    state = tuple(x.numpy() for x in bounded[4:] + bounded[:4])
+    walking = (bounded[4] < N) & (bounded[1] < 0)
+    assert bool(walking.any())
+    closest = pallas(state)
+    rest = port(state, True)
+    hit = (rest[1] >= 0).numpy()
+    np.testing.assert_array_equal(hit, np.asarray(closest[1]) >= 0)
+    # no nearer than the closest hit, within the t tolerance (the first hit
+    # is often the closest, and XLA rounds it otherwise)
+    t_any, t_closest = rest[0].numpy()[hit], np.asarray(closest[0])[hit]
+    assert (t_any >= t_closest - TOL["t"]["rtol"] * np.abs(t_closest)
+            - TOL["t"]["atol"]).all()
+    # a lane with no hit yet hands over the canonical walk's own state
+    for i, field in enumerate(("t", "idx", "u", "v")):
+        _compare(np.asarray(closest[i])[walking.numpy()],
+                 np.asarray(ref[i])[walking.numpy()], field)
     out = cb.bvh_traverse_lane_resort_w(soup["pages_w"], N,
                                         *_t(o, d, t_min, t_max,
                                             *soup["bounds"]),
-                                        rounds=1, chunk_nit=3)
+                                        rounds=1, chunk_nit=3,
+                                        octants=soup["wide"])
     assert 0.3 < out[0].float().mean()
     _compare(out[0].numpy(), np.asarray(ref[1]) >= 0, "hit")
     for i, field in enumerate(("t", "idx", "u", "v")):   # t_max = inf
@@ -423,27 +462,56 @@ def test_k9_plain_matches_pallas(soup):
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
 def test_k9_plain_equals_k3(soup, any_hit):
     """K9 is K3's walk over another layout: one unbounded launch of each on
-    the same rays, bit for bit; and a bounded K9 launch resumed to the end
-    equals the unbounded one."""
-    o, d, t_min, t_max = _t(*(x[:256] for x in soup["rays"]))
-    rays = tuple(o[:, k].contiguous() for k in range(3)) + tuple(
-        d[:, k].contiguous() for k in range(3)) + (t_min,)
-    R, N = o.shape[0], soup["N"]
-    state = (torch.where(t_max > t_min, 0, N).to(torch.int32), t_max,
-             torch.full((R,), -1, dtype=torch.int32), torch.zeros(R),
-             torch.zeros(R))
-    full = cb.lane_chunk_w(soup["pages_w"], N, *rays, *state, any_hit=any_hit)
+    the same rays, bit for bit (closest hit: both on the octant tables, so
+    the rows they end on are rows of the same tables); and a bounded K9
+    launch resumed to the end equals the unbounded one."""
+    rays, state = _k9_lanes(soup, 256)
+    N = soup["N"]
+    kw = dict(any_hit=any_hit, octants=soup["wide"])
+    full = cb.lane_chunk_w(soup["pages_w"], N, *rays, *state, **kw)
     k3 = cb.lane_chunk(soup["nodes"], N, *rays, *state, any_hit=any_hit,
                        octants=soup["octants"])
     for a, b in zip(full, k3):
         assert torch.equal(a, b)
     t, i, u, v, node = cb.lane_chunk_w(soup["pages_w"], N, *rays, *state,
-                                       any_hit=any_hit, max_steps=4)
+                                       max_steps=4, **kw)
     assert bool((node < N).any())
-    rest = cb.lane_chunk_w(soup["pages_w"], N, *rays, node, t, i, u, v,
-                           any_hit=any_hit)
+    rest = cb.lane_chunk_w(soup["pages_w"], N, *rays, node, t, i, u, v, **kw)
     for a, b in zip(rest, full):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("octant", range(cb.OCTANTS))
+def test_octant_wide_pages_hold_the_octant_rows(soup, octant):
+    """Each octant table's wide pages hold, for every node, the same 11
+    words as that table's rows (column 11, the leaf's canonical row, has no
+    word there), and the padding slots of the last page retire a lane
+    (skip = N, tri id -1)."""
+    N, table = soup["N"], soup["octants"].nodes[octant]
+    pages = soup["wide"].pages[octant]
+    assert tuple(pages.shape) == tuple(soup["pages_w"].shape)
+    fetch = cb._wide_pages(pages, cb.WIDE_PAGE)
+    got = torch.stack(fetch(torch.arange(N)), dim=1)
+    assert torch.equal(got[:, :11], table[:, :11])
+    pad = torch.arange(N, -(-N // cb.WIDE_PAGE) * cb.WIDE_PAGE)
+    tail = fetch(pad)
+    assert bool((tail[3] == N).all()) and bool((tail[7] == -1).all())
+    # the canonical table laid out the same way is pack_pages_w
+    assert np.array_equal(
+        cb.pack_pages_w_octants(soup["nodes"].numpy()[None])[0],
+        soup["pages_w"].numpy())
+
+
+def test_k9_closest_hit_needs_octant_pages(soup):
+    """A closest-hit K9 call without the octant wide pages, or with the
+    node-major octant tables, raises (on the CPU too); an any-hit call
+    needs none."""
+    rays, state = _k9_lanes(soup, 64)
+    for kw in ({}, {"octants": soup["octants"]}):
+        with pytest.raises(ValueError, match="pass octants"):
+            cb.lane_chunk_w(soup["pages_w"], soup["N"], *rays, *state, **kw)
+    assert cb.lane_chunk_w(soup["pages_w"], soup["N"], *rays, *state,
+                           any_hit=True)[0].shape == (64,)
 
 
 # --- wrappers ----------------------------------------------------------------
@@ -457,7 +525,8 @@ def test_cpu_calls_run_plain_and_count_no_launch(soup):
                             octants=soup["octants"])[0]
     cb.bvh_traverse_packed(soup["fat"], o, d, t_min, t_max)
     cb.bvh_traverse_lane_resort_w(soup["pages_w"], soup["N"], o, d, t_min,
-                                  t_max, *_t(*soup["bounds"]), rounds=0)
+                                  t_max, *_t(*soup["bounds"]), rounds=0,
+                                  octants=soup["wide"])
     assert [w.launches for w in wrappers] == before and bool(hit.any())
 
 
@@ -487,9 +556,11 @@ def test_wrappers_check_inputs_on_the_cpu_too(soup, bad):
         "start_dtype": lambda: cb.bvh_traverse_packed(
             soup["fat"], o, d, t_min, t_max, start.long(), start.long()),
         "page": lambda: cb.lane_chunk_w(soup["pages_w"], soup["N"], *rays,
-                                        *state, page=200),
+                                        *state, page=200,
+                                        octants=soup["wide"]),
         "pages_short": lambda: cb.lane_chunk_w(soup["pages_w"][:22],
-                                               soup["N"], *rays, *state),
+                                               soup["N"], *rays, *state,
+                                               octants=soup["wide"]),
     }
     with pytest.raises((ValueError, TypeError)):
         calls[bad]()
