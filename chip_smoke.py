@@ -46,10 +46,15 @@ Phases, each of which raises on failure (no phase is skipped):
      function sorts them; root-box tests per ray and the root boxes each ray
      enters; each launch timed, and the bounce query through the K7 query
      function timed against the K3 resort query;
-  6. the fat-row kernel K8 (bvh_traverse_packed) on a leaf-4 tree of the
-     same triangles: camera and bounce rays, closest and any-hit, and a
-     bounded case with per-ray [start, end) ranges of the tree's treelets;
-     then its sorting query bvh_traverse with the counts set to 0;
+  6. the kernel K8 (bvh_traverse_packed) on the split tables of a leaf-4
+     tree of the same triangles (cuda_bvh.fat_tables: their MB and packing
+     seconds; registers and resident blocks of its four instantiations):
+     camera and sorted bounce rays, closest and any-hit, and a bounded
+     case with per-ray [start, end) ranges of the tree's treelets; each held
+     bit for bit against its plain twin, the twin bit for bit against the
+     JAX walk over the fat rows (fat_rows_walk_plain), with the exact ties
+     met, visits, head rows and slots read, time and bound; then its
+     sorting query bvh_traverse with the counts set to 0;
   7. the wide-page kernel K9 (lane_chunk_w) on the same triangles' leaf-1
      tree, closest hit on its octant tables laid out as wide pages
      (pack_pages_w_octants), any-hit on pack_pages_w: its registers and
@@ -1286,9 +1291,12 @@ def scene_tris(scene):
 
 
 def fat_kernel_phase(scene, cam, bounce):
-    """K8 on the fat rows of a leaf-4 tree of the bunny's triangles: kernel
-    == plain bit for bit on camera and bounce rays, closest and any-hit, and
-    with per-ray [start, end) treelet ranges; then the sorting query with
+    """K8 on the split tables (cuda_bvh.fat_tables) of a leaf-4 tree of the
+    bunny's triangles: on camera and sorted bounce rays, closest and
+    any-hit, and with per-ray [start, end) treelet ranges, the kernel ==
+    its plain twin bit for bit and the twin == the JAX walk over the fat
+    rows (fat_rows_walk_plain) bit for bit, with the exact ties met, visits,
+    head rows and slots read, ms and the bound; then the sorting query with
     the counts set to 0."""
     dev = scene.nodes.device
     lo, hi = scene.aabb_lo, scene.aabb_hi
@@ -1300,7 +1308,18 @@ def fat_kernel_phase(scene, cam, bounce):
     counts = fat[:, 7].to(torch.int64)
     log(f"fat rows: leaf-4 tree of {len(tris[0])} triangles, {N} nodes, "
         f"{int((counts > 0).sum())} leaves, built and packed in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s, {fat.numel() * 4 / 1e6:.1f} MB")
+    t0 = time.perf_counter()
+    tables = cb.fat_tables(fat)
+    torch.cuda.synchronize()
+    log(f"K8 split tables: heads {tables.heads.numel() * 4 / 1e6:.2f} MB, "
+        f"octant heads {tables.octant_heads.numel() * 4 / 1e6:.2f} MB, "
+        f"triangle slots {tables.tris.numel() * 4 / 1e6:.2f} MB, packed in "
+        f"{time.perf_counter() - t0:.3f} s")
+    for kind in ("", " any_hit", " bounded", " any_hit bounded"):
+        regs, blocks = cb.kernel_occupancy("bvh_traverse_packed" + kind)
+        log(f"occupancy bvh_traverse_packed{kind}: {regs} registers, "
+            f"{blocks} blocks of 128 per SM")
     roots = treelet_roots(bvh4, max_nodes=scene_mod.TREELET_MAX_NODES)
     r_root, r_skip, r_lo, r_hi = (torch.as_tensor(x, device=dev) for x in (
         roots.astype(np.int32), bvh4.skip[roots].astype(np.int32),
@@ -1312,11 +1331,10 @@ def fat_kernel_phase(scene, cam, bounce):
     ranges = (r_root[sel].contiguous(), r_skip[sel].contiguous())
 
     def bound_of(visits, R, bounded):
-        # 32 B of box per node read; 48 B per triangle only of the leaves
-        # whose box some lane entered (the kernel reads no other slot)
-        v_node, v_tri, touched, opened = visits
-        nbytes = (int(touched.sum()) * 32
-                  + int((counts * opened).sum()) * 48
+        # 32 B per head row read, 48 B per slot of a leaf whose box some
+        # lane entered (the kernel reads no other slot), and the rays
+        v_node, v_tri, touched, opened, _ = visits
+        nbytes = (int(touched.sum()) * 32 + int(opened.sum()) * 48
                   + R * (K4_RAY_BYTES + (K8_RANGE_BYTES if bounded else 0)))
         return _bound(nbytes, int(v_node.sum()) * FLOPS_PER_BOX
                       + int(v_tri.sum()) * FLOPS_PER_TEST)
@@ -1328,33 +1346,45 @@ def fat_kernel_phase(scene, cam, bounce):
             ("bounce", b_sorted, (None, None), False),
             ("bounce", b_sorted, (None, None), True),
             ("bounce [start, end)", b_sorted, ranges, False)):
-        out = cb.bvh_traverse_packed(fat, *rays, *rng, any_hit=any_hit)
-        ref = cb.bvh_traverse_packed_plain(fat, *rays, *rng, any_hit=any_hit,
-                                           with_visits=True)
+        case = f"bvh_traverse_packed/{label}/any_hit={any_hit}"
+        out = cb.bvh_traverse_packed(tables, *rays, *rng, any_hit=any_hit)
+        ref = cb.bvh_traverse_packed_plain(tables, *rays, *rng,
+                                           any_hit=any_hit, with_visits=True)
+        yard = cb.fat_rows_walk_plain(fat, *rays, *rng, any_hit=any_hit,
+                                      with_visits=True)
         torch.cuda.synchronize()
-        err, ulp = compare(f"bvh_traverse_packed/{label}/any_hit={any_hit}",
-                           out, ref[:5], n_exact=1, ulp_limit=0)
+        err, ulp = compare(case, out, ref[:5], n_exact=1, ulp_limit=0)
+        compare(f"{case} (plain twin vs the fat-row walk)", ref[:5], yard[:5],
+                n_exact=1, ulp_limit=0)
+        y_node = yard[5][0]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        v_node, v_tri, touched, opened = ref[5]
-        ms = cuda_ms(lambda: cb.bvh_traverse_packed(fat, *rays, *rng,
+        v_node, v_tri, touched, opened, ties = ref[5]
+        live = v_node > 0
+        ms = cuda_ms(lambda: cb.bvh_traverse_packed(tables, *rays, *rng,
                                                     any_hit=any_hit), reps=20)
         R = rays[0].shape[0]
         bound, by = bound_of(ref[5], R, rng[0] is not None)
         log(f"kernel bvh_traverse_packed {label} any_hit={any_hit}: R={R} "
-            f"hit/idx mismatches 0, max |kernel-plain| {err:.3g} ({ulp} ulp), "
-            f"hit rate {float(out[0].float().mean()):.4f}, node visits "
-            f"{int(v_node.sum())} ({float(v_node.float().mean()):.2f} per ray, "
-            f"max {int(v_node.max())}), triangle tests {int(v_tri.sum())}, "
-            f"{int(touched.sum())} distinct nodes ({int(opened.sum())} leaves "
-            f"opened); {ms:.4f} ms, bound "
-            f"{bound:.5f} ms ({by})")
+            f"hit/idx mismatches 0, max |kernel-plain| {err:.3g} ({ulp} ulp); "
+            f"plain twin == fat-row walk bit for bit, exact ties met "
+            f"{int(ties.sum())} on {int((ties > 0).sum())} lanes; hit rate "
+            f"{float(out[0].float().mean()):.4f}, node visits "
+            f"{int(v_node.sum())} ({float(v_node[live].float().mean()):.2f} "
+            f"per live lane, max {int(v_node.max())}, warp efficiency "
+            f"{warp_efficiency(v_node):.3f}; the fat-row walk's "
+            f"{float(y_node[live].float().mean()):.2f}, max "
+            f"{int(y_node.max())}), triangle tests "
+            f"{int(v_tri.sum())}, {int(touched.sum())} distinct head rows "
+            f"of {touched.numel()}, {int(opened.sum())} slots read; "
+            f"{ms:.4f} ms, bound {bound:.5f} ms ({by})")
         if label == "bounce" and not any_hit:
             _, rec["plain_ms"] = device_ms(lambda: cb.bvh_traverse_packed_plain(
-                fat, *rays))
+                tables, *rays))
             rec.update(ms=ms, bound_ms=bound, bound_by=by, library_ms=None)
     # the op as a caller drives it: sort, K8, unsort, closest and any-hit
     _zero_counts()
-    res = [cb.bvh_traverse(fat, *bounce, lo, hi, any_hit=a) for a in (False, True)]
+    res = [cb.bvh_traverse(tables, *bounce, lo, hi, any_hit=a)
+           for a in (False, True)]
     torch.cuda.synchronize()
     launches = _check_launches("bvh_traverse (K8 query)",
                                {"bvh_traverse_packed": 2})

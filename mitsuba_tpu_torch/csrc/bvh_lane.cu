@@ -6,7 +6,7 @@
 //   K5 lane_hbm         <- bvh_traverse_lane_hbm     (from the root, big trees)
 //   K6 lane_chunk_hbm   <- _lane_chunk_hbm           (resume, big trees)
 //   K7 treelet_rounds   <- bvh_traverse_treelets     (two-level, _treelet_rounds)
-//   K8 fat_packed       <- bvh_traverse_packed       (fat rows, leaves of <= 4)
+//   K8 fat_walk         <- bvh_traverse_packed       (leaves of <= 4)
 //   K9 lane_chunk_w     <- _lane_chunk_w             (K3 over wide pages)
 // All compute what the TPU kernels compute: per ray the closest hit
 // (t, triangle id, u, v) within (t_min, t_max), or with any_hit the first hit
@@ -100,11 +100,25 @@
 // it hits). A ray that enters more boxes finishes with the old pending-mask
 // rounds over the entered treelets it has not walked, so the order stays the
 // JAX one whatever the list's size. Dead lanes start retired.
-// K8 (fat rows). Each node is fourteen float4s: lo.xyz | skip, hi.xyz | count,
-// then per triangle slot p0.xyz | id, e1.xyz | 0, e2.xyz | 0. Every node's box
-// is tested, leaves too; a hit box of a leaf tests its count triangles in slot
-// order (pallas_bvh.py:140-191). Optional per-ray [start, end) bounds retire a
-// lane whose pointer leaves the range (a subtree is such a range).
+// K8 (leaves of up to four triangles; cuda_bvh.pack_fat_tables). The JAX
+// kernel's fat rows (fourteen float4s a node: a 32-byte head, then four
+// triangle slots) are split into three tables: 32-byte heads (lo.xyz | skip,
+// hi.xyz | word; a leaf's word is the int32 first << 3 | count of its slots,
+// an internal node's 0), one table of 48-byte slots (p0.xyz | id, e1.xyz,
+// e2.xyz) in canonical leaf order, and eight near-first octant copies of the
+// heads that point into the same slots. A visit reads one head; every box is
+// tested, leaves too; an entered leaf's slots load together and are tested in
+// slot order (pallas_bvh.py:140-191). Closest-hit lanes without a range walk
+// their octant's heads with the tie rule by slot index (fat_leaf); any-hit
+// lanes and lanes bounded to a per-ray [start, end) of canonical rows (a
+// subtree is such a range) walk the canonical heads, and retire when the
+// pointer leaves the range. On the bunny's sorted bounce rays the octant walk
+// runs 35% faster than the same kernel on the canonical heads (0.0651-0.0664
+// against 0.1004-0.1015 ms), so closest hits take it; on the coherent camera
+// rays it runs 14% slower (0.0388-0.0397 against 0.0337-0.0342), as K4's did.
+// The leaf's loads sent together beat loads slot by slot (46 registers, 10
+// blocks per SM) by 14-18% at 80-85 registers and 5-6 blocks (NVIDIA H100
+// 80GB HBM3, 700 W; scripts/torch_fat_sweep.py).
 // K9 (wide pages, pack_pages_w; pages of WIDE_PAGE = 256 nodes, the JAX
 // default, fixed at compile time). K3's chunk, reading component c of node n
 // from row (n / 256) * 22 + 2 c + (n % 256) / 128, lane n % 128: neighbouring
@@ -116,7 +130,7 @@
 // pass t_min < t < t_max, so the outputs are the TPU kernels' (a miss).
 //
 // What bounds them on an H100. A visit reads 32 bytes of an internal node or
-// 48 of a leaf (K8: 32 plus 48 per tested triangle; K9: 32 or 44) and does a
+// 48 of a leaf (K8: 32 plus 48 per slot tested; K9: 32 or 44) and does a
 // slab test (25 fp32 operations) or a triangle test (46, one a division); K7
 // adds K slab tests per ray (and one per pending treelet per overflow
 // round). A ray reads 32 bytes (K4, K5, K7, K8) or 48 (K3, K6, K9) and writes
@@ -168,6 +182,15 @@ constexpr int THREADS = 128;  // rays per block
 #ifndef K9_MIN_BLOCKS
 #define K9_MIN_BLOCKS 1
 #endif
+// K8's __launch_bounds__ minimum of resident blocks per SM. Left free, its
+// instantiations take 80-85 registers (5-6 blocks of 128 per SM); 8, 10 and
+// 12 blocks spill the leaf's twelve float4s and run slower
+// (scripts/torch_fat_sweep.py builds with others)
+#ifndef K8_MIN_BLOCKS
+#define K8_MIN_BLOCKS 1
+#endif
+// K8's triangle slots per leaf (cuda_bvh.FAT_LEAF_SIZE)
+constexpr int FAT_SLOTS = 4;
 // K7's list of entered treelets per ray (cuda_bvh.TREELET_LIST)
 constexpr int TREELET_LIST = 8;
 // K9's nodes per wide page (cuda_bvh.WIDE_PAGE) and component rows per page
@@ -264,19 +287,6 @@ __device__ __forceinline__ bool tri_geo(float ox, float oy, float oz, float dx,
   vv = (dx * qx + dy * qy + dz * qz) * invd;
   tt = (e2x * qx + e2y * qy + e2z * qz) * invd;
   return ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > t_min;
-}
-
-// ... and within (t_min, best)
-__device__ __forceinline__ bool tri_hit(float ox, float oy, float oz, float dx,
-                                        float dy, float dz, float p0x,
-                                        float p0y, float p0z, float e1x,
-                                        float e1y, float e1z, float e2x,
-                                        float e2y, float e2z, float t_min,
-                                        float best, float& tt, float& uu,
-                                        float& vv) {
-  return tri_geo(ox, oy, oz, dx, dy, dz, p0x, p0y, p0z, e1x, e1y, e1z, e2x,
-                 e2y, e2z, t_min, tt, uu, vv) &&
-         tt < best;
 }
 
 // Slab test of box (lo, hi) against (t_min, best): _sweep_lane's order.
@@ -656,57 +666,101 @@ __global__ void __launch_bounds__(THREADS, K7_MIN_BLOCKS)
   v_out[r] = s.v;
 }
 
-constexpr int FAT_F4 = 14;   // float4s per fat row: 2 + 3 per slot
-constexpr int FAT_SLOTS = 4;
+// K8's leaf: the slots tris[first, first + count) of a leaf whose box the
+// lane entered, loaded together (each predicated on k < count), then tested
+// in slot order. A hit replaces the best where tt < best or, with the tie
+// rule (closest hit), where tt == best from a lower slot index: the slots are
+// in canonical (leaf row, slot) order, so that is the hit the canonical walk
+// meets first. bs is -1 until the lane has a best, and no slot is below -1.
+template <bool tie>
+__device__ __forceinline__ void fat_leaf(const float4* __restrict__ tris,
+                                         int word, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz, float tmin, float& bt,
+                                         int& bs, float& bu, float& bv) {
+  const int first = word >> 3, cnt = word & 7;
+  float4 p[FAT_SLOTS], e1[FAT_SLOTS], e2[FAT_SLOTS];
+#pragma unroll
+  for (int k = 0; k < FAT_SLOTS; ++k) {
+    if (k < cnt) {
+      const float4* slot = tris + 3 * (first + k);
+      p[k] = __ldg(slot);        // p0.xyz | id
+      e1[k] = __ldg(slot + 1);
+      e2[k] = __ldg(slot + 2);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < FAT_SLOTS; ++k) {
+    if (k < cnt) {
+      float tt, uu, vv;
+      if (tri_geo(ox, oy, oz, dx, dy, dz, p[k].x, p[k].y, p[k].z, e1[k].x,
+                  e1[k].y, e1[k].z, e2[k].x, e2[k].y, e2[k].z, tmin, tt, uu,
+                  vv) &&
+          (tt < bt || (tie && tt == bt && first + k < bs))) {
+        bt = tt;
+        bs = first + k;
+        bu = uu;
+        bv = vv;
+      }
+    }
+  }
+}
 
-__global__ void fat_packed_kernel(
-    const float4* __restrict__ rows, int n_nodes, const float* __restrict__ o,
-    const float* __restrict__ d, const float* __restrict__ t_min,
-    const float* __restrict__ t_max, const int* __restrict__ start,
-    const int* __restrict__ end, int R, bool any_hit, bool* hit,
-    float* t_out, int* idx_out, float* u_out, float* v_out) {
+// K8 over its split tables, an instantiation per query kind and per bounded
+// or not: closest-hit lanes without a range walk their octant's near-first
+// heads from row 0, the others the canonical heads from start (or the root).
+// A visit tests the head's box against (t_min, best); an entered internal
+// node descends to node + 1, an entered leaf tests its slots; the lane
+// retires when its pointer reaches min(end, n_nodes) or, any-hit, on a hit.
+template <bool any_hit, bool bounded>
+__global__ void __launch_bounds__(THREADS, K8_MIN_BLOCKS) fat_walk_kernel(
+    const float4* __restrict__ heads, const float4* __restrict__ oct,
+    const float4* __restrict__ tris, int n_nodes,
+    const float* __restrict__ o, const float* __restrict__ d,
+    const float* __restrict__ t_min, const float* __restrict__ t_max,
+    const int* __restrict__ start, const int* __restrict__ end, int R,
+    bool* __restrict__ hit, float* __restrict__ t_out,
+    int* __restrict__ idx_out, float* __restrict__ u_out,
+    float* __restrict__ v_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const float ox = o[3 * r], oy = o[3 * r + 1], oz = o[3 * r + 2];
   const float dx = d[3 * r], dy = d[3 * r + 1], dz = d[3 * r + 2];
   const float tmin = t_min[r], tmax = t_max[r];
   const float inx = safe_inv(dx), iny = safe_inv(dy), inz = safe_inv(dz);
-  const int first = start ? start[r] : 0;
-  const int stop = end ? end[r] : n_nodes;
-  // a lane outside the table's rows is dead, not an out-of-bounds read
-  int node = tmax > tmin && first >= 0 && first < stop ? first : n_nodes;
-  float bt = tmax, bu = 0.0f, bv = 0.0f;
-  int bi = -1;
-  while (node < n_nodes) {
-    const float4* row = rows + FAT_F4 * node;
-    const float4 a = __ldg(row);      // lo.xyz | skip
-    const float4 b = __ldg(row + 1);  // hi.xyz | count
-    const int cnt = static_cast<int>(b.w);
-    float tnear;
-    const bool hit_box = box_hit(a.x, a.y, a.z, b.x, b.y, b.z, ox, oy, oz,
-                                 inx, iny, inz, tmin, bt, tnear);
-    if (hit_box) {
-      for (int k = 0; k < cnt && k < FAT_SLOTS; ++k) {
-        const float4 p = __ldg(row + 2 + 3 * k);   // p0.xyz | id
-        const float4 e1 = __ldg(row + 3 + 3 * k);
-        const float4 e2 = __ldg(row + 4 + 3 * k);
-        float tt, uu, vv;
-        if (tri_hit(ox, oy, oz, dx, dy, dz, p.x, p.y, p.z, e1.x, e1.y, e1.z,
-                    e2.x, e2.y, e2.z, tmin, bt, tt, uu, vv)) {
-          bt = tt;
-          bi = static_cast<int>(p.w);
-          bu = uu;
-          bv = vv;
-        }
-      }
-    }
-    const int next = hit_box && cnt == 0 ? node + 1 : static_cast<int>(a.w);
-    node = next >= stop || (any_hit && bi >= 0) ? n_nodes : next;
+  int node = 0, lim = n_nodes;
+  if (bounded) {
+    node = start[r];
+    lim = min(end[r], n_nodes);
   }
-  const bool h = bi >= 0;
+  // a lane outside the table's rows is dead, not an out-of-bounds read
+  if (!(tmax > tmin && node >= 0 && node < lim)) node = lim;
+  const float4* table = heads;
+  if (!any_hit && !bounded)
+    table = oct + 2 * static_cast<size_t>(n_nodes) * octant_of(dx, dy, dz);
+  float bt = tmax, bu = 0.0f, bv = 0.0f;
+  int bs = -1;
+  while (node < lim) {
+    const float4 a = __ldg(table + 2 * node);      // lo.xyz | skip
+    const float4 b = __ldg(table + 2 * node + 1);  // hi.xyz | word
+    const int word = __float_as_int(b.w);
+    int next = static_cast<int>(a.w);
+    float tnear;
+    if (box_hit(a.x, a.y, a.z, b.x, b.y, b.z, ox, oy, oz, inx, iny, inz, tmin,
+                bt, tnear)) {
+      if (word == 0)
+        next = node + 1;
+      else
+        fat_leaf<!any_hit>(tris, word, ox, oy, oz, dx, dy, dz, tmin, bt, bs,
+                           bu, bv);
+    }
+    node = next;
+    if (any_hit && bs >= 0) break;
+  }
+  const bool h = bs >= 0;
   hit[r] = h;
   t_out[r] = h ? bt : CUDART_INF_F;
-  idx_out[r] = bi;
+  idx_out[r] = h ? static_cast<int>(__ldg(tris + 3 * bs).w) : -1;
   u_out[r] = bu;
   v_out[r] = bv;
 }
@@ -839,25 +893,37 @@ extern "C" int bvh_treelet_rounds(const float* nodes, const float* oct,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K8: rows is the (n_nodes, 56) float32 fat table, 16-byte aligned; start
-// and end are (R,) int32 node ranges, or both null for [0, n_nodes).
-extern "C" int bvh_fat_packed(const float* rows, int n_nodes, const float* o,
+// K8: heads is the (n_nodes, 8) float32 canonical head table, oct the (8,
+// n_nodes, 8) octant heads (may be null for an any-hit or bounded call) and
+// tris the (S, 12) triangle slots, all 16-byte aligned; start and end are
+// (R,) int32 node ranges, or both null for [0, n_nodes).
+extern "C" int bvh_fat_packed(const float* heads, const float* oct,
+                              const float* tris, int n_nodes, const float* o,
                               const float* d, const float* t_min,
                               const float* t_max, const int* start,
                               const int* end, int R, int any_hit, bool* hit,
                               float* t, int* idx, float* u, float* v,
                               void* stream) {
-  fat_packed_kernel<<<blocks_for(R), THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(rows), n_nodes, o, d, t_min, t_max,
-      start, end, R, any_hit != 0, hit, t, idx, u, v);
+  const bool bounded = start != nullptr;
+  if (bounded != (end != nullptr) || (!any_hit && !bounded && !oct))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = any_hit ? (bounded ? fat_walk_kernel<true, true>
+                                   : fat_walk_kernel<true, false>)
+                        : (bounded ? fat_walk_kernel<false, true>
+                                   : fat_walk_kernel<false, false>);
+  kernel<<<blocks_for(R), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(heads),
+      reinterpret_cast<const float4*>(oct),
+      reinterpret_cast<const float4*>(tris), n_nodes, o, d, t_min, t_max,
+      start, end, R, hit, t, idx, u, v);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Registers per thread and resident blocks of THREADS per SM of K3 (which
 // 0), K7 (1), K6 (2), K5 (3), K4 (6) and K9 (8) closest hit, K6 (4), K5 (5),
-// K4 (7) and K9 (9) any-hit, for the occupancy the build's -Xptxas -v
-// implies.
+// K4 (7) and K9 (9) any-hit, and K8 closest (10), any-hit (11), bounded
+// closest (12) and bounded any-hit (13), for the occupancy the build's
+// -Xptxas -v implies.
 extern "C" int bvh_kernel_occupancy(int which, int* regs, int* blocks) {
   const void* fns[] = {
       reinterpret_cast<const void*>(lane_chunk_kernel),
@@ -869,7 +935,11 @@ extern "C" int bvh_kernel_occupancy(int which, int* regs, int* blocks) {
       reinterpret_cast<const void*>(lane_packed_kernel<false>),
       reinterpret_cast<const void*>(lane_packed_kernel<true>),
       reinterpret_cast<const void*>(lane_chunk_w_kernel<false>),
-      reinterpret_cast<const void*>(lane_chunk_w_kernel<true>)};
+      reinterpret_cast<const void*>(lane_chunk_w_kernel<true>),
+      reinterpret_cast<const void*>(fat_walk_kernel<false, false>),
+      reinterpret_cast<const void*>(fat_walk_kernel<true, false>),
+      reinterpret_cast<const void*>(fat_walk_kernel<false, true>),
+      reinterpret_cast<const void*>(fat_walk_kernel<true, true>)};
   constexpr int n_fns = sizeof(fns) / sizeof(fns[0]);
   if (which < 0 || which >= n_fns)
     return static_cast<int>(cudaErrorInvalidValue);

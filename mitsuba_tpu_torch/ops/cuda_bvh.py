@@ -22,8 +22,10 @@ resume from per-lane state ``(node, t, idx, u, v)`` for at most ``max_steps``
 node visits (0: to the end). On the H100 there is no VMEM/HBM split: K5 and K6
 compute what K4 and K3 compute on trees above ``LANE_VMEM_MAX_NODES``, with
 their own launch bounds. K7 walks the same tree one treelet (a subtree's row
-range) at a time, nearest entered treelet first; K8 walks fat rows of up to
-four triangles per leaf (``pack_nodes_fat``); K9 runs K3's walk over the JAX
+range) at a time, nearest entered treelet first; K8 walks a tree of up to
+four triangles per leaf, whose fat rows (``pack_nodes_fat``, the JAX layout)
+it takes split into 32-byte heads and one table of triangle slots
+(``fat_tables``); K9 runs K3's walk over the JAX
 package's wide pages (``pack_pages_w``, and for closest hits
 ``pack_pages_w_octants``).
 
@@ -43,7 +45,9 @@ and read ``Octants.leaf_row`` of the hit triangle) is below the best
 triangle's (``Octants.leaf_row``), and in K7 only against a best found in
 the same treelet. So the result is the canonical walk's
 (``canonical_walk_plain``); only a hit whose box entry rounds past its t can
-differ (a near-tie).
+differ (a near-tie). Closest-hit K8 walks octant copies of its heads; its
+slots are in canonical order, so its tie rule compares slot indices
+(``FatTables``; ``fat_rows_walk_plain`` is its canonical yardstick).
 
 Each wrapper checks its inputs (one device, dtype, shape, contiguity) on
 either device. On CUDA tensors it then allocates the outputs, launches its
@@ -61,6 +65,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from . import build
 
 NODE_COLS = 12    # lo.xyz skip | hi.xyz tri | e2.xyz 0 (three float4s)
@@ -81,7 +86,11 @@ TREELET_KEY_CHUNK = 1 << 15
 # K8's fat rows: lo.xyz skip | hi.xyz count | per slot p0.xyz id | e1.xyz 0 |
 # e2.xyz 0 (fourteen float4s)
 FAT_LEAF_SIZE = 4
-FAT_COLS = 8 + 12 * FAT_LEAF_SIZE
+SLOT_COLS = 12
+FAT_COLS = 8 + SLOT_COLS * FAT_LEAF_SIZE
+# K8's split tables (pack_fat_tables): 32-byte heads lo.xyz skip | hi.xyz
+# word, and one table of 48-byte triangle slots
+HEAD_COLS = 8
 # K9's wide pages (pallas_bvh.py:1655): 11 component rows of vpp = page / 128
 # lanes-of-128 per page
 PCOMP = 11
@@ -103,7 +112,7 @@ def _lib():
         # and the map
         octs = [_P, _P, _P]
         treelet = octs + [_I, _P, _I, _P, _P, _P, _P, _I, _I] + [_P] * 6
-        fat = [_P, _I] + [_P] * 6 + [_I, _I] + [_P] * 6
+        fat = [_P, _P, _P, _I] + [_P] * 6 + [_I, _I] + [_P] * 6
         for fn, args in ((lib.bvh_lane_packed, root),
                          (lib.bvh_lane_hbm, octs + root[1:]),
                          (lib.bvh_lane_chunk, octs + chunk[1:]),
@@ -119,11 +128,15 @@ def _lib():
 
 
 # bvh_kernel_occupancy's kernel numbers: K4, K5, K6 and K9 have a
-# closest-hit and an any-hit instantiation
+# closest-hit and an any-hit instantiation, K8 those two each unbounded and
+# bounded
 _OCCUPANCY = ("lane_chunk", "treelet_rounds", "lane_chunk_hbm", "lane_hbm",
               "lane_chunk_hbm any_hit", "lane_hbm any_hit",
               "bvh_traverse_lane_packed", "bvh_traverse_lane_packed any_hit",
-              "lane_chunk_w", "lane_chunk_w any_hit")
+              "lane_chunk_w", "lane_chunk_w any_hit",
+              "bvh_traverse_packed", "bvh_traverse_packed any_hit",
+              "bvh_traverse_packed bounded",
+              "bvh_traverse_packed any_hit bounded")
 
 
 def kernel_occupancy(name):
@@ -131,7 +144,8 @@ def kernel_occupancy(name):
     ``lane_chunk`` (K3), ``bvh_traverse_lane_packed`` (K4), ``lane_hbm``
     (K5), ``lane_chunk_hbm`` (K6), ``treelet_rounds`` (K7) or
     ``lane_chunk_w`` (K9) on the current card; the any-hit instantiations of
-    K4, K5, K6 and K9 as ``"<name> any_hit"``."""
+    K4, K5, K6 and K9 as ``"<name> any_hit"``; K8's four as
+    ``"bvh_traverse_packed"`` plus `` any_hit`` and/or `` bounded``."""
     regs, blocks = ctypes.c_int(), ctypes.c_int()
     rc = _lib().bvh_kernel_occupancy(_OCCUPANCY.index(name),
                                      ctypes.byref(regs), ctypes.byref(blocks))
@@ -272,19 +286,49 @@ def pack_nodes_octants(nodes, tl_root=None):
     skip = nodes[:, 3].astype(np.int64)
     tri = nodes[:, 7].astype(np.int64)
     leaf = tri >= 0
-    size = skip - row
-    inner = row[~leaf]
-    left = inner + 1
-    if skip[0] != N or np.any(size < 1) or np.any(left >= N):
-        raise ValueError("nodes is not a threaded depth-first tree")
-    right = skip[left]
-    if np.any(right >= N) or np.any(skip[right] != skip[inner]):
-        raise ValueError("nodes is not a binary threaded tree")
+    _check_threaded(skip, leaf)
     if not np.array_equal(np.sort(tri[leaf]), np.arange(int(leaf.sum()))):
         raise ValueError("the octant tables need a leaf_size=1 BVH over "
                          "triangles 0..T-1")
     a, b, c = (nodes[:, k:k + 3].astype(np.float64) for k in (0, 4, 8))
     centre = np.where(leaf[:, None], a + (b + c) / 3.0, (a + b) / 2.0)
+    pos, size = _near_first(skip, leaf, centre)
+    # a leaf carries its canonical row in column 11 (an exact float)
+    src = nodes.copy()
+    src[:, 11] = np.where(leaf, row, 0)
+    tables = _reemit(src, pos, size, skip_col=3)
+    leaf_row = np.empty(int(leaf.sum()), np.int32)
+    leaf_row[tri[leaf]] = row[leaf]
+    roots = np.asarray([] if tl_root is None else tl_root, np.int64)
+    tl_range = np.stack([pos[:, roots], pos[:, roots] + size[roots]], axis=-1)
+    return tables, leaf_row, tl_range.astype(np.int32)
+
+
+def _check_threaded(skip, leaf):
+    """Raise unless ``skip`` (N,) and ``leaf`` (N,) bool describe a binary
+    tree in depth-first order with skip links: the left child of internal
+    row n is n + 1, its right child skip[n + 1]."""
+    N = len(skip)
+    row = np.arange(N)
+    inner = row[~leaf]
+    left = inner + 1
+    if skip[0] != N or np.any(skip - row < 1) or np.any(left >= N):
+        raise ValueError("nodes is not a threaded depth-first tree")
+    right = skip[left]
+    if np.any(right >= N) or np.any(skip[right] != skip[inner]):
+        raise ValueError("nodes is not a binary threaded tree")
+
+
+def _near_first(skip, leaf, centre):
+    """Where each canonical row goes in each octant's near-first table:
+    (pos (8, N) int64, subtree size (N,) int64). Table o re-emits the tree
+    in depth-first order with, at every internal node, the child whose
+    ``centre`` (N, 3) has the smaller s . c first (s = ``octant_signs()[o]``;
+    the left child on equal projections). Level by level, all octants at
+    once."""
+    N = len(skip)
+    size = skip - np.arange(N)
+    inner = np.nonzero(~leaf)[0]
     proj = centre @ octant_signs().T                      # (N, 8)
     octs = np.arange(OCTANTS)[:, None]
     pos = np.zeros((OCTANTS, N), np.int64)                # root at row 0
@@ -299,20 +343,22 @@ def pack_nodes_octants(nodes, tl_root=None):
         pos[octs, second] = at + size[first]
         kids = np.concatenate([lc, rc])
         level = kids[~leaf[kids]]
-    # rows carry their subtree size as skip (and a leaf its canonical row in
-    # column 11) into place as 48-byte records; row p's skip is p + size
-    src = nodes.copy()
-    src[:, 3] = size
-    src[:, 11] = np.where(leaf, row, 0)
-    record = np.dtype((np.void, 4 * NODE_COLS))
-    tables = np.empty((OCTANTS, N, NODE_COLS), np.float32)
-    tables.view(record)[octs, pos, 0] = src.view(record)[:, 0]
-    tables[:, :, 3] += row.astype(np.float32)
-    leaf_row = np.empty(int(leaf.sum()), np.int32)
-    leaf_row[tri[leaf]] = row[leaf]
-    roots = np.asarray([] if tl_root is None else tl_root, np.int64)
-    tl_range = np.stack([pos[:, roots], pos[:, roots] + size[roots]], axis=-1)
-    return tables, leaf_row, tl_range.astype(np.int32)
+    return pos, size
+
+
+def _reemit(rows, pos, size, skip_col):
+    """The canonical ``rows`` (N, C) float32 moved to rows ``pos`` (8, N) of
+    eight tables (8, N, C), as whole records, with the skip link in column
+    ``skip_col`` rewritten: row p's skip is p + the subtree size."""
+    N, cols = rows.shape
+    src = np.array(rows, np.float32)
+    src[:, skip_col] = size
+    record = np.dtype((np.void, 4 * cols))
+    tables = np.empty((OCTANTS, N, cols), np.float32)
+    tables.view(record)[np.arange(OCTANTS)[:, None], pos, 0] = \
+        src.view(record)[:, 0]
+    tables[:, :, skip_col] += np.arange(N, dtype=np.float32)
+    return tables
 
 
 class Octants(NamedTuple):
@@ -348,6 +394,65 @@ def wide_octant_pages(octants: Octants, page: int = WIDE_PAGE) -> WideOctants:
     pages = pack_pages_w_octants(octants.nodes.cpu().numpy(), page)
     return WideOctants(torch.as_tensor(pages, device=octants.nodes.device),
                        octants.leaf_row)
+
+
+def pack_fat_tables(fat):
+    """K8's split tables from the (N, 56) fat rows of ``pack_nodes_fat``.
+
+    Returns (heads (N, 8) float32: ``lo.xyz skip | hi.xyz word`` in
+    canonical order, where a leaf's word is the int32 ``first << 3 | count``
+    (bitcast: its slots are ``tris[first:first + count]``) and an internal
+    node's is 0; tris (S, 12) float32: every leaf's slots ``p0.xyz id |
+    e1.xyz 0 | e2.xyz 0`` in canonical leaf order, then slot order, so the
+    slot index orders hits as the canonical walk meets them; octant_heads
+    (8, N, 8) float32: the heads re-emitted near child first per direction
+    octant (``pack_nodes_octants``' order, children by the projection of
+    their box centre), skip links rewritten, words unchanged)."""
+    fat = np.asarray(fat, np.float32)
+    if fat.ndim != 2 or fat.shape[1] != FAT_COLS:
+        raise ValueError(f"fat rows of shape {fat.shape}, expected (N, "
+                         f"{FAT_COLS})")
+    N = fat.shape[0]
+    skip = fat[:, 3].astype(np.int64)
+    count = fat[:, 7].astype(np.int64)
+    if np.any((count < 0) | (count > FAT_LEAF_SIZE)):
+        raise ValueError(f"fat rows hold 0..{FAT_LEAF_SIZE} triangles")
+    leaf = count > 0
+    _check_threaded(skip, leaf)
+    first = np.cumsum(count) - count
+    heads = np.empty((N, HEAD_COLS), np.float32)
+    heads[:, :7] = fat[:, :7]
+    heads[:, 7] = ((first << 3) | count).astype(np.int32).view(np.float32)
+    heads[~leaf, 7] = 0.0
+    slots = fat[:, 8:].reshape(N, FAT_LEAF_SIZE, SLOT_COLS)
+    tris = np.ascontiguousarray(
+        slots[np.arange(FAT_LEAF_SIZE)[None, :] < count[:, None]])
+    lo, hi = (fat[:, k:k + 3].astype(np.float64) for k in (0, 4))
+    pos, size = _near_first(skip, leaf, (lo + hi) / 2.0)
+    return heads, tris, _reemit(heads, pos, size, skip_col=3)
+
+
+class FatTables(NamedTuple):
+    """K8's split tables (``pack_fat_tables``) on the device it runs on."""
+
+    heads: torch.Tensor         # (N, 8) float32, canonical order
+    tris: torch.Tensor          # (S, 12) float32 triangle slots
+    octant_heads: torch.Tensor  # (8, N, 8) float32, near child first
+
+
+def fat_tables(fat, device=None) -> FatTables:
+    """``pack_fat_tables`` of the fat rows ``fat`` (numpy or a tensor) as a
+    ``FatTables`` on ``device``: that of ``fat`` if it is a tensor and
+    ``device`` is None, else CUDA unless the caller names another (raises
+    without a card)."""
+    if isinstance(fat, torch.Tensor) and device is None:
+        dev = fat.device
+    else:
+        dev = resolve_device(device)
+    if isinstance(fat, torch.Tensor):
+        fat = fat.cpu().numpy()
+    return FatTables(*(torch.as_tensor(x, device=dev)
+                       for x in pack_fat_tables(fat)))
 
 
 def treelet_table(tl_root, tl_skip, tl_lo, tl_hi, tl_range):
@@ -913,22 +1018,142 @@ def treelet_list_plain(nodes, tab, o, d, t_min, t_max, any_hit=False,
     return w.result(with_visits, (n_entered,))
 
 
-def bvh_traverse_packed_plain(nodes, o, d, t_min, t_max, start=None, end=None,
-                              any_hit=False, with_visits=False):
-    """Plain PyTorch version of K8 over fat rows: (hit, t, idx, u, v), and
-    with ``with_visits`` the visits (per-lane node visits and triangle
-    tests, nodes read, leaves whose triangles were read: a leaf's box was
-    entered by some lane)."""
-    N, R, dev = nodes.shape[0], o.shape[0], o.device
-    ox, oy, oz = (o[:, k] for k in range(3))
-    dx, dy, dz = (d[:, k] for k in range(3))
-    inx, iny, inz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+def _tri_plain(g, c, ldx, ldy, ldz, lox, loy, loz, tmin):
+    """Moeller-Trumbore of the kernels on the slot whose p0 is column ``c``
+    of ``g`` (e1 at c + 4, e2 at c + 8), in their operation order: (geo, tt,
+    uu, vv), geo the hit beyond tmin whatever the best."""
+    pvx = ldy * g[c + 10] - ldz * g[c + 9]
+    pvy = ldz * g[c + 8] - ldx * g[c + 10]
+    pvz = ldx * g[c + 9] - ldy * g[c + 8]
+    det = g[c + 4] * pvx + g[c + 5] * pvy + g[c + 6] * pvz
+    ok = torch.abs(det) > 1e-12
+    invd = 1.0 / torch.where(ok, det, 1.0)
+    tvx, tvy, tvz = lox - g[c], loy - g[c + 1], loz - g[c + 2]
+    uu = (tvx * pvx + tvy * pvy + tvz * pvz) * invd
+    qx = tvy * g[c + 6] - tvz * g[c + 5]
+    qy = tvz * g[c + 4] - tvx * g[c + 6]
+    qz = tvx * g[c + 5] - tvy * g[c + 4]
+    vv = (ldx * qx + ldy * qy + ldz * qz) * invd
+    tt = (g[c + 8] * qx + g[c + 9] * qy + g[c + 10] * qz) * invd
+    geo = ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0) & (tt > tmin)
+    return geo, tt, uu, vv
+
+
+def _fat_start(N, t_min, t_max, start, end):
+    """K8's first node and row limit per lane: a dead lane (t_max <= t_min,
+    start outside [0, N) or start >= end) starts at N."""
+    R, dev = t_max.shape[0], t_max.device
     first = torch.zeros(R, dtype=torch.int64, device=dev) if start is None \
         else start.to(torch.int64)
     stop = torch.full((R,), N, dtype=torch.int64, device=dev) if end is None \
         else end.to(torch.int64)
     node = torch.where((t_max > t_min) & (first >= 0) & (first < stop), first,
                        N)
+    return node, stop
+
+
+def bvh_traverse_packed_plain(tables, o, d, t_min, t_max, start=None,
+                              end=None, any_hit=False, with_visits=False,
+                              tie_rule=True):
+    """Plain PyTorch version of K8 over its split tables (a ``FatTables``),
+    walking them as the kernel does: closest-hit lanes without ``[start,
+    end)`` walk their direction octant's ``octant_heads`` from row 0, the
+    others the canonical ``heads``; a visit tests the head's box against
+    (t_min, best) and, where a leaf's box is entered, its slots in slot
+    order. A hit replaces the best where tt < best, or where the lane has a
+    best and tt == best from a lower slot index (the tie rule: slots are in
+    canonical order, so the canonical walk's result; ``tie_rule=False``
+    walks without it). Returns (hit, t, idx, u, v), and with
+    ``with_visits`` the visits: per-lane node visits and triangle tests,
+    head rows read (of the table walked: (8 N,) for the octant walk), slots
+    read (a lane entered their leaf's box) and per-lane exact ties met (a
+    hit at t equal to the lane's best)."""
+    N, R, dev = tables.heads.shape[0], o.shape[0], o.device
+    ox, oy, oz = (o[:, k] for k in range(3))
+    dx, dy, dz = (d[:, k] for k in range(3))
+    inx, iny, inz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+    node, stop = _fat_start(N, t_min, t_max, start, end)
+    lim = torch.clamp(stop, max=N)
+    if any_hit or start is not None:
+        rows, base = tables.heads, torch.zeros_like(node)
+    else:
+        rows = tables.octant_heads.reshape(-1, HEAD_COLS)
+        base = _octant(dx, dy, dz) * N
+    words = rows.view(torch.int32)[:, 7].to(torch.int64)
+    tris = tables.tris
+    bt = t_max.clone()
+    bs = torch.full((R,), -1, dtype=torch.int64, device=dev)
+    bu, bv = torch.zeros(R, device=dev), torch.zeros(R, device=dev)
+    v_node = torch.zeros(R, dtype=torch.int64, device=dev)
+    v_tri, ties = torch.zeros_like(v_node), torch.zeros_like(v_node)
+    touched = torch.zeros(rows.shape[0], dtype=torch.bool, device=dev)
+    opened = torch.zeros(tris.shape[0], dtype=torch.bool, device=dev)
+    lane = torch.nonzero(node < lim).squeeze(1)
+    while lane.numel():
+        n = node[lane]
+        r = n + base[lane]
+        touched[r] = True
+        g = [rows[r, c] for c in range(HEAD_COLS)]
+        word = words[r]
+        lox, loy, loz = ox[lane], oy[lane], oz[lane]
+        ldx, ldy, ldz = dx[lane], dy[lane], dz[lane]
+        tmin, best, ls = t_min[lane], bt[lane], bs[lane]
+        tnear, tfar = _box_plain(g[0], g[1], g[2], g[4], g[5], g[6], lox, loy,
+                                 loz, inx[lane], iny[lane], inz[lane], tmin,
+                                 best)
+        hit_box = tnear <= tfar
+        # every slot's test at once (it does not depend on the best), then
+        # the best taken slot by slot in slot order
+        slot = torch.arange(FAT_LEAF_SIZE, device=dev)
+        valid = hit_box[:, None] & (slot < (word & 7)[:, None])
+        sl = torch.where(valid, (word >> 3)[:, None] + slot, 0)
+        opened[sl[valid]] = True
+        t = tris[sl]
+        geo, tt, uu, vv = _tri_plain(
+            [t[..., c] for c in range(SLOT_COLS)], 0,
+            *(x[:, None] for x in (ldx, ldy, ldz, lox, loy, loz, tmin)))
+        geo &= valid
+        v_tri[lane] += valid.sum(dim=1)
+        lu, lv = bu[lane], bv[lane]
+        for k in range(FAT_LEAF_SIZE):
+            h = geo[:, k] & (tt[:, k] < best)
+            tie = geo[:, k] & (tt[:, k] == best) & (ls >= 0)
+            ties[lane] += tie.to(torch.int64)
+            if tie_rule and not any_hit:   # as the kernel's instantiations
+                h = h | (tie & (sl[:, k] < ls))
+            best = torch.where(h, tt[:, k], best)
+            ls = torch.where(h, sl[:, k], ls)
+            lu = torch.where(h, uu[:, k], lu)
+            lv = torch.where(h, vv[:, k], lv)
+        bt[lane], bs[lane], bu[lane], bv[lane] = best, ls, lu, lv
+        nxt = torch.where(hit_box & (word == 0), n + 1, g[3].to(torch.int64))
+        retire = nxt >= lim[lane]
+        if any_hit:
+            retire |= ls >= 0
+        node[lane] = torch.where(retire, N, nxt)
+        v_node[lane] += 1
+        lane = lane[node[lane] < N]
+    idx = torch.where(bs >= 0, tris[bs.clamp(min=0), 3].to(torch.int32), -1)
+    out = _hit_result(bt, idx, bu, bv)
+    return out + ((v_node, v_tri, touched, opened, ties),) if with_visits \
+        else out
+
+
+def fat_rows_walk_plain(nodes, o, d, t_min, t_max, start=None, end=None,
+                        any_hit=False, with_visits=False):
+    """The JAX K8's walk over the (N, 56) fat rows of ``pack_nodes_fat``
+    (pallas_bvh.py:93-198): from ``start`` (or the root) in canonical
+    order, every node's box tested, an entered leaf's triangles in slot
+    order, a hit replacing the best only at tt < best. Returns (hit, t, idx,
+    u, v), and with ``with_visits`` the visits (per-lane node visits and
+    triangle tests, nodes read, leaves whose triangles were read: a leaf's
+    box was entered by some lane). The yardstick that K8's walks over its
+    split tables (``bvh_traverse_packed_plain``) equal bit for bit."""
+    N, R, dev = nodes.shape[0], o.shape[0], o.device
+    ox, oy, oz = (o[:, k] for k in range(3))
+    dx, dy, dz = (d[:, k] for k in range(3))
+    inx, iny, inz = _safe_inv(dx), _safe_inv(dy), _safe_inv(dz)
+    node, stop = _fat_start(N, t_min, t_max, start, end)
     bt, bi = t_max.clone(), torch.full((R,), -1, dtype=torch.int32, device=dev)
     bu, bv = torch.zeros(R, device=dev), torch.zeros(R, device=dev)
     v_node = torch.zeros(R, dtype=torch.int64, device=dev)
@@ -952,23 +1177,11 @@ def bvh_traverse_packed_plain(nodes, o, d, t_min, t_max, start=None, end=None,
         opened[n[hit_box & (cnt > 0)]] = True
         li, lu, lv = bi[lane], bu[lane], bv[lane]
         for k in range(FAT_LEAF_SIZE):
-            c = 8 + 12 * k   # p0 = c..c+2, id = c+3, e1 = c+4.., e2 = c+8..
+            c = 8 + SLOT_COLS * k   # p0 = c..c+2, id = c+3, e1, e2
             valid = hit_box & (k < cnt)
-            pvx = ldy * g[c + 10] - ldz * g[c + 9]
-            pvy = ldz * g[c + 8] - ldx * g[c + 10]
-            pvz = ldx * g[c + 9] - ldy * g[c + 8]
-            det = g[c + 4] * pvx + g[c + 5] * pvy + g[c + 6] * pvz
-            ok = torch.abs(det) > 1e-12
-            invd = 1.0 / torch.where(ok, det, 1.0)
-            tvx, tvy, tvz = lox - g[c], loy - g[c + 1], loz - g[c + 2]
-            uu = (tvx * pvx + tvy * pvy + tvz * pvz) * invd
-            qx = tvy * g[c + 6] - tvz * g[c + 5]
-            qy = tvz * g[c + 4] - tvx * g[c + 6]
-            qz = tvx * g[c + 5] - tvy * g[c + 4]
-            vv = (ldx * qx + ldy * qy + ldz * qz) * invd
-            tt = (g[c + 8] * qx + g[c + 9] * qy + g[c + 10] * qz) * invd
-            h = (valid & ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-                 & (tt > tmin) & (tt < best))
+            geo, tt, uu, vv = _tri_plain(g, c, ldx, ldy, ldz, lox, loy, loz,
+                                         tmin)
+            h = valid & geo & (tt < best)
             best = torch.where(h, tt, best)
             li = torch.where(h, g[c + 3].to(torch.int32), li)
             lu = torch.where(h, uu, lu)
@@ -1242,16 +1455,38 @@ def treelet_rounds(nodes, tab, o, d, t_min, t_max, any_hit=False,
 treelet_rounds.launches = 0
 
 
-def bvh_traverse_packed(nodes, o, d, t_min, t_max, start=None, end=None,
+def _check_fat_tables(tables):
+    """A ``FatTables`` whose three tables lie on one device and agree in
+    shape; returns (device, N)."""
+    if not isinstance(tables, FatTables):
+        raise ValueError("K8 walks its split tables: pass "
+                         "cuda_bvh.fat_tables(fat rows), not the fat rows")
+    dev = tables.heads.device
+    N = _check_table("tables.heads", tables.heads, HEAD_COLS, dev)
+    S = tables.tris.shape[0] if tables.tris.dim() == 2 else 0
+    if not 0 < S < MAX_NODES:
+        raise ValueError(f"tables.tris has {S} slots; K8 takes 1..2^24-1")
+    _check("tables.tris", tables.tris, torch.float32, (S, SLOT_COLS), dev)
+    _check("tables.octant_heads", tables.octant_heads, torch.float32,
+           (OCTANTS, N, HEAD_COLS), dev)
+    if dev.type == "cuda" and (tables.tris.data_ptr() % 16
+                               or tables.octant_heads.data_ptr() % 16):
+        raise ValueError("K8's tables must be 16-byte aligned (float4 loads)")
+    return dev, N
+
+
+def bvh_traverse_packed(tables, o, d, t_min, t_max, start=None, end=None,
                         any_hit=False):
-    """K8: closest hit (or the first hit found) of rays o, d (R, 3) within
-    (t_min, t_max) over the fat rows ``nodes`` (N, 56) of ``pack_nodes_fat``.
-    Optional per-ray ``start``/``end`` (R,) int32 restrict each lane to the
-    preorder node range [start, end) (a subtree is such a range); a lane
-    with start >= end or start outside [0, N) is dead. Returns (hit, t, idx,
-    u, v)."""
-    dev = nodes.device
-    N = _check_table("nodes", nodes, FAT_COLS, dev)
+    """K8: closest hit (or the first hit of the canonical walk) of rays o, d
+    (R, 3) within (t_min, t_max) over a leaf-4 tree's split tables
+    ``tables`` (``fat_tables``). Optional per-ray ``start``/``end`` (R,)
+    int32 restrict each lane to the canonical node range [start, end) (a
+    subtree is such a range); a lane with start >= end or start outside [0,
+    N) is dead. Closest-hit lanes without a range walk their direction
+    octant's near-first heads with the slot-index tie rule, the others the
+    canonical heads, each query kind (and bounded or not) in an
+    instantiation of its own. Returns (hit, t, idx, u, v): the JAX K8's."""
+    dev, N = _check_fat_tables(tables)
     R = _check_root_rays(o, d, t_min, t_max, dev)
     if (start is None) != (end is None):
         raise ValueError("pass both start and end, or neither")
@@ -1259,13 +1494,15 @@ def bvh_traverse_packed(nodes, o, d, t_min, t_max, start=None, end=None,
         _check("start", start, torch.int32, (R,), dev)
         _check("end", end, torch.int32, (R,), dev)
     if dev.type == "cpu":
-        return bvh_traverse_packed_plain(nodes, o, d, t_min, t_max, start, end,
-                                         any_hit=any_hit)
+        return bvh_traverse_packed_plain(tables, o, d, t_min, t_max, start,
+                                         end, any_hit=any_hit)
     bounds = (None, None) if start is None else (start.data_ptr(),
                                                  end.data_ptr())
     return _launch("bvh_fat_packed", bvh_traverse_packed, dev, (
-        nodes.data_ptr(), N, o.data_ptr(), d.data_ptr(), t_min.data_ptr(),
-        t_max.data_ptr(), *bounds, R, int(any_hit)), _root_outputs(R, dev))
+        tables.heads.data_ptr(), tables.octant_heads.data_ptr(),
+        tables.tris.data_ptr(), N, o.data_ptr(), d.data_ptr(),
+        t_min.data_ptr(), t_max.data_ptr(), *bounds, R, int(any_hit)),
+        _root_outputs(R, dev))
 
 
 bvh_traverse_packed.launches = 0
@@ -1414,14 +1651,15 @@ def bvh_traverse_treelets(nodes, tl_root, tl_skip, tl_lo, tl_hi, o, d, t_min,
     return tuple(_unsort(orig, *res))
 
 
-def bvh_traverse(nodes, o, d, t_min, t_max, scene_lo, scene_hi, sort=True,
+def bvh_traverse(tables, o, d, t_min, t_max, scene_lo, scene_hi, sort=True,
                  any_hit=False):
-    """K8 over fat rows with an optional coherence sort (sort -> traverse ->
-    unsort; pallas_bvh.py:339). Returns (hit, t, idx, u, v)."""
+    """K8 over its split tables ``tables`` (``fat_tables``) with an optional
+    coherence sort (sort -> traverse -> unsort; pallas_bvh.py:339). Returns
+    (hit, t, idx, u, v)."""
     if not sort:
-        return bvh_traverse_packed(nodes, o, d, t_min, t_max, any_hit=any_hit)
+        return bvh_traverse_packed(tables, o, d, t_min, t_max, any_hit=any_hit)
     (*rays, tmx), orig = sort_rays(o, d, t_min, t_max, scene_lo, scene_hi)
-    res = bvh_traverse_packed(nodes, torch.stack(rays[0:3], -1),
+    res = bvh_traverse_packed(tables, torch.stack(rays[0:3], -1),
                               torch.stack(rays[3:6], -1), rays[6], tmx,
                               any_hit=any_hit)
     return tuple(_unsort(orig, *res))

@@ -1,6 +1,6 @@
 """Port parity, treelet slice: the treelet cut, the leaf-4 builder, the copied
 packers and bridge conversions, the plain versions of K7 (treelet rounds), K8
-(fat rows) and K9 (wide pages) against the JAX package on the CPU, the mesh
+(leaf-4 trees) and K9 (wide pages) against the JAX package on the CPU, the mesh
 loaders, the treelet dispatch of a render and ``mtsutil kdbench``.
 
 Tolerances:
@@ -8,13 +8,20 @@ Tolerances:
     same arithmetic on the same inputs, copied code);
   * K7, K8 and K9 against the Pallas kernels in interpret mode: hit and idx
     exact (both walk the same nodes in the same order with the same strict
-    comparisons), t to rtol 1e-5 / atol 1e-6 and u, v to atol 1e-5 (XLA on
+    comparisons; K8's near-first closest-hit walk keeps the canonical
+    walk's triangle by its tie rule), t to rtol 1e-5 / atol 1e-6 and u, v to atol 1e-5 (XLA on
     the CPU contracts a*b+c into FMAs where the plain versions round every
     operation; measured up to 6e-6 on t);
   * K7's and K9's plain versions against K4's and K3's on the same tree: bit
     for bit where the contract fixes the result (closest t and hit, K9's
     every output); K7's idx may differ from K4's only where t ties;
-  * K9's octant wide pages against the octant tables' rows: exact;
+  * K9's octant wide pages against the octant tables' rows, and K8's split
+    tables against the fat rows: exact;
+  * K8's walk over its split tables (closest hit near first, with the
+    slot-index tie rule) against the JAX walk over the fat rows, on the
+    soup and on a tie-heavy mesh: bit for bit (the same operations in the
+    same order on the same values, and the tie rule keeps the canonical
+    walk's triangle);
   * the treelet render against the port's lane render of the same scene:
     bit for bit (the same closest hits; the lane render's agreement with the
     JAX render is tests/test_torch_bunny.py's).
@@ -46,7 +53,7 @@ from mitsuba_tpu_torch.render import scene as tscene
 from mitsuba_tpu_torch.render import sensor as tsensor
 from mitsuba_tpu_torch.render import shapes as tshapes
 from mitsuba_tpu_torch.render.integrators import common as tcommon
-from test_torch_bvh import _tie_grid
+from test_torch_bvh import _preorder, _tie_grid
 
 TOL = {"t": dict(rtol=1e-5, atol=1e-6), "u": dict(rtol=1e-5, atol=1e-5),
        "v": dict(rtol=1e-5, atol=1e-5)}
@@ -75,7 +82,8 @@ def _compare(out, ref, field):
 def soup():
     """600 triangles and 1,024 rays (tests/test_torch_bvh.py's soup): the
     leaf-1 tree with its treelet cut (max_nodes 256, at most 64 roots) and
-    every packing, and the leaf-4 tree with its fat rows."""
+    every packing, and the leaf-4 tree with its fat rows and K8's split
+    tables."""
     rs = np.random.default_rng(21)
     p0 = rs.uniform(-1, 1, (600, 3)).astype(np.float32)
     e1 = rs.normal(0, 0.3, (600, 3)).astype(np.float32)
@@ -97,12 +105,13 @@ def soup():
           bvh.hi[roots])
     nodes = cb.pack_nodes(bvh, p0, e1, e2)
     octants = cb.octant_tables(nodes, roots)
+    fat = torch.from_numpy(cb.pack_nodes_fat(bvh4, p0, e1, e2))
     return dict(
         tris=(p0, e1, e2), box=(lo, hi), bvh=bvh, N=len(bvh.lo), tl=tl,
         nodes=torch.from_numpy(nodes), octants=octants,
         wide=cb.wide_octant_pages(octants),
         slim=jpb.pack_nodes_slim(bvh, p0, e1, e2),
-        bvh4=bvh4, fat=torch.from_numpy(cb.pack_nodes_fat(bvh4, p0, e1, e2)),
+        bvh4=bvh4, fat=fat, tables=cb.fat_tables(fat),
         pages_w=torch.from_numpy(cb.pack_pages_w(bvh, p0, e1, e2)),
         bounds=(lo.min(0).astype(np.float32), hi.max(0).astype(np.float32)),
         rays=(o, d, t_min, t_max))
@@ -337,10 +346,10 @@ def _treelet_ranges(soup):
 
 @pytest.fixture(scope="module", params=["closest", "any_hit_bounded"])
 def k8(soup, request):
-    """K8's plain version and the Pallas kernel (interpret mode, strip 1)
-    on the fat rows of the leaf-4 tree: closest hit over the whole tree, and
-    any-hit within per-ray [start, end) treelet ranges (one compile covers
-    both options)."""
+    """K8's plain version (over its split tables) and the Pallas kernel
+    (interpret mode, strip 1) on the leaf-4 tree: closest hit over the
+    whole tree, and any-hit within per-ray [start, end) treelet ranges (one
+    compile covers both options)."""
     case = request.param
     o, d, t_min, t_max = soup["rays"]
     kw = dict(any_hit=case != "closest")
@@ -351,7 +360,7 @@ def k8(soup, request):
         *(None if b is None else jnp.asarray(b) for b in bounds),
         interpret=True, strip=1, **kw)
     out = cb.bvh_traverse_packed(
-        soup["fat"], *_t(o, d, t_min, t_max),
+        soup["tables"], *_t(o, d, t_min, t_max),
         *(None if b is None else torch.from_numpy(b) for b in bounds), **kw)
     return case, ref, out
 
@@ -368,15 +377,169 @@ def test_k8_sorted_query_equals_the_kernel(soup):
     as they come; bounding lanes to treelets hits less than the whole tree,
     and disabled lanes (start == end) never hit."""
     o, d, t_min, t_max = _t(*(x[:256] for x in soup["rays"]))
-    ref = cb.bvh_traverse_packed(soup["fat"], o, d, t_min, t_max)
-    out = cb.bvh_traverse(soup["fat"], o, d, t_min, t_max, *_t(*soup["bounds"]))
+    ref = cb.bvh_traverse_packed(soup["tables"], o, d, t_min, t_max)
+    out = cb.bvh_traverse(soup["tables"], o, d, t_min, t_max,
+                          *_t(*soup["bounds"]))
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
     start, end = _t(*(x[:256] for x in _treelet_ranges(soup)))
-    bounded = cb.bvh_traverse_packed(soup["fat"], o, d, t_min, t_max, start,
-                                     end)
+    bounded = cb.bvh_traverse_packed(soup["tables"], o, d, t_min, t_max,
+                                     start, end)
     assert 0 < int(bounded[0].sum()) < int(ref[0].sum())
     assert not bounded[0][::16].any()
+
+
+def test_fat_tables_hold_the_fat_rows(soup):
+    """The heads are the fat rows' first seven columns, bit for bit, and a
+    word that names each leaf's slots (first << 3 | count, 0 on internal
+    nodes); the slots are the fat rows' filled slots, bit for bit, in
+    canonical leaf order, then slot order."""
+    fat = soup["fat"].numpy()
+    heads, tris, _ = (x.numpy() for x in soup["tables"])
+    np.testing.assert_array_equal(heads[:, :7].view(np.int32),
+                                  fat[:, :7].view(np.int32))
+    word = heads[:, 7].view(np.int32)
+    count = fat[:, 7].astype(np.int64)
+    np.testing.assert_array_equal(word & 7, count)
+    np.testing.assert_array_equal(word >> 3,
+                                  np.where(count > 0, np.cumsum(count) - count,
+                                           0))
+    assert tris.shape == (int(count.sum()), cb.SLOT_COLS)
+    for n in np.nonzero(count)[0]:
+        first = word[n] >> 3
+        np.testing.assert_array_equal(
+            tris[first:first + count[n]].view(np.int32),
+            fat[n, 8:].reshape(cb.FAT_LEAF_SIZE, -1)[:count[n]].view(np.int32))
+    # every triangle in exactly one slot
+    np.testing.assert_array_equal(np.sort(tris[:, 3]), np.arange(600))
+
+
+@pytest.mark.parametrize("octant", range(cb.OCTANTS))
+def test_fat_octant_heads_thread_the_same_tree_near_child_first(soup, octant):
+    """Octant table o is a permutation of the canonical heads (skip links
+    aside) threaded depth first, every skip the row after its subtree; each
+    leaf keeps its word, so it points to the same slots, and each internal
+    row's near child comes first by the box-centre projection on o's signs
+    (the canonical left child on equal projections)."""
+    heads, _, octs = (x.numpy() for x in soup["tables"])
+    table = octs[octant]
+    N = heads.shape[0]
+    leaf = table[:, 7].view(np.int32) != 0
+    shim = table.copy()
+    shim[:, 7] = np.where(leaf, 0.0, -1.0)   # _preorder's leaf marker
+    after = _preorder(shim)
+    np.testing.assert_array_equal(table[:, 3], after)
+    canon = {int(w): n for n, w in enumerate(heads[:, 7].view(np.int32))
+             if w != 0}
+    rows = np.asarray([canon[int(w)] for w in table[leaf, 7].view(np.int32)])
+    assert len(rows) == len(canon)
+    np.testing.assert_array_equal(np.delete(table[leaf], 3, axis=1)
+                                  .view(np.int32),
+                                  np.delete(heads[rows], 3, axis=1)
+                                  .view(np.int32))
+    # the same subtree sizes as the canonical tree
+    np.testing.assert_array_equal(
+        np.sort(after - np.arange(N)),
+        np.sort(heads[:, 3].astype(np.int64) - np.arange(N)))
+    np.testing.assert_array_equal(np.unique(np.delete(table, 3, axis=1),
+                                            axis=0),
+                                  np.unique(np.delete(heads, 3, axis=1),
+                                            axis=0))
+    s = cb.octant_signs()[octant]
+    proj = (table[:, 0:3].astype(np.float64)
+            + table[:, 4:7].astype(np.float64)) / 2.0 @ s
+    low = np.full(N, np.inf)
+    low[leaf] = rows
+    for n in range(N - 1, -1, -1):     # children come after their parent
+        if not leaf[n]:
+            low[n] = min(low[n + 1], low[after[n + 1]])
+    for n in np.nonzero(~leaf)[0]:
+        near, far = n + 1, after[n + 1]
+        assert proj[near] < proj[far] or (proj[near] == proj[far]
+                                          and low[near] < low[far])
+
+
+def _with_duplicates(bvh, tris, dup, rs):
+    """The leaf-4 tree ``bvh`` with a copy of each triangle in ``dup`` (new
+    ids T, T + 1, ...) added to another leaf of fewer than four triangles,
+    drawn from ``rs``, whose box and ancestors' boxes grow to hold it; and
+    the triangle arrays with the copies appended."""
+    lo, hi, skip, first, count, order = (np.array(x) for x in bvh)
+    T, N = len(tris[0]), len(lo)
+    for k, x in enumerate(dup):
+        at = int(np.nonzero(order == x)[0][0])
+        home = np.nonzero((first >= 0) & (first <= at)
+                          & (at < first + count))[0]
+        room = np.nonzero((first >= 0) & (count < cb.FAT_LEAF_SIZE))[0]
+        leaf = rs.choice(room[room != home[0]])
+        at = first[leaf] + count[leaf]
+        order = np.insert(order, at, T + k)
+        first[first >= at] += 1
+        count[leaf] += 1
+        p = tris[0][x] + np.stack([np.zeros(3), tris[1][x], tris[2][x]])
+        up = np.nonzero((np.arange(N) <= leaf) & (skip > leaf))[0]
+        lo[up] = np.minimum(lo[up], p.min(0))
+        hi[up] = np.maximum(hi[up], p.max(0))
+    out = tuple(np.concatenate([a, a[list(dup)]]) for a in tris)
+    return tbuild.BVH(lo, hi, skip, first, count, order), out
+
+
+@pytest.fixture(scope="module")
+def fat_meshes(soup):
+    """{mesh: (fat rows, split tables, rays, per-ray [start, end))} for the
+    soup and a tie-heavy mesh: test_torch_bvh's grid (up to six triangles
+    hit at exactly the same t per ray) with eight triangles duplicated into
+    other leaves, so that two leaves hold the same geometry."""
+    meshes = {"soup": (soup["fat"], soup["tables"], _t(*soup["rays"]),
+                       _t(*_treelet_ranges(soup)))}
+    (p0, e1, e2), (o, d) = _tie_grid()
+    lo, hi = jbuild.triangle_aabbs(p0, p0 + e1, p0 + e2)
+    rs = np.random.default_rng(33)
+    bvh, tris = _with_duplicates(jbuild.build_bvh(lo, hi, leaf_size=4),
+                                 (p0, e1, e2), rs.choice(600, 8, replace=False),
+                                 rs)
+    fat = torch.from_numpy(cb.pack_nodes_fat(bvh, *tris))
+    R = len(o)
+    roots = jbuild.treelet_roots(bvh, max_nodes=64, max_roots=16)
+    k = np.arange(R) % len(roots)
+    ranges = (roots[k].astype(np.int32), bvh.skip[roots][k].astype(np.int32))
+    meshes["tie_mesh"] = (fat, cb.fat_tables(fat), _t(
+        o, d, np.zeros(R, np.float32), np.full(R, np.inf, np.float32)),
+        _t(*ranges))
+    return meshes
+
+
+K8_WALKS = [(m, q) for m in ("soup", "tie_mesh")
+            for q in ("closest", "any_hit", "bounded")]
+
+
+@pytest.mark.parametrize("mesh,query", K8_WALKS)
+def test_k8_split_walk_equals_the_fat_rows_walk(fat_meshes, mesh, query):
+    """K8's walk over its split tables (closest hit: near first, with the
+    slot-index tie rule; any-hit and bounded: the canonical heads) returns
+    the JAX walk over the fat rows bit for bit, ties included."""
+    fat, tables, rays, ranges = fat_meshes[mesh]
+    kw = dict(any_hit=query == "any_hit")
+    bounds = ranges if query == "bounded" else (None, None)
+    out = cb.bvh_traverse_packed_plain(tables, *rays, *bounds,
+                                       with_visits=True, **kw)
+    ref = cb.fat_rows_walk_plain(fat, *rays, *bounds, **kw)
+    for a, b, field in zip(out, ref, OUT):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=field)
+    if mesh == "tie_mesh":
+        assert out[0].float().mean() > (0.2 if query == "bounded" else 0.9)
+        if query == "closest":
+            assert int(out[5][4].sum()) > 100    # exact ties met
+
+
+def test_k8_tie_rule_carries_weight(fat_meshes):
+    """Without the tie rule the near-first walk on the tie mesh keeps
+    another of the tied triangles than the canonical walk on some lanes."""
+    fat, tables, rays, _ = fat_meshes["tie_mesh"]
+    out = cb.bvh_traverse_packed_plain(tables, *rays, tie_rule=False)
+    ref = cb.fat_rows_walk_plain(fat, *rays)
+    assert torch.equal(out[1], ref[1])
+    assert int((out[2] != ref[2]).sum()) > 20
 
 
 # --- K9 ----------------------------------------------------------------------
@@ -523,7 +686,7 @@ def test_cpu_calls_run_plain_and_count_no_launch(soup):
     tab = cb.treelet_table(*_t(*soup["tl"]), soup["octants"].tl_range)
     hit = cb.treelet_rounds(soup["nodes"], tab, o, d, t_min, t_max,
                             octants=soup["octants"])[0]
-    cb.bvh_traverse_packed(soup["fat"], o, d, t_min, t_max)
+    cb.bvh_traverse_packed(soup["tables"], o, d, t_min, t_max)
     cb.bvh_traverse_lane_resort_w(soup["pages_w"], soup["N"], o, d, t_min,
                                   t_max, *_t(*soup["bounds"]), rounds=0,
                                   octants=soup["wide"])
@@ -531,11 +694,12 @@ def test_cpu_calls_run_plain_and_count_no_launch(soup):
 
 
 @pytest.mark.parametrize("bad", ["tab_rows", "tab_cols", "fat_cols",
-                                 "start_only", "start_dtype", "page",
-                                 "pages_short"])
+                                 "fat_rows", "fat_slots", "start_only",
+                                 "start_dtype", "page", "pages_short"])
 def test_wrappers_check_inputs_on_the_cpu_too(soup, bad):
     o, d, t_min, t_max = _t(*(x[:64] for x in soup["rays"]))
     tab = cb.treelet_table(*_t(*soup["tl"]), soup["octants"].tl_range)
+    tables = soup["tables"]
     start = torch.zeros(64, dtype=torch.int32)
     rays = tuple(o[:, k].contiguous() for k in range(3)) + tuple(
         d[:, k].contiguous() for k in range(3)) + (t_min,)
@@ -549,12 +713,18 @@ def test_wrappers_check_inputs_on_the_cpu_too(soup, bad):
         "tab_cols": lambda: cb.treelet_rounds(soup["nodes"], tab[:, :7],
                                               o, d, t_min, t_max,
                                               octants=soup["octants"]),
-        "fat_cols": lambda: cb.bvh_traverse_packed(soup["nodes"], o, d, t_min,
+        "fat_cols": lambda: cb.bvh_traverse_packed(
+            tables._replace(heads=tables.heads[:, :7].contiguous()), o, d,
+            t_min, t_max),
+        # the fat rows where K8 takes its split tables
+        "fat_rows": lambda: cb.bvh_traverse_packed(soup["fat"], o, d, t_min,
                                                    t_max),
-        "start_only": lambda: cb.bvh_traverse_packed(soup["fat"], o, d, t_min,
+        "fat_slots": lambda: cb.bvh_traverse_packed(
+            tables._replace(tris=tables.tris.double()), o, d, t_min, t_max),
+        "start_only": lambda: cb.bvh_traverse_packed(tables, o, d, t_min,
                                                      t_max, start=start),
         "start_dtype": lambda: cb.bvh_traverse_packed(
-            soup["fat"], o, d, t_min, t_max, start.long(), start.long()),
+            tables, o, d, t_min, t_max, start.long(), start.long()),
         "page": lambda: cb.lane_chunk_w(soup["pages_w"], soup["N"], *rays,
                                         *state, page=200,
                                         octants=soup["wide"]),
@@ -564,6 +734,25 @@ def test_wrappers_check_inputs_on_the_cpu_too(soup, bad):
     }
     with pytest.raises((ValueError, TypeError)):
         calls[bad]()
+
+
+def test_k8_tables_need_cuda_unless_cpu_is_asked(soup, monkeypatch):
+    """fat_tables puts the tables where the fat rows lie, or on the device
+    named, CUDA by default: without a card a CUDA call raises rather than
+    falling back to the CPU; and K8 takes no other device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fat = soup["fat"].numpy()
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            cb.fat_tables(fat, device=device)
+    assert cb.fat_tables(soup["fat"]).heads.device.type == "cpu"
+    for a, b in zip(cb.fat_tables(fat, device="cpu"), soup["tables"]):
+        assert torch.equal(a, b)
+    meta = cb.FatTables(*(x.to("meta") for x in soup["tables"]))
+    o = torch.zeros((4, 3), device="meta")
+    t = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="no BVH traversal"):
+        cb.bvh_traverse_packed(meta, o, o, t, t)
 
 
 # --- mesh loaders ------------------------------------------------------------
