@@ -92,6 +92,20 @@ Phases, each of which raises on failure (no phase is skipped):
      after; checks 180 launches of K1 and of K2 and the image mean against
      the JAX package's value; then the same render once more, counting the
      live lanes (t_max > t_min) of each K1 and K2 launch;
+  9b. training: bench.py:time_train_step through the port's trainer
+     (parallel.train.make_train_step: torch autograd, Adam at 2e-2) on
+     bench's training scene (bench.py:309-328: the Cornell box with a
+     textured back wall and a GGX rough-conductor panel), 512x512, depth 5,
+     spp 2, box filter: the target by api.render (samples 0-1), step 0
+     (the target's samples: loss <= 1e-12 and every gradient 0), then steps
+     1-4 timed as bench times them; checks 10 launches of K1 and of K2 in
+     the target render and in each step's forward and none in the
+     backward or the update (each part's counts set to 0 before it), and
+     holds step 1 (the initial parameters, samples 2-3) against the JAX
+     package's loss (0.5%) and gradients (2% relative L2, cosine 0.99) on
+     its CPU backend (scripts/jax_train_ref.npz); prints fwd_bwd_ms_per_spp
+     (bench's dt / (iters * spp)), final_loss, the peak memory and each
+     step's split between forward, backward and update (CUDA events);
  10. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
      2, seed 0 (bench.py:289-293); checks 10 launches of K4 and 300 of K3
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
@@ -111,7 +125,9 @@ Phases, each of which raises on failure (no phase is skipped):
  13. profile: one render pass of each scene (the bunny in both BVH modes)
      under torch.profiler, printing the device's busy share of the wall time,
      the kernels that take it and each port kernel's render mean per launch;
-     K4's render mean beside its times of phase 4.
+     K4's render mean beside its times of phase 4; and one training step
+     with its forward and its backward each profiled: their busy shares and
+     the backward's top kernels.
 
 The second-to-last line of output is the kernels' JSON record, the last
 {"ok": true, "device": {...}}. Without CUDA the script exits nonzero before
@@ -272,6 +288,16 @@ K9_LEAF_BYTES = 44                # a wide-page leaf: 11 component words
 # a buffer larger than the 50 MB L2, written before a launch that must find
 # the L2 cold, as a render pass's other work leaves it
 FLUSH_BYTES = 256 << 20
+# bench.py:time_train_step (bench.py:243-283) on its training scene: spp 2,
+# steps it = 1..4 timed after step 0; the JAX package's loss and gradients
+# of step 1 on its CPU backend (scripts/jax_train_ref.py, 512x512); a K1
+# and a K2 launch per bounce and sample in a forward pass, none in the
+# backward (the kernels carry no gradient: queries detach their rays)
+TRAIN_SPP, TRAIN_ITERS = 2, 4
+TRAIN_REF = Path(__file__).resolve().parent / "scripts" / "jax_train_ref.npz"
+TRAIN_K12 = {"brute_force_interaction": DEPTH * TRAIN_SPP,
+             "brute_force_closest_hit": DEPTH * TRAIN_SPP}
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_COS = 5e-3, 2e-2, 0.99
 # the treelet render: a closest-hit and a shadow query per bounce, each one
 # K7 launch (render/scene.py _bvh_query)
 K7_PER_SPP = 2 * DEPTH
@@ -700,6 +726,251 @@ def live_share_phase(dev, scene, static, sensor):
         lv = int(live[n])
         log(f"render cornell live lanes of {n}: {lv} of {slots[n]} "
             f"({lv / max(slots[n], 1):.4f})")
+
+
+def train_scene(dev):
+    """bench.py:309-328: the Cornell box with a bitmap-textured back wall
+    and a GGX rough-conductor panel, with the port's builder."""
+    b = SceneBuilder()
+    shapes.cornell_box(b)
+    img_t = (0.25 + 0.5 * ((np.indices((64, 64)).sum(0) // 8) % 2)
+             )[..., None].repeat(3, axis=-1).astype(np.float32)
+    tex = b.add_texture_bitmap(img_t)
+    texmat = b.add_material(albedo=(1.0, 1.0, 1.0), albedo_tex=tex)
+    vq = np.array([[0.05, 0.05, 0.98], [0.95, 0.05, 0.98],
+                   [0.95, 0.95, 0.98], [0.05, 0.95, 0.98]])
+    fq = np.array([[0, 2, 1], [0, 3, 2]], dtype=np.int64)
+    uvq = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], dtype=np.float64)
+    b.add_mesh(vq, fq, texmat, uvs=uvq)
+    rough = b.add_material(type=bsdf_mod.ROUGH_CONDUCTOR, alpha=(0.25, 0.25),
+                           eta=(0.2, 0.92, 1.1), k=(3.9, 2.45, 2.14), dist=1)
+    vr = np.array([[0.15, 0.1, 0.9], [0.85, 0.1, 0.9],
+                   [0.85, 0.8, 0.8], [0.15, 0.8, 0.8]])
+    b.add_mesh(vr, fq, rough)
+    scene, static = b.build(device=dev)
+    sensor = sensor_mod.make_perspective(Transform.look_at(EYE, AT, UP), FOV,
+                                         W, H, device=dev)
+    return scene, static, sensor
+
+
+class StepProbe:
+    """The ``mark`` hook of a training step: a CUDA event at the step's start
+    and at the end of its forward, backward and update, and the launches of
+    every kernel in each part (the counts set to 0 at the start and after
+    each part). ``keep_grads`` copies the gradients on the device as the
+    backward ends, with no synchronisation."""
+
+    PARTS = ("forward", "backward", "update")
+
+    def __init__(self, params, keep_grads=False):
+        self.params, self.keep_grads = params, keep_grads
+        self.events, self.launches, self.grads = {}, {}, None
+        _zero_counts()
+        self.events["start"] = self._event()
+
+    @staticmethod
+    def _event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def __call__(self, part):
+        self.events[part] = self._event()
+        self.launches[part] = {n: k.launches for n, k in KERNELS.items()}
+        _zero_counts()
+        if part == "backward" and self.keep_grads:
+            self.grads = {k: v.grad.detach().clone()
+                          for k, v in self.params.items()}
+
+    def ms(self):
+        """Device-timeline ms of each part (after a synchronisation)."""
+        names = ("start",) + self.PARTS
+        return {b: self.events[a].elapsed_time(self.events[b])
+                for a, b in zip(names, names[1:])}
+
+    def check(self, label):
+        """Raise unless each forward launched TRAIN_K12 of K1 and of K2 and
+        nothing else ran a kernel of the port."""
+        for part in self.PARTS:
+            want = TRAIN_K12 if part == "forward" else {}
+            got = {n: c for n, c in self.launches[part].items() if c}
+            if got != want:
+                raise AssertionError(f"{label} {part}: launches {got}, "
+                                     f"expected {want or 'none'}")
+
+
+def train_phase(dev):
+    """bench.py:time_train_step through the port's trainer
+    (parallel.train.make_train_step, torch autograd, Adam at 2e-2) on
+    bench's training scene at 512x512, depth 5, spp 2, box filter: the
+    target by api.render (samples 0 and 1), step 0 (the target's own
+    samples: loss 0, gradients 0), then steps 1-4 timed as bench times
+    them. Step 1 runs at the initial parameters (step 0's Adam update of
+    zero gradients moves nothing), and its loss and gradients are held
+    against scripts/jax_train_ref.py's. Returns what ``train_profile``
+    steps on."""
+    from mitsuba_tpu_torch.parallel import train as train_mod
+
+    scene, static, sensor = train_scene(dev)
+    cfg = IntegratorConfig(type=PATH, max_depth=DEPTH)
+    settings = api.RenderSettings(width=W, height=H, spp=TRAIN_SPP,
+                                  spp_per_pass=TRAIN_SPP, filter_type=0)
+    ref = np.load(TRAIN_REF)
+    if int(ref["size"]) != W:
+        raise AssertionError(f"{TRAIN_REF} is of {int(ref['size'])}x"
+                             f"{int(ref['size'])}, the phase of {W}x{H}")
+    log(f"train scene: {static.n_tris} triangles, bsdf types "
+        f"{static.bsdf_types}, textures {static.has_textures}")
+
+    _zero_counts()
+    target = api.render(scene, static, sensor, cfg, settings, device=dev)
+    torch.cuda.synchronize()
+    _check_launches("train target", TRAIN_K12)
+    log(f"train target mean_rgb {target.mean(dim=(0, 1)).tolist()} (JAX "
+        f"package's, {TRAIN_REF.name}: {ref['target_mean'].tolist()})")
+
+    spec = train_mod.ParamSpec(albedo=True, emitter_radiance=True,
+                               roughness=True, texture_stack=True)
+    params = train_mod.split_params(scene, spec)
+    step, init = train_mod.make_train_step(scene, static, sensor, cfg,
+                                           settings, spec, n_samples=TRAIN_SPP,
+                                           device=dev)
+    opt_state = init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+
+    probe = StepProbe(params, keep_grads=True)
+    params, opt_state, loss0 = step(params, opt_state, target, 0, mark=probe)
+    torch.cuda.synchronize()
+    probe.check("train step 0")
+    g0 = max(float(g.abs().max()) for g in probe.grads.values())
+    log(f"train step 0 (samples 0-1, the target's): loss {float(loss0)!r}, "
+        f"max |gradient| {g0!r}; split {probe.ms()}")
+    if float(loss0) > 1e-12 or g0 != 0.0:
+        raise AssertionError(f"step 0: loss {float(loss0)}, max |gradient| "
+                             f"{g0}; render and the trainer disagree")
+
+    probes = []
+    t0 = time.perf_counter()
+    for it in range(1, TRAIN_ITERS + 1):
+        probes.append(StepProbe(params, keep_grads=it == 1))
+        params, opt_state, loss = step(params, opt_state, target, it,
+                                       mark=probes[-1])
+        if it == 1:
+            loss1 = loss
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for it, pr in enumerate(probes, 1):
+        pr.check(f"train step {it}")
+        log(f"train step {it}: device-timeline ms {pr.ms()}")
+    split = {p: float(np.mean([pr.ms()[p] for pr in probes]))
+             for p in StepProbe.PARTS}
+    final_loss = float(loss)
+    log(f"train steps 1-{TRAIN_ITERS}: {dt:.3f} s, fwd_bwd_ms_per_spp "
+        f"{dt / (TRAIN_ITERS * TRAIN_SPP) * 1e3:.2f} (bench.py: dt / (iters * "
+        f"spp)), final_loss {final_loss!r}")
+    log(f"train mean split of a step (CUDA events, ms): {split}, sum "
+        f"{sum(split.values()):.3f}")
+    log(f"train max_memory_allocated {peak} bytes ({peak / 2 ** 30:.2f} GiB; "
+        f"{mem0} before step 0)")
+    if not np.isfinite(final_loss):
+        raise AssertionError(f"final loss {final_loss}")
+
+    # step 1 against the JAX package's loss and gradients (CPU, same samples)
+    l1, lref = float(loss1), float(ref["loss"])
+    log(f"train step 1 loss {l1!r}, JAX {lref!r}, relative "
+        f"{l1 / lref - 1:+.3e} (tolerance {TRAIN_LOSS_RTOL})")
+    bad = abs(l1 / lref - 1) > TRAIN_LOSS_RTOL
+    for k, g in probes[0].grads.items():
+        a = g.double().cpu().numpy().ravel()
+        b = ref[f"grad_{k}"].astype(np.float64).ravel()
+        rel = np.linalg.norm(a - b) / np.linalg.norm(b)
+        cos = a @ b / (np.linalg.norm(a) * np.linalg.norm(b))
+        log(f"train step 1 gradient {k}: norm {float(np.linalg.norm(a))!r} "
+            f"(JAX {float(np.linalg.norm(b))!r}), sum {float(a.sum())!r} (JAX "
+            f"{float(b.sum())!r}), relative L2 {rel:.3e}, cosine {cos:.6f}")
+        bad |= not (np.isfinite(a).all() and rel <= TRAIN_GRAD_RTOL
+                    and cos >= TRAIN_GRAD_COS)
+    if bad:
+        raise AssertionError("train step 1 disagrees with the JAX package "
+                             f"(loss rtol {TRAIN_LOSS_RTOL}, gradients "
+                             f"relative L2 {TRAIN_GRAD_RTOL}, cosine "
+                             f"{TRAIN_GRAD_COS})")
+    return target, step, params, opt_state
+
+
+def train_profile(trainer):
+    """One training step (it = 5) with the forward and the backward each
+    under torch.profiler: the device's busy share of each part's wall time
+    and the backward's top device kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    target, step, params, opt_state = trainer
+    profs = {p: profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+             for p in ("forward", "backward")}
+    walls = {}
+    clock = [0.0]
+
+    def mark(part):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if part in profs:
+            profs[part].stop()
+            walls[part] = now - clock[0]
+        if part == "forward":
+            clock[0] = time.perf_counter()
+            profs["backward"].start()
+
+    torch.cuda.synchronize()
+    profs["forward"].start()
+    clock[0] = time.perf_counter()
+    step(params, opt_state, target, TRAIN_ITERS + 1, mark=mark)
+    for part, prof in profs.items():
+        dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0}
+        busy = sum(dev_us.values()) / 1e6
+        log(f"profile train {part}: wall {walls[part] * 1e3:.3f} ms, device "
+            f"busy {busy * 1e3:.3f} ms "
+            f"({'not measured' if not dev_us else f'{busy / walls[part]:.1%}'}), "
+            f"{sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)} "
+            f"kernel launches")
+        if part == "backward":
+            for k, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
+                log(f"profile   {us / 1e3:9.3f} ms  {k[:90]}")
+    gather_backward(params["albedo"].device)
+
+
+def gather_backward(dev):
+    """The backward of one lane gather from a small trainable table, as the
+    trainer's material and emitter gathers make it (table[index], which
+    autograd reverses with a sorting index_put_), against index_select's
+    (an index_add_), on one wavefront of lanes; CUDA events."""
+    g = torch.Generator(device="cpu").manual_seed(SEED)
+    # the emitter radiance (one row here), the material table, the stack
+    for rows, cols in ((1, 3), (6, 3), (4096, 3)):
+        table = torch.rand((rows, cols), generator=g).to(dev).requires_grad_()
+        idx = torch.randint(0, rows, (W * H,), generator=g).to(dev)
+        cot = torch.rand((W * H, cols), generator=g).to(dev)
+
+        def grad_of(gather):
+            return torch.autograd.grad(gather(), table, cot)[0]
+
+        ref = grad_of(lambda: table[idx])
+        alt = grad_of(lambda: torch.index_select(table, 0, idx))
+        ms = {name: cuda_ms(lambda f=f: grad_of(f), reps=5, warmup=1)
+              for name, f in (("table[index]", lambda: table[idx]),
+                              ("index_select", lambda: torch.index_select(
+                                  table, 0, idx)))}
+        log(f"gather backward, ({rows}, {cols}) table, {W * H} lanes: "
+            f"{ms['table[index]']:.3f} ms (table[index]), "
+            f"{ms['index_select']:.3f} ms (index_select), max difference "
+            f"{float((alt - ref).abs().max() / ref.abs().max()):.2e} of the "
+            f"largest entry")
 
 
 def fallback_mesh():
@@ -1828,6 +2099,7 @@ def main() -> int:
         {"brute_force_interaction": DEPTH * SPP,
          "brute_force_closest_hit": DEPTH * SPP})
     live_share_phase(dev, *cornell_scene)
+    trainer = train_phase(dev)
     bunny_scene = bunny(dev)
     bunny_launches, lane_mean, lane_ms = render_phase(
         dev, "bunny", *bunny_scene, BUNNY_EYE, BUNNY_AT, BUNNY_FOV,
@@ -1855,6 +2127,8 @@ def main() -> int:
     for name in ("lane_hbm", "lane_chunk_hbm"):
         records[name]["launches"] = large_launches[name]
     profile_phase(dev, "cornell", *cornell_scene, SPP_PER_PASS)
+    train_profile(trainer)
+    del trainer
     bunny_profile = profile_phase(dev, "bunny", *bunny_scene,
                                   BUNNY_SPP_PER_PASS)
     k4 = records["bvh_traverse_lane_packed"]

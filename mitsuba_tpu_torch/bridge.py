@@ -23,6 +23,7 @@ from .render import texture as tex_mod
 _TRI_FLOAT = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
               "tri_uv0", "tri_uv1", "tri_uv2", "tri_gn", "tri_nee_pdf_area")
 _TRI_INT = ("tri_mat", "tri_emitter")
+_MAT_FLOAT = ("spec_refl", "eta", "k", "alpha")
 _ENV_FLOAT = ("env_map", "env_alias", "env_to_world", "env_scale")
 _TEX_FLOAT = ("uv_scale", "uv_offset", "scale", "stack", "mips")
 _TEX_INT = ("type", "bitmap_idx", "stack_hw", "sizes", "mips_hw")
@@ -105,7 +106,8 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
     """(Scene, SceneStatic) of the port from the JAX scene's leaves.
 
     ``arrays`` maps Scene field names to numpy arrays, with ``materials``,
-    ``textures`` and ``emitters`` as dicts of their tables' fields;
+    ``textures`` and ``emitters`` as dicts of their tables' fields (a
+    material's ``alpha_tex``, if given, must be -1 throughout);
     ``static`` maps SceneStatic field names to values. The BVH comes across
     as the JAX scene's ``bvh_pages`` (the same tree, repacked by
     ``nodes_from_pages``), with its treelet cut (``tl_root``, ``tl_skip``,
@@ -130,6 +132,9 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
     octants = (cuda_bvh.octant_tables(nodes, arrays["tl_root"], dev)
                if use_bvh else None)
     mats, texs, ems = arrays["materials"], arrays["textures"], arrays["emitters"]
+    if np.any(np.asarray(mats.get("alpha_tex", -1)) >= 0):
+        raise NotImplementedError(
+            "roughness textures land in a later slice of the port")
     has_textures = bool(static.get("has_textures", False))
     if has_textures and any(int(t) not in tex_mod.SUPPORTED_TYPES
                             for t in np.asarray(texs["type"]).ravel()):
@@ -145,8 +150,10 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
         aabb_hi=_f32(arrays["aabb_hi"], dev),
         radius=_f32(arrays["radius"], dev),
         materials=bsdf_mod.MaterialTable(
-            type=_i32(mats["type"], dev), albedo=_f32(mats["albedo"], dev),
+            type=_i32(mats["type"], dev), dist=_i32(mats["dist"], dev),
+            albedo=_f32(mats["albedo"], dev),
             albedo_tex=_i32(mats["albedo_tex"], dev),
+            **{k: _f32(mats[k], dev) for k in _MAT_FLOAT},
             twosided=_bool(mats["twosided"], dev)),
         textures=tex_mod.TextureTable(
             **{k: _f32(texs[k], dev) for k in _TEX_FLOAT},
@@ -185,3 +192,16 @@ def sensor_from_arrays(arrays: dict, device=None) -> sensor_mod.Sensor:
             "focus_distance", "ortho_scale", "near")},
         rdist=_f32(np.zeros(2) if rdist is None else rdist, dev),
     )
+
+
+def params_from_arrays(params: dict, device=None) -> dict:
+    """The trainer's parameters (``parallel.train.split_params``' dict: leaf
+    tensors with ``requires_grad``) from the JAX package's ``split_params``
+    output as numpy arrays, by the same names."""
+    dev = resolve_device(device)
+    return {k: _f32(v, dev).requires_grad_(True) for k, v in params.items()}
+
+
+def params_to_arrays(params: dict) -> dict:
+    """The way back: numpy float32 arrays by name."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

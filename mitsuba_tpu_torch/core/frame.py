@@ -1,5 +1,6 @@
 """Shading frames (port of ``mitsuba_tpu/core/frame.py``): three (..., 3)
-tensors (s, t, n); in local coordinates the normal is +Z."""
+tensors (s, t, n); in local coordinates the normal is +Z, so
+cos_theta(w) = w.z."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -32,3 +33,17 @@ class Frame(NamedTuple):
 
 def cos_theta(w):
     return w[..., 2]
+
+
+def sin_theta_2(w):
+    return torch.clamp(1.0 - w[..., 2] * w[..., 2], min=0.0)
+
+
+def sin_theta(w):
+    """sqrt(sin_theta_2), through ``safe_sqrt`` for its gradient of 0 at 0
+    (a sampled direction on the normal; the values are sqrt's)."""
+    return m.safe_sqrt(sin_theta_2(w))
+
+
+def tan_theta(w):
+    return m.safe_div(sin_theta(w), w[..., 2])

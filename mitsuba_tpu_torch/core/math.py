@@ -1,5 +1,5 @@
 """Core vector math (port of ``mitsuba_tpu/core/math.py``, the subset the
-port's scenes use).
+port's scenes and BSDFs use).
 
 Vectors, points and normals are plain ``(..., 3)`` float32 tensors. Each
 function repeats the JAX function's arithmetic in the same order, so the two
@@ -54,7 +54,19 @@ def normalize(v):
 
 
 def safe_sqrt(x):
-    return sqrt(torch.clamp(x, min=0.0))
+    """sqrt(max(x, 0)), bit for bit, with a gradient of 0 where x <= 0.
+
+    The JAX package's form, sqrt(maximum(x, 0)), has an infinite derivative
+    at 0, and where it is evaluated for lanes that a ``where`` then drops
+    (the microfacet distribution a lane does not use), the dropped branch's
+    0 cotangent times that inf is NaN, which reaches the parameter's
+    gradient: Beckmann's ``sample_all`` meets sqrt(1 - ct^2) = sqrt(0) when
+    its uniform is below about 6e-6. The root is taken of 1 there instead,
+    as ``safe_div`` divides by 1."""
+    pos = x > 0.0
+    # XLA's max(-0, 0) is +0, and NaN stays NaN
+    rest = torch.clamp(x.detach(), min=0.0) + 0.0
+    return torch.where(pos, sqrt(torch.where(pos, x, 1.0)), rest)
 
 
 def safe_div(a, b, eps: float = 1e-20):
@@ -92,3 +104,30 @@ def spherical_coordinates(d):
     phi = torch.atan2(d[..., 1], d[..., 0])
     phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
     return theta, phi
+
+
+def reflect(wi, n):
+    """Reflect wi about n (both pointing away from the surface)."""
+    return 2.0 * dot(wi, n, keepdim=True) * n - wi
+
+
+def fresnel_conductor(cos_i, eta, k):
+    """Unpolarized Fresnel reflectance of a conductor per channel
+    (util.cpp fresnelConductorExact). ``eta``/``k`` are (..., 3) complex-IOR
+    components; ``cos_i`` is (...,) or (..., 1). The JAX form: every root
+    and quotient is a safe one, so no branch forms an inf or NaN."""
+    if cos_i.dim() == eta.dim() - 1:
+        cos_i = cos_i[..., None]
+    ci2 = cos_i * cos_i
+    si2 = 1.0 - ci2
+    e2, k2 = eta * eta, k * k
+    t0 = e2 - k2 - si2
+    a2b2 = safe_sqrt(t0 * t0 + 4.0 * e2 * k2)
+    t1 = a2b2 + ci2
+    a = safe_sqrt(torch.clamp(0.5 * (a2b2 + t0), min=0.0))
+    t2 = 2.0 * a * cos_i
+    rs = safe_div(t1 - t2, t1 + t2)
+    t3 = ci2 * a2b2 + si2 * si2
+    t4 = t2 * si2
+    rp = rs * safe_div(t3 - t4, t3 + t4)
+    return 0.5 * (rp + rs)

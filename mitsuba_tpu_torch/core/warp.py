@@ -1,5 +1,6 @@
 """Sampling warps (port of ``mitsuba_tpu/core/warp.py``, the subset the
-port's scenes use): square -> cosine hemisphere, concentric disk, triangle."""
+port's scenes use): square -> cosine hemisphere, uniform sphere, concentric
+disk, triangle."""
 from __future__ import annotations
 
 import math
@@ -10,6 +11,14 @@ from . import math as m
 
 INV_PI = 1.0 / math.pi
 INV_TWOPI = 1.0 / (2.0 * math.pi)
+INV_FOURPI = 1.0 / (4.0 * math.pi)
+
+
+def square_to_uniform_sphere(u):
+    z = 1.0 - 2.0 * u[..., 0]
+    r = m.safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
 def square_to_cosine_hemisphere(u):

@@ -1,6 +1,6 @@
 """Top-level render orchestration (port of ``mitsuba_tpu/render/api.py``: the
-PATH integrator with the independent sampler; the other samplers land in a
-later slice).
+PATH integrator with the independent sampler, the Gaussian and box filters;
+the other samplers land in a later slice).
 
 The whole image is one wavefront per sample: every pixel is a lane. A host
 loop runs the sample passes and accumulates into the film.
@@ -42,7 +42,8 @@ def render_pass(scene, static, sensor, cfg: icommon.IntegratorConfig,
                 settings: RenderSettings, film, sample_base: int,
                 n_samples: int, stats=None):
     """Accumulate ``n_samples`` sample passes into ``film``; adds the issued
-    ray queries to ``stats["n_rays"]`` (an int64 tensor) when given."""
+    ray queries to ``stats["n_rays"]`` (an int64 tensor) when given. Runs
+    under the caller's grad mode: the trainer differentiates through it."""
     H, W = settings.height, settings.width
     dev = film.data.device
     pixel_idx = torch.arange(H * W, dtype=torch.int64, device=dev)
@@ -60,8 +61,12 @@ def render_pass(scene, static, sensor, cfg: icommon.IntegratorConfig,
                            sample_idx, with_stats=True, pixel_spread=spread)
         if stats is not None:
             stats["n_rays"] = stats["n_rays"] + n
-        film = film_mod.splat_grid(film, pos.reshape(H, W, 2),
-                                   L.reshape(H, W, 3), settings.filter_type)
+        if settings.filter_type == rfilter.BOX:
+            # full-image fast path: one jittered sample per pixel lane
+            film = film_mod.splat_aligned(film, L.reshape(H, W, 3))
+        else:
+            film = film_mod.splat_grid(film, pos.reshape(H, W, 2),
+                                       L.reshape(H, W, 3), settings.filter_type)
     return film
 
 
@@ -79,8 +84,7 @@ def render(scene, static, sensor, cfg: icommon.IntegratorConfig,
     if cfg.type != icommon.PATH:
         raise NotImplementedError(
             f"integrator type {cfg.type} lands in a later slice of the port")
-    if settings.filter_type != rfilter.GAUSSIAN:
-        # the JAX package takes its splat_aligned path for the box filter
+    if settings.filter_type not in rfilter.RADIUS:
         raise NotImplementedError(
             f"filter {settings.filter_type} lands in a later slice of the port")
     H, W = settings.height, settings.width

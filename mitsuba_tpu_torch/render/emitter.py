@@ -1,5 +1,6 @@
 """Emitters and next-event estimation (port of ``mitsuba_tpu/render/emitter.py``:
-triangle area lights and the lat-long environment map).
+triangle area lights, the constant environment and the lat-long environment
+map).
 
 Area emitters own a contiguous range of an emissive-triangle array with a
 globally monotone CDF: entry j stores ``emitter_index + local_cdf``, so
@@ -21,9 +22,10 @@ from .records import DirectSample
 
 # type tags, the JAX package's numbering
 AREA = 0
+CONSTANT = 2
 ENVMAP = 3
 
-SUPPORTED_TYPES = (AREA, ENVMAP)
+SUPPORTED_TYPES = (AREA, CONSTANT, ENVMAP)
 
 
 class EmitterTable(NamedTuple):
@@ -102,6 +104,15 @@ def sample_direct(scene, static, p_ref, u3):
         pdf_sa = torch.where(sel, pdf_a, pdf_sa)
         valid = torch.where(sel, ok & (pdf_a > 0), valid)
 
+    if CONSTANT in static.emitter_types:
+        d_c = warp.square_to_uniform_sphere(torch.stack([u0, u1], dim=-1))
+        sel = etype == CONSTANT
+        d = torch.where(sel[..., None], d_c, d)
+        dist = torch.where(sel, 2.0 * scene.radius, dist)
+        radiance = torch.where(sel[..., None], em.radiance[e_idx], radiance)
+        pdf_sa = torch.where(sel, warp.INV_FOURPI, pdf_sa)
+        valid = torch.where(sel, True, valid)
+
     if ENVMAP in static.emitter_types:
         d_e, pdf_e, rad_e = _envmap_sample(em, torch.stack([u0, u1], dim=-1))
         sel = etype == ENVMAP
@@ -122,12 +133,24 @@ def sample_direct(scene, static, p_ref, u3):
 def eval_env_pdf(scene, static, d_world):
     """Environment radiance along escaped rays d_world (R, 3) and the NEE
     pdf of sampling that direction (Scene::evalEnvironment and
-    pdfEmitterDirect), from one table row per lane. For scenes with an
-    environment map (``static.has_env``; this slice's only environment
-    emitter is ENVMAP)."""
+    pdfEmitterDirect): the constant emitter's radiance and uniform-sphere
+    pdf, or one table row per lane of the environment map. For scenes with
+    an environment emitter (``static.has_env``)."""
     em = scene.emitters
-    rad, pdf = _envmap_eval_pdf(em, d_world)
-    return rad, pdf * em.pmf[em.env_index.to(torch.int64)]
+    e_idx = em.env_index.to(torch.int64)
+    etype = em.type[e_idx]
+    shape = d_world.shape[:-1]
+    rad = torch.where(etype == CONSTANT, em.radiance[e_idx],
+                      torch.zeros(3, device=d_world.device)).expand(shape + (3,))
+    pdf = torch.where(etype == CONSTANT,
+                      torch.full(shape, warp.INV_FOURPI, device=d_world.device),
+                      0.0)
+    if ENVMAP in static.emitter_types:
+        r_e, p_e = _envmap_eval_pdf(em, d_world)
+        is_env = etype == ENVMAP
+        rad = torch.where(is_env, r_e, rad)
+        pdf = torch.where(is_env, p_e, pdf)
+    return rad, pdf * em.pmf[e_idx]
 
 
 # --- lat-long environment map (envmap.cpp:99-299) --------------------------

@@ -1,5 +1,5 @@
 """Film accumulation (port of ``mitsuba_tpu/render/film.py``: the full-image
-``splat_grid`` and ``develop``).
+``splat_grid``, the box filter's ``splat_aligned`` and ``develop``).
 
 The film is one (H, W, 4) tensor: filter-weighted RGB sums and the weight.
 """
@@ -64,6 +64,16 @@ def splat_grid(film: Film, pos, value, filter_type: int) -> Film:
             w = (wx * wy * wmask)[..., None]
             canvas[pad + oy:pad + oy + rows, pad + ox:pad + ox + W] += contrib * w
     return Film(data=film.data + canvas[pad:-pad, pad:-pad])
+
+
+def splat_aligned(film: Film, value_image) -> Film:
+    """One jittered sample per pixel under the box filter: ``value_image``
+    (H, W, 3) adds directly, weight 1. Only non-finite samples are dropped
+    (no ``> -1e-5`` test, unlike ``splat_grid``: the JAX package's rule)."""
+    finite = torch.all(torch.isfinite(value_image), dim=-1, keepdim=True)
+    v = torch.where(finite, value_image, 0.0)
+    add = torch.cat([v, finite.to(torch.float32)], dim=-1)
+    return Film(data=film.data + add)
 
 
 def develop(film: Film):

@@ -24,6 +24,13 @@ from .common import (
 )
 
 
+def roulette_probability(thr, eta):
+    """Survival probability of Russian roulette (path.cpp:276-286). It is a
+    sampling probability, so it is detached: the 1/q compensation stays a
+    constant under autograd (the detached-sampling estimator)."""
+    return torch.clamp(torch.amax(thr, dim=-1) * eta * eta, max=0.95).detach()
+
+
 def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
        with_stats: bool = False, pixel_spread=None):
     """Radiance along primary rays o, d (R, 3). Returns (R, 3), or
@@ -112,7 +119,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
         o_new = ray_offset(its.p, its.gn, d_new)
 
         # --- Russian roulette (path.cpp:276-286), only past rr_depth
-        q = torch.clamp(torch.amax(thr_new, dim=-1) * eta * eta, max=0.95)
+        q = roulette_probability(thr_new, eta)
         if depth >= cfg.rr_depth:
             u_rr = rng_mod.uniform1(seed, pixel, sample, dim0 + DIM_RR)
             survive = u_rr < q

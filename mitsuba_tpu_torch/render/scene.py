@@ -12,8 +12,9 @@ the brute-force kernels of ``ops/cuda_intersect``; larger ones build a
 leaf_size=1 BVH, cut it into treelets, and send them to the lane kernels of
 ``ops/cuda_bvh``, or with ``MTS_BVH_KERNEL=treelet`` to the treelet kernel
 K7, with the JAX package's dispatch. Materials are diffuse, with an optional
-bitmap albedo; lights are triangle area lights and a lat-long environment
-map; meshes may be instanced. Anything else (spheres, other textures and
+bitmap albedo, or rough conductors; lights are triangle area lights, a
+constant environment and a lat-long environment map; meshes may be
+instanced. Anything else (spheres, other textures and
 lights, media, other BSDFs) raises ``NotImplementedError``: it lands in a
 later slice.
 """
@@ -192,7 +193,13 @@ def ray_intersect(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
     fillIntersectionRecord): through the K1 brute-force kernel on small
     scenes, else through the BVH kernels and a gather of the hit triangle's
     record. ``presorted`` says the rays are coherent already (primary rays
-    in raster order), so the BVH query skips its sort."""
+    in raster order), so the BVH query skips its sort.
+
+    ``o`` and ``d`` are detached on entry, as on the JAX package's TPU path
+    (scene.py:202-203, 243-244): the kernels carry no gradient, so the hit
+    record (p, wi, uv, ...) is a constant of the scene's parameters, on the
+    CPU as on the card (the detached-sampling estimator)."""
+    o, d = o.detach(), d.detach()
     t_min, t_max = _ray_range(o, t_min, t_max, active)
     if static.use_bvh:
         hit_t, tri_t, tri_idx, tri_u, tri_v = _bvh_query(
@@ -248,7 +255,9 @@ def ray_intersect(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
 def occluded(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
              active=None, presorted: bool = False):
     """Boolean shadow-ray query: the K2 brute-force kernel on small scenes,
-    else an any-hit BVH query."""
+    else an any-hit BVH query; ``o`` and ``d`` detached as in
+    ``ray_intersect``."""
+    o, d = o.detach(), d.detach()
     t_min, t_max = _ray_range(o, t_min, t_max, active)
     if static.use_bvh:
         return _bvh_query(scene, static, o, d, t_min, t_max, presorted,
@@ -355,12 +364,26 @@ class SceneBuilder:
 
     def add_material(self, type: int = bsdf_mod.DIFFUSE,
                      albedo=(0.5, 0.5, 0.5), albedo_tex: int = -1,
-                     twosided: bool = False) -> int:
+                     spec_refl=(1.0, 1.0, 1.0), eta=(1.5046, 1.5046, 1.5046),
+                     k=(0.0, 0.0, 0.0), alpha=(0.1, 0.1), alpha_tex: int = -1,
+                     dist: int = 0, twosided: bool = False) -> int:
+        """A material row with the JAX package's keywords and defaults
+        (scene.py:819-848) for the columns the port reads; a scalar
+        ``eta`` or ``alpha`` is replicated."""
         if type not in bsdf_mod.SUPPORTED_TYPES:
             raise NotImplementedError(
                 f"BSDF type {type} lands in a later slice of the port")
+        if alpha_tex >= 0:
+            raise NotImplementedError(
+                "roughness textures land in a later slice of the port")
+        if np.isscalar(eta):
+            eta = (float(eta),) * 3
+        if np.isscalar(alpha):
+            alpha = (float(alpha),) * 2
         self.mats.append(dict(type=type, albedo=tuple(albedo),
-                              albedo_tex=albedo_tex, twosided=twosided))
+                              albedo_tex=albedo_tex, spec_refl=tuple(spec_refl),
+                              eta=tuple(eta), k=tuple(k), alpha=tuple(alpha),
+                              dist=dist, twosided=twosided))
         return len(self.mats) - 1
 
     def add_texture_bitmap(self, image, uv_scale=(1.0, 1.0),
@@ -408,6 +431,13 @@ class SceneBuilder:
                          if n is not None else None),
                 uvs=part.get("uvs"))
 
+    def add_constant_emitter(self, radiance) -> int:
+        """A constant environment (constant.cpp): the same radiance from
+        every direction, sampled uniformly over the sphere."""
+        self.emitters.append(dict(type=em_mod.CONSTANT,
+                                  radiance=tuple(radiance)))
+        return len(self.emitters) - 1
+
     def add_envmap(self, image, to_world=None, scale: float = 1.0) -> int:
         """A lat-long environment map (envmap.cpp), importance-sampled by
         texel luminance times sin(theta) through an alias table."""
@@ -425,8 +455,12 @@ class SceneBuilder:
         if not self.mats:
             self.add_material()
         T = sum(len(mesh.faces) for mesh in self.meshes)
+        # the last environment emitter is the scene's (scene.py:1369-1372)
         env_index = max((i for i, e in enumerate(self.emitters)
-                         if e["type"] == em_mod.ENVMAP), default=-1)
+                         if e["type"] in (em_mod.CONSTANT, em_mod.ENVMAP)),
+                        default=-1)
+        envmap_index = max((i for i, e in enumerate(self.emitters)
+                            if e["type"] == em_mod.ENVMAP), default=-1)
         use_bvh = T > BRUTE_FORCE_MAX_TRIS
         check_supported(dict(
             n_tris=T, use_bvh=use_bvh,
@@ -503,7 +537,7 @@ class SceneBuilder:
             tri_nee[sel] = pmf[i] * local_pmf / np.maximum(a, 1e-20)
         etri_tri = np.asarray(etri_tri_l or [0], np.int32)
         etri_cdf = np.asarray(etri_cdf_l or [np.inf], np.float32)
-        env = (_build_envmap(self.emitters[env_index]) if env_index >= 0
+        env = (_build_envmap(self.emitters[envmap_index]) if envmap_index >= 0
                else _empty_env())
 
         # BVH over the triangles' float64 bounds and its treelet cut
@@ -545,8 +579,13 @@ class SceneBuilder:
             radius=f32(radius),
             materials=bsdf_mod.MaterialTable(
                 type=i32([mm["type"] for mm in self.mats]),
+                dist=i32([mm["dist"] for mm in self.mats]),
                 albedo=f32([mm["albedo"] for mm in self.mats]),
                 albedo_tex=i32([mm["albedo_tex"] for mm in self.mats]),
+                spec_refl=f32([mm["spec_refl"] for mm in self.mats]),
+                eta=f32([mm["eta"] for mm in self.mats]),
+                k=f32([mm["k"] for mm in self.mats]),
+                alpha=f32([mm["alpha"] for mm in self.mats]),
                 twosided=torch.as_tensor(
                     np.asarray([mm["twosided"] for mm in self.mats], bool),
                     device=dev),

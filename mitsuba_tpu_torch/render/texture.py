@@ -5,7 +5,10 @@ All bitmaps live in one padded stack, stored flat as ``(B*H*W, 3)`` rows with
 explicit strides, and their MIP pyramids in one vertically packed chain
 (level l >= 1 at row offset H - (H >> (l-1))), so a lookup is one row gather
 per tap. ``eval_texture`` does bilinear lookups at the base level, or
-trilinear ones when given the ray-cone footprint ``fp_uv``. The procedural
+trilinear ones when given the ray-cone footprint ``fp_uv``. The MIP chain
+is built from the bitmaps once, at build time, as in the JAX package: a
+trainer that replaces ``stack`` (``parallel.train.merge_params``) trains the
+base level, and lookups above it read the chain as built. The procedural
 textures (checkerboard, grid, wireframe, vertex colors, curvature, noise),
 EWA taps and explicit LODs land in a later slice.
 """

@@ -55,7 +55,8 @@ EYE, AT, UP, FOV = [0.0, 0.25, -0.75], [0.0, 0.1, 0.0], [0, 1, 0], 45.0
 TRI_FIELDS = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
               "tri_uv0", "tri_uv1", "tri_uv2", "tri_gn", "tri_mat",
               "tri_emitter", "tri_nee_pdf_area")
-MAT_FIELDS = ("type", "albedo", "albedo_tex", "twosided")
+MAT_FIELDS = ("type", "dist", "albedo", "albedo_tex", "spec_refl", "eta", "k",
+              "alpha", "twosided")
 TEX_FIELDS = ("type", "uv_scale", "uv_offset", "scale", "bitmap_idx", "stack",
               "stack_hw", "sizes", "mips", "mips_hw")
 EM_FIELDS = ("type", "radiance", "pmf", "cdf", "etri_tri", "etri_cdf",

@@ -52,7 +52,8 @@ SPP = 2
 TRI_FIELDS = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
               "tri_uv0", "tri_uv1", "tri_uv2", "tri_gn", "tri_mat",
               "tri_emitter", "tri_nee_pdf_area")
-MAT_FIELDS = ("type", "albedo", "albedo_tex", "twosided")
+MAT_FIELDS = ("type", "dist", "albedo", "albedo_tex", "spec_refl", "eta", "k",
+              "alpha", "twosided")
 EM_FIELDS = ("type", "radiance", "pmf", "cdf", "etri_tri", "etri_cdf",
              "env_index", "env_map", "env_alias", "env_hw", "env_to_world",
              "env_scale")
@@ -150,8 +151,8 @@ def test_bridge_sensor(sensors):
 
 
 @pytest.mark.parametrize("change", [
-    dict(has_opacity_tex=True), dict(n_spheres=1), dict(emitter_types=(0, 2)),
-    dict(ewa_taps=4), dict(bsdf_types=(0, 3)), dict(emitter_types=(0, 1)),
+    dict(has_opacity_tex=True), dict(n_spheres=1), dict(emitter_types=(0, 5)),
+    dict(ewa_taps=4), dict(bsdf_types=(0, 4)), dict(emitter_types=(0, 1)),
     dict(medium_types=(0,)), dict(n_tris=0),
 ])
 def test_later_slices_raise(cornell, change):
