@@ -106,6 +106,18 @@ Phases, each of which raises on failure (no phase is skipped):
      its CPU backend (scripts/jax_train_ref.npz); prints fwd_bwd_ms_per_spp
      (bench's dt / (iters * spp)), final_loss, the peak memory and each
      step's split between forward, backward and update (CUDA events);
+ 9c. scene files (BASELINE configs 2 and 1): scenes/cbox.xml through
+     mitsuba_tpu_torch.io.mitsuba_xml.load_scene with -D spp=64 -D res=256
+     (its glass sphere is an analytic sphere with the smooth dielectric)
+     and api.render, checking 320 launches of K1 and of K2 (5 bounces x 64
+     samples); the Cornell box of phase 9 through the direct integrator at
+     64x64, 16 spp, one emitter and one BSDF sample, checking 32 launches of
+     K1 and 16 of K2 (the camera and the BSDF ray, the shadow ray, per
+     sample); each prints wall ms, ms/spp, rays/s and the exact ray count,
+     and holds its mean within 1% per channel of the JAX package's CPU value
+     (scripts/jax_scenefile_ref_mean.py); then python -m mitsuba_tpu_torch
+     on cbox.xml at the same size in a subprocess, whose EXR must equal the
+     image of api.render bit for bit;
  10. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
      2, seed 0 (bench.py:289-293); checks 10 launches of K4 and 300 of K3
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
@@ -122,7 +134,8 @@ Phases, each of which raises on failure (no phase is skipped):
      (["kdbench", path], defaults: 2^18 rays, 3 repeats); checks that the
      treelet and lane-resort kernels report the same hit rate on each batch
      and that K7 and K3 launched as the utility drives them;
- 13. profile: one render pass of each scene (the bunny in both BVH modes)
+ 13. profile: one render pass of each scene (the bunny in both BVH modes;
+     4 spp of cbox.xml at 256x256 and of the Cornell direct render at 64x64)
      under torch.profiler, printing the device's busy share of the wall time,
      the kernels that take it and each port kernel's render mean per launch;
      K4's render mean beside its times of phase 4; and one training step
@@ -156,6 +169,8 @@ from mitsuba_tpu_torch.accel.build import (build_bvh, treelet_roots,
 from mitsuba_tpu_torch.core import math as m
 from mitsuba_tpu_torch.core import rng as rng_mod
 from mitsuba_tpu_torch.core.transform import Transform
+from mitsuba_tpu_torch.io import image as image_mod
+from mitsuba_tpu_torch.io import mitsuba_xml
 from mitsuba_tpu_torch.ops import build
 from mitsuba_tpu_torch.ops import cuda_bvh as cb
 from mitsuba_tpu_torch.ops import cuda_intersect as bf
@@ -165,7 +180,7 @@ from mitsuba_tpu_torch.render import emitter as em_mod
 from mitsuba_tpu_torch.render import scene as scene_mod
 from mitsuba_tpu_torch.render import sensor as sensor_mod
 from mitsuba_tpu_torch.render.integrators.common import (
-    DIM_BASE, DIM_BSDF, DIM_NEE, PATH, IntegratorConfig, ray_offset)
+    DIM_BASE, DIM_BSDF, DIM_NEE, DIRECT, PATH, IntegratorConfig, ray_offset)
 from mitsuba_tpu_torch.render.scene import SceneBuilder
 
 W = H = 512
@@ -301,6 +316,22 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_GRAD_COS = 5e-3, 2e-2, 0.99
 # the treelet render: a closest-hit and a shadow query per bounce, each one
 # K7 launch (render/scene.py _bvh_query)
 K7_PER_SPP = 2 * DEPTH
+# the scene-file phase (BASELINE configs 2 and 1): scenes/cbox.xml at the
+# README's -D spp=64 -D res=256 through the path tracer, and the Cornell box
+# of the render phase through the direct integrator at 64x64, 16 spp. Their
+# mean_rgb through the JAX package on its CPU backend, the same samples:
+# scripts/jax_scenefile_ref_mean.py, run with jax 0.9.0 on a CPU host,
+# unrounded. K1/K2 launches: cbox.xml 5 bounces x (a closest hit + a
+# shadow query) per sample; direct, per sample, the camera and the BSDF ray
+# (K1) and one shadow ray (K2)
+CBOX_XML = Path(__file__).resolve().parent / "scenes" / "cbox.xml"
+CBOX_SPP, CBOX_RES = 64, 256
+CBOX_REF_MEAN_RGB = (0.23012354969978333, 0.17765897512435913,
+                     0.07999605685472488)
+DIRECT_RES, DIRECT_SPP = 64, 16
+DIRECT_REF_MEAN_RGB = (0.3901189863681793, 0.3174380958080292,
+                       0.15292032063007355)
+SCENE_MEAN_RTOL = 1e-2
 
 
 def log(*a):
@@ -1913,10 +1944,8 @@ def large_tier_phase(dev):
 
 def render_phase(dev, label, scene, static, sensor, eye, at, fov, spp,
                  spp_per_pass, ref_mean, rtol, expected):
-    """The port's main path: api.render at 512x512, depth 5, seed 0, with
-    every launch count set to 0 just before and read just after; checks the
-    counts against ``expected`` (0 for a kernel not named) and the image
-    mean against the JAX package's value. Returns (launches, mean_rgb,
+    """The port's main path: api.render at 512x512, depth 5, seed 0, after a
+    warm-up at 64x64 (``timed_render``). Returns (launches, mean_rgb,
     ms/spp)."""
     cfg = IntegratorConfig(type=PATH, max_depth=DEPTH)
     # warm-up at a small size (first-call set-up of the CUDA libraries)
@@ -1925,36 +1954,113 @@ def render_phase(dev, label, scene, static, sensor, eye, at, fov, spp,
     api.render(scene, static, small, cfg,
                api.RenderSettings(width=64, height=64, spp=1, spp_per_pass=1),
                device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
     settings = api.RenderSettings(width=W, height=H, spp=spp,
                                   spp_per_pass=spp_per_pass, seed=SEED)
+    _, launches, mean, ms = timed_render(dev, label, scene, static, sensor,
+                                         cfg, settings, ref_mean, rtol,
+                                         expected)
+    return launches, mean, ms
+
+
+def timed_render(dev, label, scene, static, sensor, cfg, settings, ref_mean,
+                 rtol, expected):
+    """api.render with every launch count set to 0 just before and read
+    just after; prints its wall time, rays/s, ms/spp, the exact ray count
+    and the peak memory; checks the counts against ``expected`` (0 for a
+    kernel not named), the image's shape and finiteness, and its mean
+    against the JAX package's value within ``rtol`` per channel. Returns
+    (image, launches, mean_rgb, ms/spp)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     t0 = time.perf_counter()
     img, n_rays = api.render(scene, static, sensor, cfg, settings, device=dev,
                              with_stats=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    if tuple(img.shape) != (H, W, 3):
-        raise AssertionError(f"image shape {tuple(img.shape)}")
+    spp = settings.spp
+    if tuple(img.shape) != (settings.height, settings.width, 3):
+        raise AssertionError(f"{label}: image shape {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()):
-        raise AssertionError("non-finite pixels")
+        raise AssertionError(f"{label}: non-finite pixels")
     mean = img.mean(dim=(0, 1)).tolist()
-    log(f"render {label} {W}x{H} depth {DEPTH} spp {spp} (passes of "
-        f"{spp_per_pass}), seed {SEED}: {dt:.3f} s")
-    log(f"render {label} mean_rgb {mean} (reference {list(ref_mean)})")
+    gap = [a / b - 1.0 for a, b in zip(mean, ref_mean)]
+    log(f"render {label} {settings.width}x{settings.height} integrator "
+        f"{cfg.type} depth {cfg.max_depth} spp {spp} (passes of "
+        f"{settings.spp_per_pass}), seed {settings.seed}: {dt:.3f} s")
+    log(f"render {label} mean_rgb {mean} (reference {list(ref_mean)}, "
+        f"relative gap {gap})")
     log(f"render {label} rays {n_rays}, {n_rays / dt:.1f} rays/s, "
         f"{dt / spp * 1e3:.3f} ms/spp")
     log(f"render {label} max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} bytes")
     launches = _check_launches(f"render {label}", expected)
-    for c, (a, b) in enumerate(zip(mean, ref_mean)):
-        if abs(a - b) > rtol * b:
+    for c, g in enumerate(gap):
+        if abs(g) > rtol:
             raise AssertionError(
-                f"{label}: mean_rgb[{c}] = {a:.6f}, reference {b} "
-                f"(tolerance {rtol:.1%})")
-    return launches, mean, dt / spp * 1e3
+                f"{label}: mean_rgb[{c}] = {mean[c]:.6f}, reference "
+                f"{ref_mean[c]} (tolerance {rtol:.1%})")
+    return img, launches, mean, dt / spp * 1e3
+
+
+def scene_file_phase(dev):
+    """The scene-file entry points on the card: load_scene + api.render of
+    cbox.xml (path tracer, its glass sphere), the Cornell box through the
+    direct integrator, and the CLI in a subprocess, whose EXR must equal
+    the first image bit for bit. Returns the two renders' (scene, static,
+    sensor, cfg) for the profile phase."""
+    defines = {"spp": CBOX_SPP, "res": CBOX_RES}
+    t0 = time.perf_counter()
+    ls = mitsuba_xml.load_scene(str(CBOX_XML), defines)
+    log(f"scene file: load_scene(cbox.xml, {defines}) "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms: {ls.static}; "
+        f"{ls.settings}; {ls.integrator}")
+    # warm-up at a small size (first-call set-up of the CUDA libraries)
+    small = mitsuba_xml.load_scene(str(CBOX_XML), {"spp": 1, "res": 32})
+    api.render(small.scene, small.static, small.sensor, small.integrator,
+               small.settings, device=dev)
+    img = timed_render(
+        dev, "scene file cbox.xml", ls.scene, ls.static, ls.sensor,
+        ls.integrator, ls.settings, CBOX_REF_MEAN_RGB, SCENE_MEAN_RTOL,
+        {"brute_force_interaction": DEPTH * CBOX_SPP,
+         "brute_force_closest_hit": DEPTH * CBOX_SPP})[0]
+
+    scene, static, _ = cornell(dev)
+    sensor = sensor_mod.make_perspective(Transform.look_at(EYE, AT, UP), FOV,
+                                         DIRECT_RES, DIRECT_RES, device=dev)
+    direct_cfg = IntegratorConfig(type=DIRECT)
+    timed_render(
+        dev, "scene file cornell direct", scene, static, sensor, direct_cfg,
+        api.RenderSettings(width=DIRECT_RES, height=DIRECT_RES,
+                           spp=DIRECT_SPP, spp_per_pass=4, seed=SEED),
+        DIRECT_REF_MEAN_RGB, SCENE_MEAN_RTOL,
+        {"brute_force_interaction": 2 * DIRECT_SPP,
+         "brute_force_closest_hit": DIRECT_SPP})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "cbox.exr"
+        cmd = [sys.executable, "-m", "mitsuba_tpu_torch", str(CBOX_XML),
+               "-D", f"spp={CBOX_SPP}", "-D", f"res={CBOX_RES}", "-z",
+               "-o", str(out)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                              capture_output=True, text=True, timeout=300)
+        dt = time.perf_counter() - t0
+        for line in (proc.stdout + proc.stderr).splitlines()[-5:]:
+            log(f"scene file cli: {line}")
+        if proc.returncode != 0:
+            raise AssertionError(f"scene file cli: exit code {proc.returncode}")
+        cli_img = image_mod.read_exr(str(out))
+    api_img = img.cpu().numpy()
+    same = np.array_equal(cli_img, api_img)
+    log(f"scene file cli: {' '.join(cmd[1:])}: {dt:.2f} s with the process "
+        f"start; EXR equal to api.render's image bit for bit: {same} (max "
+        f"abs difference {np.abs(cli_img - api_img).max()})")
+    if not same:
+        raise AssertionError("scene file cli: the EXR differs from the image "
+                             "of api.render")
+    return ((ls.scene, ls.static, ls.sensor, ls.integrator),
+            (scene, static, sensor, direct_cfg))
 
 
 @contextlib.contextmanager
@@ -2019,15 +2125,16 @@ def kdbench_phase():
     return launches
 
 
-def profile_phase(dev, label, scene, static, sensor, spp):
-    """Device time by kernel over one render pass of ``spp`` samples
-    (torch.profiler). Returns {kernel: (ms, launches)} of the port's kernels
-    that ran (empty if the profiler saw no device time)."""
+def profile_phase(dev, label, scene, static, sensor, spp, cfg=None, size=W):
+    """Device time by kernel over one render pass of ``spp`` samples at
+    ``size`` x ``size`` (torch.profiler), through ``cfg`` (the path tracer at
+    depth 5 by default). Returns {kernel: (ms, launches)} of the port's
+    kernels that ran (empty if the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    cfg = IntegratorConfig(type=PATH, max_depth=DEPTH)
-    settings = api.RenderSettings(width=W, height=H, spp=spp,
+    cfg = cfg or IntegratorConfig(type=PATH, max_depth=DEPTH)
+    settings = api.RenderSettings(width=size, height=size, spp=spp,
                                   spp_per_pass=spp, seed=SEED)
     api.render(scene, static, sensor, cfg, settings, device=dev)
     torch.cuda.synchronize()
@@ -2100,6 +2207,7 @@ def main() -> int:
          "brute_force_closest_hit": DEPTH * SPP})
     live_share_phase(dev, *cornell_scene)
     trainer = train_phase(dev)
+    cbox_xml, cornell_direct = scene_file_phase(dev)
     bunny_scene = bunny(dev)
     bunny_launches, lane_mean, lane_ms = render_phase(
         dev, "bunny", *bunny_scene, BUNNY_EYE, BUNNY_AT, BUNNY_FOV,
@@ -2127,6 +2235,10 @@ def main() -> int:
     for name in ("lane_hbm", "lane_chunk_hbm"):
         records[name]["launches"] = large_launches[name]
     profile_phase(dev, "cornell", *cornell_scene, SPP_PER_PASS)
+    profile_phase(dev, "cbox.xml", *cbox_xml[:3], 4, cfg=cbox_xml[3],
+                  size=CBOX_RES)
+    profile_phase(dev, "cornell direct", *cornell_direct[:3], 4,
+                  cfg=cornell_direct[3], size=DIRECT_RES)
     train_profile(trainer)
     del trainer
     bunny_profile = profile_phase(dev, "bunny", *bunny_scene,

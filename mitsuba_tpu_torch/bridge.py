@@ -23,7 +23,9 @@ from .render import texture as tex_mod
 _TRI_FLOAT = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
               "tri_uv0", "tri_uv1", "tri_uv2", "tri_gn", "tri_nee_pdf_area")
 _TRI_INT = ("tri_mat", "tri_emitter")
-_MAT_FLOAT = ("spec_refl", "eta", "k", "alpha")
+_SPH_FLOAT = ("sph_center", "sph_radius")
+_SPH_INT = ("sph_mat", "sph_emitter")
+_MAT_FLOAT = ("spec_refl", "spec_trans", "eta", "k", "alpha")
 _ENV_FLOAT = ("env_map", "env_alias", "env_to_world", "env_scale")
 _TEX_FLOAT = ("uv_scale", "uv_offset", "scale", "stack", "mips")
 _TEX_INT = ("type", "bitmap_idx", "stack_hw", "sizes", "mips_hw")
@@ -120,9 +122,16 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
     T = int(static["n_tris"])
     tri = {k: _f32(arrays[k], dev) for k in _TRI_FLOAT}
     tri.update({k: _i32(arrays[k], dev) for k in _TRI_INT})
-    if tri["tri_p0"].shape != (T, 3):
-        raise ValueError(
-            f"tri_p0 has shape {tuple(tri['tri_p0'].shape)}, expected ({T}, 3)")
+    # a triangle-free scene keeps one placeholder row, as in the JAX package
+    if tri["tri_p0"].shape != (max(T, 1), 3):
+        raise ValueError(f"tri_p0 has shape {tuple(tri['tri_p0'].shape)}, "
+                         f"expected ({max(T, 1)}, 3)")
+    S = int(static["n_spheres"])
+    sph = {k: _f32(arrays[k], dev) for k in _SPH_FLOAT}
+    sph.update({k: _i32(arrays[k], dev) for k in _SPH_INT})
+    if sph["sph_radius"].shape != (max(S, 1),):
+        raise ValueError(f"sph_radius has shape "
+                         f"{tuple(sph['sph_radius'].shape)} for {S} spheres")
     use_bvh = bool(static["use_bvh"])
     n_nodes = int(static.get("n_bvh_nodes", 0))
     if use_bvh != (n_nodes > 0):
@@ -142,6 +151,7 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
             "textures other than bitmaps land in a later slice of the port")
     scene = scene_mod.Scene(
         **tri,
+        **sph,
         nodes=_f32(nodes, dev),
         **{k: _i32(arrays[k], dev) for k in _TL_INT},
         **{k: _f32(arrays[k], dev) for k in _TL_FLOAT},
@@ -168,7 +178,7 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
             **{k: _f32(ems[k], dev) for k in _ENV_FLOAT}),
     )
     st = scene_mod.SceneStatic(
-        n_tris=T, n_spheres=int(static["n_spheres"]), use_bvh=use_bvh,
+        n_tris=T, n_spheres=S, use_bvh=use_bvh,
         bsdf_types=tuple(int(t) for t in static["bsdf_types"]),
         emitter_types=tuple(int(t) for t in static["emitter_types"]),
         has_env=bool(static["has_env"]), has_textures=has_textures,

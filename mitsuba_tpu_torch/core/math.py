@@ -1,5 +1,5 @@
 """Core vector math (port of ``mitsuba_tpu/core/math.py``, the subset the
-port's scenes and BSDFs use).
+port's scenes, spheres and BSDFs use).
 
 Vectors, points and normals are plain ``(..., 3)`` float32 tensors. Each
 function repeats the JAX function's arithmetic in the same order, so the two
@@ -106,9 +106,65 @@ def spherical_coordinates(d):
     return theta, phi
 
 
+def solve_quadratic(a, b, c):
+    """Numerically stable roots of a x^2 + b x + c (util.cpp solveQuadratic):
+    (valid, x0, x1) with x0 <= x1, and the linear case a ~ 0."""
+    linear = torch.abs(a) < 1e-20
+    lin_x = safe_div(-c, b)
+    disc = b * b - 4.0 * a * c
+    valid = disc >= 0.0
+    sqrt_disc = safe_sqrt(disc)
+    # q = -0.5 (b + sign(b) sqrt(disc))
+    q = -0.5 * (b + torch.where(b < 0, -sqrt_disc, sqrt_disc))
+    x0q = safe_div(q, a)
+    x1q = safe_div(c, q)
+    lo = torch.minimum(x0q, x1q)
+    hi = torch.maximum(x0q, x1q)
+    x0 = torch.where(linear, lin_x, lo)
+    x1 = torch.where(linear, lin_x, hi)
+    valid = torch.where(linear, torch.abs(b) > 1e-20, valid)
+    return valid, x0, x1
+
+
 def reflect(wi, n):
     """Reflect wi about n (both pointing away from the surface)."""
     return 2.0 * dot(wi, n, keepdim=True) * n - wi
+
+
+def refract(wi, n, eta):
+    """Refract wi about n with relative IOR eta = n_inside / n_outside; wi
+    points away from the surface, on n's side. Returns (valid, wt), valid
+    False on total internal reflection."""
+    eta = torch.as_tensor(eta, dtype=wi.dtype, device=wi.device)
+    if eta.dim() == wi.dim() - 1:
+        eta = eta[..., None]  # align with the kept vector axis
+    cos_i = dot(wi, n, keepdim=True)
+    inv_eta = 1.0 / eta
+    sin2_t = inv_eta * inv_eta * torch.clamp(1.0 - cos_i * cos_i, min=0.0)
+    valid = sin2_t[..., 0] <= 1.0
+    cos_t = safe_sqrt(1.0 - sin2_t)
+    wt = -inv_eta * wi + (inv_eta * cos_i - cos_t) * n
+    return valid, wt
+
+
+def fresnel_dielectric(cos_i, eta):
+    """Unpolarized Fresnel reflectance of a dielectric boundary (util.cpp
+    fresnelDielectricExt). ``cos_i`` is signed (negative: the ray arrives
+    from inside), ``eta`` = int_ior / ext_ior. Returns (F, cos_t), cos_t the
+    signed cosine of the transmitted direction (0 on total internal
+    reflection)."""
+    out_mask = cos_i >= 0.0
+    rel_eta = torch.where(out_mask, eta, 1.0 / eta)
+    ci = torch.abs(cos_i)
+    sin2_t = (1.0 - ci * ci) / (rel_eta * rel_eta)
+    tir = sin2_t >= 1.0
+    ct = safe_sqrt(1.0 - sin2_t)
+    r_s = safe_div(ci - rel_eta * ct, ci + rel_eta * ct)
+    r_p = safe_div(rel_eta * ci - ct, rel_eta * ci + ct)
+    F = 0.5 * (r_s * r_s + r_p * r_p)
+    F = torch.where(tir, 1.0, F)
+    cos_t = torch.where(tir, 0.0, torch.where(out_mask, -ct, ct))
+    return F, cos_t
 
 
 def fresnel_conductor(cos_i, eta, k):

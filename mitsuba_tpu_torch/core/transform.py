@@ -1,6 +1,6 @@
 """4x4 homogeneous transforms, host-side numpy (a copy of the subset of
-``mitsuba_tpu/core/transform.py`` that scene building uses). A Transform
-keeps its inverse alongside, like the reference."""
+``mitsuba_tpu/core/transform.py`` that scene building and the scene-file
+loader use). A Transform keeps its inverse alongside, like the reference."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -15,6 +15,11 @@ class Transform(NamedTuple):
     @staticmethod
     def identity() -> "Transform":
         return Transform(np.eye(4), np.eye(4))
+
+    @staticmethod
+    def from_matrix(m) -> "Transform":
+        m = np.asarray(m, dtype=np.float64).reshape(4, 4)
+        return Transform(m, np.linalg.inv(m))
 
     @staticmethod
     def translate(v) -> "Transform":
@@ -82,3 +87,7 @@ class Transform(NamedTuple):
         n = np.asarray(n, dtype=np.float64)
         A = self.inv[:3, :3].T
         return (A @ n.T).T if n.ndim == 2 else A @ n
+
+    @property
+    def det3(self) -> float:
+        return float(np.linalg.det(self.m[:3, :3]))

@@ -1,9 +1,11 @@
-"""Ray-triangle intersection in plain tensor form (port of the triangle part
-of ``mitsuba_tpu/ops/intersect.py``).
+"""Ray-triangle and ray-sphere intersection in plain tensor form (port of
+the triangle and sphere parts of ``mitsuba_tpu/ops/intersect.py``).
 
-These are the XLA forms of the JAX package: they build (R, T) intermediates
-and so suit small batches. The render path goes through the brute-force
-kernels in ``cuda_intersect`` instead.
+These are the XLA forms of the JAX package: they build (R, T) or (R, S)
+intermediates and so suit small batches. The render path sends triangles to
+the brute-force kernels in ``cuda_intersect`` instead; analytic spheres stay
+here, as in the JAX package, where they are ``jnp`` code outside any Pallas
+kernel.
 """
 from __future__ import annotations
 
@@ -33,6 +35,23 @@ def ray_triangle(o, d, p0, e1, e2, t_min, t_max):
     return hit, t, u, v
 
 
+def ray_sphere(o, d, center, radius, t_min, t_max):
+    """Analytic sphere intersection (sphere.cpp rayIntersect): (hit, t) of
+    the nearer root inside (t_min, t_max). The JAX package's quadratic as
+    written: another root formula moves hits at the silhouette and the far
+    root of a refracted ray inside the sphere."""
+    oc = o - center
+    a = m.dot(d, d)
+    b = 2.0 * m.dot(oc, d)
+    c = m.dot(oc, oc) - radius * radius
+    valid, t0, t1 = m.solve_quadratic(a, b, c)
+    use0 = (t0 > t_min) & (t0 < t_max)
+    use1 = (t1 > t_min) & (t1 < t_max)
+    t = torch.where(use0, t0, t1)
+    hit = valid & (use0 | use1)
+    return hit, t
+
+
 def ray_brute_force_tris(o, d, p0, e1, e2, t_min, t_max):
     """Closest hit of rays o, d (R, 3) against triangles (T, 3).
 
@@ -55,3 +74,18 @@ def ray_brute_force_tris(o, d, p0, e1, e2, t_min, t_max):
         u[r, idx],
         v[r, idx],
     )
+
+
+def ray_brute_force_spheres(o, d, center, radius, t_min, t_max):
+    """Closest hit of rays o, d (R, 3) against spheres center (S, 3), radius
+    (S,). Returns (hit (R,), t (R,), idx (R,) int32); the lowest index wins
+    a tie."""
+    hit, t = ray_sphere(o[:, None, :], d[:, None, :], center[None],
+                        radius[None], t_min[:, None], t_max[:, None])
+    t_masked = torch.where(hit, t, torch.inf)
+    idx = torch.argmin(t_masked, dim=1)
+    r = torch.arange(o.shape[0], device=o.device)
+    best_t = t_masked[r, idx]
+    any_hit = torch.isfinite(best_t)
+    return (any_hit, torch.where(any_hit, best_t, torch.inf),
+            torch.where(any_hit, idx, -1).to(torch.int32))

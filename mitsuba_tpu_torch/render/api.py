@@ -1,6 +1,6 @@
 """Top-level render orchestration (port of ``mitsuba_tpu/render/api.py``: the
-PATH integrator with the independent sampler, the Gaussian and box filters;
-the other samplers land in a later slice).
+PATH and DIRECT integrators with the independent sampler, the Gaussian and
+box filters; the other integrators and samplers land in a later slice).
 
 The whole image is one wavefront per sample: every pixel is a lane. A host
 loop runs the sample passes and accumulates into the film.
@@ -17,7 +17,12 @@ from . import film as film_mod
 from . import rfilter
 from . import sensor as sensor_mod
 from .integrators import common as icommon
+from .integrators import direct as int_direct
 from .integrators import path as int_path
+
+# the integrators the port renders, by type tag
+_LI = {icommon.PATH: int_path.li, icommon.DIRECT: int_direct.li}
+
 
 @dataclass(frozen=True)
 class RenderSettings:
@@ -38,6 +43,14 @@ def pixel_sample_positions(settings: RenderSettings, pixel_idx, sample_idx, seed
     return torch.stack([px, py], dim=-1) + u
 
 
+def _li(cfg: icommon.IntegratorConfig):
+    """The integrator's ``li``; raises for one the port does not render."""
+    if cfg.type not in _LI:
+        raise NotImplementedError(
+            f"integrator type {cfg.type} lands in a later slice of the port")
+    return _LI[cfg.type]
+
+
 def render_pass(scene, static, sensor, cfg: icommon.IntegratorConfig,
                 settings: RenderSettings, film, sample_base: int,
                 n_samples: int, stats=None):
@@ -49,16 +62,21 @@ def render_pass(scene, static, sensor, cfg: icommon.IntegratorConfig,
     pixel_idx = torch.arange(H * W, dtype=torch.int64, device=dev)
     seed = settings.seed
     res = torch.tensor([W, H], dtype=torch.float32, device=dev)
-    # ray-cone texture filtering needs the pixel's angular size
-    spread = sensor_mod.pixel_spread(sensor, W) if static.has_textures else None
+    # ray-cone texture filtering needs the pixel's angular size; the JAX
+    # package filters the path tracer's primary hits alone (api.py:124)
+    kw = {}
+    if cfg.type == icommon.PATH:
+        kw["pixel_spread"] = (sensor_mod.pixel_spread(sensor, W)
+                              if static.has_textures else None)
+    li = _li(cfg)
     for s in range(n_samples):
         sample_idx = sample_base + s
         pos = pixel_sample_positions(settings, pixel_idx, sample_idx, seed)
         uv = pos / res
         u_ap = rng_mod.uniform2(seed, pixel_idx, sample_idx, icommon.DIM_APERTURE)
         o, d = sensor_mod.sample_ray(sensor, uv, u_ap)
-        L, n = int_path.li(scene, static, cfg, o, d, seed, pixel_idx,
-                           sample_idx, with_stats=True, pixel_spread=spread)
+        L, n = li(scene, static, cfg, o, d, seed, pixel_idx, sample_idx,
+                  with_stats=True, **kw)
         if stats is not None:
             stats["n_rays"] = stats["n_rays"] + n
         if settings.filter_type == rfilter.BOX:
@@ -81,9 +99,7 @@ def render(scene, static, sensor, cfg: icommon.IntegratorConfig,
     dev = resolve_device(device)
     check_on(scene.tri_p0, dev, "scene")
     check_on(sensor.to_world, dev, "sensor")
-    if cfg.type != icommon.PATH:
-        raise NotImplementedError(
-            f"integrator type {cfg.type} lands in a later slice of the port")
+    _li(cfg)  # raises for an integrator the port does not render
     if settings.filter_type not in rfilter.RADIUS:
         raise NotImplementedError(
             f"filter {settings.filter_type} lands in a later slice of the port")

@@ -1,5 +1,6 @@
 """BSDFs with masked type dispatch (port of ``mitsuba_tpu/render/bsdf.py``:
-the DIFFUSE lobe and the ROUGH_CONDUCTOR microfacet lobe).
+the DIFFUSE lobe, the smooth DIELECTRIC and the ROUGH_CONDUCTOR microfacet
+lobe).
 
 Conventions follow the JAX package: unit directions in the local shading
 frame (+Z = normal), ``wi`` toward the previous vertex; ``eval`` returns
@@ -7,7 +8,9 @@ f(wi, wo)·|cos θo|, ``pdf`` the solid-angle density of ``sample``, and
 ``sample`` (wo, weight = f·|cos θo|/pdf, pdf, is_delta, eta). Every type
 present in the scene is evaluated for the whole batch and selected per lane
 with ``where``; a rough lobe evaluates both microfacet distributions and
-picks one per lane (``_dist_mix``). Other types land in a later slice.
+picks one per lane (``_dist_mix``). The smooth dielectric is a delta lobe:
+``eval`` and ``pdf`` are 0 on it and only ``sample`` reaches it. Other types
+land in a later slice.
 """
 from __future__ import annotations
 
@@ -21,9 +24,10 @@ from . import microfacet as mf
 
 # type tags, the JAX package's numbering
 DIFFUSE = 0
+DIELECTRIC = 1
 ROUGH_CONDUCTOR = 3
 
-SUPPORTED_TYPES = (DIFFUSE, ROUGH_CONDUCTOR)
+SUPPORTED_TYPES = (DIFFUSE, DIELECTRIC, ROUGH_CONDUCTOR)
 
 
 class MaterialTable(NamedTuple):
@@ -34,7 +38,9 @@ class MaterialTable(NamedTuple):
     albedo: torch.Tensor      # (M, 3) diffuse reflectance
     albedo_tex: torch.Tensor  # (M,) int32 texture of the albedo, -1 if none
     spec_refl: torch.Tensor   # (M, 3) specular reflectance tint
-    eta: torch.Tensor         # (M, 3) conductor IOR, real part
+    spec_trans: torch.Tensor  # (M, 3) specular transmittance tint
+    eta: torch.Tensor         # (M, 3) IOR (dielectric: the scalar
+                              # int/ext replicated; conductor: real part)
     k: torch.Tensor           # (M, 3) conductor absorption
     alpha: torch.Tensor       # (M, 2) roughness alpha_u, alpha_v
     twosided: torch.Tensor    # (M,) bool: flip frame on backface
@@ -52,6 +58,9 @@ class BsdfLocals(NamedTuple):
     k_c: torch.Tensor        # (R, 3)
     alpha: torch.Tensor      # (R, 2)
     twosided: torch.Tensor   # (R,) bool
+    # the dielectric's columns; None where no lane is a dielectric
+    spec_trans: torch.Tensor = None  # (R, 3)
+    eta_s: torch.Tensor = None       # (R,) scalar IOR int/ext
 
 
 class BsdfSample(NamedTuple):
@@ -71,7 +80,9 @@ def gather_locals(table: MaterialTable, mat_id,
     return BsdfLocals(type=table.type[mid], dist=table.dist[mid],
                       albedo=albedo, spec_refl=table.spec_refl[mid],
                       eta_c=table.eta[mid], k_c=table.k[mid],
-                      alpha=table.alpha[mid], twosided=table.twosided[mid])
+                      alpha=table.alpha[mid], twosided=table.twosided[mid],
+                      spec_trans=table.spec_trans[mid],
+                      eta_s=table.eta[mid][..., 0])
 
 
 def _check_types(types):
@@ -83,8 +94,10 @@ def _check_types(types):
 
 def _flip_twosided(bl: BsdfLocals, wi, wo=None):
     """twosided.cpp: when the incident ray arrives from below, flip the frame
-    so one-sided models see the upper hemisphere."""
-    flip = bl.twosided & (wi[..., 2] < 0.0)
+    so one-sided models see the upper hemisphere. The dielectric has two
+    sides by nature and is never flipped (the JAX loader never marks it
+    two-sided; a row the builder marks so keeps its side here too)."""
+    flip = bl.twosided & (wi[..., 2] < 0.0) & (bl.type != DIELECTRIC)
     sgn = torch.where(flip, -1.0, 1.0)[..., None]
     zflip = torch.cat([torch.ones_like(sgn), torch.ones_like(sgn), sgn], dim=-1)
     wi_f = wi * zflip
@@ -113,6 +126,30 @@ def _diffuse_sample(bl, wi, u_lobe, u2):
     return (wo, weight, torch.where(ok, pdf, 0.0),
             torch.zeros(sh, dtype=torch.bool, device=wi.device),
             torch.ones(sh, device=wi.device))
+
+
+def _dielectric_sample(bl, wi, u_lobe, u2):
+    """Smooth dielectric (dielectric.cpp): reflect or refract, chosen by
+    Fresnel. Two-sided by nature: the side comes from the sign of cos θi."""
+    ci = wi[..., 2]
+    F, cos_t = m.fresnel_dielectric(ci, bl.eta_s)
+    reflect = u_lobe < F
+    wo_r = torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+    # in the local frame Snell's law scales the tangent components
+    rel_eta = torch.where(ci >= 0, bl.eta_s, 1.0 / bl.eta_s)
+    scale = -1.0 / rel_eta
+    wo_t = torch.stack([wi[..., 0] * scale, wi[..., 1] * scale, cos_t], dim=-1)
+    wo = torch.where(reflect[..., None], wo_r, wo_t)
+    eta_ratio = torch.where(reflect, 1.0, rel_eta)
+    # radiance carries the 1/eta^2 scale through a refraction
+    factor = torch.where(reflect, 1.0, 1.0 / (rel_eta * rel_eta))
+    weight = torch.where(reflect[..., None], bl.spec_refl,
+                         bl.spec_trans * factor[..., None])
+    pdf = torch.where(reflect, F, 1.0 - F)
+    # total internal reflection: F == 1, so the refraction is never taken
+    return (wo, weight, torch.clamp(pdf, min=1e-12),
+            torch.ones(ci.shape, dtype=torch.bool, device=wi.device),
+            eta_ratio)
 
 
 def _rough_conductor_f(bl, dist: int, wi, wo):
@@ -173,8 +210,10 @@ def eval(bl: BsdfLocals, wi, wo, active_types=SUPPORTED_TYPES):
     for t in active_types:
         if t == DIFFUSE:
             v = _diffuse_eval(bl, wi, wo)
-        else:
+        elif t == ROUGH_CONDUCTOR:
             v = _dist_mix(bl, lambda d: _rough_conductor_f(bl, d, wi, wo))
+        else:
+            continue  # a delta lobe evaluates to 0
         out = torch.where((bl.type == t)[..., None], v, out)
     return out
 
@@ -186,8 +225,10 @@ def pdf(bl: BsdfLocals, wi, wo, active_types=SUPPORTED_TYPES):
     for t in active_types:
         if t == DIFFUSE:
             v = _diffuse_pdf(bl, wi, wo)
-        else:
+        elif t == ROUGH_CONDUCTOR:
             v = _dist_mix(bl, lambda d: _rough_conductor_pdf(bl, d, wi, wo))
+        else:
+            continue
         out = torch.where(bl.type == t, v, out)
     return out
 
@@ -208,6 +249,8 @@ def sample(bl: BsdfLocals, wi, u_lobe, u2, active_types=SUPPORTED_TYPES) -> Bsdf
         sel = bl.type == t
         if t == DIFFUSE:
             r = _diffuse_sample(bl, wi_f, u_lobe, u2)
+        elif t == DIELECTRIC:
+            r = _dielectric_sample(bl, wi_f, u_lobe, u2)
         else:
             r = _dist_mix(bl, lambda d: _rough_conductor_sample(
                 bl, d, wi_f, u_lobe, u2))

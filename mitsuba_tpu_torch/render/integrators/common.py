@@ -9,16 +9,21 @@ import torch
 from ...core import math as m
 
 # integrator type tags, the JAX package's numbering
+DIRECT = 1
 PATH = 2
 
 
 @dataclass(frozen=True)
 class IntegratorConfig:
-    """Integrator settings (the fields the path tracer reads)."""
+    """Integrator settings (the fields the path tracer and the direct
+    integrator read)."""
 
     type: int = PATH
     max_depth: int = 5           # path.cpp maxDepth: 1 = Le only, 2 = direct
     rr_depth: int = 5            # Russian roulette start
+    hide_emitters: bool = False  # emitters seen by the camera stay black
+    emitter_samples: int = 1     # direct.cpp emitterSamples
+    bsdf_samples: int = 1        # direct.cpp bsdfSamples
 
 
 def mis_power(pdf_a, pdf_b):

@@ -56,6 +56,8 @@ def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
         depth = i + 1  # 1-based like rRec.depth
         dim0 = DIM_BASE + i * DIMS_PER_BOUNCE
         n_rays = n_rays + active.sum()
+        # hideEmitters keeps what the camera sees directly black
+        hidden_ok = not (cfg.hide_emitters and i == 0)
 
         # primary rays leave in raster order, coherent already: the first
         # closest-hit query skips the BVH query's sort
@@ -66,7 +68,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
         if static.has_env:
             env_L, lum_pdf = em_mod.eval_env_pdf(scene, static, d)
             w = torch.where(prev_delta, 1.0, mis_power(prev_pdf, lum_pdf))
-            show = active & ~its.valid
+            show = active & ~its.valid & hidden_ok
             L = L + torch.where(show[..., None], thr * env_L * w[..., None], 0.0)
 
         active = active & its.valid
@@ -75,7 +77,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
         Le = scene_mod.emitted_radiance(scene, static, its, d)
         lum_pdf_hit = scene_mod.pdf_emitter_hit(scene, its, o)
         w_hit = torch.where(prev_delta, 1.0, mis_power(prev_pdf, lum_pdf_hit))
-        show = active & (its.emitter_id >= 0)
+        show = active & (its.emitter_id >= 0) & hidden_ok
         L = L + torch.where(show[..., None], thr * Le * w_hit[..., None], 0.0)
 
         # the final vertex only collects emission (path.cpp depth check)

@@ -1,25 +1,29 @@
 """Scene container, device queries and the host-side builder (port of
-``mitsuba_tpu/render/scene.py``, the subset the Cornell box and the bunny_x2
-scene use).
+``mitsuba_tpu/render/scene.py``, the subset the Cornell box, the bunny_x2
+scene and the scene-file loader's scenes use).
 
 The scene compiles on the host into flat tensors: a triangle soup with
-per-triangle shading attributes and NEE area pdfs, a threaded BVH packed for
-the lane kernels, a material table, a bitmap texture table and an emitter
-table. ``SceneStatic`` holds the facts the code branches on.
+per-triangle shading attributes and NEE area pdfs, analytic spheres, a
+threaded BVH packed for the lane kernels, a material table, a bitmap texture
+table and an emitter table. ``SceneStatic`` holds the facts the code
+branches on.
 
 Scenes of at most ``BRUTE_FORCE_MAX_TRIS`` triangles send their queries to
 the brute-force kernels of ``ops/cuda_intersect``; larger ones build a
 leaf_size=1 BVH, cut it into treelets, and send them to the lane kernels of
 ``ops/cuda_bvh``, or with ``MTS_BVH_KERNEL=treelet`` to the treelet kernel
-K7, with the JAX package's dispatch. Materials are diffuse, with an optional
-bitmap albedo, or rough conductors; lights are triangle area lights, a
-constant environment and a lat-long environment map; meshes may be
-instanced. Anything else (spheres, other textures and
+K7, with the JAX package's dispatch. Spheres are tested in plain tensor code
+beside those kernels and merged with the JAX package's tie rule; a scene may
+hold spheres and no triangle. Materials are diffuse, with an optional
+bitmap albedo, smooth dielectrics or rough conductors; lights are triangle
+area lights, a constant environment and a lat-long environment map; meshes
+may be instanced. Anything else (sphere emitters, other textures and
 lights, media, other BSDFs) raises ``NotImplementedError``: it lands in a
 later slice.
 """
 from __future__ import annotations
 
+import math
 import os
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
@@ -34,6 +38,7 @@ from ..core.transform import Transform
 from ..device import resolve_device
 from ..ops import cuda_bvh
 from ..ops import cuda_intersect as bf
+from ..ops import intersect as isect
 from . import bsdf as bsdf_mod
 from . import emitter as em_mod
 from . import texture as tex_mod
@@ -71,6 +76,12 @@ class Scene(NamedTuple):
     tri_mat: torch.Tensor      # (T,) int32
     tri_emitter: torch.Tensor  # (T,) int32 (-1 none)
     tri_nee_pdf_area: torch.Tensor  # (T,) em_pmf * tri_pmf / area
+    # a triangle-free scene keeps one placeholder triangle row, a scene
+    # without spheres one placeholder sphere row (scene.py:1340,1485)
+    sph_center: torch.Tensor   # (S, 3) analytic spheres
+    sph_radius: torch.Tensor   # (S,)
+    sph_mat: torch.Tensor      # (S,) int32
+    sph_emitter: torch.Tensor  # (S,) int32 (-1: not an emitter)
     nodes: torch.Tensor        # (N, 12) BVH node table (ops/cuda_bvh.pack_nodes)
     tl_root: torch.Tensor      # (K,) int32 treelet root rows
     tl_skip: torch.Tensor      # (K,) int32 their skip links (end of the range)
@@ -105,7 +116,7 @@ class SceneStatic:
 # SceneStatic fields of the JAX package whose non-default values need code
 # that lands in a later slice, with the value the port supports
 _LATER_SLICE_FIELDS = {
-    "n_spheres": 0, "has_opacity_tex": False, "has_weight_tex": False,
+    "has_opacity_tex": False, "has_weight_tex": False,
     "medium_types": (), "phase_types": (), "nested_bsdf_types": (),
     "has_normal_maps": False, "has_sss": False, "has_singlescatter": False,
     "has_boundary_media": False, "ewa_taps": 0, "n_manifold_tris": 0,
@@ -116,9 +127,6 @@ def check_supported(static: dict) -> None:
     """Raise NotImplementedError unless the scene described by ``static``
     (SceneStatic fields by name) is one the port renders."""
     T = static["n_tris"]
-    if T <= 0:
-        raise NotImplementedError(
-            "scenes without triangles land in a later slice of the port")
     if bool(static["use_bvh"]) != (T > BRUTE_FORCE_MAX_TRIS):
         raise ValueError(
             f"use_bvh={static['use_bvh']} for {T} triangles: the builder "
@@ -187,12 +195,29 @@ def _bvh_query(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
         chunk_nit=chunk_nit, octants=scene.octants)
 
 
+def _tri_record(scene: Scene, tri_idx, tri_u, tri_v):
+    """Shading record of the hit triangles by a gather (what K1 computes in
+    registers): raw interpolated normal, geometric normal, uv, material,
+    emitter and NEE area pdf. A miss (-1) reads row 0."""
+    ti = torch.clamp(tri_idx, min=0).to(torch.int64)
+    b1, b2 = tri_u[..., None], tri_v[..., None]
+    b0 = 1.0 - b1 - b2
+    n_sh_raw = (b0 * scene.tri_n0[ti] + b1 * scene.tri_n1[ti]
+                + b2 * scene.tri_n2[ti])
+    uv = (b0 * scene.tri_uv0[ti] + b1 * scene.tri_uv1[ti]
+          + b2 * scene.tri_uv2[ti])
+    return (n_sh_raw, scene.tri_gn[ti], uv, scene.tri_mat[ti],
+            scene.tri_emitter[ti], scene.tri_nee_pdf_area[ti])
+
+
 def ray_intersect(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
                   active=None, presorted: bool = False) -> Interaction:
     """Closest hit + surface interaction record (Scene::rayIntersect +
-    fillIntersectionRecord): through the K1 brute-force kernel on small
-    scenes, else through the BVH kernels and a gather of the hit triangle's
-    record. ``presorted`` says the rays are coherent already (primary rays
+    fillIntersectionRecord): triangles through the K1 brute-force kernel on
+    small scenes, else through the BVH kernels and a gather of the hit
+    triangle's record; spheres in plain tensor code, the closer hit kept
+    with the JAX package's tie rule (a sphere wins only when strictly
+    closer). ``presorted`` says the rays are coherent already (primary rays
     in raster order), so the BVH query skips its sort.
 
     ``o`` and ``d`` are detached on entry, as on the JAX package's TPU path
@@ -201,43 +226,66 @@ def ray_intersect(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
     CPU as on the card (the detached-sampling estimator)."""
     o, d = o.detach(), d.detach()
     t_min, t_max = _ray_range(o, t_min, t_max, active)
-    if static.use_bvh:
+    R = o.shape[0]
+    T = static.n_tris
+    if T == 0:
+        hit_t = torch.zeros(R, dtype=torch.bool, device=o.device)
+        tri_t = torch.full((R,), torch.inf, device=o.device)
+        tri_idx = torch.full((R,), -1, dtype=torch.int32, device=o.device)
+        tri_u = tri_v = torch.zeros(R, device=o.device)
+        record = _tri_record(scene, tri_idx, tri_u, tri_v)
+    elif static.use_bvh:
         hit_t, tri_t, tri_idx, tri_u, tri_v = _bvh_query(
             scene, static, o, d, t_min, t_max, presorted, any_hit=False)
-        ti = torch.clamp(tri_idx, min=0).to(torch.int64)
-        b1, b2 = tri_u[..., None], tri_v[..., None]
-        b0 = 1.0 - b1 - b2
-        n_sh_raw = (b0 * scene.tri_n0[ti] + b1 * scene.tri_n1[ti]
-                    + b2 * scene.tri_n2[ti])
-        uv = (b0 * scene.tri_uv0[ti] + b1 * scene.tri_uv1[ti]
-              + b2 * scene.tri_uv2[ti])
-        gn = scene.tri_gn[ti]
-        mat_id = scene.tri_mat[ti]
-        em_id = scene.tri_emitter[ti]
-        nee_tri = scene.tri_nee_pdf_area[ti]
+        record = _tri_record(scene, tri_idx, tri_u, tri_v)
     else:
-        (hit_t, tri_t, tri_idx, tri_u, tri_v, n_sh_raw, gn, uv, mat_id, em_id,
-         nee_tri) = bf.brute_force_interaction(
-            scene.tri_p0, scene.tri_e1, scene.tri_e2,
-            scene.tri_n0, scene.tri_n1, scene.tri_n2,
-            scene.tri_uv0, scene.tri_uv1, scene.tri_uv2,
-            scene.tri_gn, scene.tri_mat, scene.tri_emitter,
-            scene.tri_nee_pdf_area, o, d, t_min, t_max,
-        )
+        hit_t, tri_t, tri_idx, tri_u, tri_v, *record = \
+            bf.brute_force_interaction(
+                scene.tri_p0, scene.tri_e1, scene.tri_e2,
+                scene.tri_n0, scene.tri_n1, scene.tri_n2,
+                scene.tri_uv0, scene.tri_uv1, scene.tri_uv2,
+                scene.tri_gn, scene.tri_mat, scene.tri_emitter,
+                scene.tri_nee_pdf_area, o, d, t_min, t_max,
+            )
+    n_sh_raw, gn, uv, mat_id, em_id, nee_tri = record
     n_sh = m.normalize(n_sh_raw)
-    valid = hit_t
+    valid, t = hit_t, tri_t
+    if static.n_spheres > 0:
+        hit_s, sph_t, sph_idx = isect.ray_brute_force_spheres(
+            o, d, scene.sph_center, scene.sph_radius, t_min, t_max)
+        closer = hit_s & (~hit_t | (sph_t < tri_t))
+        valid = hit_t | closer
+        t = torch.where(closer, sph_t, tri_t)
     # sanitized position for missed lanes: inf positions would poison
     # downstream NEE math
-    t_safe = torch.where(valid, tri_t, 1.0)
+    t_safe = torch.where(valid, t, 1.0)
     p = o + t_safe[..., None] * d
-    nee_pdf = torch.where(hit_t, nee_tri, 0.0)
+    if static.n_spheres > 0:
+        # sphere.cpp fillIntersectionRecord
+        si = torch.clamp(sph_idx, 0, static.n_spheres - 1).to(torch.int64)
+        n_sph = m.normalize(p - scene.sph_center[si])
+        theta, phi = m.spherical_coordinates(n_sph)
+        uv_sph = torch.stack([phi * (0.5 / math.pi), theta * (1.0 / math.pi)],
+                             dim=-1)
+        sc = closer[..., None]
+        gn = torch.where(sc, n_sph, gn)
+        n_sh = torch.where(sc, n_sph, n_sh)
+        uv = torch.where(sc, uv_sph, uv)
+        mat_id = torch.where(closer, scene.sph_mat[si], mat_id)
+        em_id = torch.where(closer, scene.sph_emitter[si], em_id)
+        # a sphere's primitive id follows the triangles'
+        prim = torch.where(closer, T + sph_idx, tri_idx)
+        nee_pdf = torch.where(closer | ~hit_t, 0.0, nee_tri)
+    else:
+        prim = tri_idx
+        nee_pdf = torch.where(hit_t, nee_tri, 0.0)
 
     frame = Frame.from_normal(n_sh)
     wi_world = -d
     wi_local = frame.to_local(wi_world)
     return Interaction(
         valid=valid,
-        t=torch.where(valid, tri_t, torch.inf),
+        t=torch.where(valid, t, torch.inf),
         p=p,
         gn=gn,
         sh_frame=frame,
@@ -246,25 +294,32 @@ def ray_intersect(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
         wi_world=wi_world,
         mat_id=torch.where(valid, mat_id, -1),
         emitter_id=torch.where(valid, em_id, -1),
-        prim_id=torch.where(valid, tri_idx, -1),
+        prim_id=torch.where(valid, prim, -1),
         nee_pdf_area=nee_pdf,
-        bary=torch.stack([tri_u, tri_v], dim=-1),
+        bary=(torch.stack([tri_u, tri_v], dim=-1) if T > 0
+              else torch.zeros((R, 2), device=o.device)),
     )
 
 
 def occluded(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
              active=None, presorted: bool = False):
     """Boolean shadow-ray query: the K2 brute-force kernel on small scenes,
-    else an any-hit BVH query; ``o`` and ``d`` detached as in
-    ``ray_intersect``."""
+    else an any-hit BVH query, or'ed with the spheres' test; ``o`` and
+    ``d`` detached as in ``ray_intersect``."""
     o, d = o.detach(), d.detach()
     t_min, t_max = _ray_range(o, t_min, t_max, active)
-    if static.use_bvh:
-        return _bvh_query(scene, static, o, d, t_min, t_max, presorted,
-                          any_hit=True)[0]
-    h, _, _, _, _ = bf.brute_force_closest_hit(
-        scene.tri_p0, scene.tri_e1, scene.tri_e2, o, d, t_min, t_max)
-    return h
+    if static.n_tris == 0:
+        occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    elif static.use_bvh:
+        occ = _bvh_query(scene, static, o, d, t_min, t_max, presorted,
+                         any_hit=True)[0]
+    else:
+        occ = bf.brute_force_closest_hit(
+            scene.tri_p0, scene.tri_e1, scene.tri_e2, o, d, t_min, t_max)[0]
+    if static.n_spheres > 0:
+        occ = occ | isect.ray_brute_force_spheres(
+            o, d, scene.sph_center, scene.sph_radius, t_min, t_max)[0]
+    return occ
 
 
 def uv_footprint(scene: Scene, its: Interaction, spread):
@@ -361,10 +416,12 @@ class SceneBuilder:
     textures: list = field(default_factory=list)
     bitmaps: list = field(default_factory=list)
     shapegroups: list = field(default_factory=list)
+    spheres: list = field(default_factory=list)
 
     def add_material(self, type: int = bsdf_mod.DIFFUSE,
                      albedo=(0.5, 0.5, 0.5), albedo_tex: int = -1,
-                     spec_refl=(1.0, 1.0, 1.0), eta=(1.5046, 1.5046, 1.5046),
+                     spec_refl=(1.0, 1.0, 1.0), spec_trans=(1.0, 1.0, 1.0),
+                     eta=(1.5046, 1.5046, 1.5046),
                      k=(0.0, 0.0, 0.0), alpha=(0.1, 0.1), alpha_tex: int = -1,
                      dist: int = 0, twosided: bool = False) -> int:
         """A material row with the JAX package's keywords and defaults
@@ -382,8 +439,9 @@ class SceneBuilder:
             alpha = (float(alpha),) * 2
         self.mats.append(dict(type=type, albedo=tuple(albedo),
                               albedo_tex=albedo_tex, spec_refl=tuple(spec_refl),
-                              eta=tuple(eta), k=tuple(k), alpha=tuple(alpha),
-                              dist=dist, twosided=twosided))
+                              spec_trans=tuple(spec_trans), eta=tuple(eta),
+                              k=tuple(k), alpha=tuple(alpha), dist=dist,
+                              twosided=twosided))
         return len(self.mats) - 1
 
     def add_texture_bitmap(self, image, uv_scale=(1.0, 1.0),
@@ -430,6 +488,17 @@ class SceneBuilder:
                 normals=(t.apply_normal(np.asarray(n, np.float64))
                          if n is not None else None),
                 uvs=part.get("uvs"))
+
+    def add_sphere(self, center, radius, mat: int,
+                   emitter_radiance=None) -> None:
+        """An analytic sphere (sphere.cpp). Sphere emitters, sampled by
+        their cone in NEE, land in a later slice (ROADMAP.md, Queue 1
+        item 3.3)."""
+        if emitter_radiance is not None:
+            raise NotImplementedError(
+                "sphere emitters (cone-sampled NEE) land in a later slice of "
+                "the port (ROADMAP.md, Queue 1 item 3.3)")
+        self.spheres.append((np.asarray(center, float), float(radius), mat))
 
     def add_constant_emitter(self, radiance) -> int:
         """A constant environment (constant.cpp): the same radiance from
@@ -498,6 +567,19 @@ class SceneBuilder:
             MAT.append(np.full(len(f), mesh.mat, np.int32))
             EM.append(np.full(len(f), mesh.emitter, np.int32))
             AREA_.append(area)
+        if T == 0:
+            # one degenerate placeholder row (scene.py:1340-1346): the
+            # gathers of a triangle-free scene read it
+            e1 = np.zeros((1, 3))
+            e1[0, 0] = 1e-9
+            e2 = np.zeros((1, 3))
+            e2[0, 1] = 1e-9
+            z = np.array([[0, 0, 1.0]])
+            P0, E1, E2, N0, N1, N2, GN = ([np.zeros((1, 3))], [e1], [e2], [z],
+                                          [z], [z], [z])
+            UV0 = UV1 = UV2 = [np.zeros((1, 2))]
+            MAT, EM = [np.zeros(1, np.int32)], [np.full(1, -1, np.int32)]
+            AREA_ = [np.zeros(1)]
         cat = np.concatenate
         tp0, te1, te2 = cat(P0), cat(E1), cat(E2)
         tem = cat(EM)
@@ -520,7 +602,7 @@ class SceneBuilder:
 
         # emissive triangles, grouped by emitter, area-weighted local cdf
         etri_tri_l, etri_cdf_l = [], []
-        tri_nee = np.zeros(T, np.float32)
+        tri_nee = np.zeros(max(T, 1), np.float32)
         for i, e in enumerate(self.emitters):
             if e["type"] != em_mod.AREA:
                 continue
@@ -540,6 +622,18 @@ class SceneBuilder:
         env = (_build_envmap(self.emitters[envmap_index]) if envmap_index >= 0
                else _empty_env())
 
+        # spheres (scene.py:1480-1490), one placeholder row without them;
+        # none is an emitter in this slice
+        S = len(self.spheres)
+        if S:
+            sc = np.stack([sp[0] for sp in self.spheres]).astype(np.float32)
+            sr = np.array([sp[1] for sp in self.spheres], np.float32)
+            sm = np.array([sp[2] for sp in self.spheres], np.int32)
+        else:
+            sc, sr = np.zeros((1, 3), np.float32), np.zeros(1, np.float32)
+            sm = np.zeros(1, np.int32)
+        se = np.full(max(S, 1), -1, np.int32)
+
         # BVH over the triangles' float64 bounds and its treelet cut
         # (scene.py:1495-1536)
         lo, hi = triangle_aabbs(tp0, tp0 + te1, tp0 + te2)
@@ -558,7 +652,13 @@ class SceneBuilder:
             tl_skip = host_bvh.skip[tl_root].astype(np.int32)
             tl_lo, tl_hi = host_bvh.lo[tl_root], host_bvh.hi[tl_root]
             octants = cuda_bvh.octant_tables(nodes, tl_root, dev)
-        scene_lo, scene_hi = lo.min(axis=0), hi.max(axis=0)
+        if T > 0:
+            scene_lo, scene_hi = lo.min(axis=0), hi.max(axis=0)
+        else:
+            scene_lo, scene_hi = np.zeros(3), np.ones(3)
+        if S:
+            scene_lo = np.minimum(scene_lo, (sc - sr[:, None]).min(axis=0))
+            scene_hi = np.maximum(scene_hi, (sc + sr[:, None]).max(axis=0))
         radius = 0.5 * float(np.linalg.norm(scene_hi - scene_lo)) + 1e-3
 
         def f32(x):
@@ -573,6 +673,8 @@ class SceneBuilder:
             tri_uv0=f32(cat(UV0)), tri_uv1=f32(cat(UV1)), tri_uv2=f32(cat(UV2)),
             tri_gn=f32(cat(GN)), tri_mat=i32(cat(MAT)), tri_emitter=i32(tem),
             tri_nee_pdf_area=f32(tri_nee),
+            sph_center=f32(sc), sph_radius=f32(sr), sph_mat=i32(sm),
+            sph_emitter=i32(se),
             nodes=f32(nodes), tl_root=i32(tl_root), tl_skip=i32(tl_skip),
             tl_lo=f32(tl_lo), tl_hi=f32(tl_hi), octants=octants,
             aabb_lo=f32(scene_lo), aabb_hi=f32(scene_hi),
@@ -583,6 +685,7 @@ class SceneBuilder:
                 albedo=f32([mm["albedo"] for mm in self.mats]),
                 albedo_tex=i32([mm["albedo_tex"] for mm in self.mats]),
                 spec_refl=f32([mm["spec_refl"] for mm in self.mats]),
+                spec_trans=f32([mm["spec_trans"] for mm in self.mats]),
                 eta=f32([mm["eta"] for mm in self.mats]),
                 k=f32([mm["k"] for mm in self.mats]),
                 alpha=f32([mm["alpha"] for mm in self.mats]),
@@ -601,7 +704,7 @@ class SceneBuilder:
             ),
         )
         static = SceneStatic(
-            n_tris=T, n_spheres=0, use_bvh=use_bvh,
+            n_tris=T, n_spheres=S, use_bvh=use_bvh,
             bsdf_types=tuple(sorted({mm["type"] for mm in self.mats})),
             emitter_types=tuple(sorted({e["type"] for e in self.emitters})),
             has_env=env_index >= 0,

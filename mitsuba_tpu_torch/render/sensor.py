@@ -31,12 +31,23 @@ class Sensor(NamedTuple):
 
 
 def make_perspective(to_world: Transform, fov_deg: float, width: int,
-                     height: int, near: float = 1e-2, device=None) -> Sensor:
-    """``fov_deg`` spans the image's x axis (perspective.cpp's default
-    fovAxis; the other axes land in a later slice)."""
+                     height: int, fov_axis: str = "x", near: float = 1e-2,
+                     device=None) -> Sensor:
+    """``fov_deg`` spans the image axis ``fov_axis`` (perspective.cpp:
+    x, y, smaller, larger or diagonal)."""
     dev = resolve_device(device)
     aspect = width / height
     t = np.tan(np.deg2rad(fov_deg) / 2.0)
+    if fov_axis == "y":
+        t = t * aspect
+    elif fov_axis == "smaller":
+        if aspect < 1.0:
+            t = t * aspect
+    elif fov_axis == "larger":
+        if aspect > 1.0:
+            t = t * aspect
+    elif fov_axis == "diagonal":
+        t = t / np.hypot(1.0, 1.0 / aspect)
 
     def f32(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=dev)

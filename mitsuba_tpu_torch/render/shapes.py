@@ -1,6 +1,7 @@
 """Host-side shape tessellation (a copy of the subset of
 ``mitsuba_tpu/render/shapes.py`` that the port's scenes use): rectangles and
-cubes for the Cornell box, and the heightfield that stands in for
+cubes for the Cornell box, disks, cylinders and the UV sphere of
+area-emitting spheres for the scene-file loader, and the heightfield that stands in for
 ``bunny.ply`` in bench.py's bunny_x2 scene."""
 from __future__ import annotations
 
@@ -48,6 +49,78 @@ def cube(to_world: Transform = None):
     if to_world is not None:
         v = to_world.apply_point(v)
     return v, f, uv
+
+
+def disk(to_world: Transform = None, segments: int = 64):
+    """Unit disk in XY (disk.cpp), tessellated."""
+    ang = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+    rim = np.stack([np.cos(ang), np.sin(ang), np.zeros(segments)], axis=1)
+    v = np.concatenate([[[0.0, 0.0, 0.0]], rim])
+    f = np.array(
+        [[0, 1 + i, 1 + (i + 1) % segments] for i in range(segments)],
+        dtype=np.int64)
+    uv = 0.5 * (v[:, :2] + 1.0)
+    if to_world is not None:
+        v = to_world.apply_point(v)
+    return v, f, uv
+
+
+def sphere_mesh(center=(0, 0, 0), radius=1.0, rings: int = 32,
+                segments: int = 64):
+    """UV-sphere tessellation with exact per-vertex normals (for
+    area-emitting spheres; other spheres stay analytic)."""
+    center = np.asarray(center, float)
+    vs, ns, uvs = [], [], []
+    for i in range(rings + 1):
+        theta = np.pi * i / rings
+        for j in range(segments + 1):
+            phi = 2 * np.pi * j / segments
+            n = np.array([np.sin(theta) * np.cos(phi),
+                          np.sin(theta) * np.sin(phi), np.cos(theta)])
+            vs.append(center + radius * n)
+            ns.append(n)
+            uvs.append([j / segments, i / rings])
+    fs = []
+    W = segments + 1
+    for i in range(rings):
+        for j in range(segments):
+            a = i * W + j
+            b = a + 1
+            c = a + W
+            d = c + 1
+            if i > 0:
+                fs.append([a, c, b])
+            if i < rings - 1:
+                fs.append([b, c, d])
+    return (np.array(vs), np.array(fs, dtype=np.int64), np.array(ns),
+            np.array(uvs))
+
+
+def cylinder_mesh(p0, p1, radius, segments: int = 64):
+    """cylinder.cpp (open-ended) tessellation with exact normals."""
+    p0 = np.asarray(p0, float)
+    p1 = np.asarray(p1, float)
+    axis = p1 - p0
+    axis = axis / np.linalg.norm(axis)
+    a = np.array([1.0, 0, 0]) if abs(axis[0]) < 0.9 else np.array([0, 1.0, 0])
+    s = np.cross(axis, a)
+    s /= np.linalg.norm(s)
+    t = np.cross(axis, s)
+    vs, ns, uvs, fs = [], [], [], []
+    for i in range(2):
+        for j in range(segments + 1):
+            phi = 2 * np.pi * j / segments
+            n = np.cos(phi) * s + np.sin(phi) * t
+            vs.append((p0 if i == 0 else p1) + radius * n)
+            ns.append(n)
+            uvs.append([j / segments, float(i)])
+    W = segments + 1
+    for j in range(segments):
+        a0, b0, a1, b1 = j, j + 1, W + j, W + j + 1
+        fs.append([a0, b0, a1])
+        fs.append([b0, b1, a1])
+    return (np.array(vs), np.array(fs, dtype=np.int64), np.array(ns),
+            np.array(uvs))
 
 
 def cornell_box(builder, light_radiance=(18.4, 15.6, 8.0)):

@@ -14,6 +14,7 @@ pixels" criterion beside the image means. Tolerances per test:
 """
 import ast
 import dataclasses
+import re
 from pathlib import Path
 
 import jax
@@ -53,14 +54,15 @@ TRI_FIELDS = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
               "tri_uv0", "tri_uv1", "tri_uv2", "tri_gn", "tri_mat",
               "tri_emitter", "tri_nee_pdf_area")
 MAT_FIELDS = ("type", "dist", "albedo", "albedo_tex", "spec_refl", "eta", "k",
-              "alpha", "twosided")
+              "alpha", "twosided", "spec_trans")
 EM_FIELDS = ("type", "radiance", "pmf", "cdf", "etri_tri", "etri_cdf",
              "env_index", "env_map", "env_alias", "env_hw", "env_to_world",
              "env_scale")
 TEX_FIELDS = ("type", "uv_scale", "uv_offset", "scale", "bitmap_idx", "stack",
               "stack_hw", "sizes", "mips", "mips_hw")
 SCENE_FIELDS = TRI_FIELDS + ("aabb_lo", "aabb_hi", "radius", "tl_root",
-                             "tl_skip", "tl_lo", "tl_hi")
+                             "tl_skip", "tl_lo", "tl_hi", "sph_center",
+                             "sph_radius", "sph_mat", "sph_emitter")
 
 
 def _np_tree(nt, fields):
@@ -151,9 +153,9 @@ def test_bridge_sensor(sensors):
 
 
 @pytest.mark.parametrize("change", [
-    dict(has_opacity_tex=True), dict(n_spheres=1), dict(emitter_types=(0, 5)),
-    dict(ewa_taps=4), dict(bsdf_types=(0, 4)), dict(emitter_types=(0, 1)),
-    dict(medium_types=(0,)), dict(n_tris=0),
+    dict(has_opacity_tex=True), dict(emitter_types=(0, 7)),
+    dict(emitter_types=(0, 5)), dict(ewa_taps=4), dict(bsdf_types=(0, 4)), dict(emitter_types=(0, 1)),
+    dict(medium_types=(0,)), dict(bsdf_types=(0, 5)),
 ])
 def test_later_slices_raise(cornell, change):
     static = dict(dataclasses.asdict(cornell[1]), **change)
@@ -391,10 +393,32 @@ def _imports(path):
             yield node.module
 
 
+def _path_strings(path):
+    """String constants of a source that name a path under mitsuba_tpu/
+    (docstrings aside, and "file:line" labels of the TPU kernels a port
+    kernel replaces, which nothing opens)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {id(n.value) for n in ast.walk(tree) if isinstance(n, ast.Expr)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs
+                and re.search(r"(^|[/\\])mitsuba_tpu([/\\]|$)", node.value)
+                and not re.search(r"\.py:\d+$", node.value)):
+            yield node.value
+
+
 def test_port_and_chip_smoke_import_no_jax():
+    """No source of the port, the scene-file entry points included, and not
+    chip_smoke.py imports JAX or the JAX package, or names a path under
+    mitsuba_tpu/ to read (test_torch_scenefile.py also holds that the entry
+    points open no file there)."""
     files = sorted((REPO / "mitsuba_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    for new in ("__main__.py", "io/mitsuba_xml.py", "io/image.py",
+                "utils/logging.py", "render/integrators/direct.py"):
+        assert REPO / "mitsuba_tpu_torch" / new in files, new
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "mitsuba_tpu"), f"{f}: imports {mod}"
+        assert not list(_path_strings(f)), f"{f}: names {list(_path_strings(f))}"
