@@ -118,6 +118,19 @@ Phases, each of which raises on failure (no phase is skipped):
      (scripts/jax_scenefile_ref_mean.py); then python -m mitsuba_tpu_torch
      on cbox.xml at the same size in a subprocess, whose EXR must equal the
      image of api.render bit for bit;
+ 9d. the Veach MIS scene (BASELINE config 3, tests/test_baseline_scenes.py's
+     fixture: a diffuse floor, four rough-conductor plates of alpha 0.005 to
+     0.3, three analytic sphere lights of radius 0.03, 0.12 and 0.45) and
+     its plastic variant (plates 1 and 3 GGX and Beckmann rough plastics
+     turned to face the camera, the floor a nonlinear smooth plastic),
+     built with the port's builder
+     (build seconds printed, the rough-transmittance bake included);
+     rendered at 512x512, box filter, seed 0: both through the path tracer
+     at depth 3, 32 spp in passes of 4, checking 96 launches of K1 and of
+     K2, and the first through the direct integrator, 16 spp, checking 32
+     of K1 and 16 of K2; each prints wall ms, ms/spp, rays/s, the exact ray
+     count and the peak memory, and holds its mean within 0.1% per channel
+     of the JAX package's CPU value (scripts/jax_veach_ref_mean.py);
  10. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
      2, seed 0 (bench.py:289-293); checks 10 launches of K4 and 300 of K3
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
@@ -135,7 +148,8 @@ Phases, each of which raises on failure (no phase is skipped):
      treelet and lane-resort kernels report the same hit rate on each batch
      and that K7 and K3 launched as the utility drives them;
  13. profile: one render pass of each scene (the bunny in both BVH modes;
-     4 spp of cbox.xml at 256x256 and of the Cornell direct render at 64x64)
+     4 spp of cbox.xml at 256x256, of the Cornell direct render at 64x64
+     and of the Veach MIS path render at 512x512)
      under torch.profiler, printing the device's busy share of the wall time,
      the kernels that take it and each port kernel's render mean per launch;
      K4's render mean beside its times of phase 4; and one training step
@@ -177,6 +191,7 @@ from mitsuba_tpu_torch.ops import cuda_intersect as bf
 from mitsuba_tpu_torch.render import api, shapes
 from mitsuba_tpu_torch.render import bsdf as bsdf_mod
 from mitsuba_tpu_torch.render import emitter as em_mod
+from mitsuba_tpu_torch.render import microfacet as mf
 from mitsuba_tpu_torch.render import scene as scene_mod
 from mitsuba_tpu_torch.render import sensor as sensor_mod
 from mitsuba_tpu_torch.render.integrators.common import (
@@ -332,6 +347,29 @@ DIRECT_RES, DIRECT_SPP = 64, 16
 DIRECT_REF_MEAN_RGB = (0.3901189863681793, 0.3174380958080292,
                        0.15292032063007355)
 SCENE_MEAN_RTOL = 1e-2
+# the Veach MIS phase (BASELINE config 3): the fixture's camera and sizes
+# (tests/test_baseline_scenes.py:40-41, 193-212: depth 3, box filter) at
+# BASELINE's 512x512
+VEACH_EYE, VEACH_AT, VEACH_FOV = [0, 1.2, -2.8], [0, 1.0, 1.0], 38.0
+VEACH_DEPTH, VEACH_PATH_SPP, VEACH_DIRECT_SPP, VEACH_SPP_PER_PASS = 3, 32, 16, 4
+# the plastic variant's rough-plastic plates: degrees about x (as in
+# scripts/jax_veach_ref_mean.py)
+TURNED = -155.0
+# mean_rgb of the three renders through the JAX package on its CPU backend,
+# the same samples (seed 0, box filter, 512x512):
+# scripts/jax_veach_ref_mean.py, run with jax 0.9.0 on a CPU host,
+# unrounded. K1/K2 launches: the path tracer a closest hit and a shadow
+# query per bounce and sample; direct, per sample, the camera and the BSDF
+# ray (K1) and one shadow ray (K2)
+VEACH_REF_MEAN_RGB = (0.02564532682299614, 0.02564532682299614,
+                      0.02564532682299614)
+VEACH_PLASTIC_REF_MEAN_RGB = (0.05249462649226189, 0.03174475580453873,
+                              0.024828311055898666)
+VEACH_DIRECT_REF_MEAN_RGB = (0.02532094344496727, 0.02532094344496727,
+                             0.02532094344496727)
+# the three means agreed with these within 3.6e-5 relative on the H100;
+# a wrong rough-plastic lobe or bake moves the plastic render's by over 1%
+VEACH_MEAN_RTOL = 1e-3
 
 
 def log(*a):
@@ -781,6 +819,53 @@ def train_scene(dev):
     scene, static = b.build(device=dev)
     sensor = sensor_mod.make_perspective(Transform.look_at(EYE, AT, UP), FOV,
                                          W, H, device=dev)
+    return scene, static, sensor
+
+
+def veach_scene(dev, plastic=False, size=W):
+    """The Veach MIS scene of BASELINE config 3 with the port's builder:
+    the JAX package's fixture (tests/test_baseline_scenes.py:17-44), a
+    diffuse floor, four tilted rough-conductor plates (alpha 0.005 to 0.3)
+    and three sphere lights of radius 0.03, 0.12 and 0.45. ``plastic``:
+    plate 1 becomes a GGX rough plastic, plate 3 a Beckmann one, both
+    turned to face the camera (which sees the fixture's plates from behind),
+    and the floor a nonlinear smooth plastic. Returns (scene, static, sensor
+    at ``size`` x ``size``)."""
+    b = SceneBuilder()
+    v, f, uv = shapes.rectangle(
+        Transform.translate([0, 0, 2]) * Transform.rotate([1, 0, 0], -90.0)
+        * Transform.scale([6, 6, 1]))
+    floor = (b.add_material(type=bsdf_mod.PLASTIC, albedo=(0.4, 0.4, 0.4),
+                            eta=1.49, nonlinear=True) if plastic
+             else b.add_material(albedo=(0.4, 0.4, 0.4)))
+    b.add_mesh(v, f, floor, uvs=uv)
+    rough_plastic = {1: ((0.1, 0.1, 0.1), mf.GGX),
+                     3: ((0.5, 0.2, 0.1), mf.BECKMANN)} if plastic else {}
+    for i, alpha in enumerate((0.005, 0.02, 0.1, 0.3)):
+        if i in rough_plastic:
+            albedo, dist = rough_plastic[i]
+            mat = b.add_material(type=bsdf_mod.ROUGH_PLASTIC,
+                                 alpha=(alpha, alpha), albedo=albedo,
+                                 eta=1.49, dist=dist)
+        else:
+            mat = b.add_material(type=bsdf_mod.ROUGH_CONDUCTOR,
+                                 alpha=(alpha, alpha), eta=(0.2,) * 3,
+                                 k=(3.9,) * 3)
+        # the camera sees the fixture's plates from behind; the rough
+        # plastics are turned to face it and the lights' highlights
+        tilt = TURNED if i in rough_plastic else -60.0 + 6.0 * i
+        t = (Transform.translate([0.0, 0.25 + 0.45 * i, 2.8 - 0.5 * i])
+             * Transform.rotate([1, 0, 0], tilt)
+             * Transform.scale([2.0, 0.18, 1.0]))
+        v, f, uv = shapes.rectangle(t)
+        b.add_mesh(v, f, mat, uvs=uv)
+    black = b.add_material(albedo=(0.0, 0.0, 0.0))
+    for x, r, p in ((-1.5, 0.03, 900.0), (0.0, 0.12, 55.0), (1.5, 0.45, 4.0)):
+        b.add_sphere((x, 2.6, 0.5), r, black, emitter_radiance=(p, p, p))
+    scene, static = b.build(device=dev)
+    sensor = sensor_mod.make_perspective(
+        Transform.look_at(VEACH_EYE, VEACH_AT, UP), VEACH_FOV, size, size,
+        device=dev)
     return scene, static, sensor
 
 
@@ -2063,6 +2148,53 @@ def scene_file_phase(dev):
             (scene, static, sensor, direct_cfg))
 
 
+def veach_phase(dev):
+    """BASELINE config 3 on the card: the Veach MIS scene (three sphere
+    lights, cone-sampled NEE against four rough plates) and its plastic
+    variant through the path tracer at depth 3, 32 spp, and the first
+    through the direct integrator, 16 spp; 512x512, box filter, seed 0,
+    each held to the JAX package's mean and the exact K1/K2 launches.
+    Returns the first scene's (scene, static, sensor, cfg) for the profile
+    phase."""
+    path_cfg = IntegratorConfig(type=PATH, max_depth=VEACH_DEPTH)
+    direct_cfg = IntegratorConfig(type=DIRECT)
+    scenes = {}
+    for plastic in (False, True):
+        label = "veach_mis_plastic" if plastic else "veach_mis"
+        t0 = time.perf_counter()
+        scenes[plastic] = veach_scene(dev, plastic=plastic)
+        log(f"{label}: build {time.perf_counter() - t0:.3f} s (the "
+            f"rough-transmittance bake included): {scenes[plastic][1]}")
+    # warm-up at a small size (first-call set-up of the CUDA libraries)
+    for plastic, cfg in ((False, path_cfg), (True, path_cfg),
+                         (False, direct_cfg)):
+        scene, static, _ = scenes[plastic]
+        small = sensor_mod.make_perspective(
+            Transform.look_at(VEACH_EYE, VEACH_AT, UP), VEACH_FOV, 64, 64,
+            device=dev)
+        api.render(scene, static, small, cfg,
+                   api.RenderSettings(width=64, height=64, spp=1,
+                                      spp_per_pass=1, filter_type=0),
+                   device=dev)
+    for label, plastic, cfg, spp, ref, k1, k2 in (
+            ("veach_mis path", False, path_cfg, VEACH_PATH_SPP,
+             VEACH_REF_MEAN_RGB, VEACH_DEPTH, VEACH_DEPTH),
+            ("veach_mis_plastic path", True, path_cfg, VEACH_PATH_SPP,
+             VEACH_PLASTIC_REF_MEAN_RGB, VEACH_DEPTH, VEACH_DEPTH),
+            ("veach_mis direct", False, direct_cfg, VEACH_DIRECT_SPP,
+             VEACH_DIRECT_REF_MEAN_RGB, 2, 1)):
+        scene, static, sensor = scenes[plastic]
+        timed_render(
+            dev, label, scene, static, sensor, cfg,
+            api.RenderSettings(width=W, height=H, spp=spp,
+                               spp_per_pass=VEACH_SPP_PER_PASS,
+                               filter_type=0, seed=SEED),
+            ref, VEACH_MEAN_RTOL,
+            {"brute_force_interaction": k1 * spp,
+             "brute_force_closest_hit": k2 * spp})
+    return scenes[False] + (path_cfg,)
+
+
 @contextlib.contextmanager
 def bvh_kernel(name):
     """Run the scene's BVH queries through the ``name`` kernel family."""
@@ -2125,7 +2257,8 @@ def kdbench_phase():
     return launches
 
 
-def profile_phase(dev, label, scene, static, sensor, spp, cfg=None, size=W):
+def profile_phase(dev, label, scene, static, sensor, spp, cfg=None, size=W,
+                  filter_type=api.RenderSettings.filter_type):
     """Device time by kernel over one render pass of ``spp`` samples at
     ``size`` x ``size`` (torch.profiler), through ``cfg`` (the path tracer at
     depth 5 by default). Returns {kernel: (ms, launches)} of the port's
@@ -2135,7 +2268,8 @@ def profile_phase(dev, label, scene, static, sensor, spp, cfg=None, size=W):
 
     cfg = cfg or IntegratorConfig(type=PATH, max_depth=DEPTH)
     settings = api.RenderSettings(width=size, height=size, spp=spp,
-                                  spp_per_pass=spp, seed=SEED)
+                                  spp_per_pass=spp, seed=SEED,
+                                  filter_type=filter_type)
     api.render(scene, static, sensor, cfg, settings, device=dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2208,6 +2342,7 @@ def main() -> int:
     live_share_phase(dev, *cornell_scene)
     trainer = train_phase(dev)
     cbox_xml, cornell_direct = scene_file_phase(dev)
+    veach = veach_phase(dev)
     bunny_scene = bunny(dev)
     bunny_launches, lane_mean, lane_ms = render_phase(
         dev, "bunny", *bunny_scene, BUNNY_EYE, BUNNY_AT, BUNNY_FOV,
@@ -2239,6 +2374,8 @@ def main() -> int:
                   size=CBOX_RES)
     profile_phase(dev, "cornell direct", *cornell_direct[:3], 4,
                   cfg=cornell_direct[3], size=DIRECT_RES)
+    profile_phase(dev, "veach_mis", *veach[:3], VEACH_SPP_PER_PASS,
+                  cfg=veach[3], filter_type=0)
     train_profile(trainer)
     del trainer
     bunny_profile = profile_phase(dev, "bunny", *bunny_scene,

@@ -164,12 +164,17 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
             albedo=_f32(mats["albedo"], dev),
             albedo_tex=_i32(mats["albedo_tex"], dev),
             **{k: _f32(mats[k], dev) for k in _MAT_FLOAT},
-            twosided=_bool(mats["twosided"], dev)),
+            twosided=_bool(mats["twosided"], dev),
+            nonlinear=_bool(mats["nonlinear"], dev),
+            rt_coef=_f32(mats["rt_coef"], dev),
+            rt_fdr=_f32(mats["rt_fdr"], dev)),
         textures=tex_mod.TextureTable(
             **{k: _f32(texs[k], dev) for k in _TEX_FLOAT},
             **{k: _i32(texs[k], dev) for k in _TEX_INT}),
         emitters=em_mod.EmitterTable(
             type=_i32(ems["type"], dev), radiance=_f32(ems["radiance"], dev),
+            position=_f32(ems["position"], dev),
+            spot_cos=_f32(ems["spot_cos"], dev),
             pmf=_f32(ems["pmf"], dev), cdf=_f32(ems["cdf"], dev),
             etri_tri=_i32(ems["etri_tri"], dev),
             etri_cdf=_f32(ems["etri_cdf"], dev),

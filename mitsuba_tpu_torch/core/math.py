@@ -187,3 +187,19 @@ def fresnel_conductor(cos_i, eta, k):
     t4 = t2 * si2
     rp = rs * safe_div(t3 - t4, t3 + t4)
     return 0.5 * (rp + rs)
+
+
+def fresnel_diffuse_reflectance(eta):
+    """Average Fresnel reflectance under diffuse illumination (util.cpp
+    fresnelDiffuseReflectance's fast path): the published polynomial fits
+    of Egan & Hilgeman 1973 for eta < 1 and d'Eon & Irving 2011 for
+    eta >= 1, in the JAX function's order of operations."""
+    inv_eta = 1.0 / eta
+    fit_lt1 = -1.4399 * eta * eta + 0.7099 * eta + 0.6681 + 0.0636 * inv_eta
+    fit_ge1 = (
+        0.919317
+        + inv_eta
+        * (-3.4793 + inv_eta * (6.75335 + inv_eta * (
+            -7.80989 + inv_eta * (4.98554 - inv_eta * 1.36881))))
+    )
+    return torch.where(eta < 1.0, fit_lt1, fit_ge1)

@@ -84,7 +84,7 @@ _LATER_SENSORS = ("thinlens", "orthographic", "spherical", "radiancemeter",
                   "irradiancemeter", "fluencemeter")
 _LATER_BSDFS = (
     "mask", "roughdiffuse", "thindielectric", "roughdielectric", "conductor",
-    "plastic", "roughplastic", "phong", "ward", "difftrans", "mixturebsdf",
+    "phong", "ward", "difftrans", "mixturebsdf",
     "blendbsdf", "coating", "roughcoating", "hk", "irawan", "normalmap",
     "bumpmap", "null")
 _LATER_TEXTURES = ("checkerboard", "gridtexture", "scale")
@@ -413,6 +413,17 @@ class XMLSceneLoader:
                 k=p.get("k", k),
                 spec_refl=p.get("specularReflectance", (1.0,) * 3),
                 alpha=(alpha_u, alpha_v), dist=dist, twosided=twosided,
+            )
+        if t in ("plastic", "roughplastic"):
+            refl, tex = self._texture_ref_or_value(node, p, "diffuseReflectance",
+                                                   (0.5,) * 3)
+            return self.builder.add_material(
+                type=B.PLASTIC if t == "plastic" else B.ROUGH_PLASTIC,
+                albedo=refl, albedo_tex=tex,
+                eta=ior_of("intIOR", "polypropylene") / ior_of("extIOR", "air"),
+                spec_refl=p.get("specularReflectance", (1.0,) * 3),
+                alpha=(alpha_u, alpha_v), dist=dist,
+                nonlinear=bool(p.get("nonlinear", False)), twosided=twosided,
             )
         raise ValueError(f"unsupported bsdf type '{t}'")
 

@@ -1,13 +1,16 @@
 """Emitters and next-event estimation (port of ``mitsuba_tpu/render/emitter.py``:
-triangle area lights, the constant environment and the lat-long environment
-map).
+triangle area lights, analytic sphere lights, the constant environment and
+the lat-long environment map).
 
 Area emitters own a contiguous range of an emissive-triangle array with a
 globally monotone CDF: entry j stores ``emitter_index + local_cdf``, so
 picking emitter e with residual u is one ``searchsorted(etri_cdf, e + u)``.
 The environment map keeps radiance and solid-angle pdf in one (He*We, 4)
 table and samples texels through a Walker alias table (one uniform, two row
-gathers). Other emitter types land in a later slice.
+gathers). A sphere light is sampled by the cone of directions it subtends
+(sphere.cpp sampleDirect), so every sample hits it; its center is the
+table's ``position`` row and its radius ``spot_cos[:, 0]``, as in the JAX
+package. Other emitter types land in a later slice.
 """
 from __future__ import annotations
 
@@ -18,19 +21,24 @@ import torch
 
 from ..core import math as m
 from ..core import warp
+from ..core.frame import Frame
 from .records import DirectSample
 
 # type tags, the JAX package's numbering
 AREA = 0
 CONSTANT = 2
 ENVMAP = 3
+SPHERE = 7   # analytic sphere area light, cone-sampled NEE
 
-SUPPORTED_TYPES = (AREA, CONSTANT, ENVMAP)
+SUPPORTED_TYPES = (AREA, CONSTANT, ENVMAP, SPHERE)
 
 
 class EmitterTable(NamedTuple):
     type: torch.Tensor      # (E,) int32
     radiance: torch.Tensor  # (E, 3)
+    position: torch.Tensor  # (E, 3) a sphere light's center, else 0
+    spot_cos: torch.Tensor  # (E, 2) a sphere light's radius in column 0;
+                            # (0, 1) on other rows (the JAX spot columns)
     pmf: torch.Tensor       # (E,) emitter-selection pmf
     cdf: torch.Tensor       # (E,) emitter-selection cdf (inclusive)
     etri_tri: torch.Tensor  # (ET,) int32 scene triangle index
@@ -104,6 +112,15 @@ def sample_direct(scene, static, p_ref, u3):
         pdf_sa = torch.where(sel, pdf_a, pdf_sa)
         valid = torch.where(sel, ok & (pdf_a > 0), valid)
 
+    if SPHERE in static.emitter_types:
+        d_s, dist_s, pdf_s = _sphere_sample(em, e_idx, p_ref, u0, u1)
+        sel = etype == SPHERE
+        d = torch.where(sel[..., None], d_s, d)
+        dist = torch.where(sel, dist_s, dist)
+        radiance = torch.where(sel[..., None], em.radiance[e_idx], radiance)
+        pdf_sa = torch.where(sel, pdf_s, pdf_sa)
+        valid = torch.where(sel, dist_s > 1e-6, valid)
+
     if CONSTANT in static.emitter_types:
         d_c = warp.square_to_uniform_sphere(torch.stack([u0, u1], dim=-1))
         sel = etype == CONSTANT
@@ -123,11 +140,66 @@ def sample_direct(scene, static, p_ref, u3):
         valid = torch.where(sel, pdf_e > 0, valid)
 
     # fold the emitter-selection pmf into the solid-angle pdf (no emitter of
-    # this slice is a delta light); AREA folded it into tri_nee_pdf_area at
-    # build time
+    # the port is a delta light yet); AREA folded it into tri_nee_pdf_area
+    # at build time
     pdf_sa = pdf_sa * torch.where(etype == AREA, 1.0, em.pmf[e_idx])
     return DirectSample(d=d, dist=dist, radiance=radiance, pdf_sa=pdf_sa,
                         delta=delta, valid=valid)
+
+
+def _cone(r_s, d2c):
+    """(outside, the solid-angle pdf) of the cone that a sphere of radius
+    ``r_s`` subtends at squared distance ``d2c`` from its center: uniform
+    over the cone outside the sphere, over all directions inside it."""
+    dc = m.sqrt(torch.clamp(d2c, min=1e-20))
+    outside = dc > r_s * (1.0 + 1e-5)
+    sin2_max = torch.clamp(m.safe_div(r_s * r_s, d2c), 0.0, 1.0)
+    cos_max = m.sqrt(torch.clamp(1.0 - sin2_max, min=0.0))
+    # 1 - cos_max as sin2 / (1 + cos): 1 - cos_max in float32 loses three
+    # digits on a small far light
+    one_minus = m.safe_div(sin2_max, 1.0 + cos_max)
+    pdf = torch.where(
+        outside,
+        m.safe_div(torch.ones((), device=d2c.device),
+                   2.0 * math.pi * torch.clamp(one_minus, min=1e-12)),
+        warp.INV_FOURPI)
+    return dc, outside, cos_max, pdf
+
+
+def _sphere_sample(em: EmitterTable, e_idx, p_ref, u0, u1):
+    """A direction from ``p_ref`` in the cone of sphere light ``e_idx``
+    (sphere.cpp sampleDirect): (d, the distance to the near side along d,
+    the solid-angle pdf without the selection pmf). Inside the sphere the
+    direction is uniform over the sphere of directions and the distance
+    is the far root."""
+    c_s = em.position[e_idx]
+    r_s = em.spot_cos[e_idx, 0]
+    to_c = c_s - p_ref
+    d2c = m.squared_length(to_c)
+    dc, outside, cos_max, pdf = _cone(r_s, d2c)
+    axis = to_c / dc[..., None]
+    cos_t = torch.where(outside, 1.0 - u0 * (1.0 - cos_max), 1.0 - 2.0 * u0)
+    sin_t = m.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi_t = 2.0 * math.pi * u1
+    local_d = torch.stack([sin_t * torch.cos(phi_t), sin_t * torch.sin(phi_t),
+                           cos_t], dim=-1)
+    d = Frame.from_normal(axis).to_world(local_d)
+    # the near root along d outside (clamped to the tangent), the far one
+    # inside
+    proj = dc * cos_t
+    under = m.sqrt(torch.clamp(r_s * r_s - (d2c - proj * proj), min=0.0))
+    dist = torch.where(outside, proj - under, proj + under)
+    return d, dist, pdf
+
+
+def pdf_direct_sphere(em: EmitterTable, e_idx, p_ref, c_s, r_s):
+    """Solid-angle pdf that the cone sampling of ``sample_direct`` draws a
+    direction from ``p_ref`` that hits sphere light ``e_idx`` (center
+    ``c_s``, radius ``r_s``), the selection pmf included: the NEE side of
+    the MIS weight of a BSDF sample that hit the sphere (sphere.cpp
+    pdfDirect)."""
+    pdf = _cone(r_s, m.squared_length(c_s - p_ref))[3]
+    return pdf * em.pmf[e_idx]
 
 
 def eval_env_pdf(scene, static, d_world):

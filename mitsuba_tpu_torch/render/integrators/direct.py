@@ -86,7 +86,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
                                        active=ok)
         # an emitter hit, or an escape to the environment
         Le2 = scene_mod.emitted_radiance(scene, static, its2, d2)
-        lum_pdf = scene_mod.pdf_emitter_hit(scene, its2, o2)
+        lum_pdf = scene_mod.pdf_emitter_hit(scene, its2, o2, static)
         if static.has_env:
             env_L, env_pdf = em_mod.eval_env_pdf(scene, static, d2)
             Le2 = torch.where(its2.valid[..., None], Le2, env_L)

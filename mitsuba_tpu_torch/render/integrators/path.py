@@ -75,7 +75,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
 
         # --- emitted radiance at the hit (path.cpp:176-190)
         Le = scene_mod.emitted_radiance(scene, static, its, d)
-        lum_pdf_hit = scene_mod.pdf_emitter_hit(scene, its, o)
+        lum_pdf_hit = scene_mod.pdf_emitter_hit(scene, its, o, static)
         w_hit = torch.where(prev_delta, 1.0, mis_power(prev_pdf, lum_pdf_hit))
         show = active & (its.emitter_id >= 0) & hidden_ok
         L = L + torch.where(show[..., None], thr * Le * w_hit[..., None], 0.0)

@@ -1,6 +1,6 @@
 """Scene container, device queries and the host-side builder (port of
-``mitsuba_tpu/render/scene.py``, the subset the Cornell box, the bunny_x2
-scene and the scene-file loader's scenes use).
+``mitsuba_tpu/render/scene.py``, the subset that the Cornell box, the
+bunny_x2 scene, the Veach MIS scene and the scene-file loader's scenes use).
 
 The scene compiles on the host into flat tensors: a triangle soup with
 per-triangle shading attributes and NEE area pdfs, analytic spheres, a
@@ -15,11 +15,13 @@ leaf_size=1 BVH, cut it into treelets, and send them to the lane kernels of
 K7, with the JAX package's dispatch. Spheres are tested in plain tensor code
 beside those kernels and merged with the JAX package's tie rule; a scene may
 hold spheres and no triangle. Materials are diffuse, with an optional
-bitmap albedo, smooth dielectrics or rough conductors; lights are triangle
-area lights, a constant environment and a lat-long environment map; meshes
-may be instanced. Anything else (sphere emitters, other textures and
-lights, media, other BSDFs) raises ``NotImplementedError``: it lands in a
-later slice.
+bitmap albedo, smooth dielectrics, rough conductors, and smooth or rough
+plastics (the rough one's transmittance polynomial baked at ``build``,
+``core/rtrans.py``); lights are triangle area lights, analytic sphere lights
+(cone-sampled in NEE), a constant environment and a lat-long environment
+map; meshes may be instanced. Anything else (other textures and lights,
+media, other BSDFs) raises ``NotImplementedError``: it lands in a later
+slice.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import torch
 
 from ..accel.build import build_bvh, treelet_roots, triangle_aabbs
 from ..core import math as m
+from ..core import rtrans
 from ..core.frame import Frame
 from ..core.transform import Transform
 from ..device import resolve_device
@@ -365,7 +368,8 @@ def bsdf_locals(scene: Scene, its: Interaction, static: SceneStatic,
     ``fp_uv`` is the ray-cone footprint that selects the MIP level."""
     return bsdf_mod.gather_locals(
         scene.materials, its.mat_id,
-        albedo_override=eval_albedo(scene, its, static, fp_uv=fp_uv))
+        albedo_override=eval_albedo(scene, its, static, fp_uv=fp_uv),
+        types=static.bsdf_types)
 
 
 def emitted_radiance(scene: Scene, static: SceneStatic, its: Interaction, d):
@@ -378,15 +382,35 @@ def emitted_radiance(scene: Scene, static: SceneStatic, its: Interaction, d):
     return torch.where((has & front)[..., None], rad, 0.0)
 
 
-def pdf_emitter_hit(scene: Scene, its: Interaction, ref_p):
+def pdf_emitter_hit(scene: Scene, its: Interaction, ref_p,
+                    static: SceneStatic):
     """Solid-angle NEE pdf of the point a BSDF-sampled ray hit
-    (Scene::pdfEmitterDirect), from the per-triangle area pdf on the record."""
+    (Scene::pdfEmitterDirect), from the per-triangle area pdf on the record;
+    a hit on a sphere light reports the cone-sampling pdf instead
+    (sphere.cpp pdfDirect): the record's 0 there would count it twice
+    under MIS."""
     pdf_area = its.nee_pdf_area
     to_hit = its.p - ref_p
     d2 = m.squared_length(to_hit)
     dist = torch.sqrt(torch.clamp(d2, min=1e-12))
     cos_l = torch.abs(m.dot(its.gn, -to_hit / dist[..., None]))
-    return m.safe_div(pdf_area * d2, torch.clamp(cos_l, min=1e-7))
+    pdf = m.safe_div(pdf_area * d2, torch.clamp(cos_l, min=1e-7))
+    if em_mod.SPHERE in static.emitter_types and static.n_spheres > 0:
+        # a sphere's primitive id follows the triangles' (ray_intersect).
+        # The JAX package counts tri_p0's rows here (scene.py:775), which
+        # in a triangle-free scene include the placeholder row, so there its
+        # sphere k reads sphere k - 1's emitter; the port does not copy that
+        T = static.n_tris
+        si = torch.clamp(its.prim_id - T, 0, static.n_spheres - 1).to(
+            torch.int64)
+        e_sph = scene.sph_emitter[si]
+        is_sph_em = (its.prim_id >= T) & (e_sph >= 0)
+        ei = torch.clamp(e_sph, min=0).to(torch.int64)
+        pdf_cone = em_mod.pdf_direct_sphere(
+            scene.emitters, ei, ref_p, scene.sph_center[si],
+            scene.sph_radius[si])
+        pdf = torch.where(is_sph_em, pdf_cone, pdf)
+    return pdf
 
 
 # === host-side builder ====================================================
@@ -423,7 +447,8 @@ class SceneBuilder:
                      spec_refl=(1.0, 1.0, 1.0), spec_trans=(1.0, 1.0, 1.0),
                      eta=(1.5046, 1.5046, 1.5046),
                      k=(0.0, 0.0, 0.0), alpha=(0.1, 0.1), alpha_tex: int = -1,
-                     dist: int = 0, twosided: bool = False) -> int:
+                     dist: int = 0, nonlinear: bool = False,
+                     twosided: bool = False) -> int:
         """A material row with the JAX package's keywords and defaults
         (scene.py:819-848) for the columns the port reads; a scalar
         ``eta`` or ``alpha`` is replicated."""
@@ -441,7 +466,7 @@ class SceneBuilder:
                               albedo_tex=albedo_tex, spec_refl=tuple(spec_refl),
                               spec_trans=tuple(spec_trans), eta=tuple(eta),
                               k=tuple(k), alpha=tuple(alpha), dist=dist,
-                              twosided=twosided))
+                              nonlinear=bool(nonlinear), twosided=twosided))
         return len(self.mats) - 1
 
     def add_texture_bitmap(self, image, uv_scale=(1.0, 1.0),
@@ -491,14 +516,18 @@ class SceneBuilder:
 
     def add_sphere(self, center, radius, mat: int,
                    emitter_radiance=None) -> None:
-        """An analytic sphere (sphere.cpp). Sphere emitters, sampled by
-        their cone in NEE, land in a later slice (ROADMAP.md, Queue 1
-        item 3.3)."""
+        """An analytic sphere (sphere.cpp); with ``emitter_radiance`` a
+        sphere light, sampled by its cone in NEE. The emitter row comes
+        before the sphere row, in the JAX order, so interleaved mesh and
+        sphere lights keep the JAX package's emitter indices."""
+        e = -1
         if emitter_radiance is not None:
-            raise NotImplementedError(
-                "sphere emitters (cone-sampled NEE) land in a later slice of "
-                "the port (ROADMAP.md, Queue 1 item 3.3)")
-        self.spheres.append((np.asarray(center, float), float(radius), mat))
+            e = len(self.emitters)
+            self.emitters.append(dict(
+                type=em_mod.SPHERE, radiance=tuple(emitter_radiance),
+                position=tuple(np.asarray(center, float)),
+                spot_cos=(float(radius), 0.0)))
+        self.spheres.append((np.asarray(center, float), float(radius), mat, e))
 
     def add_constant_emitter(self, radiance) -> int:
         """A constant environment (constant.cpp): the same radiance from
@@ -589,9 +618,15 @@ class SceneBuilder:
         E = max(len(self.emitters), 1)
         etype = np.zeros(E, np.int32)
         erad = np.zeros((E, 3), np.float32)
+        epos = np.zeros((E, 3), np.float32)
+        espot = np.tile(np.array([[0.0, 1.0]], np.float32), (E, 1))
         for i, e in enumerate(self.emitters):
             etype[i] = e["type"]
             erad[i] = np.asarray(e["radiance"], np.float32)
+            if "position" in e:
+                epos[i] = e["position"]
+            if "spot_cos" in e:
+                espot[i] = e["spot_cos"]
         n_emitters = len(self.emitters)
         pmf = np.full(E, 1.0 / max(n_emitters, 1), np.float32)
         if n_emitters == 0:
@@ -622,17 +657,30 @@ class SceneBuilder:
         env = (_build_envmap(self.emitters[envmap_index]) if envmap_index >= 0
                else _empty_env())
 
-        # spheres (scene.py:1480-1490), one placeholder row without them;
-        # none is an emitter in this slice
+        # the rough-transmittance bake (scene.py:1427-1441): T(cos) and
+        # the internal diffuse reflectance (through 1/eta, from the dense
+        # side) of each ROUGH_PLASTIC row, in float64, cast to float32;
+        # zeros elsewhere
+        Mn = len(self.mats)
+        rt_coef = np.zeros((Mn, rtrans.RT_DEG), np.float32)
+        rt_fdr = np.zeros(Mn, np.float32)
+        for i, mm in enumerate(self.mats):
+            if mm["type"] == bsdf_mod.ROUGH_PLASTIC:
+                a, e, d = (float(mm["alpha"][0]), float(mm["eta"][0]),
+                           int(mm["dist"]))
+                rt_coef[i], _ = rtrans.fit_poly(d, a, e)
+                rt_fdr[i] = 1.0 - rtrans.diffuse_transmittance(d, a, 1.0 / e)
+
+        # spheres (scene.py:1480-1490), one placeholder row without them
         S = len(self.spheres)
         if S:
             sc = np.stack([sp[0] for sp in self.spheres]).astype(np.float32)
             sr = np.array([sp[1] for sp in self.spheres], np.float32)
             sm = np.array([sp[2] for sp in self.spheres], np.int32)
+            se = np.array([sp[3] for sp in self.spheres], np.int32)
         else:
             sc, sr = np.zeros((1, 3), np.float32), np.zeros(1, np.float32)
-            sm = np.zeros(1, np.int32)
-        se = np.full(max(S, 1), -1, np.int32)
+            sm, se = np.zeros(1, np.int32), np.full(1, -1, np.int32)
 
         # BVH over the triangles' float64 bounds and its treelet cut
         # (scene.py:1495-1536)
@@ -692,10 +740,15 @@ class SceneBuilder:
                 twosided=torch.as_tensor(
                     np.asarray([mm["twosided"] for mm in self.mats], bool),
                     device=dev),
+                nonlinear=torch.as_tensor(
+                    np.asarray([mm["nonlinear"] for mm in self.mats], bool),
+                    device=dev),
+                rt_coef=f32(rt_coef), rt_fdr=f32(rt_fdr),
             ),
             textures=tex_mod.build_table(self.textures, self.bitmaps, dev),
             emitters=em_mod.EmitterTable(
-                type=i32(etype), radiance=f32(erad), pmf=f32(pmf),
+                type=i32(etype), radiance=f32(erad), position=f32(epos),
+                spot_cos=f32(espot), pmf=f32(pmf),
                 cdf=f32(cdf), etri_tri=i32(etri_tri), etri_cdf=f32(etri_cdf),
                 env_index=i32(env_index), env_map=f32(env["env_map"]),
                 env_alias=f32(env["env_alias"]), env_hw=i32(env["env_hw"]),

@@ -56,12 +56,13 @@ TRI_FIELDS = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
               "tri_uv0", "tri_uv1", "tri_uv2", "tri_gn", "tri_mat",
               "tri_emitter", "tri_nee_pdf_area")
 MAT_FIELDS = ("type", "dist", "albedo", "albedo_tex", "spec_refl", "eta", "k",
-              "alpha", "twosided", "spec_trans")
+              "alpha", "twosided", "spec_trans", "nonlinear", "rt_coef",
+              "rt_fdr")
 TEX_FIELDS = ("type", "uv_scale", "uv_offset", "scale", "bitmap_idx", "stack",
               "stack_hw", "sizes", "mips", "mips_hw")
-EM_FIELDS = ("type", "radiance", "pmf", "cdf", "etri_tri", "etri_cdf",
-             "env_index", "env_map", "env_alias", "env_hw", "env_to_world",
-             "env_scale")
+EM_FIELDS = ("type", "radiance", "position", "spot_cos", "pmf", "cdf",
+             "etri_tri", "etri_cdf", "env_index", "env_map", "env_alias",
+             "env_hw", "env_to_world", "env_scale")
 TL_FIELDS = ("tl_root", "tl_skip", "tl_lo", "tl_hi")
 SPH_FIELDS = ("sph_center", "sph_radius", "sph_mat", "sph_emitter")
 FIELD_PATHS = ([(f,) for f in TRI_FIELDS + ("aabb_lo", "aabb_hi", "radius")

@@ -228,11 +228,11 @@ CASE3 = {
        for t in ("thinlens", "orthographic", "spherical", "radiancemeter",
                  "irradiancemeter")},
     **{f"bsdf-{t}": _shape_bsdf(f'<bsdf type="{t}"/>')
-       for t in ("roughdiffuse", "conductor", "plastic", "roughplastic",
-                 "roughdielectric", "thindielectric", "phong", "ward",
-                 "difftrans", "coating", "hk", "null")},
+       for t in ("roughdiffuse", "conductor", "roughdielectric",
+                 "thindielectric", "phong", "ward", "difftrans", "coating",
+                 "hk", "null")},
     "bsdf-mask": _shape_bsdf('<bsdf type="mask"><bsdf type="diffuse"/></bsdf>'),
-    "bsdf-toplevel-plastic": '<bsdf type="plastic"/>',
+    "bsdf-toplevel-phong": '<bsdf type="phong"/>',
     **{f"texture-{t}": f'<texture type="{t}"/>'
        for t in ("checkerboard", "gridtexture", "scale")},
     **{f"emitter-{t}": f'<emitter type="{t}"/>'
@@ -258,12 +258,6 @@ def test_later_slice_elements_raise(tmp_path, case):
     path.write_text(_scene_xml(CASE3[case]))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         txml.load_scene(str(path), device="cpu")
-
-
-def test_sphere_emitter_raises_in_the_builder():
-    b = tscene.SceneBuilder()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        b.add_sphere([0, 0, 0], 1.0, b.add_material(), emitter_radiance=(1,) * 3)
 
 
 # --- renders against the JAX package --------------------------------------
