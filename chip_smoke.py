@@ -131,6 +131,29 @@ Phases, each of which raises on failure (no phase is skipped):
      of K1 and 16 of K2; each prints wall ms, ms/spp, rays/s, the exact ray
      count and the peak memory, and holds its mean within 0.1% per channel
      of the JAX package's CPU value (scripts/jax_veach_ref_mean.py);
+ 9e. the scene file's sensor header: uniform4, uniform2 and the pixel
+     positions of every sampler type at 65,536 pixels x 16 samples x
+     dimensions 0-23 on the card against the same functions on the CPU, bit
+     for bit (the draws of exactly 1.0 counted); scenes/cbox.xml with its
+     sampler and filter replaced (header_xml) through load_scene +
+     api.render: the ldsampler and the Mitchell filter at 256x256, 64 spp
+     (320 K1 + 320 K2) and the CLI on that file (its EXR equal to the
+     image), each other sampler with the Gaussian filter and each other
+     filter with the independent sampler at 128x128, 16 spp (80 + 80); ao
+     on the Cornell box at 128x128, rayLength 0.3, box filter (an
+     independent 512-spp reference and 16 spp x seeds 0-2 per sampler, 1 +
+     1 launches per sample), where the ldsampler's mean squared error
+     against the reference must be below 0.95 of the independent sampler's
+     (tests/test_core.py:165); field position and albedo on the Cornell
+     box at 512x512, 4 spp (4 K1); each render prints wall time, ms/spp,
+     rays/s, the exact ray count and the peak memory, and holds its mean
+     within HEADER_MEAN_RTOL and tv_rgb (the mean absolute difference of
+     horizontally adjacent pixels) within HEADER_TV_RTOL per channel of the
+     JAX package's CPU values (scripts/jax_header_ref_mean.py); after the
+     treelet render (phase 11), ao on bunny_x2 at 512x512, 8 spp, the
+     default ray length, box filter: 7 K3 launches per sample (a resorted
+     closest hit and a resorted shadow query: the JAX li_ao presorts
+     nothing) and none of the others, held as above;
  10. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
      2, seed 0 (bench.py:289-293); checks 10 launches of K4 and 300 of K3
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
@@ -148,10 +171,12 @@ Phases, each of which raises on failure (no phase is skipped):
      treelet and lane-resort kernels report the same hit rate on each batch
      and that K7 and K3 launched as the utility drives them;
  13. profile: one render pass of each scene (the bunny in both BVH modes;
-     4 spp of cbox.xml at 256x256, of the Cornell direct render at 64x64
-     and of the Veach MIS path render at 512x512)
+     4 spp of cbox.xml at 256x256, and of the same file with the ldsampler,
+     of the Cornell direct render at 64x64 and of the Veach MIS path render
+     at 512x512)
      under torch.profiler, printing the device's busy share of the wall time,
-     the kernels that take it and each port kernel's render mean per launch;
+     the pass's device kernel launches, the kernels that take it and each
+     port kernel's render mean per launch;
      K4's render mean beside its times of phase 4; and one training step
      with its forward and its backward each profiled: their busy shares and
      the backward's top kernels.
@@ -163,6 +188,7 @@ printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -195,7 +221,8 @@ from mitsuba_tpu_torch.render import microfacet as mf
 from mitsuba_tpu_torch.render import scene as scene_mod
 from mitsuba_tpu_torch.render import sensor as sensor_mod
 from mitsuba_tpu_torch.render.integrators.common import (
-    DIM_BASE, DIM_BSDF, DIM_NEE, DIRECT, PATH, IntegratorConfig, ray_offset)
+    AO, DIM_BASE, DIM_BSDF, DIM_NEE, DIRECT, FIELD, FIELD_ALBEDO,
+    FIELD_POSITION, PATH, IntegratorConfig, ray_offset)
 from mitsuba_tpu_torch.render.scene import SceneBuilder
 
 W = H = 512
@@ -370,6 +397,102 @@ VEACH_DIRECT_REF_MEAN_RGB = (0.02532094344496727, 0.02532094344496727,
 # the three means agreed with these within 3.6e-5 relative on the H100;
 # a wrong rough-plastic lobe or bake moves the plastic render's by over 1%
 VEACH_MEAN_RTOL = 1e-3
+# the sensor-header phase (9e): scenes/cbox.xml with its sampler and filter
+# replaced (header_xml), ao on the Cornell box and on bunny_x2, field on the
+# Cornell box. The sampler types by their scene-file names
+SAMPLER_TYPES = {"independent": api.INDEPENDENT, "stratified": api.STRATIFIED,
+                 "ldsampler": api.LDSAMPLER, "sobol": api.SOBOL,
+                 "halton": api.HALTON, "hammersley": api.HAMMERSLEY,
+                 "faure": api.FAURE}
+HEADER_OTHER_SAMPLERS = ("stratified", "sobol", "halton", "hammersley",
+                         "faure")
+HEADER_OTHER_FILTERS = ("tent", "catmullrom", "lanczos")
+HEADER_SPP, HEADER_RES = 16, 128
+# the sampler-bits check: pixels x samples x dimensions per sampler type
+BITS_PIXELS, BITS_SAMPLES, BITS_DIMS = 65536, 16, 24
+# ao on the Cornell box, tests/test_core.py:165's variance check at 128x128:
+# ldsampler's mean squared error against an independent 512-spp render must
+# be below AO_LD_GAIN times the independent sampler's, both at 16 spp,
+# averaged over seeds 0-2
+AO_RES, AO_LENGTH, AO_SPP, AO_REF_SPP, AO_REF_SEED = 128, 0.3, 16, 512, 7
+AO_SEEDS, AO_LD_GAIN = 3, 0.95
+# ao on bunny_x2: per sample one closest-hit and one shadow query, neither
+# presorted (the JAX li_ao), each through the resort schedule of K3 launches
+BUNNY_AO_SPP = 8
+K3_PER_AO_SPP = (scene_mod.BVH_RESORT[0] + 1
+                 + scene_mod.BVH_RESORT_SHADOW[0] + 1)
+FIELD_RES, FIELD_SPP = 512, 4
+# (mean_rgb, tv_rgb) of each render through the JAX package on its CPU
+# backend, the same samples: scripts/jax_header_ref_mean.py, run with jax
+# 0.9.0 on a CPU host, unrounded. tv_rgb is the mean absolute difference of
+# horizontally adjacent pixels: a filter's sharpness and a sampler's noise
+# pattern move it where they leave the mean alone
+HEADER_REF = {
+    "cbox.xml ldsampler mitchell": (
+        (0.23024810888205285, 0.17776140729791245, 0.08004837758354243),
+        (0.014309963795348083, 0.010847860174428193, 0.004874117734487489)),
+    "cbox.xml stratified gaussian": (
+        (0.23011464127061781, 0.1776260397986984, 0.0799933863659492),
+        (0.02272398636113861, 0.01788450271291655, 0.008355579862759909)),
+    "cbox.xml sobol gaussian": (
+        (0.23018374004972447, 0.17766495724363035, 0.08004286258683244),
+        (0.02179885067447761, 0.017186086506517838, 0.008039795457435701)),
+    "cbox.xml halton gaussian": (
+        (0.22966944717827098, 0.17720484146554202, 0.0797926821596218),
+        (0.022375825611442326, 0.017473610010754214, 0.00808767765206546)),
+    "cbox.xml hammersley gaussian": (
+        (0.22938227621519502, 0.17696820741851532, 0.07968760215206563),
+        (0.022330404162955415, 0.017330686049101058, 0.008022533744983074)),
+    "cbox.xml faure gaussian": (
+        (0.23024064228164015, 0.17770950864347518, 0.0800252253108423),
+        (0.02103750343056129, 0.016647385898011024, 0.007811106248786415)),
+    "cbox.xml independent tent": (
+        (0.23031933513163635, 0.17782460014496257, 0.08006325464885847),
+        (0.02620143530329306, 0.02068168785753844, 0.009573309582761076)),
+    "cbox.xml independent catmullrom": (
+        (0.23046485128880068, 0.17795034584250735, 0.08012838671080375),
+        (0.03278528612986208, 0.025879967832777954, 0.011977297830956687)),
+    "cbox.xml independent lanczos": (
+        (0.23069897919068347, 0.1781539948978769, 0.0802334624529806),
+        (0.03892545016087624, 0.030933913602558417, 0.014380796259474265)),
+    "ao cornell independent 512 spp seed 7": (
+        (0.775436520576477, 0.775436520576477, 0.775436520576477),
+        (0.027904840904896654, 0.027904840904896654, 0.027904840904896654)),
+    "ao cornell independent 16 spp seed 0": (
+        (0.7742195129394531, 0.7742195129394531, 0.7742195129394531),
+        (0.09160463828740158, 0.09160463828740158, 0.09160463828740158)),
+    "ao cornell independent 16 spp seed 1": (
+        (0.7754707336425781, 0.7754707336425781, 0.7754707336425781),
+        (0.09201218011811024, 0.09201218011811024, 0.09201218011811024)),
+    "ao cornell independent 16 spp seed 2": (
+        (0.7760543823242188, 0.7760543823242188, 0.7760543823242188),
+        (0.09071265994094488, 0.09071265994094488, 0.09071265994094488)),
+    "ao cornell ldsampler 16 spp seed 0": (
+        (0.7758674621582031, 0.7758674621582031, 0.7758674621582031),
+        (0.04939714566929134, 0.04939714566929134, 0.04939714566929134)),
+    "ao cornell ldsampler 16 spp seed 1": (
+        (0.775238037109375, 0.775238037109375, 0.775238037109375),
+        (0.05015071358267716, 0.05015071358267716, 0.05015071358267716)),
+    "ao cornell ldsampler 16 spp seed 2": (
+        (0.7755966186523438, 0.7755966186523438, 0.7755966186523438),
+        (0.04962782972440945, 0.04962782972440945, 0.04962782972440945)),
+    "ao bunny_x2": (
+        (0.8800907135009766, 0.8800907135009766, 0.8800907135009766),
+        (0.07077928158635029, 0.07077928158635029, 0.07077928158635029)),
+    "field cornell position": (
+        (0.5036970663555266, 0.5154712891399998, 0.4922595406558088),
+        (0.001989279890878877, 0.0008395997030464835, 0.005088945490306625)),
+    "field cornell albedo": (
+        (0.6041403350492942, 0.5563607621990627, 0.4755961521263714),
+        (0.0016849335373485, 0.002121223633882905, 0.002719655882946713)),
+}
+# the port on the CPU at these sizes: within 4.9e-6 (mean) and 2.7e-5 (tv)
+# of these values, a flipped lane or lobe choice being the gap; one flipped
+# ao lane at 128x128, 16 spp moves tv by 8.5e-5, so the tv limit leaves room
+# for about ten. A broken sampler, filter or integrator moves one of them by
+# more (PERF.md section 6, PR 13)
+HEADER_MEAN_RTOL = 1e-4
+HEADER_TV_RTOL = 1e-3
 
 
 def log(*a):
@@ -2122,30 +2245,38 @@ def scene_file_phase(dev):
         {"brute_force_interaction": 2 * DIRECT_SPP,
          "brute_force_closest_hit": DIRECT_SPP})
 
+    cli_matches("scene file", CBOX_XML, defines, img)
+    return ((ls.scene, ls.static, ls.sensor, ls.integrator),
+            (scene, static, sensor, direct_cfg))
+
+
+def cli_matches(label, path, defines, img):
+    """python -m mitsuba_tpu_torch on the scene file ``path`` with
+    ``defines`` in a subprocess, on the card; its EXR must equal ``img``
+    (api.render's image of the same file) bit for bit."""
     with tempfile.TemporaryDirectory() as tmp:
-        out = Path(tmp) / "cbox.exr"
-        cmd = [sys.executable, "-m", "mitsuba_tpu_torch", str(CBOX_XML),
-               "-D", f"spp={CBOX_SPP}", "-D", f"res={CBOX_RES}", "-z",
-               "-o", str(out)]
+        out = Path(tmp) / "out.exr"
+        cmd = [sys.executable, "-m", "mitsuba_tpu_torch", str(path)]
+        for k, v in defines.items():
+            cmd += ["-D", f"{k}={v}"]
+        cmd += ["-z", "-o", str(out)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
                               capture_output=True, text=True, timeout=300)
         dt = time.perf_counter() - t0
         for line in (proc.stdout + proc.stderr).splitlines()[-5:]:
-            log(f"scene file cli: {line}")
+            log(f"{label} cli: {line}")
         if proc.returncode != 0:
-            raise AssertionError(f"scene file cli: exit code {proc.returncode}")
+            raise AssertionError(f"{label} cli: exit code {proc.returncode}")
         cli_img = image_mod.read_exr(str(out))
     api_img = img.cpu().numpy()
     same = np.array_equal(cli_img, api_img)
-    log(f"scene file cli: {' '.join(cmd[1:])}: {dt:.2f} s with the process "
+    log(f"{label} cli: {' '.join(cmd[1:])}: {dt:.2f} s with the process "
         f"start; EXR equal to api.render's image bit for bit: {same} (max "
         f"abs difference {np.abs(cli_img - api_img).max()})")
     if not same:
-        raise AssertionError("scene file cli: the EXR differs from the image "
+        raise AssertionError(f"{label} cli: the EXR differs from the image "
                              "of api.render")
-    return ((ls.scene, ls.static, ls.sensor, ls.integrator),
-            (scene, static, sensor, direct_cfg))
 
 
 def veach_phase(dev):
@@ -2193,6 +2324,182 @@ def veach_phase(dev):
             {"brute_force_interaction": k1 * spp,
              "brute_force_closest_hit": k2 * spp})
     return scenes[False] + (path_cfg,)
+
+
+def sampler_bits_phase(dev):
+    """Every sampler type's draws on the card against the same functions on
+    the CPU, bit for bit: uniform4 and uniform2 at BITS_PIXELS pixels x
+    BITS_SAMPLES samples x dimensions 0..BITS_DIMS-1, and the pixel sample
+    positions (the stratified jitter) of each sample. Counts the draws of
+    exactly 1.0 (a uint32 word of 2^32 - 128 or more rounds to 2^32)."""
+    pix_cpu = torch.arange(BITS_PIXELS, dtype=torch.int64)
+    pix = pix_cpu.to(dev)
+    for name, tag in SAMPLER_TYPES.items():
+        t0 = time.perf_counter()
+        settings = api.RenderSettings(width=256, height=BITS_PIXELS // 256,
+                                      spp=BITS_SAMPLES, sampler_type=tag,
+                                      seed=SEED)
+        smp = api.sampler_of(settings)
+        ones = values = 0
+        for s in range(BITS_SAMPLES):
+            pairs = [(api.pixel_sample_positions(settings, pix, s, smp),
+                      api.pixel_sample_positions(settings, pix_cpu, s, smp))]
+            for d in range(BITS_DIMS):
+                for fn in (rng_mod.uniform4, rng_mod.uniform2):
+                    pairs.append((fn(smp, pix, s, d), fn(smp, pix_cpu, s, d)))
+            for i, (a, b) in enumerate(pairs):
+                if not torch.equal(a.cpu().view(torch.int32),
+                                   b.view(torch.int32)):
+                    raise AssertionError(
+                        f"sampler bits {name}: sample {s}, draw {i} differs "
+                        "between the card and the CPU")
+                if i:
+                    ones += int((b == 1.0).sum())
+                    values += b.numel()
+        log(f"sampler bits {name} ({smp}): {values} values in "
+            f"{BITS_SAMPLES} samples x {BITS_DIMS} dimensions x uniform4 and "
+            f"uniform2 at {BITS_PIXELS} pixels, and the pixel positions, "
+            f"equal bit for bit on the card and the CPU; {ones} draws of "
+            f"exactly 1.0; {time.perf_counter() - t0:.2f} s")
+
+
+def header_xml(sampler, rfilter):
+    """scenes/cbox.xml's text with another sampler and filter type (as
+    scripts/jax_header_ref_mean.py's variant_xml makes it)."""
+    text = CBOX_XML.read_text()
+    for kind, old, new in (("sampler", "independent", sampler),
+                           ("rfilter", "gaussian", rfilter)):
+        tag = f'<{kind} type="{old}"'
+        if text.count(tag) != 1:
+            raise AssertionError(f"cbox.xml has no single {tag}")
+        text = text.replace(tag, f'<{kind} type="{new}"')
+    return text
+
+
+def tv_rgb(img):
+    """Mean absolute difference of horizontally adjacent pixels, per
+    channel, in float64 (as scripts/jax_header_ref_mean.py computes it)."""
+    img = img.double()
+    return (img[:, 1:] - img[:, :-1]).abs().mean(dim=(0, 1)).tolist()
+
+
+def header_render(dev, label, scene, static, sensor, cfg, settings,
+                  expected):
+    """timed_render held to HEADER_REF[label]: the mean within
+    HEADER_MEAN_RTOL per channel, then tv_rgb within HEADER_TV_RTOL.
+    Returns the image."""
+    mean_ref, tv_ref = HEADER_REF[label]
+    img = timed_render(dev, label, scene, static, sensor, cfg, settings,
+                       mean_ref, HEADER_MEAN_RTOL, expected)[0]
+    tv = tv_rgb(img)
+    gap = [a / b - 1.0 for a, b in zip(tv, tv_ref)]
+    log(f"render {label} tv_rgb {tv} (reference {list(tv_ref)}, relative "
+        f"gap {gap})")
+    for c, g in enumerate(gap):
+        if abs(g) > HEADER_TV_RTOL:
+            raise AssertionError(
+                f"{label}: tv_rgb[{c}] = {tv[c]:.6f}, reference {tv_ref[c]} "
+                f"(tolerance {HEADER_TV_RTOL:.1%})")
+    return img
+
+
+def header_renders(dev, tmp, cornell_scene):
+    """Every render of the sensor-header phase but bunny_x2's, by label:
+    (scene, static, sensor, cfg, settings, expected launches). The cbox.xml
+    variants are loaded from files written under ``tmp``
+    (``{sampler}_{rfilter}.xml``); ao and field render ``cornell_scene``.
+    scripts/torch_header_stats.py renders the same."""
+    def k12(n):
+        return {"brute_force_interaction": n, "brute_force_closest_hit": n}
+
+    out = {}
+    for sampler, rfilter, spp, res in (
+            [("ldsampler", "mitchell", CBOX_SPP, CBOX_RES)]
+            + [(s, "gaussian", HEADER_SPP, HEADER_RES)
+               for s in HEADER_OTHER_SAMPLERS]
+            + [("independent", r, HEADER_SPP, HEADER_RES)
+               for r in HEADER_OTHER_FILTERS]):
+        path = Path(tmp) / f"{sampler}_{rfilter}.xml"
+        path.write_text(header_xml(sampler, rfilter))
+        ls = mitsuba_xml.load_scene(str(path), {"spp": spp, "res": res},
+                                    device=dev)
+        # a closest-hit (K1) and a shadow query (K2) per bounce and sample
+        out[f"cbox.xml {sampler} {rfilter}"] = (
+            ls.scene, ls.static, ls.sensor, ls.integrator, ls.settings,
+            k12(DEPTH * spp))
+    scene, static, sensor = cornell_scene
+    small = sensor_mod.make_perspective(Transform.look_at(EYE, AT, UP), FOV,
+                                        AO_RES, AO_RES, device=dev)
+    ao_cfg = IntegratorConfig(type=AO, ray_length=AO_LENGTH)
+    for name, spp, seed in ([("independent", AO_REF_SPP, AO_REF_SEED)]
+                            + [(n, AO_SPP, k)
+                               for n in ("independent", "ldsampler")
+                               for k in range(AO_SEEDS)]):
+        # per sample a camera query (K1) and a shadow query (K2)
+        out[f"ao cornell {name} {spp} spp seed {seed}"] = (
+            scene, static, small, ao_cfg,
+            api.RenderSettings(width=AO_RES, height=AO_RES, spp=spp,
+                               spp_per_pass=16, filter_type=0,
+                               sampler_type=SAMPLER_TYPES[name], seed=seed),
+            k12(spp))
+    for name, field in (("position", FIELD_POSITION),
+                        ("albedo", FIELD_ALBEDO)):
+        out[f"field cornell {name}"] = (
+            scene, static, sensor, IntegratorConfig(type=FIELD, field=field),
+            api.RenderSettings(width=FIELD_RES, height=FIELD_RES,
+                               spp=FIELD_SPP, filter_type=0, seed=SEED),
+            {"brute_force_interaction": FIELD_SPP})
+    return out
+
+
+def bunny_ao_case(bunny_scene):
+    """ao on bunny_x2 (lane mode) at 512x512, BUNNY_AO_SPP spp, the default
+    ray length (half the scene's radius), box filter: K3 launches only,
+    K3_PER_AO_SPP per sample; as header_renders' values."""
+    return (*bunny_scene, IntegratorConfig(type=AO),
+            api.RenderSettings(width=W, height=H, spp=BUNNY_AO_SPP,
+                               filter_type=0, seed=SEED),
+            {"lane_chunk": K3_PER_AO_SPP * BUNNY_AO_SPP})
+
+
+def header_phase(dev, cornell_scene):
+    """The scene file's sensor header on the card: header_renders, each
+    held to the JAX package's statistics and its exact K1/K2 launches, the
+    CLI on the ldsampler + Mitchell file, and the ao variance check.
+    Returns the ldsampler render's (scene, static, sensor, cfg) for the
+    profile phase."""
+    ld = "cbox.xml ldsampler mitchell"
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = header_renders(dev, tmp, cornell_scene)
+        log(f"{ld}: {cases[ld][4]}; {cases[ld][3]}")
+        # warm-up: one sample (first-call set-up of the samplers' kernels)
+        scene, static, sensor, cfg, settings, _ = cases[ld]
+        api.render(scene, static, sensor, cfg, dataclasses.replace(
+            settings, spp=1, spp_per_pass=1), device=dev)
+        imgs = {label: header_render(dev, label, *case)
+                for label, case in cases.items()}
+        cli_matches(ld, Path(tmp) / "ldsampler_mitchell.xml",
+                    {"spp": CBOX_SPP, "res": CBOX_RES}, imgs[ld])
+
+    ref = imgs[f"ao cornell independent {AO_REF_SPP} spp seed {AO_REF_SEED}"]
+    mse = {name: float(np.mean([
+        ((imgs[f"ao cornell {name} {AO_SPP} spp seed {k}"] - ref) ** 2)
+        .mean().item() for k in range(AO_SEEDS)]))
+        for name in ("independent", "ldsampler")}
+    ratio = mse["ldsampler"] / mse["independent"]
+    log(f"ao cornell variance: mean squared error against the "
+        f"{AO_REF_SPP}-spp render at {AO_SPP} spp over seeds 0-"
+        f"{AO_SEEDS - 1}: independent {mse['independent']}, ldsampler "
+        f"{mse['ldsampler']}, ratio {ratio} (must be below {AO_LD_GAIN})")
+    if not ratio < AO_LD_GAIN:
+        raise AssertionError(f"ao cornell: the ldsampler's error is {ratio} "
+                             f"of the independent sampler's")
+    return cases[ld][:4]
+
+
+def bunny_ao_phase(dev, bunny_scene):
+    """bunny_ao_case held to the JAX package's statistics and launches."""
+    header_render(dev, "ao bunny_x2", *bunny_ao_case(bunny_scene))
 
 
 @contextlib.contextmanager
@@ -2258,7 +2565,8 @@ def kdbench_phase():
 
 
 def profile_phase(dev, label, scene, static, sensor, spp, cfg=None, size=W,
-                  filter_type=api.RenderSettings.filter_type):
+                  filter_type=api.RenderSettings.filter_type,
+                  sampler_type=api.INDEPENDENT):
     """Device time by kernel over one render pass of ``spp`` samples at
     ``size`` x ``size`` (torch.profiler), through ``cfg`` (the path tracer at
     depth 5 by default). Returns {kernel: (ms, launches)} of the port's
@@ -2269,7 +2577,8 @@ def profile_phase(dev, label, scene, static, sensor, spp, cfg=None, size=W,
     cfg = cfg or IntegratorConfig(type=PATH, max_depth=DEPTH)
     settings = api.RenderSettings(width=size, height=size, spp=spp,
                                   spp_per_pass=spp, seed=SEED,
-                                  filter_type=filter_type)
+                                  filter_type=filter_type,
+                                  sampler_type=sampler_type)
     api.render(scene, static, sensor, cfg, settings, device=dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2289,6 +2598,8 @@ def profile_phase(dev, label, scene, static, sensor, spp, cfg=None, size=W,
         log(f"profile   {us / 1e3:9.3f} ms  {k[:90]}")
     calls_of = {e.key: e.count for e in events
                 if e.device_type == DeviceType.CUDA}
+    log(f"profile   {sum(calls_of.values())} device kernel launches in the "
+        f"pass")
     per_kernel = {}
     for kernel in ("interaction_kernel", "closest_hit_kernel",
                    "lane_packed_kernel", "lane_chunk_kernel",
@@ -2343,6 +2654,8 @@ def main() -> int:
     trainer = train_phase(dev)
     cbox_xml, cornell_direct = scene_file_phase(dev)
     veach = veach_phase(dev)
+    sampler_bits_phase(dev)
+    ld_cbox = header_phase(dev, cornell_scene)
     bunny_scene = bunny(dev)
     bunny_launches, lane_mean, lane_ms = render_phase(
         dev, "bunny", *bunny_scene, BUNNY_EYE, BUNNY_AT, BUNNY_FOV,
@@ -2361,6 +2674,7 @@ def main() -> int:
         log(f"render bunny {label}: mean_rgb difference from PR 3's "
             f"{[a - b for a, b in zip(mean, PR3_BUNNY_MEAN_RGB)]}")
     records["treelet_rounds"]["launches"] = treelet_launches["treelet_rounds"]
+    bunny_ao_phase(dev, bunny_scene)
     kdbench_phase()
     # each kernel's count from the run of the path that drives it
     for name in ("brute_force_interaction", "brute_force_closest_hit"):
@@ -2372,6 +2686,10 @@ def main() -> int:
     profile_phase(dev, "cornell", *cornell_scene, SPP_PER_PASS)
     profile_phase(dev, "cbox.xml", *cbox_xml[:3], 4, cfg=cbox_xml[3],
                   size=CBOX_RES)
+    # the same file's pass with the ldsampler alone changed: the cost of the
+    # low-discrepancy draws
+    profile_phase(dev, "cbox.xml ldsampler", *ld_cbox[:3], 4, cfg=ld_cbox[3],
+                  size=CBOX_RES, sampler_type=api.LDSAMPLER)
     profile_phase(dev, "cornell direct", *cornell_direct[:3], 4,
                   cfg=cornell_direct[3], size=DIRECT_RES)
     profile_phase(dev, "veach_mis", *veach[:3], VEACH_SPP_PER_PASS,

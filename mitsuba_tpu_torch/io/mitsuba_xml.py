@@ -69,17 +69,25 @@ DIELECTRIC_IOR = {
 # the elements of case 3, by the JAX loader's type name, with the ROADMAP.md
 # item (Queue 1) where each lands
 _LATER_INTEGRATORS = {
-    "ao": "3.1", "field": "3.1", "volpath": "3.6", "volpath_simple": "3.6",
+    "volpath": "3.6", "volpath_simple": "3.6",
     "ptracer": "3.9", "bdpt": "3.9", "pssmlt": "3.10", "mlt": "3.10",
     "erpt": "3.10", "vpl": "3.11", "sppm": "3.11", "ppm": "3.11",
     "photonmapper": "3.11", "irrcache": "3.11", "adaptive": "3.12",
     "multichannel": "3.5",
 }
-_INTEGRATORS = {"path": icommon.PATH, "direct": icommon.DIRECT}
-_LATER_SAMPLERS = ("stratified", "ldsampler", "sobol", "halton", "hammersley",
-                   "faure")
-_RFILTERS = {"box": RF.BOX, "gaussian": RF.GAUSSIAN}
-_LATER_RFILTERS = ("tent", "mitchell", "catmullrom", "lanczos")
+_INTEGRATORS = {"path": icommon.PATH, "direct": icommon.DIRECT,
+                "ao": icommon.AO, "field": icommon.FIELD}
+_SAMPLERS = {
+    "independent": api_mod.INDEPENDENT, "stratified": api_mod.STRATIFIED,
+    "ldsampler": api_mod.LDSAMPLER, "sobol": api_mod.SOBOL,
+    "halton": api_mod.HALTON, "hammersley": api_mod.HAMMERSLEY,
+    "faure": api_mod.FAURE,
+}
+_RFILTERS = {
+    "box": RF.BOX, "tent": RF.TENT, "gaussian": RF.GAUSSIAN,
+    "mitchell": RF.MITCHELL, "catmullrom": RF.CATMULLROM,
+    "lanczos": RF.LANCZOS,
+}
 _LATER_SENSORS = ("thinlens", "orthographic", "spherical", "radiancemeter",
                   "irradiancemeter", "fluencemeter")
 _LATER_BSDFS = (
@@ -214,6 +222,7 @@ class XMLSceneLoader:
         self.sensor = None
         self.width, self.height, self.spp = 256, 256, 16
         self.filter_type = RF.GAUSSIAN
+        self.sampler_type = api_mod.INDEPENDENT
         self.tree = ET.parse(path)
 
     def resolve_path(self, p: str) -> str:
@@ -229,7 +238,8 @@ class XMLSceneLoader:
         scene, static = self.builder.build(device=self.device)
         settings = api_mod.RenderSettings(
             width=self.width, height=self.height, spp=self.spp,
-            filter_type=self.filter_type, spp_per_pass=min(4, self.spp),
+            filter_type=self.filter_type, sampler_type=self.sampler_type,
+            spp_per_pass=min(4, self.spp),
         )
         if self.sensor is None:
             self.sensor = sensor_mod.make_perspective(
@@ -299,6 +309,8 @@ class XMLSceneLoader:
             hide_emitters=bool(p.get("hideEmitters", False)),
             emitter_samples=int(p.get("emitterSamples", 1)),
             bsdf_samples=int(p.get("bsdfSamples", 1)),
+            ray_length=float(p.get("rayLength", -1.0)),
+            shading_samples=int(p.get("shadingSamples", 1)),
         )
 
     def _load_sensor(self, node):
@@ -315,16 +327,13 @@ class XMLSceneLoader:
             self.height = int(fp.get("height", dh))
             rf = film.find("rfilter")
             if rf is not None:
-                name = rf.get("type")
-                if name in _LATER_RFILTERS:
-                    raise _later(f"the {name} filter", "3.1")
-                self.filter_type = _RFILTERS.get(name, RF.GAUSSIAN)
+                self.filter_type = _RFILTERS.get(rf.get("type"), RF.GAUSSIAN)
         samp = node.find("sampler")
         if samp is not None:
             sp = _props(samp, self.params)
             self.spp = int(sp.get("sampleCount", 16))
-            if samp.get("type") in _LATER_SAMPLERS:
-                raise _later(f"the {samp.get('type')} sampler", "3.4")
+            self.sampler_type = _SAMPLERS.get(samp.get("type"),
+                                              api_mod.INDEPENDENT)
         to_world = p.get("toWorld", Transform.identity())
         if t == "perspective":
             self.sensor = sensor_mod.make_perspective(

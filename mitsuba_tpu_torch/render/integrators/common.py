@@ -9,14 +9,26 @@ import torch
 from ...core import math as m
 
 # integrator type tags, the JAX package's numbering
+AO = 0
 DIRECT = 1
 PATH = 2
+FIELD = 3
+
+# field integrator AOVs (misc/field.cpp)
+FIELD_POSITION = 0
+FIELD_NORMAL = 1
+FIELD_SH_NORMAL = 2
+FIELD_UV = 3
+FIELD_ALBEDO = 4
+FIELD_DISTANCE = 5
+FIELD_PRIM_INDEX = 6
+FIELD_GEO_NORMAL = 7
 
 
 @dataclass(frozen=True)
 class IntegratorConfig:
-    """Integrator settings (the fields the path tracer and the direct
-    integrator read)."""
+    """Integrator settings (the fields the path tracer and the direct, ao
+    and field integrators read)."""
 
     type: int = PATH
     max_depth: int = 5           # path.cpp maxDepth: 1 = Le only, 2 = direct
@@ -24,6 +36,9 @@ class IntegratorConfig:
     hide_emitters: bool = False  # emitters seen by the camera stay black
     emitter_samples: int = 1     # direct.cpp emitterSamples
     bsdf_samples: int = 1        # direct.cpp bsdfSamples
+    ray_length: float = -1.0     # ao.cpp rayLength; <= 0: scene radius / 2
+    shading_samples: int = 1     # ao.cpp shadingSamples
+    field: int = FIELD_NORMAL    # field.cpp's AOV
 
 
 def mis_power(pdf_a, pdf_b):

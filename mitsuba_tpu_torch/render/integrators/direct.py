@@ -20,12 +20,13 @@ from .. import scene as scene_mod
 from .common import DIM_BASE, IntegratorConfig, mis_power, ray_offset
 
 
-def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
+def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
        with_stats: bool = False):
     """Radiance along primary rays o, d (R, 3). Returns (R, 3), or
     ((R, 3), n_rays) with ``n_rays`` the exact count of issued ray queries
     (the camera rays, the admissible shadow and BSDF rays), an int64 tensor,
-    when ``with_stats``."""
+    when ``with_stats``. ``sampler`` keys the draws: the render's
+    ``rng.Sampler``, or an int seed for the independent sampler."""
     R = o.shape[0]
     dev = o.device
     L = torch.zeros((R, 3), device=dev)
@@ -55,7 +56,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
     dim = DIM_BASE
 
     for _ in range(nE):
-        u = rng_mod.uniform4(seed, pixel, sample, dim)
+        u = rng_mod.uniform4(sampler, pixel, sample, dim)
         dim += 1
         ds = em_mod.sample_direct(scene, static, its.p, u[..., :3])
         ok = active & ds.valid & (ds.pdf_sa > 0)
@@ -74,7 +75,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
         L = L + torch.where((ok & vis)[..., None], contrib, 0.0)
 
     for _ in range(nB):
-        u = rng_mod.uniform4(seed, pixel, sample, dim)
+        u = rng_mod.uniform4(sampler, pixel, sample, dim)
         dim += 1
         bs = bsdf_mod.sample(bl, its.wi, u[..., 0], u[..., 1:3],
                              active_types=types)

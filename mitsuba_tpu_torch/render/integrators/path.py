@@ -31,11 +31,13 @@ def roulette_probability(thr, eta):
     return torch.clamp(torch.amax(thr, dim=-1) * eta * eta, max=0.95).detach()
 
 
-def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
+def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
        with_stats: bool = False, pixel_spread=None):
     """Radiance along primary rays o, d (R, 3). Returns (R, 3), or
     ((R, 3), n_rays) with ``n_rays`` the exact count of issued ray queries
     (closest-hit plus shadow), an int64 tensor, when ``with_stats``.
+    ``sampler`` keys the draws: the render's ``rng.Sampler``, or an int seed
+    for the independent sampler.
 
     ``pixel_spread``: the angular pixel size (radians) for the ray-cone MIP
     footprint of textures at the primary hit; None disables MIP lookups."""
@@ -94,7 +96,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
 
         # --- next event estimation (path.cpp:196-263)
         if static.emitter_types:
-            u_nee = rng_mod.uniform4(seed, pixel, sample, dim0 + DIM_NEE)
+            u_nee = rng_mod.uniform4(sampler, pixel, sample, dim0 + DIM_NEE)
             ds = em_mod.sample_direct(scene, static, its.p, u_nee[..., :3])
             nee_ok = extend & ds.valid & (ds.pdf_sa > 0)
             n_rays = n_rays + nee_ok.sum()
@@ -110,7 +112,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
             L = L + torch.where((nee_ok & vis)[..., None], contrib, 0.0)
 
         # --- BSDF sampling (path.cpp:215-233)
-        u_b = rng_mod.uniform4(seed, pixel, sample, dim0 + DIM_BSDF)
+        u_b = rng_mod.uniform4(sampler, pixel, sample, dim0 + DIM_BSDF)
         bs = bsdf_mod.sample(bl, its.wi, u_b[..., 0], u_b[..., 1:3],
                              active_types=types)
         thr_new = thr * bs.weight
@@ -123,7 +125,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, seed, pixel, sample,
         # --- Russian roulette (path.cpp:276-286), only past rr_depth
         q = roulette_probability(thr_new, eta)
         if depth >= cfg.rr_depth:
-            u_rr = rng_mod.uniform1(seed, pixel, sample, dim0 + DIM_RR)
+            u_rr = rng_mod.uniform1(sampler, pixel, sample, dim0 + DIM_RR)
             survive = u_rr < q
             thr_new = torch.where(survive[..., None],
                                   thr_new * m.safe_div(1.0, q)[..., None],

@@ -422,7 +422,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert len(files) > 20
     for new in ("__main__.py", "io/mitsuba_xml.py", "io/image.py",
                 "utils/logging.py", "render/integrators/direct.py",
-                "core/rtrans.py"):
+                "core/rtrans.py", "core/qmc.py", "core/sobol_table.py",
+                "render/integrators/misc.py"):
         assert REPO / "mitsuba_tpu_torch" / new in files, new
     for f in files:
         for mod in _imports(f):

@@ -46,9 +46,10 @@ REPO = Path(__file__).resolve().parents[1]
 CBOX = str(REPO / "scenes" / "cbox.xml")
 CBOX_DEFINES = {"spp": 4, "res": 8}
 CFG_FIELDS = ("type", "max_depth", "rr_depth", "hide_emitters",
-              "emitter_samples", "bsdf_samples")
-SETTINGS_FIELDS = ("width", "height", "spp", "filter_type", "spp_per_pass",
-                   "seed")
+              "emitter_samples", "bsdf_samples", "ray_length",
+              "shading_samples", "field")
+SETTINGS_FIELDS = ("width", "height", "spp", "filter_type", "sampler_type",
+                   "spp_per_pass", "seed")
 
 # test_io.py:test_xml_include's scene: a sphere (the default gray diffuse,
 # albedo 0.5) under a constant emitter of radiance 1, no triangle
@@ -217,13 +218,9 @@ def _shape_bsdf(bsdf):
 
 CASE3 = {
     **{f"integrator-{t}": f'<integrator type="{t}"/>'
-       for t in ("ao", "field", "volpath", "ptracer", "bdpt", "pssmlt", "mlt",
+       for t in ("volpath", "ptracer", "bdpt", "pssmlt", "mlt",
                  "vpl", "sppm", "photonmapper", "irrcache", "adaptive",
                  "multichannel")},
-    **{f"sampler-{t}": _sensor(f'<sampler type="{t}"/>')
-       for t in ("stratified", "ldsampler", "sobol", "halton")},
-    **{f"rfilter-{t}": _sensor(film=f'<rfilter type="{t}"/>')
-       for t in ("tent", "mitchell", "catmullrom", "lanczos")},
     **{f"sensor-{t}": _sensor(stype=t)
        for t in ("thinlens", "orthographic", "spherical", "radiancemeter",
                  "irradiancemeter")},
@@ -258,6 +255,34 @@ def test_later_slice_elements_raise(tmp_path, case):
     path.write_text(_scene_xml(CASE3[case]))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         txml.load_scene(str(path), device="cpu")
+
+
+# the sensor header's elements, which raised here until the port rendered
+# them: each loads and gives its setting (tests/test_torch_header.py holds
+# every one against the JAX loader)
+HEADER = {
+    "integrator-ao": ('<integrator type="ao"/>', "integrator", "type",
+                      tcommon.AO),
+    "integrator-field": ('<integrator type="field"/>', "integrator", "type",
+                         tcommon.FIELD),
+    **{f"sampler-{t}": (_sensor(f'<sampler type="{t}"/>'), "settings",
+                        "sampler_type", getattr(tapi, t.upper()))
+       for t in ("stratified", "ldsampler", "sobol", "halton", "hammersley",
+                 "faure")},
+    **{f"rfilter-{t}": (_sensor(film=f'<rfilter type="{t}"/>'), "settings",
+                        "filter_type", tag)
+       for t, tag in (("tent", 1), ("mitchell", 3), ("catmullrom", 4),
+                      ("lanczos", 5))},
+}
+
+
+@pytest.mark.parametrize("case", sorted(HEADER))
+def test_sensor_header_elements_load(tmp_path, case):
+    body, part, field_name, value = HEADER[case]
+    path = tmp_path / "s.xml"
+    path.write_text(_scene_xml(body))
+    ls = txml.load_scene(str(path), device="cpu")
+    assert getattr(getattr(ls, part), field_name) == value
 
 
 # --- renders against the JAX package --------------------------------------
