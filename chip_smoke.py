@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each of which raises on failure (no phase is skipped):
+Phases, each of which raises on failure (no phase is skipped), each
+timed (the seconds printed at its end and together before the JSON lines):
   1. print the card's name and power limit (nvidia-smi);
   2. build every CUDA source of the port with nvcc (sm_90a), all at once;
   3. brute-force kernels: hold K1 (brute_force_interaction) and K2
@@ -133,8 +134,9 @@ Phases, each of which raises on failure (no phase is skipped):
      of the JAX package's CPU value (scripts/jax_veach_ref_mean.py);
  9e. the scene file's sensor header: uniform4, uniform2 and the pixel
      positions of every sampler type at 65,536 pixels x 16 samples x
-     dimensions 0-23 on the card against the same functions on the CPU, bit
-     for bit (the draws of exactly 1.0 counted); scenes/cbox.xml with its
+     dimensions 0, 1, 3, 4, 6, 7 and 22 (every branch of the samplers) on
+     the card against the same functions on the CPU, bit for bit (the draws
+     of exactly 1.0 counted); scenes/cbox.xml with its
      sampler and filter replaced (header_xml) through load_scene +
      api.render: the ldsampler and the Mitchell filter at 256x256, 64 spp
      (320 K1 + 320 K2) and the CLI on that file (its EXR equal to the
@@ -154,6 +156,16 @@ Phases, each of which raises on failure (no phase is skipped):
      default ray length, box filter: 7 K3 launches per sample (a resorted
      closest hit and a resorted shadow query: the JAX li_ao presorts
      nothing) and none of the others, held as above;
+ 9f. the material gallery: scenes/cbox.xml with its glass sphere and the
+     classic Cornell short block (a cube, turned -17 degrees) made of one of
+     the nine single-layer BSDFs (gallery_xml: conductor Au, rough dielectric
+     GGX 0.15 and Beckmann 0.3, thin dielectric, rough diffuse, Phong, Ward,
+     difftrans, HK, null), each through load_scene + api.render at 256x256,
+     64 spp, depth 5, Gaussian filter, held to 320 K1 + 320 K2 launches and
+     to the JAX package's CPU mean and tv_rgb within HEADER_MEAN_RTOL and
+     HEADER_TV_RTOL per channel (scripts/jax_header_ref_mean.py), with
+     wall time, ms/spp, rays/s and the peak memory; then the CLI on the HK
+     file, whose EXR must equal the image;
  10. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
      2, seed 0 (bench.py:289-293); checks 10 launches of K4 and 300 of K3
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
@@ -171,8 +183,8 @@ Phases, each of which raises on failure (no phase is skipped):
      treelet and lane-resort kernels report the same hit rate on each batch
      and that K7 and K3 launched as the utility drives them;
  13. profile: one render pass of each scene (the bunny in both BVH modes;
-     4 spp of cbox.xml at 256x256, and of the same file with the ldsampler,
-     of the Cornell direct render at 64x64 and of the Veach MIS path render
+     4 spp of cbox.xml at 256x256, of the same file with the ldsampler and
+     of the gallery's GGX rough dielectric, of the Cornell direct render at 64x64 and of the Veach MIS path render
      at 512x512)
      under torch.profiler, printing the device's busy share of the wall time,
      the pass's device kernel launches, the kernels that take it and each
@@ -408,8 +420,13 @@ HEADER_OTHER_SAMPLERS = ("stratified", "sobol", "halton", "hammersley",
                          "faure")
 HEADER_OTHER_FILTERS = ("tent", "catmullrom", "lanczos")
 HEADER_SPP, HEADER_RES = 16, 128
-# the sampler-bits check: pixels x samples x dimensions per sampler type
-BITS_PIXELS, BITS_SAMPLES, BITS_DIMS = 65536, 16, 24
+# the sampler-bits check: pixels x samples x dimensions per sampler type.
+# The dimensions reach every branch of rng._qmc2: 0 (hammersley's i/N), 1
+# and 3 (below the compaction), 4 (the first compacted one, prime base 5),
+# 6 (the last prime-base dimension), 7 (the first (0,2) one) and 22 (the
+# highest a depth-5 path draws, sobol's dimensions 40-41)
+BITS_PIXELS, BITS_SAMPLES = 65536, 16
+BITS_DIMS = (0, 1, 3, 4, 6, 7, 22)
 # ao on the Cornell box, tests/test_core.py:165's variance check at 128x128:
 # ldsampler's mean squared error against an independent 512-spp render must
 # be below AO_LD_GAIN times the independent sampler's, both at 16 spp,
@@ -485,18 +502,143 @@ HEADER_REF = {
     "field cornell albedo": (
         (0.6041403350492942, 0.5563607621990627, 0.4755961521263714),
         (0.0016849335373485, 0.002121223633882905, 0.002719655882946713)),
+    # the material gallery (phase 9f), scripts/jax_header_ref_mean.py's
+    # gallery renders
+    "gallery conductor": (
+        (0.22035015898003768, 0.16790580956965248,
+         0.07208642256044794),
+        (0.0202424567097491, 0.014168879572407972,
+         0.004686767218360395)),
+    "gallery roughdielectric ggx": (
+        (0.21355376831443776, 0.16668953988824567,
+         0.07535592985857649),
+        (0.01134782503482132, 0.009084258025774575,
+         0.004245123818792361)),
+    "gallery roughdielectric beckmann": (
+        (0.2134476305616821, 0.16653752415069162,
+         0.07528106861267846),
+        (0.011319668122342417, 0.009054071982361715,
+         0.0042256302877637375)),
+    "gallery thindielectric": (
+        (0.21972370126185872, 0.17128105924187623,
+         0.07743872162144318),
+        (0.01577665562485624, 0.01258500540419056,
+         0.00584773715999566)),
+    "gallery roughdiffuse": (
+        (0.21308430590533545, 0.16237243247299193,
+         0.07120084651643853),
+        (0.010512895131504538, 0.008063178030675905,
+         0.0036517819700389717)),
+    "gallery phong": (
+        (0.21019963295185995, 0.16328532952344965,
+         0.07343894071198205),
+        (0.011374355958248535, 0.008972658847127012,
+         0.004191376942762313)),
+    "gallery ward": (
+        (0.20928867138363105, 0.16265959150674617,
+         0.07317904482396649),
+        (0.010836224139934438, 0.008591527030939168,
+         0.0040207549463084575)),
+    "gallery difftrans": (
+        (0.22278693153102663, 0.17338804028470584,
+         0.07817694321716613),
+        (0.011339311111481265, 0.009022356795718453,
+         0.004258389323882226)),
+    "gallery hk": (
+        (0.20403838192461193, 0.15895111894186206,
+         0.07179679091658335),
+        (0.010978833019142417, 0.008691760933636092,
+         0.004065213813902336)),
+    "gallery null": (
+        (0.2203347729023016, 0.17201969499854264,
+         0.07786997805837186),
+        (0.014434126690758302, 0.011421012237216026,
+         0.005297890968912188)),
 }
 # the port on the CPU at these sizes: within 4.9e-6 (mean) and 2.7e-5 (tv)
 # of these values, a flipped lane or lobe choice being the gap; one flipped
 # ao lane at 128x128, 16 spp moves tv by 8.5e-5, so the tv limit leaves room
 # for about ten. A broken sampler, filter or integrator moves one of them by
-# more (PERF.md section 6, PR 13)
+# more (PERF.md section 6, PR 13). The gallery's readings bear the same
+# limits out: the port on the CPU within 3.1e-6 and 3.6e-5, the card within
+# 2.0e-6 and 1.3e-5, and every broken lobe tried past one of them (PR 14)
 HEADER_MEAN_RTOL = 1e-4
 HEADER_TV_RTOL = 1e-3
+# the material gallery (phase 9f): scenes/cbox.xml with its glass sphere's
+# inline BSDF replaced by a reference to one single-layer BSDF, declared once
+# at the top level, which the classic Cornell "short block" (a cube of
+# half-size 82.5 at (185.5, GALLERY_BLOCK_Y, 169), turned -17 degrees about
+# y) shares: each lobe in view through the analytic sphere and through
+# K1/K2's triangles. The block floats 0.5 above the floor: resting on it
+# (y = 82.5), its bottom face shares the floor's plane, and which of the two
+# a lane that passes through the block hits there turns on rounding, in the
+# JAX package as in the port (PERF.md section 6, PR 14). The file's size,
+# depth 5 and Gaussian filter, 64 spp in passes of 4: 5 K1 + 5 K2 launches
+# per sample
+GALLERY_BSDFS = {
+    "conductor": ('<bsdf type="conductor" id="gallery">'
+                  '<string name="material" value="Au"/></bsdf>'),
+    "roughdielectric ggx": (
+        '<bsdf type="roughdielectric" id="gallery">'
+        '<string name="distribution" value="ggx"/>'
+        '<float name="alpha" value="0.15"/>'
+        '<string name="intIOR" value="bk7"/></bsdf>'),
+    "roughdielectric beckmann": (
+        '<bsdf type="roughdielectric" id="gallery">'
+        '<string name="distribution" value="beckmann"/>'
+        '<float name="alpha" value="0.3"/>'
+        '<string name="intIOR" value="bk7"/></bsdf>'),
+    "thindielectric": ('<bsdf type="thindielectric" id="gallery">'
+                       '<string name="intIOR" value="bk7"/></bsdf>'),
+    "roughdiffuse": ('<bsdf type="roughdiffuse" id="gallery">'
+                     '<float name="alpha" value="0.6"/>'
+                     '<rgb name="reflectance" value="0.8, 0.6, 0.3"/></bsdf>'),
+    "phong": ('<bsdf type="phong" id="gallery">'
+              '<float name="exponent" value="40"/>'
+              '<spectrum name="diffuseReflectance" value="0.3"/>'
+              '<spectrum name="specularReflectance" value="0.4"/></bsdf>'),
+    "ward": ('<bsdf type="ward" id="gallery">'
+             '<float name="alphaU" value="0.1"/>'
+             '<float name="alphaV" value="0.35"/>'
+             '<spectrum name="diffuseReflectance" value="0.3"/>'
+             '<spectrum name="specularReflectance" value="0.4"/></bsdf>'),
+    "difftrans": ('<bsdf type="difftrans" id="gallery">'
+                  '<rgb name="transmittance" value="0.7, 0.6, 0.5"/></bsdf>'),
+    "hk": ('<bsdf type="hk" id="gallery">'
+           '<spectrum name="sigmaS" value="1"/>'
+           '<spectrum name="sigmaA" value="0.05"/>'
+           '<float name="thickness" value="1"/>'
+           '<phase type="hg"><float name="g" value="0.3"/></phase></bsdf>'),
+    "null": '<bsdf type="null" id="gallery"/>',
+}
+GALLERY_BLOCK_Y = 83.0
+GALLERY_BLOCK = (
+    '<shape type="cube"><transform name="toWorld">'
+    '<scale value="82.5"/><rotate y="1" angle="-17"/>'
+    '<translate x="185.5" y="{y}" z="169"/></transform>'
+    '<ref id="gallery"/></shape>')
+# the variant that also goes through the CLI
+GALLERY_CLI = "hk"
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+# seconds per phase of main(), in order
+PHASE_SECONDS = {}
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Time the block as the phase ``name``: printed at its end and kept in
+    PHASE_SECONDS."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+        log(f"phase {name}: {PHASE_SECONDS[name]:.1f} s")
 
 
 def card_line() -> str:
@@ -2329,7 +2471,7 @@ def veach_phase(dev):
 def sampler_bits_phase(dev):
     """Every sampler type's draws on the card against the same functions on
     the CPU, bit for bit: uniform4 and uniform2 at BITS_PIXELS pixels x
-    BITS_SAMPLES samples x dimensions 0..BITS_DIMS-1, and the pixel sample
+    BITS_SAMPLES samples x the dimensions BITS_DIMS, and the pixel sample
     positions (the stratified jitter) of each sample. Counts the draws of
     exactly 1.0 (a uint32 word of 2^32 - 128 or more rounds to 2^32)."""
     pix_cpu = torch.arange(BITS_PIXELS, dtype=torch.int64)
@@ -2344,7 +2486,7 @@ def sampler_bits_phase(dev):
         for s in range(BITS_SAMPLES):
             pairs = [(api.pixel_sample_positions(settings, pix, s, smp),
                       api.pixel_sample_positions(settings, pix_cpu, s, smp))]
-            for d in range(BITS_DIMS):
+            for d in BITS_DIMS:
                 for fn in (rng_mod.uniform4, rng_mod.uniform2):
                     pairs.append((fn(smp, pix, s, d), fn(smp, pix_cpu, s, d)))
             for i, (a, b) in enumerate(pairs):
@@ -2357,7 +2499,7 @@ def sampler_bits_phase(dev):
                     ones += int((b == 1.0).sum())
                     values += b.numel()
         log(f"sampler bits {name} ({smp}): {values} values in "
-            f"{BITS_SAMPLES} samples x {BITS_DIMS} dimensions x uniform4 and "
+            f"{BITS_SAMPLES} samples x dimensions {BITS_DIMS} x uniform4 and "
             f"uniform2 at {BITS_PIXELS} pixels, and the pixel positions, "
             f"equal bit for bit on the card and the CPU; {ones} draws of "
             f"exactly 1.0; {time.perf_counter() - t0:.2f} s")
@@ -2450,6 +2592,74 @@ def header_renders(dev, tmp, cornell_scene):
                                spp=FIELD_SPP, filter_type=0, seed=SEED),
             {"brute_force_interaction": FIELD_SPP})
     return out
+
+
+def gallery_xml(variant, block_y=GALLERY_BLOCK_Y, eye_shift=0.0):
+    """scenes/cbox.xml's text with GALLERY_BSDFS[variant] declared at the top
+    level, the glass sphere's inline BSDF replaced by a reference to it, and
+    GALLERY_BLOCK added at height ``block_y`` (scripts/jax_header_ref_mean.py
+    renders the same text). ``eye_shift`` moves the camera along x by that
+    many scene units (the rounding check of PERF.md section 6, PR 14)."""
+    text = CBOX_XML.read_text()
+    eye = 'origin="{x}, 273, -800" target="{x}, 273, -799"'
+    glass = ('<bsdf type="dielectric">\n            <string name="intIOR" '
+             'value="bk7"/>\n        </bsdf>')
+    for old, new in ((eye.format(x=278), eye.format(x=278 + eye_shift)),
+                     (glass, '<ref id="gallery"/>'),
+                     ("<!-- floor -->",
+                      f"{GALLERY_BSDFS[variant]}\n    <!-- floor -->"),
+                     ("<!-- glass sphere -->",
+                      GALLERY_BLOCK.format(y=block_y)
+                      + "\n    <!-- glass sphere -->")):
+        if text.count(old) != 1:
+            raise AssertionError(f"cbox.xml has no single {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def gallery_renders(dev, tmp, **xml):
+    """Every render of the material gallery, by label (``gallery
+    {variant}``): (scene, static, sensor, cfg, settings, expected launches),
+    loaded from ``{tmp}/gallery_{variant}.xml`` with -D spp=64 -D res=256;
+    ``xml`` goes to gallery_xml. scripts/torch_header_stats.py renders the
+    same."""
+    out = {}
+    for variant in GALLERY_BSDFS:
+        path = Path(tmp) / f"gallery_{variant.replace(' ', '_')}.xml"
+        path.write_text(gallery_xml(variant, **xml))
+        ls = mitsuba_xml.load_scene(str(path),
+                                    {"spp": CBOX_SPP, "res": CBOX_RES},
+                                    device=dev)
+        # a closest-hit (K1) and a shadow query (K2) per bounce and sample
+        n = DEPTH * CBOX_SPP
+        out[f"gallery {variant}"] = (
+            ls.scene, ls.static, ls.sensor, ls.integrator, ls.settings,
+            {"brute_force_interaction": n, "brute_force_closest_hit": n})
+    return out
+
+
+def gallery_phase(dev):
+    """The nine single-layer BSDFs on the card: each gallery render held to
+    the JAX package's mean and tv_rgb within HEADER_MEAN_RTOL and
+    HEADER_TV_RTOL and to its exact K1/K2 launches, and the CLI on the
+    GALLERY_CLI file, whose EXR must equal its image. Returns the rough
+    dielectric GGX render's (scene, static, sensor, cfg) for the profile
+    phase."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = gallery_renders(dev, tmp)
+        for label, case in cases.items():
+            log(f"{label}: {case[1]}")
+        # warm-up: one sample of each (first-call set-up of the new lobes)
+        for scene, static, sensor, cfg, settings, _ in cases.values():
+            api.render(scene, static, sensor, cfg, dataclasses.replace(
+                settings, spp=1, spp_per_pass=1), device=dev)
+        imgs = {label: header_render(dev, label, *case)
+                for label, case in cases.items()}
+        cli = GALLERY_CLI.replace(" ", "_")
+        cli_matches(f"gallery {GALLERY_CLI}", Path(tmp) / f"gallery_{cli}.xml",
+                    {"spp": CBOX_SPP, "res": CBOX_RES},
+                    imgs[f"gallery {GALLERY_CLI}"])
+    return cases["gallery roughdielectric ggx"][:4]
 
 
 def bunny_ao_case(bunny_scene):
@@ -2627,55 +2837,74 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
-    logs = build.build_all()
-    log(f"build: {len(logs)} sources compiled in {time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"build {name}: {line.strip()}")
+    with phase("2 build"):
+        logs = build.build_all()
+        log(f"build: {len(logs)} sources compiled")
+        for name, text in logs.items():
+            for line in text.splitlines():
+                if "registers" in line or "spill" in line or "error" in line:
+                    log(f"build {name}: {line.strip()}")
 
-    records = kernel_phase(dev)
-    records.update(bvh_kernel_phase(dev))
-    large, large_launches = large_tier_phase(dev)
-    records.update(large)
+    with phase("3 brute-force kernels"):
+        records = kernel_phase(dev)
+    with phase("4-7 BVH kernels"):
+        records.update(bvh_kernel_phase(dev))
+    with phase("8 large tier"):
+        large, large_launches = large_tier_phase(dev)
+        records.update(large)
 
-    cornell_scene = cornell(dev)
-    launches, _, _ = render_phase(
-        dev, "cornell", *cornell_scene, EYE, AT, FOV, SPP, SPP_PER_PASS,
-        REF_MEAN_RGB, MEAN_RTOL,
-        {"brute_force_interaction": DEPTH * SPP,
-         "brute_force_closest_hit": DEPTH * SPP})
-    live_share_phase(dev, *cornell_scene)
-    trainer = train_phase(dev)
-    cbox_xml, cornell_direct = scene_file_phase(dev)
-    veach = veach_phase(dev)
-    sampler_bits_phase(dev)
-    ld_cbox = header_phase(dev, cornell_scene)
-    bunny_scene = bunny(dev)
-    bunny_launches, lane_mean, lane_ms = render_phase(
-        dev, "bunny", *bunny_scene, BUNNY_EYE, BUNNY_AT, BUNNY_FOV,
-        BUNNY_SPP, BUNNY_SPP_PER_PASS, BUNNY_REF_MEAN_RGB, BUNNY_MEAN_RTOL,
-        {"bvh_traverse_lane_packed": BUNNY_SPP,
-         "lane_chunk": K3_PER_SPP * BUNNY_SPP})
-    with bvh_kernel("treelet"):
-        treelet_launches, tl_mean, tl_ms = render_phase(
-            dev, "bunny treelet", *bunny_scene, BUNNY_EYE, BUNNY_AT,
-            BUNNY_FOV, BUNNY_SPP, BUNNY_SPP_PER_PASS, BUNNY_REF_MEAN_RGB,
-            BUNNY_MEAN_RTOL, {"treelet_rounds": K7_PER_SPP * BUNNY_SPP})
-    log(f"render bunny treelet vs lane: {tl_ms:.3f} against {lane_ms:.3f} "
-        f"ms/spp; mean_rgb difference "
-        f"{[a - b for a, b in zip(tl_mean, lane_mean)]}")
-    for label, mean in (("lane", lane_mean), ("treelet", tl_mean)):
-        log(f"render bunny {label}: mean_rgb difference from PR 3's "
-            f"{[a - b for a, b in zip(mean, PR3_BUNNY_MEAN_RGB)]}")
-    records["treelet_rounds"]["launches"] = treelet_launches["treelet_rounds"]
-    bunny_ao_phase(dev, bunny_scene)
-    kdbench_phase()
+    with phase("9 render"):
+        cornell_scene = cornell(dev)
+        launches, _, _ = render_phase(
+            dev, "cornell", *cornell_scene, EYE, AT, FOV, SPP, SPP_PER_PASS,
+            REF_MEAN_RGB, MEAN_RTOL,
+            {"brute_force_interaction": DEPTH * SPP,
+             "brute_force_closest_hit": DEPTH * SPP})
+        live_share_phase(dev, *cornell_scene)
+    with phase("9b training"):
+        trainer = train_phase(dev)
+    with phase("9c scene files"):
+        cbox_xml, cornell_direct = scene_file_phase(dev)
+    with phase("9d veach"):
+        veach = veach_phase(dev)
+    with phase("9e sampler bits"):
+        sampler_bits_phase(dev)
+    with phase("9e sensor header"):
+        ld_cbox = header_phase(dev, cornell_scene)
+    with phase("9f material gallery"):
+        gallery = gallery_phase(dev)
+    with phase("10 bunny"):
+        bunny_scene = bunny(dev)
+        bunny_launches, lane_mean, lane_ms = render_phase(
+            dev, "bunny", *bunny_scene, BUNNY_EYE, BUNNY_AT, BUNNY_FOV,
+            BUNNY_SPP, BUNNY_SPP_PER_PASS, BUNNY_REF_MEAN_RGB,
+            BUNNY_MEAN_RTOL,
+            {"bvh_traverse_lane_packed": BUNNY_SPP,
+             "lane_chunk": K3_PER_SPP * BUNNY_SPP})
+    with phase("11 treelet render"):
+        with bvh_kernel("treelet"):
+            treelet_launches, tl_mean, tl_ms = render_phase(
+                dev, "bunny treelet", *bunny_scene, BUNNY_EYE, BUNNY_AT,
+                BUNNY_FOV, BUNNY_SPP, BUNNY_SPP_PER_PASS, BUNNY_REF_MEAN_RGB,
+                BUNNY_MEAN_RTOL, {"treelet_rounds": K7_PER_SPP * BUNNY_SPP})
+        log(f"render bunny treelet vs lane: {tl_ms:.3f} against "
+            f"{lane_ms:.3f} ms/spp; mean_rgb difference "
+            f"{[a - b for a, b in zip(tl_mean, lane_mean)]}")
+        for label, mean in (("lane", lane_mean), ("treelet", tl_mean)):
+            log(f"render bunny {label}: mean_rgb difference from the "
+                "canonical-table walk's "
+                f"{[a - b for a, b in zip(mean, PR3_BUNNY_MEAN_RGB)]}")
+        records["treelet_rounds"]["launches"] = \
+            treelet_launches["treelet_rounds"]
+    with phase("9e ao bunny_x2"):
+        bunny_ao_phase(dev, bunny_scene)
+    with phase("12 kdbench"):
+        kdbench_phase()
     # each kernel's count from the run of the path that drives it
     for name in ("brute_force_interaction", "brute_force_closest_hit"):
         records[name]["launches"] = launches[name]
@@ -2683,30 +2912,40 @@ def main() -> int:
         records[name]["launches"] = bunny_launches[name]
     for name in ("lane_hbm", "lane_chunk_hbm"):
         records[name]["launches"] = large_launches[name]
-    profile_phase(dev, "cornell", *cornell_scene, SPP_PER_PASS)
-    profile_phase(dev, "cbox.xml", *cbox_xml[:3], 4, cfg=cbox_xml[3],
-                  size=CBOX_RES)
-    # the same file's pass with the ldsampler alone changed: the cost of the
-    # low-discrepancy draws
-    profile_phase(dev, "cbox.xml ldsampler", *ld_cbox[:3], 4, cfg=ld_cbox[3],
-                  size=CBOX_RES, sampler_type=api.LDSAMPLER)
-    profile_phase(dev, "cornell direct", *cornell_direct[:3], 4,
-                  cfg=cornell_direct[3], size=DIRECT_RES)
-    profile_phase(dev, "veach_mis", *veach[:3], VEACH_SPP_PER_PASS,
-                  cfg=veach[3], filter_type=0)
-    train_profile(trainer)
-    del trainer
-    bunny_profile = profile_phase(dev, "bunny", *bunny_scene,
-                                  BUNNY_SPP_PER_PASS)
-    k4 = records["bvh_traverse_lane_packed"]
-    ms, n = bunny_profile.get("lane_packed_kernel", (None, 0))
-    log(f"K4 render mean {'not measured' if not n else f'{ms / n:.5f}'} ms "
-        f"per launch; on sample 0's camera rays {k4['warm_ms']:.5f} ms back to "
-        f"back, {k4['cold_ms']:.5f} ms with the L2 flushed before each "
-        f"launch (phase 4)")
-    with bvh_kernel("treelet"):
-        profile_phase(dev, "bunny treelet", *bunny_scene, BUNNY_SPP_PER_PASS)
+    with phase("13 profile"):
+        profile_phase(dev, "cornell", *cornell_scene, SPP_PER_PASS)
+        profile_phase(dev, "cbox.xml", *cbox_xml[:3], 4, cfg=cbox_xml[3],
+                      size=CBOX_RES)
+        # the same file's pass with the ldsampler alone changed: the cost
+        # of the low-discrepancy draws
+        profile_phase(dev, "cbox.xml ldsampler", *ld_cbox[:3], 4,
+                      cfg=ld_cbox[3], size=CBOX_RES,
+                      sampler_type=api.LDSAMPLER)
+        # the gallery's rough dielectric, which evaluates both microfacet
+        # distributions on every lane
+        profile_phase(dev, "gallery roughdielectric ggx", *gallery[:3], 4,
+                      cfg=gallery[3], size=CBOX_RES)
+        profile_phase(dev, "cornell direct", *cornell_direct[:3], 4,
+                      cfg=cornell_direct[3], size=DIRECT_RES)
+        profile_phase(dev, "veach_mis", *veach[:3], VEACH_SPP_PER_PASS,
+                      cfg=veach[3], filter_type=0)
+        train_profile(trainer)
+        del trainer
+        bunny_profile = profile_phase(dev, "bunny", *bunny_scene,
+                                      BUNNY_SPP_PER_PASS)
+        k4 = records["bvh_traverse_lane_packed"]
+        ms, n = bunny_profile.get("lane_packed_kernel", (None, 0))
+        log(f"K4 render mean {'not measured' if not n else f'{ms / n:.5f}'} "
+            f"ms per launch; on sample 0's camera rays {k4['warm_ms']:.5f} ms "
+            f"back to back, {k4['cold_ms']:.5f} ms with the L2 flushed before "
+            f"each launch (phase 4)")
+        with bvh_kernel("treelet"):
+            profile_phase(dev, "bunny treelet", *bunny_scene,
+                          BUNNY_SPP_PER_PASS)
 
+    log("phase times (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())
+        + f"; total {time.perf_counter() - t_start:.1f}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records.values()]}))

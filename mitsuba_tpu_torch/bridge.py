@@ -25,7 +25,8 @@ _TRI_FLOAT = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
 _TRI_INT = ("tri_mat", "tri_emitter")
 _SPH_FLOAT = ("sph_center", "sph_radius")
 _SPH_INT = ("sph_mat", "sph_emitter")
-_MAT_FLOAT = ("spec_refl", "spec_trans", "eta", "k", "alpha")
+_MAT_FLOAT = ("spec_refl", "spec_trans", "eta", "k", "alpha", "rt_coef",
+              "rt_fdr", "hk_thickness", "hk_g")
 _ENV_FLOAT = ("env_map", "env_alias", "env_to_world", "env_scale")
 _TEX_FLOAT = ("uv_scale", "uv_offset", "scale", "stack", "mips")
 _TEX_INT = ("type", "bitmap_idx", "stack_hw", "sizes", "mips_hw")
@@ -165,9 +166,7 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
             albedo_tex=_i32(mats["albedo_tex"], dev),
             **{k: _f32(mats[k], dev) for k in _MAT_FLOAT},
             twosided=_bool(mats["twosided"], dev),
-            nonlinear=_bool(mats["nonlinear"], dev),
-            rt_coef=_f32(mats["rt_coef"], dev),
-            rt_fdr=_f32(mats["rt_fdr"], dev)),
+            nonlinear=_bool(mats["nonlinear"], dev)),
         textures=tex_mod.TextureTable(
             **{k: _f32(texs[k], dev) for k in _TEX_FLOAT},
             **{k: _i32(texs[k], dev) for k in _TEX_INT}),

@@ -47,3 +47,15 @@ def sin_theta(w):
 
 def tan_theta(w):
     return m.safe_div(sin_theta(w), w[..., 2])
+
+
+def sin_phi(w):
+    st = sin_theta(w)
+    return torch.where(st > 1e-9,
+                       torch.clamp(m.safe_div(w[..., 1], st), -1.0, 1.0), 0.0)
+
+
+def cos_phi(w):
+    st = sin_theta(w)
+    return torch.where(st > 1e-9,
+                       torch.clamp(m.safe_div(w[..., 0], st), -1.0, 1.0), 1.0)

@@ -90,11 +90,8 @@ _RFILTERS = {
 }
 _LATER_SENSORS = ("thinlens", "orthographic", "spherical", "radiancemeter",
                   "irradiancemeter", "fluencemeter")
-_LATER_BSDFS = (
-    "mask", "roughdiffuse", "thindielectric", "roughdielectric", "conductor",
-    "phong", "ward", "difftrans", "mixturebsdf",
-    "blendbsdf", "coating", "roughcoating", "hk", "irawan", "normalmap",
-    "bumpmap", "null")
+_LATER_BSDFS = ("mask", "mixturebsdf", "blendbsdf", "coating",
+                "roughcoating", "irawan", "normalmap", "bumpmap")
 _LATER_TEXTURES = ("checkerboard", "gridtexture", "scale")
 _LATER_EMITTERS = {"point": "3.3", "directional": "3.3", "spot": "3.3",
                    "collimated": "3.3", "sunsky": "3.8", "sky": "3.8",
@@ -405,21 +402,33 @@ class XMLSceneLoader:
                                                    (0.5,) * 3)
             return self.builder.add_material(type=B.DIFFUSE, albedo=refl,
                                              albedo_tex=tex, twosided=twosided)
-        if t == "dielectric":
+        if t == "roughdiffuse":
+            refl, tex = self._texture_ref_or_value(node, p, "reflectance",
+                                                   (0.5,) * 3)
+            a = p.get("alpha", 0.2)
+            if isinstance(a, tuple):
+                a = a[0]
+            return self.builder.add_material(
+                type=B.ROUGH_DIFFUSE, albedo=refl, albedo_tex=tex,
+                alpha=(float(a),) * 2, twosided=twosided)
+        if t in ("dielectric", "thindielectric", "roughdielectric"):
             int_ior = ior_of("intIOR", "bk7")
             ext_ior = ior_of("extIOR", "air")
+            ty = {"dielectric": B.DIELECTRIC,
+                  "thindielectric": B.THIN_DIELECTRIC,
+                  "roughdielectric": B.ROUGH_DIELECTRIC}[t]
             return self.builder.add_material(
-                type=B.DIELECTRIC, eta=int_ior / ext_ior,
+                type=ty, eta=int_ior / ext_ior,
                 spec_refl=p.get("specularReflectance", (1.0,) * 3),
                 spec_trans=p.get("specularTransmittance", (1.0,) * 3),
                 alpha=(alpha_u, alpha_v), dist=dist,
             )
-        if t == "roughconductor":
+        if t in ("conductor", "roughconductor"):
             eta, k = CONDUCTOR_IOR.get(p.get("material", "cu").lower(),
                                        CONDUCTOR_IOR["cu"])
             return self.builder.add_material(
-                type=B.ROUGH_CONDUCTOR, eta=p.get("eta", eta),
-                k=p.get("k", k),
+                type=B.CONDUCTOR if t == "conductor" else B.ROUGH_CONDUCTOR,
+                eta=p.get("eta", eta), k=p.get("k", k),
                 spec_refl=p.get("specularReflectance", (1.0,) * 3),
                 alpha=(alpha_u, alpha_v), dist=dist, twosided=twosided,
             )
@@ -434,6 +443,45 @@ class XMLSceneLoader:
                 alpha=(alpha_u, alpha_v), dist=dist,
                 nonlinear=bool(p.get("nonlinear", False)), twosided=twosided,
             )
+        if t == "phong":
+            refl, tex = self._texture_ref_or_value(node, p, "diffuseReflectance",
+                                                   (0.5,) * 3)
+            # the exponent n is stored as alpha = sqrt(2 / (n + 2))
+            a = float(np.sqrt(2.0 / (float(p.get("exponent", 30.0)) + 2.0)))
+            return self.builder.add_material(
+                type=B.PHONG, albedo=refl, albedo_tex=tex,
+                spec_refl=p.get("specularReflectance", (0.2,) * 3),
+                alpha=(a, a), twosided=twosided)
+        if t == "ward":
+            refl, tex = self._texture_ref_or_value(node, p, "diffuseReflectance",
+                                                   (0.5,) * 3)
+            return self.builder.add_material(
+                type=B.WARD, albedo=refl, albedo_tex=tex,
+                spec_refl=p.get("specularReflectance", (0.2,) * 3),
+                alpha=(alpha_u, alpha_v), twosided=twosided)
+        if t == "difftrans":
+            # the JAX loader stores the transmittance in the albedo column,
+            # while the lobe reads spec_trans (default 1): the port does the
+            # same, so both render a scene file's difftrans alike
+            refl, tex = self._texture_ref_or_value(node, p, "transmittance",
+                                                   (0.5,) * 3)
+            return self.builder.add_material(type=B.DIFFTRANS, albedo=refl,
+                                             albedo_tex=tex)
+        if t == "hk":
+            ss = np.broadcast_to(
+                np.asarray(p.get("sigmaS", (1.0,) * 3), np.float64), (3,))
+            sa = np.broadcast_to(
+                np.asarray(p.get("sigmaA", (0.05,) * 3), np.float64), (3,))
+            g = 0.0
+            ph = node.find("phase")
+            if ph is not None and ph.get("type") == "hg":
+                g = float(_props(ph, self.params).get("g", 0.0))
+            # sigma_s in the albedo column, sigma_t in k
+            return self.builder.add_material(
+                type=B.HK, albedo=tuple(ss), k=tuple(ss + sa),
+                hk_thickness=float(p.get("thickness", 1.0)), hk_g=g)
+        if t == "null":
+            return self.builder.add_material(type=B.NULL)
         raise ValueError(f"unsupported bsdf type '{t}'")
 
     def _shape_material(self, node) -> int:

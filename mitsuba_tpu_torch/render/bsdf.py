@@ -1,6 +1,9 @@
 """BSDFs with masked type dispatch (port of ``mitsuba_tpu/render/bsdf.py``:
-the DIFFUSE lobe, the smooth DIELECTRIC, the ROUGH_CONDUCTOR microfacet lobe,
-and the PLASTIC and ROUGH_PLASTIC two-lobe models).
+every single-layer type: the diffuse, rough diffuse (Oren-Nayar), Phong,
+Ward, diffuse-transmitter and Hanrahan-Krueger lobes, the smooth and thin
+dielectrics, the smooth conductor and the null pass-through as delta lobes,
+the rough conductor and rough dielectric microfacet lobes, and the PLASTIC
+and ROUGH_PLASTIC two-lobe models).
 
 Conventions follow the JAX package: unit directions in the local shading
 frame (+Z = normal), ``wi`` toward the previous vertex; ``eval`` returns
@@ -8,35 +11,53 @@ f(wi, wo)·|cos θo|, ``pdf`` the solid-angle density of ``sample``, and
 ``sample`` (wo, weight = f·|cos θo|/pdf, pdf, is_delta, eta). Every type
 present in the scene is evaluated for the whole batch and selected per lane
 with ``where``; a rough lobe evaluates both microfacet distributions and
-picks one per lane (``_dist_mix``). The smooth dielectric is a delta lobe:
-``eval`` and ``pdf`` are 0 on it and only ``sample`` reaches it; so is the
-smooth plastic's specular lobe, which ``sample`` chooses with the
-probability ``_plastic_spec_prob``. The rough plastic's diffuse lobe reads
-the rough-transmittance polynomial that the builder bakes per material
-(``core/rtrans.py``). Other types land in a later slice.
+picks one per lane (``_dist_mix``). The delta lobes are 0 in ``eval`` and
+``pdf`` and only ``sample`` reaches them; so are the smooth plastic's
+specular lobe, which ``sample`` chooses with the probability
+``_plastic_spec_prob``, and the Hanrahan-Krueger slab's unscattered
+transmission, chosen per lane with its luminance. The rough plastic's
+diffuse lobe reads the rough-transmittance polynomial that the builder bakes
+per material (``core/rtrans.py``). The nested and layered types (mask,
+mixture, blend, coating, rough coating, irawan) land in a later slice.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
+from ..core import frame as fr
 from ..core import math as m
 from ..core import warp
+from ..core.frame import Frame
 from . import microfacet as mf
 
 # type tags, the JAX package's numbering
 DIFFUSE = 0
 DIELECTRIC = 1
+CONDUCTOR = 2
 ROUGH_CONDUCTOR = 3
 PLASTIC = 4
 ROUGH_PLASTIC = 5
+ROUGH_DIELECTRIC = 6
+THIN_DIELECTRIC = 7
+ROUGH_DIFFUSE = 8   # Oren-Nayar
+PHONG = 9
+WARD = 10
+NULL = 11
+DIFFTRANS = 15      # diffuse transmitter (difftrans.cpp)
+HK = 17             # Hanrahan-Krueger single-scattering slab (hk.cpp)
 
-SUPPORTED_TYPES = (DIFFUSE, DIELECTRIC, ROUGH_CONDUCTOR, PLASTIC,
-                   ROUGH_PLASTIC)
-# the types that read the scalar IOR, and those that read the plastic's
-# columns (gathered only where such a lane can be)
-_ETA_S_TYPES = (DIELECTRIC, PLASTIC, ROUGH_PLASTIC)
+SUPPORTED_TYPES = (DIFFUSE, DIELECTRIC, CONDUCTOR, ROUGH_CONDUCTOR, PLASTIC,
+                   ROUGH_PLASTIC, ROUGH_DIELECTRIC, THIN_DIELECTRIC,
+                   ROUGH_DIFFUSE, PHONG, WARD, NULL, DIFFTRANS, HK)
+# the types that read each column that only some types read (gathered only
+# where such a lane can be)
+_SPEC_TRANS_TYPES = (DIELECTRIC, ROUGH_DIELECTRIC, THIN_DIELECTRIC,
+                     DIFFTRANS)
+_ETA_S_TYPES = (DIELECTRIC, PLASTIC, ROUGH_PLASTIC, ROUGH_DIELECTRIC,
+                THIN_DIELECTRIC)
 _PLASTIC_TYPES = (PLASTIC, ROUGH_PLASTIC)
 
 
@@ -60,6 +81,10 @@ class MaterialTable(NamedTuple):
     # baked at build (core/rtrans.py); zeros on other rows
     rt_coef: torch.Tensor     # (M, 6)
     rt_fdr: torch.Tensor      # (M,)
+    # the HK slab's thickness and Henyey-Greenstein g (its k column holds
+    # sigma_t, its albedo sigma_s)
+    hk_thickness: torch.Tensor  # (M,)
+    hk_g: torch.Tensor          # (M,)
 
 
 class BsdfLocals(NamedTuple):
@@ -74,13 +99,15 @@ class BsdfLocals(NamedTuple):
     k_c: torch.Tensor        # (R, 3)
     alpha: torch.Tensor      # (R, 2)
     twosided: torch.Tensor   # (R,) bool
-    # the dielectric's and the plastics' columns; None where no lane can
-    # read them (the scene has no such type)
-    spec_trans: torch.Tensor = None  # (R, 3) dielectric
+    # the columns that only some types read; None where no lane can read
+    # them (the scene has no such type)
+    spec_trans: torch.Tensor = None  # (R, 3) dielectrics, difftrans
     eta_s: torch.Tensor = None       # (R,) scalar IOR int/ext
     nonlinear: torch.Tensor = None   # (R,) bool, plastics
     rt_coef: torch.Tensor = None     # (R, 6) rough plastic
     rt_fdr: torch.Tensor = None      # (R,) rough plastic
+    hk_thickness: torch.Tensor = None  # (R,) HK
+    hk_g: torch.Tensor = None          # (R,) HK
 
 
 class BsdfSample(NamedTuple):
@@ -105,7 +132,7 @@ def gather_locals(table: MaterialTable, mat_id, types,
                     albedo=albedo, spec_refl=table.spec_refl[mid],
                     eta_c=eta_c, k_c=table.k[mid], alpha=table.alpha[mid],
                     twosided=table.twosided[mid])
-    if DIELECTRIC in types:
+    if any(t in types for t in _SPEC_TRANS_TYPES):
         bl = bl._replace(spec_trans=table.spec_trans[mid])
     if any(t in types for t in _ETA_S_TYPES):
         bl = bl._replace(eta_s=eta_c[..., 0])
@@ -113,6 +140,9 @@ def gather_locals(table: MaterialTable, mat_id, types,
         bl = bl._replace(nonlinear=table.nonlinear[mid])
     if ROUGH_PLASTIC in types:
         bl = bl._replace(rt_coef=table.rt_coef[mid], rt_fdr=table.rt_fdr[mid])
+    if HK in types:
+        bl = bl._replace(hk_thickness=table.hk_thickness[mid],
+                         hk_g=table.hk_g[mid])
     return bl
 
 
@@ -123,14 +153,24 @@ def _check_types(types):
                 f"BSDF type {t} lands in a later slice of the port")
 
 
+def _mirror(wi):
+    return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+
+
+def _z_scale(sgn):
+    """(1, 1, sgn) per lane: scales a direction's z by ``sgn``."""
+    return torch.stack([torch.ones_like(sgn), torch.ones_like(sgn), sgn],
+                       dim=-1)
+
+
 def _flip_twosided(bl: BsdfLocals, wi, wo=None):
     """twosided.cpp: when the incident ray arrives from below, flip the frame
     so one-sided models see the upper hemisphere. The dielectric has two
     sides by nature and is never flipped (the JAX loader never marks it
-    two-sided; a row the builder marks so keeps its side here too)."""
+    two-sided; a row the builder marks so keeps its side here too). Every
+    other two-sided row flips, as in the JAX package."""
     flip = bl.twosided & (wi[..., 2] < 0.0) & (bl.type != DIELECTRIC)
-    sgn = torch.where(flip, -1.0, 1.0)[..., None]
-    zflip = torch.cat([torch.ones_like(sgn), torch.ones_like(sgn), sgn], dim=-1)
+    zflip = _z_scale(torch.where(flip, -1.0, 1.0))
     wi_f = wi * zflip
     if wo is None:
         return wi_f, zflip
@@ -159,13 +199,41 @@ def _diffuse_sample(bl, wi, u_lobe, u2):
             torch.ones(sh, device=wi.device))
 
 
+def _rough_diffuse_eval(bl, wi, wo):
+    """Oren-Nayar's qualitative model (roughdiffuse.cpp fast mode), sigma =
+    alpha / sqrt(2) as the reference converts it. Sampled through the
+    cosine lobe."""
+    ok = (wi[..., 2] > 0) & (wo[..., 2] > 0)
+    sigma = bl.alpha[..., 0] * 0.70710678
+    sigma2 = sigma * sigma
+    a = 1.0 - sigma2 / (2.0 * (sigma2 + 0.33))
+    b = 0.45 * sigma2 / (sigma2 + 0.09)
+    st_i, st_o = fr.sin_theta(wi), fr.sin_theta(wo)
+    cos_dphi = (fr.cos_phi(wi) * fr.cos_phi(wo)
+                + fr.sin_phi(wi) * fr.sin_phi(wo))
+    sin_alpha = torch.maximum(st_i, st_o)
+    tan_beta = torch.minimum(m.safe_div(st_i, torch.abs(wi[..., 2])),
+                             m.safe_div(st_o, torch.abs(wo[..., 2])))
+    val = a + b * torch.clamp(cos_dphi, min=0.0) * sin_alpha * tan_beta
+    f = bl.albedo * (warp.INV_PI * val
+                     * torch.clamp(wo[..., 2], min=0.0))[..., None]
+    return torch.where(ok[..., None], f, 0.0)
+
+
+def _rough_diffuse_sample(bl, wi, u_lobe, u2):
+    wo, _, pdf, is_delta, eta = _diffuse_sample(bl, wi, u_lobe, u2)
+    f = _rough_diffuse_eval(bl, wi, wo)
+    weight = m.safe_div(f, torch.clamp(pdf, min=1e-9)[..., None])
+    return wo, weight, pdf, is_delta, eta
+
+
 def _dielectric_sample(bl, wi, u_lobe, u2):
     """Smooth dielectric (dielectric.cpp): reflect or refract, chosen by
     Fresnel. Two-sided by nature: the side comes from the sign of cos θi."""
     ci = wi[..., 2]
     F, cos_t = m.fresnel_dielectric(ci, bl.eta_s)
     reflect = u_lobe < F
-    wo_r = torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+    wo_r = _mirror(wi)
     # in the local frame Snell's law scales the tangent components
     rel_eta = torch.where(ci >= 0, bl.eta_s, 1.0 / bl.eta_s)
     scale = -1.0 / rel_eta
@@ -181,6 +249,44 @@ def _dielectric_sample(bl, wi, u_lobe, u2):
     return (wo, weight, torch.clamp(pdf, min=1e-12),
             torch.ones(ci.shape, dtype=torch.bool, device=wi.device),
             eta_ratio)
+
+
+def _thin_dielectric_sample(bl, wi, u_lobe, u2):
+    """thindielectric.cpp: a thin slab. The internal bounces fold into
+    R' = 2F / (1 + F); the transmission leaves the direction unchanged
+    (wo = -wi, eta 1)."""
+    ci = torch.abs(wi[..., 2])
+    F, _ = m.fresnel_dielectric(ci, bl.eta_s)
+    R = torch.where(F < 1.0, 2.0 * F / (1.0 + F), 1.0)
+    reflect = u_lobe < R
+    wo_r = _mirror(wi)
+    wo = torch.where(reflect[..., None], wo_r, -wi)
+    weight = torch.where(reflect[..., None], bl.spec_refl, bl.spec_trans)
+    pdf = torch.where(reflect, R, 1.0 - R)
+    return (wo, weight, torch.clamp(pdf, min=1e-12),
+            torch.ones(ci.shape, dtype=torch.bool, device=wi.device),
+            torch.ones(ci.shape, device=wi.device))
+
+
+def _conductor_sample(bl, wi, u_lobe, u2):
+    """conductor.cpp: the mirror direction, tinted by the conductor's
+    Fresnel term."""
+    ok = wi[..., 2] > 0
+    wo = _mirror(wi)
+    F = m.fresnel_conductor(wi[..., 2], bl.eta_c, bl.k_c)
+    weight = torch.where(ok[..., None], bl.spec_refl * F, 0.0)
+    return (wo, weight, torch.where(ok, 1.0, 0.0),
+            torch.ones(ok.shape, dtype=torch.bool, device=wi.device),
+            torch.ones(ok.shape, device=wi.device))
+
+
+def _null_sample(bl, wi, u_lobe, u2):
+    """null.cpp: the ray passes through unchanged."""
+    sh = wi.shape[:-1]
+    dev = wi.device
+    return (-wi, torch.ones(sh + (3,), device=dev), torch.ones(sh, device=dev),
+            torch.ones(sh, dtype=torch.bool, device=dev),
+            torch.ones(sh, device=dev))
 
 
 def _rough_conductor_f(bl, dist: int, wi, wo):
@@ -290,7 +396,7 @@ def _plastic_sample(bl, wi, u_lobe, u2):
     choose_spec = u_lobe < p_spec
     Fi = _smooth_fresnel(bl, wi[..., 2])
 
-    wo_spec = torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+    wo_spec = _mirror(wi)
     w_spec = bl.spec_refl * m.safe_div(
         Fi, torch.clamp(p_spec, min=1e-9))[..., None]
 
@@ -365,6 +471,334 @@ def _rough_plastic_sample(bl, dist: int, wi, u_lobe, u2):
             torch.ones(sh, device=wi.device))
 
 
+def _dielectric_half_vector(bl, wi, wo):
+    """The rough dielectric's half vector, turned into the upper hemisphere:
+    the standard one for a reflection, the generalized one for a
+    refraction. Returns (mh, is_reflect, rel_eta)."""
+    ci, co = wi[..., 2], wo[..., 2]
+    is_reflect = ci * co > 0
+    rel_eta = torch.where(ci > 0, bl.eta_s, 1.0 / bl.eta_s)
+    mh_r = m.normalize(wi + wo)
+    mh_t = m.normalize(-(wi + wo * rel_eta[..., None]))
+    mh = torch.where(is_reflect[..., None], mh_r, mh_t)
+    return mh * torch.sign(mh[..., 2:3]), is_reflect, rel_eta
+
+
+def _rough_dielectric_eval(bl, dist: int, wi, wo):
+    """roughdielectric.cpp: D G F / (4 |cos θi|) in reflection, the
+    generalized half vector's transmission term with the 1/eta^2 radiance
+    scale in refraction. mh is upper-oriented, so dot(wi, mh) is the signed
+    cosine: negative from inside, where the Fresnel term takes 1/eta."""
+    au, av = bl.alpha[..., 0], bl.alpha[..., 1]
+    ci = wi[..., 2]
+    mh, is_reflect, rel_eta = _dielectric_half_vector(bl, wi, wo)
+    D = mf.eval_d(dist, au, av, mh)
+    G = mf.smith_g(dist, au, av, wi, wo, mh)
+    F = _smooth_fresnel(bl, m.dot(wi, mh))
+    f_r = m.safe_div(D * G * F, 4.0 * torch.abs(ci))
+    dot_i, dot_o = m.dot(wi, mh), m.dot(wo, mh)
+    sqrt_denom = dot_i + rel_eta * dot_o
+    f_t = m.safe_div(
+        (1.0 - F) * D * G * torch.abs(dot_i * dot_o) * rel_eta * rel_eta,
+        torch.abs(ci) * sqrt_denom * sqrt_denom)
+    f_t = f_t / (rel_eta * rel_eta)
+    f = torch.where(is_reflect, f_r, f_t)
+    tint = torch.where(is_reflect[..., None], bl.spec_refl, bl.spec_trans)
+    return tint * torch.clamp(f, min=0.0)[..., None]
+
+
+def _rough_dielectric_pdf(bl, dist: int, wi, wo):
+    """The density of ``_rough_dielectric_sample``, with the physical
+    checks that eval gets through Smith's G: wi sees the front of the
+    microfacet, and a reflection keeps wo on wi's side of mh while a
+    refraction crosses it."""
+    au, av = bl.alpha[..., 0], bl.alpha[..., 1]
+    ci = wi[..., 2]
+    mh, is_reflect, rel_eta = _dielectric_half_vector(bl, wi, wo)
+    wi_up = wi * torch.sign(ci)[..., None]
+    p_m = mf.pdf(dist, au, av, wi_up, mh)
+    F = _smooth_fresnel(bl, m.dot(wi, mh))
+    dot_i, dot_o = m.dot(wi, mh), m.dot(wo, mh)
+    front = dot_i * ci > 0
+    side = torch.where(is_reflect, dot_i * dot_o > 0, dot_i * dot_o < 0)
+    jac_r = m.safe_div(1.0, 4.0 * torch.abs(dot_o))
+    sqrt_denom = dot_i + rel_eta * dot_o
+    jac_t = m.safe_div(rel_eta * rel_eta * torch.abs(dot_o),
+                       sqrt_denom * sqrt_denom)
+    prob = torch.where(is_reflect, F, 1.0 - F)
+    pdf_val = prob * p_m * torch.where(is_reflect, jac_r, jac_t)
+    return torch.where(front & side, torch.clamp(pdf_val, min=0.0), 0.0)
+
+
+def _rough_dielectric_sample(bl, dist: int, wi, u_lobe, u2):
+    """A visible normal from wi's side, then reflect or refract about it,
+    chosen by its Fresnel term; never a delta."""
+    au, av = bl.alpha[..., 0], bl.alpha[..., 1]
+    eta = bl.eta_s
+    ci = wi[..., 2]
+    sgn = torch.sign(ci)[..., None]
+    mh_up, _ = mf.sample(dist, au, av, wi * sgn, u2)
+    mh = mh_up * sgn  # back to wi's hemisphere
+    F, _ = m.fresnel_dielectric(m.dot(wi, mh) * torch.sign(ci), eta)
+    reflect = u_lobe < F
+    wo_r = m.reflect(wi, mh)
+    rel_eta = torch.where(ci > 0, eta, 1.0 / eta)
+    valid_t, wo_t = m.refract(wi, mh, rel_eta)
+    wo = torch.where(reflect[..., None], wo_r, wo_t)
+    eta_ratio = torch.where(reflect, 1.0, rel_eta)
+    pdf = _rough_dielectric_pdf(bl, dist, wi, wo)
+    f = _rough_dielectric_eval(bl, dist, wi, wo)
+    # a reflection stays on wi's side, a refraction crosses
+    side_ok = torch.where(reflect, ci * wo[..., 2] > 0, ci * wo[..., 2] < 0)
+    ok = (pdf > 1e-12) & side_ok & (reflect | valid_t)
+    weight = torch.where(ok[..., None], m.safe_div(
+        f, torch.clamp(pdf, min=1e-12)[..., None]), 0.0)
+    return (wo, weight, torch.where(ok, pdf, 0.0),
+            torch.zeros(ok.shape, dtype=torch.bool, device=wi.device),
+            torch.where(ok, eta_ratio, 1.0))
+
+
+def _glossy_prob(bl):
+    """The probability of a glossy model's specular lobe: its share of the
+    two lobes' luminance (phong.cpp, ward.cpp)."""
+    spec_w = _lum(bl.spec_refl)
+    diff_w = _lum(bl.albedo)
+    return m.safe_div(spec_w, torch.clamp(spec_w + diff_w, min=1e-9))
+
+
+def _phong_exponent(bl):
+    """The loader stores Phong's exponent as alpha = sqrt(2 / (n + 2))."""
+    a = torch.clamp(bl.alpha[..., 0], min=1e-4)
+    return torch.clamp(2.0 / (a * a) - 2.0, min=1.0)
+
+
+def _phong_eval(bl, wi, wo):
+    """phong.cpp: the normalized cos^n lobe about the mirror direction over
+    a Lambertian base."""
+    ok = (wi[..., 2] > 0) & (wo[..., 2] > 0)
+    n = _phong_exponent(bl)
+    cos_a = torch.clamp(m.dot(wo, _mirror(wi)), min=0.0)
+    spec = bl.spec_refl * ((n + 2.0) * warp.INV_TWOPI
+                           * torch.pow(cos_a, n))[..., None]
+    diff = bl.albedo * warp.INV_PI
+    f = (spec + diff) * torch.clamp(wo[..., 2], min=0.0)[..., None]
+    return torch.where(ok[..., None], f, 0.0)
+
+
+def _phong_pdf(bl, wi, wo):
+    ok = (wi[..., 2] > 0) & (wo[..., 2] > 0)
+    n = _phong_exponent(bl)
+    cos_a = torch.clamp(m.dot(wo, _mirror(wi)), min=0.0)
+    ps = _glossy_prob(bl)
+    pdf_s = (n + 1.0) * warp.INV_TWOPI * torch.pow(cos_a, n)
+    pdf_d = warp.square_to_cosine_hemisphere_pdf(wo)
+    return torch.where(ok, ps * pdf_s + (1.0 - ps) * pdf_d, 0.0)
+
+
+def _phong_sample(bl, wi, u_lobe, u2):
+    """The cos^n lobe about the mirror direction, or the cosine lobe; the
+    weight is f / pdf of the mixture."""
+    ok = wi[..., 2] > 0
+    n = _phong_exponent(bl)
+    choose_spec = u_lobe < _glossy_prob(bl)
+    ct = torch.pow(torch.clamp(u2[..., 0], 1e-7, 1.0), 1.0 / (n + 1.0))
+    st = m.safe_sqrt(1.0 - ct * ct)
+    phi = 2.0 * math.pi * u2[..., 1]
+    local = torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct],
+                        dim=-1)
+    wo_spec = Frame.from_normal(_mirror(wi)).to_world(local)
+    wo_diff = warp.square_to_cosine_hemisphere(u2)
+    wo = torch.where(choose_spec[..., None], wo_spec, wo_diff)
+    return _mixture_sample(bl, wi, wo, ok, _phong_pdf, _phong_eval)
+
+
+def _mixture_sample(bl, wi, wo, ok, pdf_fn, eval_fn):
+    """(wo, f / pdf, pdf, no delta, eta 1) of a two-lobe model's sampled
+    direction, dead where the pdf is 0 or wo lies below the surface."""
+    pdf = pdf_fn(bl, wi, wo)
+    f = eval_fn(bl, wi, wo)
+    ok = ok & (pdf > 1e-12) & (wo[..., 2] > 0)
+    weight = torch.where(ok[..., None], m.safe_div(
+        f, torch.clamp(pdf, min=1e-12)[..., None]), 0.0)
+    return (wo, weight, torch.where(ok, pdf, 0.0),
+            torch.zeros(ok.shape, dtype=torch.bool, device=wi.device),
+            torch.ones(ok.shape, device=wi.device))
+
+
+def _ward_alpha(bl):
+    return (torch.clamp(bl.alpha[..., 0], min=1e-4),
+            torch.clamp(bl.alpha[..., 1], min=1e-4))
+
+
+def _ward_spec(bl, wi, wo):
+    """The anisotropic Ward-Duer specular term (ward.cpp, variant 'ward'),
+    without the cosine: alpha_u along the frame's s, alpha_v along t."""
+    au, av = _ward_alpha(bl)
+    h = wi + wo
+    hz2 = h[..., 2] * h[..., 2]
+    exponent = -m.safe_div((h[..., 0] / au) ** 2 + (h[..., 1] / av) ** 2,
+                           torch.clamp(hz2, min=1e-12))
+    ci, co = wi[..., 2], wo[..., 2]
+    denom = 4.0 * math.pi * au * av * m.sqrt(torch.clamp(ci * co, min=1e-12))
+    return m.safe_div(torch.exp(exponent), denom)
+
+
+def _ward_eval(bl, wi, wo):
+    ok = (wi[..., 2] > 0) & (wo[..., 2] > 0)
+    spec = bl.spec_refl * _ward_spec(bl, wi, wo)[..., None]
+    diff = bl.albedo * warp.INV_PI
+    f = (spec + diff) * torch.clamp(wo[..., 2], min=0.0)[..., None]
+    return torch.where(ok[..., None], f, 0.0)
+
+
+def _ward_pdf_spec(bl, wi, wo):
+    """The half vector's Gaussian density, mapped to wo: p(h) = exp(.) /
+    (pi au av hz^3), dwo = 4 (h.wi) dh."""
+    au, av = _ward_alpha(bl)
+    h = m.normalize(wi + wo)
+    hz = torch.clamp(h[..., 2], min=1e-6)
+    exponent = -((h[..., 0] / au) ** 2 + (h[..., 1] / av) ** 2) / (hz * hz)
+    p_h = m.safe_div(torch.exp(exponent), math.pi * au * av * hz ** 3)
+    return m.safe_div(p_h, 4.0 * torch.abs(m.dot(h, wi)))
+
+
+def _ward_pdf(bl, wi, wo):
+    ok = (wi[..., 2] > 0) & (wo[..., 2] > 0)
+    ps = _glossy_prob(bl)
+    pdf = (ps * _ward_pdf_spec(bl, wi, wo)
+           + (1.0 - ps) * warp.square_to_cosine_hemisphere_pdf(wo))
+    return torch.where(ok, pdf, 0.0)
+
+
+def _ward_sample(bl, wi, u_lobe, u2):
+    """ward.cpp's half-vector sampling: the azimuth remapped for the
+    anisotropy, then the Gaussian's tan^2 θh; or the cosine lobe."""
+    ok = wi[..., 2] > 0
+    au, av = _ward_alpha(bl)
+    choose_spec = u_lobe < _glossy_prob(bl)
+    phi = 2.0 * math.pi * u2[..., 1]
+    cp, sp = torch.cos(phi), torch.sin(phi)
+    phi_h = torch.atan2(av * sp, au * cp)
+    cph, sph = torch.cos(phi_h), torch.sin(phi_h)
+    t2 = (-torch.log(torch.clamp(u2[..., 0], min=1e-9))
+          / ((cph / au) ** 2 + (sph / av) ** 2))
+    ct = 1.0 / m.sqrt(1.0 + t2)
+    st = m.safe_sqrt(1.0 - ct * ct)
+    h = torch.stack([st * cph, st * sph, ct], dim=-1)
+    wo_spec = m.reflect(wi, h)
+    wo_diff = warp.square_to_cosine_hemisphere(u2)
+    wo = torch.where(choose_spec[..., None], wo_spec, wo_diff)
+    return _mixture_sample(bl, wi, wo, ok, _ward_pdf, _ward_eval)
+
+
+def _difftrans_eval(bl, wi, wo):
+    """difftrans.cpp: a Lambertian lobe into the opposite hemisphere,
+    tinted by the transmittance (the spec_trans column)."""
+    ok = wi[..., 2] * wo[..., 2] < 0
+    f = bl.spec_trans * (warp.INV_PI * torch.abs(wo[..., 2]))[..., None]
+    return torch.where(ok[..., None], f, 0.0)
+
+
+def _difftrans_pdf(bl, wi, wo):
+    ok = wi[..., 2] * wo[..., 2] < 0
+    return torch.where(ok, warp.INV_PI * torch.abs(wo[..., 2]), 0.0)
+
+
+def _difftrans_sample(bl, wi, u_lobe, u2):
+    wo_up = warp.square_to_cosine_hemisphere(u2)
+    # into the hemisphere opposite wi
+    wo = wo_up * _z_scale(-torch.sign(wi[..., 2]))
+    pdf = warp.INV_PI * torch.abs(wo[..., 2])
+    sh = wi.shape[:-1]
+    return (wo, bl.spec_trans, torch.clamp(pdf, min=1e-12),
+            torch.zeros(sh, dtype=torch.bool, device=wi.device),
+            torch.ones(sh, device=wi.device))
+
+
+def _hg_phase(g, cos_t):
+    """The Henyey-Greenstein phase function."""
+    g2 = g * g
+    denom = torch.clamp(1.0 + g2 - 2.0 * g * cos_t, min=1e-6)
+    return warp.INV_FOURPI * (1.0 - g2) / (denom * m.sqrt(denom))
+
+
+def _hk_parts(bl, wi, wo):
+    """hk.cpp's single scattering in a slab of optical depth tau = sigma_t
+    * thickness (sigma_s in the albedo column, sigma_t in k): f without the
+    cosine, reflection or transmission by the sides of wi and wo. The
+    transmission's 0/0 where mu_i = mu_o takes its limit."""
+    sig_s = bl.albedo
+    sig_t = torch.clamp(bl.k_c, min=1e-9)
+    alb = sig_s / sig_t
+    tau = sig_t * bl.hk_thickness[..., None]
+    mu_i = torch.clamp(torch.abs(wi[..., 2]), min=1e-6)[..., None]
+    mu_o = torch.clamp(torch.abs(wo[..., 2]), min=1e-6)[..., None]
+    # the angle between the transport directions
+    p = _hg_phase(bl.hk_g, m.dot(-wi, wo))[..., None]
+    refl = (wi[..., 2] * wo[..., 2] > 0)[..., None]
+    f_r = alb * p * m.safe_div(
+        1.0 - torch.exp(-tau * (1.0 / mu_i + 1.0 / mu_o)), mu_i + mu_o)
+    same_mu = torch.abs(mu_i - mu_o) < 1e-4
+    f_t_gen = alb * p * m.safe_div(
+        torch.exp(-tau / mu_i) - torch.exp(-tau / mu_o),
+        mu_i - torch.where(same_mu, mu_i + 1.0, mu_o))
+    f_t_lim = alb * p * tau * torch.exp(-tau / mu_i) / (mu_i * mu_i)
+    f_t = torch.where(same_mu, f_t_lim, f_t_gen)
+    return torch.where(refl, f_r, torch.clamp(f_t, min=0.0))
+
+
+def _hk_eval(bl, wi, wo):
+    ok = torch.abs(wi[..., 2]) > 1e-6
+    f = _hk_parts(bl, wi, wo) * torch.abs(wo[..., 2])[..., None]
+    return torch.where(ok[..., None], f, 0.0)
+
+
+def _hk_delta_t(bl, wi):
+    """The slab's unscattered transmission exp(-tau / mu_i)."""
+    sig_t = torch.clamp(bl.k_c, min=1e-9)
+    tau = sig_t * bl.hk_thickness[..., None]
+    mu_i = torch.clamp(torch.abs(wi[..., 2]), min=1e-6)[..., None]
+    return torch.exp(-tau / mu_i)
+
+
+def _hk_delta_prob(Tr):
+    return torch.clamp(_lum(Tr), 0.0, 0.9)
+
+
+def _hk_pdf_smooth(wo):
+    # the cosine lobe on either side, half and half
+    return 0.5 * warp.INV_PI * torch.abs(wo[..., 2])
+
+
+def _hk_pdf(bl, wi, wo):
+    p_delta = _hk_delta_prob(_hk_delta_t(bl, wi))
+    return (1.0 - p_delta) * _hk_pdf_smooth(wo)
+
+
+def _hk_sample(bl, wi, u_lobe, u2):
+    """The unscattered transmission (a delta, wo = -wi) with probability
+    p_delta, else a cosine direction on a side picked by the rest of
+    u_lobe: is_delta varies per lane."""
+    Tr = _hk_delta_t(bl, wi)
+    p_delta = _hk_delta_prob(Tr)
+    choose_delta = u_lobe < p_delta
+
+    wo_up = warp.square_to_cosine_hemisphere(u2)
+    u_side = m.safe_div(u_lobe - p_delta, torch.clamp(1.0 - p_delta, min=1e-9))
+    sgn = torch.where(u_side < 0.5, 1.0, -1.0) * torch.sign(wi[..., 2])
+    wo_s = wo_up * _z_scale(sgn)
+    pdf_s = (1.0 - p_delta) * _hk_pdf_smooth(wo_s)
+    f_s = _hk_eval(bl, wi, wo_s)
+    w_s = m.safe_div(f_s, torch.clamp(pdf_s, min=1e-9)[..., None])
+    w_d = Tr / torch.clamp(p_delta, min=1e-9)[..., None]
+
+    wo = torch.where(choose_delta[..., None], -wi, wo_s)
+    weight = torch.where(choose_delta[..., None], w_d, w_s)
+    pdf = torch.where(choose_delta, p_delta, pdf_s)
+    return (wo, weight, torch.clamp(pdf, min=1e-12), choose_delta,
+            torch.ones(wi.shape[:-1], device=wi.device))
+
+
 def _dist_mix(bl, fn):
     """fn for both microfacet distributions, selected per lane; the tensors
     of a tuple each selected alike."""
@@ -381,20 +815,42 @@ def _dist_mix(bl, fn):
     return pick(v_g, v_b)
 
 
+# the lobes of eval and pdf by type (a delta lobe has none: 0 there), and
+# the samplers; a rough type's functions take the microfacet distribution
+_EVAL = {DIFFUSE: _diffuse_eval, ROUGH_DIFFUSE: _rough_diffuse_eval,
+         PLASTIC: _plastic_eval, PHONG: _phong_eval, WARD: _ward_eval,
+         DIFFTRANS: _difftrans_eval, HK: _hk_eval}
+_EVAL_ROUGH = {ROUGH_CONDUCTOR: _rough_conductor_f,
+               ROUGH_PLASTIC: _rough_plastic_eval,
+               ROUGH_DIELECTRIC: _rough_dielectric_eval}
+# roughdiffuse samples the cosine lobe, so its density is the diffuse one
+_PDF = {DIFFUSE: _diffuse_pdf, ROUGH_DIFFUSE: _diffuse_pdf,
+        PLASTIC: _plastic_pdf, PHONG: _phong_pdf, WARD: _ward_pdf,
+        DIFFTRANS: _difftrans_pdf, HK: _hk_pdf}
+_PDF_ROUGH = {ROUGH_CONDUCTOR: _rough_conductor_pdf,
+              ROUGH_PLASTIC: _rough_plastic_pdf,
+              ROUGH_DIELECTRIC: _rough_dielectric_pdf}
+_SAMPLE = {DIFFUSE: _diffuse_sample, ROUGH_DIFFUSE: _rough_diffuse_sample,
+           DIELECTRIC: _dielectric_sample,
+           THIN_DIELECTRIC: _thin_dielectric_sample,
+           CONDUCTOR: _conductor_sample, PLASTIC: _plastic_sample,
+           PHONG: _phong_sample, WARD: _ward_sample,
+           DIFFTRANS: _difftrans_sample, HK: _hk_sample, NULL: _null_sample}
+_SAMPLE_ROUGH = {ROUGH_CONDUCTOR: _rough_conductor_sample,
+                 ROUGH_PLASTIC: _rough_plastic_sample,
+                 ROUGH_DIELECTRIC: _rough_dielectric_sample}
+
+
 def eval(bl: BsdfLocals, wi, wo, active_types=SUPPORTED_TYPES):
-    """f(wi, wo)·|cos θo| for the smooth lobes, per-lane type dispatch."""
+    """f(wi, wo)·|cos θo| of the smooth lobes, per-lane type dispatch."""
     _check_types(active_types)
     wi, wo, _ = _flip_twosided(bl, wi, wo)
     out = torch.zeros(wi.shape[:-1] + (3,), device=wi.device)
     for t in active_types:
-        if t == DIFFUSE:
-            v = _diffuse_eval(bl, wi, wo)
-        elif t == ROUGH_CONDUCTOR:
-            v = _dist_mix(bl, lambda d: _rough_conductor_f(bl, d, wi, wo))
-        elif t == PLASTIC:
-            v = _plastic_eval(bl, wi, wo)
-        elif t == ROUGH_PLASTIC:
-            v = _dist_mix(bl, lambda d: _rough_plastic_eval(bl, d, wi, wo))
+        if t in _EVAL:
+            v = _EVAL[t](bl, wi, wo)
+        elif t in _EVAL_ROUGH:
+            v = _dist_mix(bl, lambda d: _EVAL_ROUGH[t](bl, d, wi, wo))
         else:
             continue  # a delta lobe evaluates to 0
         out = torch.where((bl.type == t)[..., None], v, out)
@@ -406,14 +862,10 @@ def pdf(bl: BsdfLocals, wi, wo, active_types=SUPPORTED_TYPES):
     wi, wo, _ = _flip_twosided(bl, wi, wo)
     out = torch.zeros(wi.shape[:-1], device=wi.device)
     for t in active_types:
-        if t == DIFFUSE:
-            v = _diffuse_pdf(bl, wi, wo)
-        elif t == ROUGH_CONDUCTOR:
-            v = _dist_mix(bl, lambda d: _rough_conductor_pdf(bl, d, wi, wo))
-        elif t == PLASTIC:
-            v = _plastic_pdf(bl, wi, wo)
-        elif t == ROUGH_PLASTIC:
-            v = _dist_mix(bl, lambda d: _rough_plastic_pdf(bl, d, wi, wo))
+        if t in _PDF:
+            v = _PDF[t](bl, wi, wo)
+        elif t in _PDF_ROUGH:
+            v = _dist_mix(bl, lambda d: _PDF_ROUGH[t](bl, d, wi, wo))
         else:
             continue
         out = torch.where(bl.type == t, v, out)
@@ -434,17 +886,10 @@ def sample(bl: BsdfLocals, wi, u_lobe, u2, active_types=SUPPORTED_TYPES) -> Bsdf
     )
     for t in active_types:
         sel = bl.type == t
-        if t == DIFFUSE:
-            r = _diffuse_sample(bl, wi_f, u_lobe, u2)
-        elif t == DIELECTRIC:
-            r = _dielectric_sample(bl, wi_f, u_lobe, u2)
-        elif t == ROUGH_CONDUCTOR:
-            r = _dist_mix(bl, lambda d: _rough_conductor_sample(
-                bl, d, wi_f, u_lobe, u2))
-        elif t == PLASTIC:
-            r = _plastic_sample(bl, wi_f, u_lobe, u2)
+        if t in _SAMPLE:
+            r = _SAMPLE[t](bl, wi_f, u_lobe, u2)
         else:
-            r = _dist_mix(bl, lambda d: _rough_plastic_sample(
+            r = _dist_mix(bl, lambda d: _SAMPLE_ROUGH[t](
                 bl, d, wi_f, u_lobe, u2))
         wo_, w_, p_, d_, e_ = r
         out = BsdfSample(

@@ -14,9 +14,9 @@ leaf_size=1 BVH, cut it into treelets, and send them to the lane kernels of
 ``ops/cuda_bvh``, or with ``MTS_BVH_KERNEL=treelet`` to the treelet kernel
 K7, with the JAX package's dispatch. Spheres are tested in plain tensor code
 beside those kernels and merged with the JAX package's tie rule; a scene may
-hold spheres and no triangle. Materials are diffuse, with an optional
-bitmap albedo, smooth dielectrics, rough conductors, and smooth or rough
-plastics (the rough one's transmittance polynomial baked at ``build``,
+hold spheres and no triangle. Materials are the single-layer BSDF types of
+``render/bsdf.py`` (``SUPPORTED_TYPES``), with an optional bitmap albedo
+(the rough plastic's transmittance polynomial baked at ``build``,
 ``core/rtrans.py``); lights are triangle area lights, analytic sphere lights
 (cone-sampled in NEE), a constant environment and a lat-long environment
 map; meshes may be instanced. Anything else (other textures and lights,
@@ -117,12 +117,14 @@ class SceneStatic:
 
 
 # SceneStatic fields of the JAX package whose non-default values need code
-# that lands in a later slice, with the value the port supports
+# that lands in a later slice, with the value the port supports (not
+# n_manifold_tris: the JAX builder sets it for any small glass or window
+# mesh, and only the MLT family reads it, so that slice checks it there)
 _LATER_SLICE_FIELDS = {
     "has_opacity_tex": False, "has_weight_tex": False,
     "medium_types": (), "phase_types": (), "nested_bsdf_types": (),
     "has_normal_maps": False, "has_sss": False, "has_singlescatter": False,
-    "has_boundary_media": False, "ewa_taps": 0, "n_manifold_tris": 0,
+    "has_boundary_media": False, "ewa_taps": 0,
 }
 
 
@@ -448,10 +450,12 @@ class SceneBuilder:
                      eta=(1.5046, 1.5046, 1.5046),
                      k=(0.0, 0.0, 0.0), alpha=(0.1, 0.1), alpha_tex: int = -1,
                      dist: int = 0, nonlinear: bool = False,
-                     twosided: bool = False) -> int:
+                     twosided: bool = False, hk_thickness: float = 1.0,
+                     hk_g: float = 0.0) -> int:
         """A material row with the JAX package's keywords and defaults
-        (scene.py:819-848) for the columns the port reads; a scalar
-        ``eta`` or ``alpha`` is replicated."""
+        (scene.py:819-865) for the columns the port reads; a scalar
+        ``eta`` or ``alpha`` is replicated. An HK row reads sigma_s from
+        ``albedo`` and sigma_t from ``k``."""
         if type not in bsdf_mod.SUPPORTED_TYPES:
             raise NotImplementedError(
                 f"BSDF type {type} lands in a later slice of the port")
@@ -466,7 +470,8 @@ class SceneBuilder:
                               albedo_tex=albedo_tex, spec_refl=tuple(spec_refl),
                               spec_trans=tuple(spec_trans), eta=tuple(eta),
                               k=tuple(k), alpha=tuple(alpha), dist=dist,
-                              nonlinear=bool(nonlinear), twosided=twosided))
+                              nonlinear=bool(nonlinear), twosided=twosided,
+                              hk_thickness=hk_thickness, hk_g=hk_g))
         return len(self.mats) - 1
 
     def add_texture_bitmap(self, image, uv_scale=(1.0, 1.0),
@@ -744,6 +749,8 @@ class SceneBuilder:
                     np.asarray([mm["nonlinear"] for mm in self.mats], bool),
                     device=dev),
                 rt_coef=f32(rt_coef), rt_fdr=f32(rt_fdr),
+                hk_thickness=f32([mm["hk_thickness"] for mm in self.mats]),
+                hk_g=f32([mm["hk_g"] for mm in self.mats]),
             ),
             textures=tex_mod.build_table(self.textures, self.bitmaps, dev),
             emitters=em_mod.EmitterTable(

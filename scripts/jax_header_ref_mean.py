@@ -1,11 +1,14 @@
 #!/usr/bin/env python
-"""Image statistics of the sensor-header renders through the JAX package on
-the CPU.
+"""Image statistics of the sensor-header and material-gallery renders
+through the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/jax_header_ref_mean.py
+        [--block-y Y] [--eye-shift DX] [LABEL ...]
 
-The reference values that ``chip_smoke.py``'s sensor-header phase (9e)
-holds the PyTorch port's renders against, on the same samples:
+The reference values that ``chip_smoke.py``'s sensor-header phase (9e) and
+material-gallery phase (9f) hold the PyTorch port's renders against, on the
+same samples (each render whose label starts with one of the LABELs, all of
+them without one):
 
 - ``scenes/cbox.xml`` with its ``<sampler type="independent">`` replaced by
   ``ldsampler`` and its ``<rfilter type="gaussian">`` by ``mitchell``
@@ -23,7 +26,12 @@ holds the PyTorch port's renders against, on the same samples:
   its camera rays are cut into chunks of 16,384 lanes, each lane's value
   depending on its own pixel and sample alone;
 - field (position, then albedo) on the Cornell box at 512x512, 4 spp, box
-  filter.
+  filter;
+- the material gallery, ``gallery {variant}`` for each variant of
+  ``chip_smoke.GALLERY_BSDFS``: ``scenes/cbox.xml`` with its glass sphere
+  and the added Cornell short block made of one single-layer BSDF
+  (``chip_smoke.gallery_xml``, which takes ``--block-y`` and
+  ``--eye-shift``), loaded and rendered as the ldsampler file.
 
 For each it prints the seconds, ``mean_rgb`` and ``tv_rgb`` (the mean
 absolute difference of horizontally adjacent pixels, per channel: it sees a
@@ -33,6 +41,7 @@ JAX side of tests/test_torch_header.py.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -135,26 +144,29 @@ def bunny_ao():
     return film_mod.develop(film)
 
 
-def renders():
-    """(label, thunk) of every render, in chip_smoke.py's order."""
+def renders(labels=(), block_y=None, eye_shift=0.0):
+    """Statistics of every render whose label starts with one of
+    ``labels`` (all without one), in chip_smoke.py's order."""
+    import chip_smoke
+
     out = []
     with tempfile.TemporaryDirectory() as tmp:
-        def scene_file(sampler, rfilter, spp, res):
-            path = os.path.join(tmp, f"{sampler}_{rfilter}.xml")
+        def scene_file(text, spp, res):
+            path = os.path.join(tmp, "scene.xml")
             with open(path, "w") as f:
-                f.write(variant_xml(sampler, rfilter))
+                f.write(text)
             ls = load_scene(path, {"spp": spp, "res": res})
             return np.asarray(api.render(ls.scene, ls.static, ls.sensor,
                                          ls.integrator, ls.settings))
 
-        out.append(("cbox.xml ldsampler mitchell",
-                    lambda: scene_file("ldsampler", "mitchell", 64, 256)))
+        out.append(("cbox.xml ldsampler mitchell", lambda: scene_file(
+            variant_xml("ldsampler", "mitchell"), 64, 256)))
         for s in OTHER_SAMPLERS:
-            out.append((f"cbox.xml {s} gaussian",
-                        lambda s=s: scene_file(s, "gaussian", 16, 128)))
+            out.append((f"cbox.xml {s} gaussian", lambda s=s: scene_file(
+                variant_xml(s, "gaussian"), 16, 128)))
         for r in OTHER_FILTERS:
-            out.append((f"cbox.xml independent {r}",
-                        lambda r=r: scene_file("independent", r, 16, 128)))
+            out.append((f"cbox.xml independent {r}", lambda r=r: scene_file(
+                variant_xml("independent", r), 16, 128)))
         scene, static, sens = cornell_sensor(AO_RES)
         ao = IntegratorConfig(type=AO, ray_length=AO_LENGTH)
         out.append((f"ao cornell independent {AO_REF_SPP} spp seed "
@@ -178,8 +190,15 @@ def renders():
                 IntegratorConfig(type=FIELD, field=field),
                 api.RenderSettings(width=FIELD_RES, height=FIELD_RES,
                                    spp=FIELD_SPP, filter_type=0))))
+        block = {"block_y": (chip_smoke.GALLERY_BLOCK_Y if block_y is None
+                             else block_y), "eye_shift": eye_shift}
+        for v in chip_smoke.GALLERY_BSDFS:
+            out.append((f"gallery {v}", lambda v=v: scene_file(
+                chip_smoke.gallery_xml(v, **block), 64, 256)))
         values = {}
         for label, thunk in out:
+            if labels and not any(label.startswith(x) for x in labels):
+                continue
             t0 = time.perf_counter()
             mean, tv = image_stats(thunk())
             print(f"{label}: {time.perf_counter() - t0:.1f} s, mean_rgb "
@@ -191,7 +210,12 @@ def renders():
 def main() -> int:
     t0 = time.perf_counter()
     print(f"jax {jax.__version__} on {jax.default_backend()}", flush=True)
-    values = renders()
+    ap = argparse.ArgumentParser()
+    ap.add_argument("labels", nargs="*")
+    ap.add_argument("--block-y", type=float, default=None)
+    ap.add_argument("--eye-shift", type=float, default=0.0)
+    args = ap.parse_args()
+    values = renders(args.labels, args.block_y, args.eye_shift)
     print(json.dumps(values))
     print(f"total {time.perf_counter() - t0:.1f} s")
     return 0

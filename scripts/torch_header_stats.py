@@ -1,20 +1,25 @@
 #!/usr/bin/env python
-"""Image statistics of the sensor-header renders through the port, beside
-the JAX package's values that chip_smoke.py holds them to.
+"""Image statistics of the sensor-header and material-gallery renders
+through the port, beside the JAX package's values that chip_smoke.py holds
+them to.
 
     python scripts/torch_header_stats.py [--device cpu|cuda] [--threads N]
-                                         [LABEL ...]
+        [--block-y Y] [--eye-shift DX] [LABEL ...]
 
 Renders each render of ``chip_smoke.py``'s sensor-header phase (9e,
-``chip_smoke.header_renders`` and ``bunny_ao_case``) whose label starts with
-one of the LABELs (all of them without one) through this tree's
+``chip_smoke.header_renders`` and ``bunny_ao_case``) and material-gallery
+phase (9f, ``chip_smoke.gallery_renders``, labels ``gallery {variant}``)
+whose label starts with one of the LABELs (all of them without one) through
+this tree's
 ``mitsuba_tpu_torch`` on ``--device`` (the card by default), and prints its
 ``mean_rgb`` and ``tv_rgb`` with their relative gaps to
 ``chip_smoke.HEADER_REF`` (``scripts/jax_header_ref_mean.py``'s values) and
 the seconds it took. It imports nothing of JAX. Run from a copy of the tree
 with a piece of the port broken on purpose, it shows how far that break
 moves each statistic against the limits ``HEADER_MEAN_RTOL`` and
-``HEADER_TV_RTOL``.
+``HEADER_TV_RTOL``. ``--block-y`` and ``--eye-shift`` go to
+``chip_smoke.gallery_xml``: the gallery's short block at another height, the
+camera moved along x (the rounding check of PERF.md section 6, PR 14).
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ def main() -> int:
     ap.add_argument("labels", nargs="*")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--threads", type=int, default=0)
+    ap.add_argument("--block-y", type=float, default=cs.GALLERY_BLOCK_Y)
+    ap.add_argument("--eye-shift", type=float, default=0.0)
     args = ap.parse_args()
     if args.threads:
         torch.set_num_threads(args.threads)
@@ -52,6 +59,8 @@ def main() -> int:
           f"tv {cs.HEADER_TV_RTOL} relative", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         cases = cs.header_renders(dev, tmp, cs.cornell(dev))
+        cases.update(cs.gallery_renders(dev, tmp, block_y=args.block_y,
+                                        eye_shift=args.eye_shift))
         if wanted("ao bunny_x2"):
             cases["ao bunny_x2"] = cs.bunny_ao_case(cs.bunny(dev))
         for label, (scene, static, sensor, cfg, settings, _) in cases.items():

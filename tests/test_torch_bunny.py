@@ -57,7 +57,7 @@ TRI_FIELDS = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
               "tri_emitter", "tri_nee_pdf_area")
 MAT_FIELDS = ("type", "dist", "albedo", "albedo_tex", "spec_refl", "eta", "k",
               "alpha", "twosided", "spec_trans", "nonlinear", "rt_coef",
-              "rt_fdr")
+              "rt_fdr", "hk_thickness", "hk_g")
 TEX_FIELDS = ("type", "uv_scale", "uv_offset", "scale", "bitmap_idx", "stack",
               "stack_hw", "sizes", "mips", "mips_hw")
 EM_FIELDS = ("type", "radiance", "position", "spot_cos", "pmf", "cdf",

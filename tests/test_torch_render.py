@@ -55,7 +55,7 @@ TRI_FIELDS = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
               "tri_emitter", "tri_nee_pdf_area")
 MAT_FIELDS = ("type", "dist", "albedo", "albedo_tex", "spec_refl", "eta", "k",
               "alpha", "twosided", "spec_trans", "nonlinear", "rt_coef",
-              "rt_fdr")
+              "rt_fdr", "hk_thickness", "hk_g")
 EM_FIELDS = ("type", "radiance", "position", "spot_cos", "pmf", "cdf",
              "etri_tri", "etri_cdf", "env_index", "env_map", "env_alias",
              "env_hw", "env_to_world", "env_scale")
@@ -153,13 +153,14 @@ def test_bridge_sensor(sensors):
                                       getattr(ts, f).numpy(), err_msg=f)
 
 
-# emitter 4 is the directional light, BSDF 2 the smooth conductor and 6 the
-# rough dielectric (the sphere light 7 and the plastics 4 and 5 joined the
-# port with the Veach MIS scene)
+# emitter 4 is the directional light, BSDF 12 the mask and 18 the rough
+# coating (the sphere light 7 and the plastics 4 and 5 joined the port with
+# the Veach MIS scene, the smooth conductor 2 and the rough dielectric 6
+# with the single-layer BSDFs)
 @pytest.mark.parametrize("change", [
     dict(has_opacity_tex=True), dict(emitter_types=(0, 4)),
-    dict(emitter_types=(0, 5)), dict(ewa_taps=4), dict(bsdf_types=(0, 2)), dict(emitter_types=(0, 1)),
-    dict(medium_types=(0,)), dict(bsdf_types=(0, 6)),
+    dict(emitter_types=(0, 5)), dict(ewa_taps=4), dict(bsdf_types=(0, 12)), dict(emitter_types=(0, 1)),
+    dict(medium_types=(0,)), dict(bsdf_types=(0, 18)),
 ])
 def test_later_slices_raise(cornell, change):
     static = dict(dataclasses.asdict(cornell[1]), **change)
@@ -423,7 +424,7 @@ def test_port_and_chip_smoke_import_no_jax():
     for new in ("__main__.py", "io/mitsuba_xml.py", "io/image.py",
                 "utils/logging.py", "render/integrators/direct.py",
                 "core/rtrans.py", "core/qmc.py", "core/sobol_table.py",
-                "render/integrators/misc.py"):
+                "render/integrators/misc.py", "utils/chi2.py"):
         assert REPO / "mitsuba_tpu_torch" / new in files, new
     for f in files:
         for mod in _imports(f):

@@ -36,6 +36,7 @@ from mitsuba_tpu_torch.core.transform import Transform
 from mitsuba_tpu_torch.io import image as timage
 from mitsuba_tpu_torch.io import mitsuba_xml as txml
 from mitsuba_tpu_torch.render import api as tapi
+from mitsuba_tpu_torch.render import bsdf as tbsdf
 from mitsuba_tpu_torch.render import scene as tscene
 from mitsuba_tpu_torch.render import sensor as tsensor
 from mitsuba_tpu_torch.render import shapes as tshapes
@@ -224,12 +225,9 @@ CASE3 = {
     **{f"sensor-{t}": _sensor(stype=t)
        for t in ("thinlens", "orthographic", "spherical", "radiancemeter",
                  "irradiancemeter")},
-    **{f"bsdf-{t}": _shape_bsdf(f'<bsdf type="{t}"/>')
-       for t in ("roughdiffuse", "conductor", "roughdielectric",
-                 "thindielectric", "phong", "ward", "difftrans", "coating",
-                 "hk", "null")},
+    "bsdf-coating": _shape_bsdf('<bsdf type="coating"/>'),
     "bsdf-mask": _shape_bsdf('<bsdf type="mask"><bsdf type="diffuse"/></bsdf>'),
-    "bsdf-toplevel-phong": '<bsdf type="phong"/>',
+    "bsdf-toplevel-coating": '<bsdf type="coating"/>',
     **{f"texture-{t}": f'<texture type="{t}"/>'
        for t in ("checkerboard", "gridtexture", "scale")},
     **{f"emitter-{t}": f'<emitter type="{t}"/>'
@@ -255,6 +253,33 @@ def test_later_slice_elements_raise(tmp_path, case):
     path.write_text(_scene_xml(CASE3[case]))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         txml.load_scene(str(path), device="cpu")
+
+
+# the single-layer BSDF elements, which raised here until the port rendered
+# them: each loads into a material row of its type, in a shape or at the top
+# level (tests/test_torch_materials.py holds every one against the JAX
+# loader)
+SINGLE_LAYER = {
+    **{f"bsdf-{t}": (_shape_bsdf(f'<bsdf type="{t}"/>'), tag)
+       for t, tag in (("roughdiffuse", tbsdf.ROUGH_DIFFUSE),
+                      ("conductor", tbsdf.CONDUCTOR),
+                      ("roughdielectric", tbsdf.ROUGH_DIELECTRIC),
+                      ("thindielectric", tbsdf.THIN_DIELECTRIC),
+                      ("phong", tbsdf.PHONG), ("ward", tbsdf.WARD),
+                      ("difftrans", tbsdf.DIFFTRANS), ("hk", tbsdf.HK),
+                      ("null", tbsdf.NULL))},
+    "bsdf-toplevel-phong": ('<bsdf type="phong"/>', tbsdf.PHONG),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SINGLE_LAYER))
+def test_single_layer_bsdf_elements_load(tmp_path, case):
+    body, tag = SINGLE_LAYER[case]
+    path = tmp_path / "s.xml"
+    path.write_text(_scene_xml(body))
+    ls = txml.load_scene(str(path), device="cpu")
+    assert tag in ls.scene.materials.type.tolist()
+    assert tag in ls.static.bsdf_types
 
 
 # the sensor header's elements, which raised here until the port rendered
