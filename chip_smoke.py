@@ -166,6 +166,17 @@ timed (the seconds printed at its end and together before the JSON lines):
      HEADER_TV_RTOL per channel (scripts/jax_header_ref_mean.py), with
      wall time, ms/spp, rays/s and the peak memory; then the CLI on the HK
      file, whose EXR must equal the image;
+ 9g. the layered gallery: the same scene with the sphere and the block made
+     of one nested or layered BSDF (LAYERED_BSDFS: a mask of constant
+     opacity 0.35 and one of a checkerboard opacity, a mixture of a GGX
+     rough conductor and a diffuse, a blend weighted by a grid texture, a
+     coating and a GGX rough coating over diffuses), or the block alone
+     made of a normal map (a checkerboard of tangent-space normals) over a
+     plastic or a bump map (a height field PFM, write_height_pfm, through a
+     scale texture) over a rough plastic, each through load_scene +
+     api.render at 256x256, 32 spp (LAYERED_GALLERY: 160 K1 + 160 K2),
+     held as phase 9f's renders; then the CLI on the rough-coating file,
+     whose EXR must equal the image;
  10. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
      2, seed 0 (bench.py:289-293); checks 10 launches of K4 and 300 of K3
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
@@ -183,9 +194,10 @@ timed (the seconds printed at its end and together before the JSON lines):
      treelet and lane-resort kernels report the same hit rate on each batch
      and that K7 and K3 launched as the utility drives them;
  13. profile: one render pass of each scene (the bunny in both BVH modes;
-     4 spp of cbox.xml at 256x256, of the same file with the ldsampler and
-     of the gallery's GGX rough dielectric, of the Cornell direct render at 64x64 and of the Veach MIS path render
-     at 512x512)
+     4 spp of cbox.xml at 256x256, of the same file with the ldsampler, of
+     the gallery's GGX rough dielectric and of the layered gallery's rough
+     coating, of the Cornell direct render at 64x64 and of the Veach MIS
+     path render at 512x512)
      under torch.profiler, printing the device's busy share of the wall time,
      the pass's device kernel launches, the kernels that take it and each
      port kernel's render mean per launch;
@@ -554,6 +566,48 @@ HEADER_REF = {
          0.07786997805837186),
         (0.014434126690758302, 0.011421012237216026,
          0.005297890968912188)),
+    # the layered gallery (phase 9g), scripts/jax_header_ref_mean.py's
+    # layered renders (32 spp)
+    "layered mask constant": (
+        (0.21344315869031896, 0.16495341535751218,
+         0.0737251071106296),
+        (0.015084766231883534, 0.01174679360189759,
+         0.005385543215156477)),
+    "layered mask checkerboard": (
+        (0.20396422217331997, 0.16183349967979105,
+         0.07417640063880793),
+        (0.01381200791456338, 0.011050014326600539,
+         0.0053006797742155935)),
+    "layered mixturebsdf": (
+        (0.2077662716619746, 0.16359853186426607,
+         0.07231001284760577),
+        (0.011893177467102356, 0.009339779616053367,
+         0.004183825356393128)),
+    "layered blendbsdf": (
+        (0.21889369467766706, 0.1677168529235873,
+         0.07286536070771786),
+        (0.020281467460111623, 0.014378491862243225,
+         0.005083628262808464)),
+    "layered coating": (
+        (0.2033162228619641, 0.15700678487720546,
+         0.07042544374401012),
+        (0.012208896720496184, 0.009490519140129211,
+         0.004334875908400692)),
+    "layered roughcoating": (
+        (0.2000470609141328, 0.1570012677836205,
+         0.07157787390885145),
+        (0.011358710469477468, 0.008923200830101907,
+         0.004157412361482139)),
+    "layered normalmap": (
+        (0.21269766771474077, 0.1639110130668347,
+         0.07353600870420979),
+        (0.013650385898381452, 0.010549879186579587,
+         0.00483463329110797)),
+    "layered bumpmap": (
+        (0.20901192524836285, 0.164449679532561,
+         0.07425677333128017),
+        (0.013044368798493636, 0.010441384847664038,
+         0.00485247001482834)),
 }
 # the port on the CPU at these sizes: within 4.9e-6 (mean) and 2.7e-5 (tv)
 # of these values, a flipped lane or lobe choice being the gap; one flipped
@@ -617,8 +671,116 @@ GALLERY_BLOCK = (
     '<scale value="82.5"/><rotate y="1" angle="-17"/>'
     '<translate x="185.5" y="{y}" z="169"/></transform>'
     '<ref id="gallery"/></shape>')
-# the variant that also goes through the CLI
-GALLERY_CLI = "hk"
+# the layered gallery (phase 9g): the material gallery's scene with the
+# sphere and the short block made of one nested or layered BSDF, declared at
+# the top level as "gallery". The two map variants put their map on the block
+# alone and leave the sphere its glass: the JAX package perturbs a sphere's
+# frame with a triangle's tangent (ROADMAP.md, Queue 3). The bump map reads
+# HEIGHT_PFM, a smooth height field that write_height_pfm writes beside the
+# scene file (a step texture would have a gradient only on its edges). The
+# normal map's tilted checks lean along both tangents (a green channel of
+# 0.5 would leave the bitangent out, and a flipped y channel unseen)
+HEIGHT_PFM = "height.pfm"
+HEIGHT_RES = 64
+_DIFFUSE = '<bsdf type="diffuse"><rgb name="reflectance" value="{}"/></bsdf>'
+LAYERED_BSDFS = {
+    "mask constant": (
+        '<bsdf type="mask" id="gallery"><float name="opacity" value="0.35"/>'
+        + _DIFFUSE.format("0.8, 0.6, 0.3") + "</bsdf>"),
+    "mask checkerboard": (
+        '<bsdf type="mask" id="gallery">'
+        '<texture type="checkerboard" name="opacity">'
+        '<float name="uscale" value="4"/><float name="vscale" value="4"/>'
+        '<spectrum name="color0" value="0.9"/>'
+        '<spectrum name="color1" value="0.2"/></texture>'
+        + _DIFFUSE.format("0.2, 0.5, 0.8") + "</bsdf>"),
+    "mixturebsdf": (
+        '<bsdf type="mixturebsdf" id="gallery">'
+        '<string name="weights" value="0.3 0.7"/>'
+        '<bsdf type="roughconductor"><string name="distribution" value="ggx"/>'
+        '<float name="alpha" value="0.2"/>'
+        '<string name="material" value="Cu"/></bsdf>'
+        + _DIFFUSE.format("0.3, 0.6, 0.4") + "</bsdf>"),
+    "blendbsdf": (
+        '<bsdf type="blendbsdf" id="gallery">'
+        '<texture type="gridtexture" name="weight">'
+        '<float name="lineWidth" value="0.1"/>'
+        '<float name="uscale" value="4"/>'
+        '<spectrum name="color0" value="0.1"/>'
+        '<spectrum name="color1" value="0.9"/></texture>'
+        '<bsdf type="conductor"><string name="material" value="Au"/></bsdf>'
+        + _DIFFUSE.format("0.7, 0.7, 0.7") + "</bsdf>"),
+    "coating": (
+        '<bsdf type="coating" id="gallery"><float name="intIOR" value="1.5"/>'
+        '<rgb name="sigmaA" value="0.2, 0.4, 0.8"/>'
+        '<float name="thickness" value="1"/>'
+        + _DIFFUSE.format("0.8, 0.8, 0.8") + "</bsdf>"),
+    "roughcoating": (
+        '<bsdf type="roughcoating" id="gallery">'
+        '<string name="distribution" value="ggx"/>'
+        '<float name="alpha" value="0.15"/>'
+        + _DIFFUSE.format("0.2, 0.4, 0.7") + "</bsdf>"),
+    "normalmap": (
+        '<bsdf type="normalmap" id="gallery">'
+        '<texture type="checkerboard">'
+        '<rgb name="color0" value="0.5, 0.5, 1"/>'
+        '<rgb name="color1" value="0.75, 0.65, 0.85"/></texture>'
+        '<bsdf type="plastic">'
+        '<rgb name="diffuseReflectance" value="0.6, 0.3, 0.2"/></bsdf>'
+        "</bsdf>"),
+    "bumpmap": (
+        '<bsdf type="bumpmap" id="gallery">'
+        '<texture type="scale"><float name="scale" value="0.5"/>'
+        f'<texture type="bitmap"><string name="filename" value="{HEIGHT_PFM}"/>'
+        "</texture></texture>"
+        '<bsdf type="roughplastic"><float name="alpha" value="0.2"/>'
+        '<rgb name="diffuseReflectance" value="0.3, 0.5, 0.6"/></bsdf>'
+        "</bsdf>"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class Gallery:
+    """A gallery phase: its labels' (and files') prefix, its BSDFs by
+    variant, its samples per pixel, the variant that also goes through the
+    CLI, and the variants whose sphere keeps its glass."""
+    kind: str
+    bsdfs: dict
+    spp: int
+    cli: str
+    glass_sphere: tuple = ()
+
+    def xml(self, variant, **kw):
+        """gallery_xml of ``variant``; ``kw`` goes to gallery_xml."""
+        return gallery_xml(self.bsdfs[variant],
+                           sphere_glass=variant in self.glass_sphere, **kw)
+
+
+# phase 9f at the file's 64 spp; phase 9g at 32, so that the script stays
+# within its time (PERF.md section 4). The layered gallery's rough coating
+# also goes through the profile phase
+MATERIAL_GALLERY = Gallery("gallery", GALLERY_BSDFS, CBOX_SPP, "hk")
+LAYERED_GALLERY = Gallery("layered", LAYERED_BSDFS, 32, "roughcoating",
+                          glass_sphere=("normalmap", "bumpmap"))
+
+
+def height_field():
+    """The bump map's height field, HEIGHT_RES x HEIGHT_RES texels (rows v,
+    columns u, at the texel centres): along u three terms of a sawtooth's
+    Fourier series, which rises slowly and falls fast, so that a flipped
+    bump tilts most of the surface the other way (a symmetric field's flip
+    is only a shift); along v one sine. Smooth and periodic, so the
+    repeating lookup has no seam."""
+    c = 2 * np.pi * (np.arange(HEIGHT_RES) + 0.5) / HEIGHT_RES
+    saw = np.sin(c) - np.sin(2 * c) / 2 + np.sin(3 * c) / 3
+    return (0.5 + 0.1 * saw[None, :] + 0.05 * np.sin(2 * c)[:, None]).astype(
+        np.float32)
+
+
+def write_height_pfm(path):
+    """height_field() as a grey PFM."""
+    image_mod.write_pfm(str(path), np.repeat(height_field()[..., None], 3,
+                                             axis=-1))
 
 
 def log(*a):
@@ -2594,20 +2756,23 @@ def header_renders(dev, tmp, cornell_scene):
     return out
 
 
-def gallery_xml(variant, block_y=GALLERY_BLOCK_Y, eye_shift=0.0):
-    """scenes/cbox.xml's text with GALLERY_BSDFS[variant] declared at the top
-    level, the glass sphere's inline BSDF replaced by a reference to it, and
+def gallery_xml(bsdf, sphere_glass=False, block_y=GALLERY_BLOCK_Y,
+                eye_shift=0.0):
+    """scenes/cbox.xml's text with ``bsdf`` (a BSDF element with the id
+    "gallery") declared at the top level, the glass sphere's inline BSDF
+    replaced by a reference to it (unless ``sphere_glass``), and
     GALLERY_BLOCK added at height ``block_y`` (scripts/jax_header_ref_mean.py
-    renders the same text). ``eye_shift`` moves the camera along x by that
-    many scene units (the rounding check of PERF.md section 6, PR 14)."""
+    renders the same text; the bump map's file needs write_height_pfm beside
+    it). ``eye_shift`` moves the camera along x by that many scene units
+    (the rounding check of PERF.md section 6)."""
     text = CBOX_XML.read_text()
     eye = 'origin="{x}, 273, -800" target="{x}, 273, -799"'
     glass = ('<bsdf type="dielectric">\n            <string name="intIOR" '
              'value="bk7"/>\n        </bsdf>')
+    sphere = glass if sphere_glass else '<ref id="gallery"/>'
     for old, new in ((eye.format(x=278), eye.format(x=278 + eye_shift)),
-                     (glass, '<ref id="gallery"/>'),
-                     ("<!-- floor -->",
-                      f"{GALLERY_BSDFS[variant]}\n    <!-- floor -->"),
+                     (glass, sphere),
+                     ("<!-- floor -->", f"{bsdf}\n    <!-- floor -->"),
                      ("<!-- glass sphere -->",
                       GALLERY_BLOCK.format(y=block_y)
                       + "\n    <!-- glass sphere -->")):
@@ -2617,36 +2782,38 @@ def gallery_xml(variant, block_y=GALLERY_BLOCK_Y, eye_shift=0.0):
     return text
 
 
-def gallery_renders(dev, tmp, **xml):
-    """Every render of the material gallery, by label (``gallery
+def gallery_renders(dev, tmp, gallery, **xml):
+    """Every render of ``gallery`` (a Gallery), by label (``{kind}
     {variant}``): (scene, static, sensor, cfg, settings, expected launches),
-    loaded from ``{tmp}/gallery_{variant}.xml`` with -D spp=64 -D res=256;
-    ``xml`` goes to gallery_xml. scripts/torch_header_stats.py renders the
-    same."""
+    loaded from ``{tmp}/{kind}_{variant}.xml`` with -D spp={spp} -D res=256,
+    HEIGHT_PFM written beside them; ``xml`` goes to gallery_xml.
+    scripts/torch_header_stats.py renders the same."""
     out = {}
-    for variant in GALLERY_BSDFS:
-        path = Path(tmp) / f"gallery_{variant.replace(' ', '_')}.xml"
-        path.write_text(gallery_xml(variant, **xml))
-        ls = mitsuba_xml.load_scene(str(path),
-                                    {"spp": CBOX_SPP, "res": CBOX_RES},
-                                    device=dev)
+    write_height_pfm(Path(tmp) / HEIGHT_PFM)
+    for variant in gallery.bsdfs:
+        path = Path(tmp) / f"{gallery.kind}_{variant.replace(' ', '_')}.xml"
+        path.write_text(gallery.xml(variant, **xml))
+        ls = mitsuba_xml.load_scene(
+            str(path), {"spp": gallery.spp, "res": CBOX_RES}, device=dev)
         # a closest-hit (K1) and a shadow query (K2) per bounce and sample
-        n = DEPTH * CBOX_SPP
-        out[f"gallery {variant}"] = (
+        n = DEPTH * gallery.spp
+        out[f"{gallery.kind} {variant}"] = (
             ls.scene, ls.static, ls.sensor, ls.integrator, ls.settings,
             {"brute_force_interaction": n, "brute_force_closest_hit": n})
     return out
 
 
-def gallery_phase(dev):
-    """The nine single-layer BSDFs on the card: each gallery render held to
-    the JAX package's mean and tv_rgb within HEADER_MEAN_RTOL and
-    HEADER_TV_RTOL and to its exact K1/K2 launches, and the CLI on the
-    GALLERY_CLI file, whose EXR must equal its image. Returns the rough
-    dielectric GGX render's (scene, static, sensor, cfg) for the profile
-    phase."""
+def gallery_phase(dev, gallery):
+    """A gallery's BSDFs on the card (9f: the nine single-layer ones; 9g:
+    the nested and layered ones and the maps): each render of
+    gallery_renders held to the JAX package's mean and tv_rgb within
+    HEADER_MEAN_RTOL and HEADER_TV_RTOL and to its exact K1/K2 launches, and
+    the CLI on the gallery's CLI variant, whose EXR must equal its image.
+    Returns the renders' (scene, static, sensor, cfg, settings, launches)
+    by label."""
+    cli = f"{gallery.kind} {gallery.cli}"
     with tempfile.TemporaryDirectory() as tmp:
-        cases = gallery_renders(dev, tmp)
+        cases = gallery_renders(dev, tmp, gallery)
         for label, case in cases.items():
             log(f"{label}: {case[1]}")
         # warm-up: one sample of each (first-call set-up of the new lobes)
@@ -2655,11 +2822,9 @@ def gallery_phase(dev):
                 settings, spp=1, spp_per_pass=1), device=dev)
         imgs = {label: header_render(dev, label, *case)
                 for label, case in cases.items()}
-        cli = GALLERY_CLI.replace(" ", "_")
-        cli_matches(f"gallery {GALLERY_CLI}", Path(tmp) / f"gallery_{cli}.xml",
-                    {"spp": CBOX_SPP, "res": CBOX_RES},
-                    imgs[f"gallery {GALLERY_CLI}"])
-    return cases["gallery roughdielectric ggx"][:4]
+        cli_matches(cli, Path(tmp) / f"{cli.replace(' ', '_')}.xml",
+                    {"spp": gallery.spp, "res": CBOX_RES}, imgs[cli])
+    return cases
 
 
 def bunny_ao_case(bunny_scene):
@@ -2877,7 +3042,11 @@ def main() -> int:
     with phase("9e sensor header"):
         ld_cbox = header_phase(dev, cornell_scene)
     with phase("9f material gallery"):
-        gallery = gallery_phase(dev)
+        gallery = gallery_phase(dev, MATERIAL_GALLERY)[
+            "gallery roughdielectric ggx"][:4]
+    with phase("9g layered gallery"):
+        layered = gallery_phase(dev, LAYERED_GALLERY)[
+            f"layered {LAYERED_GALLERY.cli}"][:4]
     with phase("10 bunny"):
         bunny_scene = bunny(dev)
         bunny_launches, lane_mean, lane_ms = render_phase(
@@ -2925,6 +3094,10 @@ def main() -> int:
         # distributions on every lane
         profile_phase(dev, "gallery roughdielectric ggx", *gallery[:3], 4,
                       cfg=gallery[3], size=CBOX_RES)
+        # the layered gallery's rough coating: the nested layer's lookups
+        # and its base-layer calls at the refracted directions
+        profile_phase(dev, f"layered {LAYERED_GALLERY.cli}", *layered[:3], 4,
+                      cfg=layered[3], size=CBOX_RES)
         profile_phase(dev, "cornell direct", *cornell_direct[:3], 4,
                       cfg=cornell_direct[3], size=DIRECT_RES)
         profile_phase(dev, "veach_mis", *veach[:3], VEACH_SPP_PER_PASS,

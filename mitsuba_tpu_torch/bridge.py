@@ -26,7 +26,10 @@ _TRI_INT = ("tri_mat", "tri_emitter")
 _SPH_FLOAT = ("sph_center", "sph_radius")
 _SPH_INT = ("sph_mat", "sph_emitter")
 _MAT_FLOAT = ("spec_refl", "spec_trans", "eta", "k", "alpha", "rt_coef",
-              "rt_fdr", "hk_thickness", "hk_g")
+              "rt_fdr", "hk_thickness", "hk_g", "weight", "bump_scale")
+_MAT_INT = ("type", "dist", "albedo_tex", "opacity_tex", "nested_a",
+            "nested_b", "weight_tex", "normal_tex", "bump_tex")
+_TEX_PROCEDURAL = ("color0", "color1", "line_width")
 _ENV_FLOAT = ("env_map", "env_alias", "env_to_world", "env_scale")
 _TEX_FLOAT = ("uv_scale", "uv_offset", "scale", "stack", "mips")
 _TEX_INT = ("type", "bitmap_idx", "stack_hw", "sizes", "mips_hw")
@@ -110,7 +113,9 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
 
     ``arrays`` maps Scene field names to numpy arrays, with ``materials``,
     ``textures`` and ``emitters`` as dicts of their tables' fields (a
-    material's ``alpha_tex``, if given, must be -1 throughout);
+    material's ``alpha_tex``, if given, must be -1 throughout; the
+    textures' ``color0``, ``color1`` and ``line_width`` are read where the
+    table holds a procedural row);
     ``static`` maps SceneStatic field names to values. The BVH comes across
     as the JAX scene's ``bvh_pages`` (the same tree, repacked by
     ``nodes_from_pages``), with its treelet cut (``tl_root``, ``tl_skip``,
@@ -144,12 +149,19 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
     mats, texs, ems = arrays["materials"], arrays["textures"], arrays["emitters"]
     if np.any(np.asarray(mats.get("alpha_tex", -1)) >= 0):
         raise NotImplementedError(
-            "roughness textures land in a later slice of the port")
+            "roughness textures land in a later slice of the port "
+            "(ROADMAP.md, Queue 1 item 3.2.3)")
     has_textures = bool(static.get("has_textures", False))
-    if has_textures and any(int(t) not in tex_mod.SUPPORTED_TYPES
-                            for t in np.asarray(texs["type"]).ravel()):
+    has_maps = bool(static.get("has_normal_maps", False))
+    tex_types = np.asarray(texs["type"]).ravel()
+    if (has_textures or has_maps) and any(
+            int(t) not in tex_mod.SUPPORTED_TYPES for t in tex_types):
         raise NotImplementedError(
-            "textures other than bitmaps land in a later slice of the port")
+            "textures other than bitmaps, constants, checkerboards and grids "
+            "land in a later slice of the port (ROADMAP.md, Queue 1 item "
+            "3.2.3)")
+    procedural = ({k: _f32(texs[k], dev) for k in _TEX_PROCEDURAL}
+                  if tex_mod.has_procedural(tex_types) else {})
     scene = scene_mod.Scene(
         **tri,
         **sph,
@@ -161,15 +173,14 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
         aabb_hi=_f32(arrays["aabb_hi"], dev),
         radius=_f32(arrays["radius"], dev),
         materials=bsdf_mod.MaterialTable(
-            type=_i32(mats["type"], dev), dist=_i32(mats["dist"], dev),
             albedo=_f32(mats["albedo"], dev),
-            albedo_tex=_i32(mats["albedo_tex"], dev),
+            **{k: _i32(mats[k], dev) for k in _MAT_INT},
             **{k: _f32(mats[k], dev) for k in _MAT_FLOAT},
             twosided=_bool(mats["twosided"], dev),
             nonlinear=_bool(mats["nonlinear"], dev)),
         textures=tex_mod.TextureTable(
             **{k: _f32(texs[k], dev) for k in _TEX_FLOAT},
-            **{k: _i32(texs[k], dev) for k in _TEX_INT}),
+            **{k: _i32(texs[k], dev) for k in _TEX_INT}, **procedural),
         emitters=em_mod.EmitterTable(
             type=_i32(ems["type"], dev), radiance=_f32(ems["radiance"], dev),
             position=_f32(ems["position"], dev),
@@ -187,6 +198,11 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
         emitter_types=tuple(int(t) for t in static["emitter_types"]),
         has_env=bool(static["has_env"]), has_textures=has_textures,
         n_bvh_nodes=n_nodes,
+        has_opacity_tex=bool(static.get("has_opacity_tex", False)),
+        has_weight_tex=bool(static.get("has_weight_tex", False)),
+        nested_bsdf_types=tuple(
+            int(t) for t in static.get("nested_bsdf_types", ())),
+        has_normal_maps=has_maps,
     )
     return scene, st
 

@@ -90,9 +90,7 @@ _RFILTERS = {
 }
 _LATER_SENSORS = ("thinlens", "orthographic", "spherical", "radiancemeter",
                   "irradiancemeter", "fluencemeter")
-_LATER_BSDFS = ("mask", "mixturebsdf", "blendbsdf", "coating",
-                "roughcoating", "irawan", "normalmap", "bumpmap")
-_LATER_TEXTURES = ("checkerboard", "gridtexture", "scale")
+_LATER_BSDFS = {"irawan": "3.2.4"}
 _LATER_EMITTERS = {"point": "3.3", "directional": "3.3", "spot": "3.3",
                    "collimated": "3.3", "sunsky": "3.8", "sky": "3.8",
                    "sun": "3.8"}
@@ -360,15 +358,39 @@ class XMLSceneLoader:
     def _load_texture(self, node) -> int:
         t = node.get("type")
         p = _props(node, self.params)
-        if t in _LATER_TEXTURES:
-            raise _later(f"the {t} texture", "3.2")
+        uv_scale = (float(p.get("uscale", 1.0)), float(p.get("vscale", 1.0)))
+        uv_off = (float(p.get("uoffset", 0.0)), float(p.get("voffset", 0.0)))
+        if t == "checkerboard":
+            return self.builder.add_texture_checkerboard(
+                color0=p.get("color0", (0.4,) * 3),
+                color1=p.get("color1", (0.2,) * 3),
+                uv_scale=uv_scale, uv_offset=uv_off)
+        if t == "gridtexture":
+            return self.builder.add_texture_grid(
+                color0=p.get("color0", (0.2,) * 3),
+                color1=p.get("color1", (0.4,) * 3),
+                line_width=float(p.get("lineWidth", 0.01)),
+                uv_scale=uv_scale, uv_offset=uv_off)
         if t == "bitmap":
             img = _load_image(self.resolve_path(p["filename"]))
-            return self.builder.add_texture_bitmap(
-                img, uv_scale=(float(p.get("uscale", 1.0)),
-                               float(p.get("vscale", 1.0))),
-                uv_offset=(float(p.get("uoffset", 0.0)),
-                           float(p.get("voffset", 0.0))))
+            return self.builder.add_texture_bitmap(img, uv_scale=uv_scale,
+                                                   uv_offset=uv_off)
+        if t == "scale":
+            # scale.cpp: the multiplier folds into the nested texture's own
+            # row (the JAX loader's; the builder's add_texture_scale copies
+            # the row instead), or scales a constant value
+            sc = p.get("scale", (1.0,) * 3)
+            if np.isscalar(sc):
+                sc = (float(sc),) * 3
+            inner = node.find("texture")
+            if inner is not None:
+                tid = self._load_texture(inner)
+                rec = self.builder.textures[tid]
+                rec["scale"] = tuple(np.asarray(rec["scale"]) * np.asarray(sc))
+                return tid
+            val = p.get("value", (1.0,) * 3)
+            return self.builder.add_texture_constant(
+                tuple(np.asarray(val) * np.asarray(sc)))
         raise ValueError(f"unsupported texture type '{t}'")
 
     def _load_bsdf(self, node, twosided=False) -> int:
@@ -377,7 +399,18 @@ class XMLSceneLoader:
         if t == "twosided":
             return self._load_bsdf(node.find("bsdf"), twosided=True)
         if t in _LATER_BSDFS:
-            raise _later(f"the {t} BSDF", "3.2")
+            raise _later(f"the {t} BSDF", _LATER_BSDFS[t])
+        if t == "mask":
+            # mask.cpp: an opacity texture (a constant one for a value) over
+            # a nested BSDF, which keeps the twosided flag
+            mid = self._load_bsdf(node.find("bsdf"), twosided=twosided)
+            op, op_tex = self._texture_ref_or_value(node, p, "opacity",
+                                                    (0.5,) * 3)
+            if op_tex < 0:
+                op_tex = self.builder.add_texture_constant(tuple(
+                    np.broadcast_to(np.asarray(op, np.float64), (3,))))
+            return self.builder.add_material(type=B.MASK, nested_a=mid,
+                                             opacity_tex=op_tex)
 
         def ior_of(key, default):
             v = p.get(key, default)
@@ -480,9 +513,81 @@ class XMLSceneLoader:
             return self.builder.add_material(
                 type=B.HK, albedo=tuple(ss), k=tuple(ss + sa),
                 hk_thickness=float(p.get("thickness", 1.0)), hk_g=g)
+        if t == "mixturebsdf":
+            return self._load_mixture(node, p)
+        if t == "blendbsdf":
+            # blendbsdf.cpp's weight is the second BSDF's: nested A is the
+            # second child; a constant weight makes a MIXTURE row
+            mids = [self._load_bsdf(c) for c in node.findall("bsdf")]
+            _, wtex = self._texture_ref_or_value(node, p, "weight", (0.5,) * 3)
+            if wtex < 0:
+                w = p.get("weight", 0.5)
+                w = float(w[0]) if isinstance(w, tuple) else float(w)
+                return self.builder.add_material(
+                    type=B.MIXTURE, nested_a=mids[1], nested_b=mids[0],
+                    weight=w)
+            return self.builder.add_material(
+                type=B.BLEND, nested_a=mids[1], nested_b=mids[0],
+                weight_tex=wtex)
+        if t in ("coating", "roughcoating"):
+            inner = node.find("bsdf")
+            if inner is None:
+                refs = [c for c in node.findall("ref") if c.get("name") is None]
+                mid = (self.ids[refs[0].get("id")][1] if refs
+                       else self.builder.add_material())
+            else:
+                mid = self._load_bsdf(inner)
+            sa = np.broadcast_to(
+                np.asarray(p.get("sigmaA", (0.0,) * 3), np.float64), (3,))
+            th = float(p.get("thickness", 1.0))
+            eta_rel = ior_of("intIOR", "bk7") / ior_of("extIOR", "air")
+            # the k column holds sigma_a * thickness
+            if t == "roughcoating":
+                a = p.get("alpha", 0.1)
+                a = float(a[0] if isinstance(a, tuple) else a)
+                return self.builder.add_material(
+                    type=B.ROUGHCOATING, nested_a=mid, eta=(eta_rel,) * 3,
+                    alpha=(a, a), dist=dist, k=tuple(sa * th))
+            return self.builder.add_material(
+                type=B.COATING, nested_a=mid, eta=eta_rel, k=tuple(sa * th))
+        if t in ("normalmap", "bumpmap"):
+            # a copy of the nested BSDF's row that carries the map (the
+            # first <texture> child); without one, the nested row itself
+            mid = self._load_bsdf(node.find("bsdf"), twosided=twosided)
+            for c in node.findall("texture"):
+                tex = self._load_texture(c)
+                rec = dict(self.builder.mats[mid])
+                if t == "normalmap":
+                    rec["normal_tex"] = tex
+                else:
+                    rec["bump_tex"] = tex
+                    rec["bump_scale"] = float(p.get("scale", 1.0))
+                self.builder.mats.append(rec)
+                return len(self.builder.mats) - 1
+            return mid
         if t == "null":
             return self.builder.add_material(type=B.NULL)
         raise ValueError(f"unsupported bsdf type '{t}'")
+
+    def _load_mixture(self, node, p) -> int:
+        """mixturebsdf.cpp with two lobes: the weights renormalised to sum
+        to 1 (with a warning otherwise); any other count keeps the first
+        lobe alone, with a warning."""
+        ws = [float(x) for x in str(p.get("weights", "0.5 0.5")).split()]
+        mids = [self._load_bsdf(c) for c in node.findall("bsdf")]
+        mids += [self.ids[c.get("id")][1] for c in node.findall("ref")
+                 if c.get("name") is None]
+        if len(mids) != 2 or len(ws) != len(mids):
+            log.warning("scene: mixturebsdf supports exactly 2 lobes; "
+                        f"got {len(mids)} — using the first")
+            return mids[0] if mids else self.builder.add_material()
+        tot = ws[0] + ws[1]
+        if abs(tot - 1.0) > 1e-6:
+            log.warning(f"scene: mixturebsdf weights sum to {tot:g}; "
+                        "renormalizing")
+        return self.builder.add_material(
+            type=B.MIXTURE, nested_a=mids[0], nested_b=mids[1],
+            weight=ws[0] / max(tot, 1e-9))
 
     def _shape_material(self, node) -> int:
         # a referenced medium cannot exist: a top-level <medium> raises

@@ -17,8 +17,14 @@ specular lobe, which ``sample`` chooses with the probability
 ``_plastic_spec_prob``, and the Hanrahan-Krueger slab's unscattered
 transmission, chosen per lane with its luminance. The rough plastic's
 diffuse lobe reads the rough-transmittance polynomial that the builder bakes
-per material (``core/rtrans.py``). The nested and layered types (mask,
-mixture, blend, coating, rough coating, irawan) land in a later slice.
+per material (``core/rtrans.py``).
+
+The nested layer (mask, mixture, blend, coating and rough coating) takes
+``nested=(bl_a, bl_b, ntypes)``: the locals of each lane's nested rows A
+and B (``scene.bsdf_nested``) and the types they can hold. Nesting is one
+level deep: nested rows dispatch through the base layer alone. The rough
+coating reads the same baked transmittance as the rough plastic. irawan
+lands in a later slice.
 """
 from __future__ import annotations
 
@@ -46,19 +52,29 @@ ROUGH_DIFFUSE = 8   # Oren-Nayar
 PHONG = 9
 WARD = 10
 NULL = 11
+MASK = 12           # opacity-masked nested BSDF (mask.cpp)
+MIXTURE = 13        # w A + (1 - w) B, constant weight (mixturebsdf.cpp)
+BLEND = 14          # the same with a textured weight (blendbsdf.cpp)
 DIFFTRANS = 15      # diffuse transmitter (difftrans.cpp)
+COATING = 16        # smooth dielectric layer over nested A (coating.cpp)
 HK = 17             # Hanrahan-Krueger single-scattering slab (hk.cpp)
+ROUGHCOATING = 18   # rough dielectric layer over nested A (roughcoating.cpp)
 
+# the types whose rows reference other rows through nested_a / nested_b
+NESTED_TYPES = (MASK, MIXTURE, BLEND, COATING, ROUGHCOATING)
 SUPPORTED_TYPES = (DIFFUSE, DIELECTRIC, CONDUCTOR, ROUGH_CONDUCTOR, PLASTIC,
                    ROUGH_PLASTIC, ROUGH_DIELECTRIC, THIN_DIELECTRIC,
-                   ROUGH_DIFFUSE, PHONG, WARD, NULL, DIFFTRANS, HK)
+                   ROUGH_DIFFUSE, PHONG, WARD, NULL, DIFFTRANS, HK) \
+    + NESTED_TYPES
 # the types that read each column that only some types read (gathered only
 # where such a lane can be)
 _SPEC_TRANS_TYPES = (DIELECTRIC, ROUGH_DIELECTRIC, THIN_DIELECTRIC,
                      DIFFTRANS)
 _ETA_S_TYPES = (DIELECTRIC, PLASTIC, ROUGH_PLASTIC, ROUGH_DIELECTRIC,
-                THIN_DIELECTRIC)
+                THIN_DIELECTRIC, COATING, ROUGHCOATING)
 _PLASTIC_TYPES = (PLASTIC, ROUGH_PLASTIC)
+_RT_TYPES = (ROUGH_PLASTIC, ROUGHCOATING)
+_BLEND_TYPES = (MIXTURE, BLEND)
 
 
 class MaterialTable(NamedTuple):
@@ -76,15 +92,26 @@ class MaterialTable(NamedTuple):
     alpha: torch.Tensor       # (M, 2) roughness alpha_u, alpha_v
     twosided: torch.Tensor    # (M,) bool: flip frame on backface
     nonlinear: torch.Tensor   # (M,) bool: plastic internal-scattering mode
-    # the rough-transmittance polynomial T(cos) of ROUGH_PLASTIC rows, low
-    # order first, and the internal diffuse reflectance 1 - Tbar_int, both
-    # baked at build (core/rtrans.py); zeros on other rows
+    # the rough-transmittance polynomial T(cos) of ROUGH_PLASTIC and
+    # ROUGHCOATING rows, low order first, and the internal diffuse
+    # reflectance 1 - Tbar_int, both baked at build (core/rtrans.py); zeros
+    # on other rows
     rt_coef: torch.Tensor     # (M, 6)
     rt_fdr: torch.Tensor      # (M,)
     # the HK slab's thickness and Henyey-Greenstein g (its k column holds
     # sigma_t, its albedo sigma_s)
     hk_thickness: torch.Tensor  # (M,)
     hk_g: torch.Tensor          # (M,)
+    # the nested layer (a coating's k column holds sigma_a * thickness) and
+    # the maps; a texture or row id is -1 where there is none
+    opacity_tex: torch.Tensor   # (M,) int32 mask opacity texture
+    nested_a: torch.Tensor      # (M,) int32 nested row A
+    nested_b: torch.Tensor      # (M,) int32 nested row B (mixture, blend)
+    weight: torch.Tensor        # (M,) mixture weight of A
+    weight_tex: torch.Tensor    # (M,) int32 blend weight texture
+    normal_tex: torch.Tensor    # (M,) int32 tangent-space normal map
+    bump_tex: torch.Tensor      # (M,) int32 bump map height texture
+    bump_scale: torch.Tensor    # (M,) bump height scale
 
 
 class BsdfLocals(NamedTuple):
@@ -108,6 +135,8 @@ class BsdfLocals(NamedTuple):
     rt_fdr: torch.Tensor = None      # (R,) rough plastic
     hk_thickness: torch.Tensor = None  # (R,) HK
     hk_g: torch.Tensor = None          # (R,) HK
+    opacity: torch.Tensor = None       # (R,) mask opacity (1: present)
+    blend_w: torch.Tensor = None       # (R,) mixture / blend weight of A
 
 
 class BsdfSample(NamedTuple):
@@ -119,12 +148,15 @@ class BsdfSample(NamedTuple):
 
 
 def gather_locals(table: MaterialTable, mat_id, types,
-                  albedo_override=None) -> BsdfLocals:
+                  albedo_override=None, opacity_override=None,
+                  blend_override=None) -> BsdfLocals:
     """Per-lane parameters of materials ``mat_id``; ``albedo_override``
-    (R, 3) replaces the table's albedo (a textured albedo). A column that
-    only some types read is gathered only where ``types`` (the scene's
-    ``bsdf_types``) holds one of them: every gather of a trainable column
-    costs the training step a sorting backward."""
+    (R, 3) replaces the table's albedo (a textured albedo), and
+    ``opacity_override`` and ``blend_override`` (R,) the opacity of 1 and
+    the table's weight (textured ones). A column that only some types read
+    is gathered only where ``types`` (the scene's ``bsdf_types``, or the
+    nested rows' types) holds one of them: every gather of a trainable
+    column costs the training step a sorting backward."""
     mid = torch.clamp(mat_id, min=0).to(torch.int64)
     albedo = table.albedo[mid] if albedo_override is None else albedo_override
     eta_c = table.eta[mid]
@@ -138,11 +170,18 @@ def gather_locals(table: MaterialTable, mat_id, types,
         bl = bl._replace(eta_s=eta_c[..., 0])
     if any(t in types for t in _PLASTIC_TYPES):
         bl = bl._replace(nonlinear=table.nonlinear[mid])
-    if ROUGH_PLASTIC in types:
+    if any(t in types for t in _RT_TYPES):
         bl = bl._replace(rt_coef=table.rt_coef[mid], rt_fdr=table.rt_fdr[mid])
     if HK in types:
         bl = bl._replace(hk_thickness=table.hk_thickness[mid],
                          hk_g=table.hk_g[mid])
+    if MASK in types:
+        bl = bl._replace(opacity=(torch.ones(mid.shape, device=mid.device)
+                                  if opacity_override is None
+                                  else opacity_override))
+    if any(t in types for t in _BLEND_TYPES):
+        bl = bl._replace(blend_w=(table.weight[mid] if blend_override is None
+                                  else blend_override))
     return bl
 
 
@@ -841,9 +880,9 @@ _SAMPLE_ROUGH = {ROUGH_CONDUCTOR: _rough_conductor_sample,
                  ROUGH_DIELECTRIC: _rough_dielectric_sample}
 
 
-def eval(bl: BsdfLocals, wi, wo, active_types=SUPPORTED_TYPES):
-    """f(wi, wo)·|cos θo| of the smooth lobes, per-lane type dispatch."""
-    _check_types(active_types)
+def _eval_base(bl: BsdfLocals, wi, wo, active_types):
+    """f(wi, wo)·|cos θo| of the smooth single-layer lobes, per-lane type
+    dispatch (a nested type's rows are 0 here)."""
     wi, wo, _ = _flip_twosided(bl, wi, wo)
     out = torch.zeros(wi.shape[:-1] + (3,), device=wi.device)
     for t in active_types:
@@ -857,8 +896,7 @@ def eval(bl: BsdfLocals, wi, wo, active_types=SUPPORTED_TYPES):
     return out
 
 
-def pdf(bl: BsdfLocals, wi, wo, active_types=SUPPORTED_TYPES):
-    _check_types(active_types)
+def _pdf_base(bl: BsdfLocals, wi, wo, active_types):
     wi, wo, _ = _flip_twosided(bl, wi, wo)
     out = torch.zeros(wi.shape[:-1], device=wi.device)
     for t in active_types:
@@ -872,8 +910,18 @@ def pdf(bl: BsdfLocals, wi, wo, active_types=SUPPORTED_TYPES):
     return out
 
 
-def sample(bl: BsdfLocals, wi, u_lobe, u2, active_types=SUPPORTED_TYPES) -> BsdfSample:
-    _check_types(active_types)
+def _select(sel, r: BsdfSample, out: BsdfSample) -> BsdfSample:
+    """``r`` on the lanes of ``sel``, ``out`` elsewhere."""
+    return BsdfSample(
+        wo=torch.where(sel[..., None], r.wo, out.wo),
+        weight=torch.where(sel[..., None], r.weight, out.weight),
+        pdf=torch.where(sel, r.pdf, out.pdf),
+        is_delta=torch.where(sel, r.is_delta, out.is_delta),
+        eta=torch.where(sel, r.eta, out.eta),
+    )
+
+
+def _sample_base(bl: BsdfLocals, wi, u_lobe, u2, active_types) -> BsdfSample:
     wi_f, zflip = _flip_twosided(bl, wi)
     sh = wi.shape[:-1]
     dev = wi.device
@@ -885,19 +933,315 @@ def sample(bl: BsdfLocals, wi, u_lobe, u2, active_types=SUPPORTED_TYPES) -> Bsdf
         eta=torch.ones(sh, device=dev),
     )
     for t in active_types:
-        sel = bl.type == t
         if t in _SAMPLE:
             r = _SAMPLE[t](bl, wi_f, u_lobe, u2)
-        else:
+        elif t in _SAMPLE_ROUGH:
             r = _dist_mix(bl, lambda d: _SAMPLE_ROUGH[t](
                 bl, d, wi_f, u_lobe, u2))
-        wo_, w_, p_, d_, e_ = r
-        out = BsdfSample(
-            wo=torch.where(sel[..., None], wo_, out.wo),
-            weight=torch.where(sel[..., None], w_, out.weight),
-            pdf=torch.where(sel, p_, out.pdf),
-            is_delta=torch.where(sel, d_, out.is_delta),
-            eta=torch.where(sel, e_, out.eta),
-        )
+        else:
+            continue  # a nested type: the nested layer samples it
+        out = _select(bl.type == t, BsdfSample(*r), out)
     # un-flip wo for twosided backfaces
     return out._replace(wo=out.wo * zflip)
+
+
+# === the nested layer =======================================================
+
+def _coat_refract(v, eta):
+    """Refract v across z into a medium of relative IOR eta, keeping the
+    hemisphere's sign (coating.cpp refractIn): returns (v', |cos'|)."""
+    sz = torch.sign(v[..., 2])
+    sin2 = torch.clamp(1.0 - v[..., 2] * v[..., 2], min=0.0)
+    sin2_p = sin2 / (eta * eta)
+    cos_p = m.sqrt(torch.clamp(1.0 - sin2_p, min=1e-12))
+    vp = torch.stack([v[..., 0] / eta, v[..., 1] / eta, sz * cos_p], dim=-1)
+    return m.normalize(vp), cos_p
+
+
+def _coat_refract_out(vp, eta):
+    """The inverse of _coat_refract, from the layer to the outside: returns
+    (v, valid), valid False on total internal reflection."""
+    sz = torch.sign(vp[..., 2])
+    sin2_p = torch.clamp(1.0 - vp[..., 2] * vp[..., 2], min=0.0)
+    sin2 = sin2_p * eta * eta
+    valid = sin2 < 1.0
+    cos_o = m.sqrt(torch.clamp(1.0 - sin2, min=1e-12))
+    v = torch.stack([vp[..., 0] * eta, vp[..., 1] * eta, sz * cos_o], dim=-1)
+    return m.normalize(v), valid
+
+
+def _coat_absorption(bl, ci_p, co_p):
+    """exp(-sigma_a thickness (1/cos_i' + 1/cos_o')): a coating row's k
+    column holds sigma_a * thickness."""
+    return torch.exp(-bl.k_c * (1.0 / torch.clamp(ci_p, min=1e-6)
+                                + 1.0 / torch.clamp(co_p, min=1e-6))[..., None])
+
+
+def _coating_common(bl, wi, wo):
+    eta = bl.eta_s
+    wi_p, ci_p = _coat_refract(wi, eta)
+    wo_p, co_p = _coat_refract(wo, eta)
+    Fi, _ = m.fresnel_dielectric(torch.abs(wi[..., 2]), eta)
+    Fo, _ = m.fresnel_dielectric(torch.abs(wo[..., 2]), eta)
+    T = _coat_absorption(bl, ci_p, co_p)
+    jac = m.safe_div(torch.abs(wo[..., 2]),
+                     eta * eta * torch.clamp(co_p, min=1e-6))
+    return wi_p, wo_p, Fi, Fo, T, jac
+
+
+def _coating_eval(bl, bl_a, ntypes, wi, wo):
+    wi_p, wo_p, Fi, Fo, T, jac = _coating_common(bl, wi, wo)
+    f_n = _eval_base(bl_a, wi_p, wo_p, ntypes)
+    return f_n * ((1.0 - Fi) * (1.0 - Fo) * jac)[..., None] * T
+
+
+def _coating_pdf(bl, bl_a, ntypes, wi, wo):
+    wi_p, wo_p, Fi, _, _, jac = _coating_common(bl, wi, wo)
+    p_n = _pdf_base(bl_a, wi_p, wo_p, ntypes)
+    p_spec = torch.clamp(Fi, 0.05, 0.95)  # sample's lobe probability
+    return (1.0 - p_spec) * p_n * jac
+
+
+def _roughcoating_spec_prob(bl, wi):
+    return torch.clamp(1.0 - _rt_T(bl, wi[..., 2]), 0.05, 0.95)
+
+
+def _roughcoating_eval(bl, bl_a, ntypes, wi, wo):
+    """roughcoating.cpp: an isotropic microfacet reflection (alpha_u) over
+    nested A, which the light reaches through the macro interface,
+    attenuated by the baked transmittance on the way in and out."""
+    ok = (wi[..., 2] > 0) & (wo[..., 2] > 0)
+    mh = m.normalize(wi + wo)
+    au = bl.alpha[..., 0]
+
+    def spec_for(d):
+        D = mf.eval_d(d, au, au, mh)
+        G = mf.smith_g(d, au, au, wi, wo, mh)
+        F, _ = m.fresnel_dielectric(torch.abs(m.dot(wi, mh)), bl.eta_s)
+        return m.safe_div(D * G * F, 4.0 * wi[..., 2])
+
+    spec = torch.where(bl.dist == mf.GGX, spec_for(mf.GGX),
+                       spec_for(mf.BECKMANN))
+    f_spec = bl.spec_refl * spec[..., None]
+    wi_p, wo_p, _, _, Tabs, jac = _coating_common(bl, wi, wo)
+    f_n = _eval_base(bl_a, wi_p, wo_p, ntypes)
+    T_i = _rt_T(bl, wi[..., 2])
+    T_o = _rt_T(bl, wo[..., 2])
+    f_nested = f_n * (T_i * T_o * jac)[..., None] * Tabs
+    return torch.where(ok[..., None], f_spec + f_nested, 0.0)
+
+
+def _roughcoating_pdf(bl, bl_a, ntypes, wi, wo):
+    ok = (wi[..., 2] > 0) & (wo[..., 2] > 0)
+    mh = m.normalize(wi + wo)
+    au = bl.alpha[..., 0]
+    p_m = torch.where(bl.dist == mf.GGX, mf.pdf(mf.GGX, au, au, wi, mh),
+                      mf.pdf(mf.BECKMANN, au, au, wi, mh))
+    pdf_s = m.safe_div(p_m, 4.0 * torch.abs(m.dot(wo, mh)))
+    wi_p, wo_p, _, _, _, jac = _coating_common(bl, wi, wo)
+    p_n = _pdf_base(bl_a, wi_p, wo_p, ntypes)
+    p_spec = _roughcoating_spec_prob(bl, wi)
+    return torch.where(ok, p_spec * pdf_s + (1.0 - p_spec) * p_n * jac, 0.0)
+
+
+def _mixture_sample_nested(bl, bl_a, bl_b, ntypes, wi, u_lobe, u2):
+    """mixturebsdf.cpp: A with probability w (u_lobe rescaled for the
+    chosen lobe), then the mixture's f and pdf at the sampled direction; a
+    delta lobe keeps its own weight."""
+    w = torch.clamp(bl.blend_w, 1e-4, 1.0 - 1e-4)
+    pick_a = u_lobe < w
+    u_a = torch.clamp(u_lobe / w, 0.0, 1.0 - 1e-7)
+    u_b = torch.clamp((u_lobe - w) / (1.0 - w), 0.0, 1.0 - 1e-7)
+    r_a = _sample_base(bl_a, wi, u_a, u2, ntypes)
+    r_b = _sample_base(bl_b, wi, u_b, u2, ntypes)
+    chosen = _select(pick_a, r_a, r_b)
+    wo_m = chosen.wo
+    f_m = (w[..., None] * _eval_base(bl_a, wi, wo_m, ntypes)
+           + (1.0 - w)[..., None] * _eval_base(bl_b, wi, wo_m, ntypes))
+    p_m = (w * _pdf_base(bl_a, wi, wo_m, ntypes)
+           + (1.0 - w) * _pdf_base(bl_b, wi, wo_m, ntypes))
+    w_smooth = m.safe_div(f_m, torch.clamp(p_m, min=1e-12)[..., None])
+    delta = chosen.is_delta
+    return BsdfSample(
+        wo=wo_m,
+        weight=torch.where(delta[..., None], chosen.weight, w_smooth),
+        pdf=torch.where(delta, torch.where(pick_a, w, 1.0 - w) * chosen.pdf,
+                        p_m),
+        is_delta=delta, eta=chosen.eta)
+
+
+def _mask_sample(bl, bl_a, ntypes, wi, u_lobe, u2):
+    """mask.cpp: nested A with probability opacity (u_lobe rescaled), else
+    the ray passes through (a delta lobe of weight 1)."""
+    op = torch.clamp(bl.opacity, 0.0, 1.0)
+    interact = u_lobe < op
+    u_n = torch.clamp(m.safe_div(u_lobe, torch.clamp(op, min=1e-7)),
+                      0.0, 1.0 - 1e-7)
+    r_n = _sample_base(bl_a, wi, u_n, u2, ntypes)
+    sh = wi.shape[:-1]
+    dev = wi.device
+    r_pass = BsdfSample(
+        wo=-wi, weight=torch.ones(sh + (3,), device=dev),
+        pdf=torch.clamp(1.0 - op, min=1e-12),
+        is_delta=torch.ones(sh, dtype=torch.bool, device=dev),
+        eta=torch.ones(sh, device=dev))
+    return _select(interact, r_n._replace(pdf=op * r_n.pdf), r_pass)
+
+
+def _coating_sample(bl, bl_a, ntypes, wi, u_lobe, u2):
+    """coating.cpp: the smooth interface's mirror reflection (a delta lobe)
+    with probability clamp(F, 0.05, 0.95), else nested A sampled inside the
+    layer and refracted out; a total internal reflection on the way out
+    loses the sample (pdf 0)."""
+    eta = bl.eta_s
+    Fi, _ = m.fresnel_dielectric(torch.abs(wi[..., 2]), eta)
+    p_spec = torch.clamp(Fi, 0.05, 0.95)
+    choose_spec = u_lobe < p_spec
+    w_s = bl.spec_refl * m.safe_div(Fi, p_spec)[..., None]
+
+    wi_p, ci_p = _coat_refract(wi, eta)
+    u_n = torch.clamp(m.safe_div(u_lobe - p_spec, 1.0 - p_spec),
+                      0.0, 1.0 - 1e-7)
+    r_n = _sample_base(bl_a, wi_p, u_n, u2, ntypes)
+    wo_c, valid_out = _coat_refract_out(r_n.wo, eta)
+    Fo, _ = m.fresnel_dielectric(torch.abs(wo_c[..., 2]), eta)
+    co_p = torch.abs(r_n.wo[..., 2])
+    T = _coat_absorption(bl, ci_p, co_p)
+    ok_n = valid_out & (r_n.pdf > 0)
+    w_n = torch.where(
+        ok_n[..., None],
+        r_n.weight * T * m.safe_div((1.0 - Fi) * (1.0 - Fo),
+                                    1.0 - p_spec)[..., None],
+        0.0)
+    jac = m.safe_div(torch.abs(wo_c[..., 2]),
+                     eta * eta * torch.clamp(co_p, min=1e-6))
+    pdf_n = torch.where(ok_n, (1.0 - p_spec) * r_n.pdf * jac, 0.0)
+    return BsdfSample(
+        wo=torch.where(choose_spec[..., None], _mirror(wi), wo_c),
+        weight=torch.where(choose_spec[..., None], w_s, w_n),
+        pdf=torch.where(choose_spec, p_spec, pdf_n),
+        is_delta=choose_spec | r_n.is_delta,
+        eta=torch.ones(wi.shape[:-1], device=wi.device))
+
+
+def _roughcoating_sample(bl, bl_a, ntypes, wi, u_lobe, u2):
+    """roughcoating.cpp: the microfacet reflection or nested A sampled
+    inside the layer and refracted out through the macro interface, then
+    the mixture's f / pdf at that direction; a nested delta lobe keeps its
+    weight, attenuated by the transmittance."""
+    eta = bl.eta_s
+    p_spec = _roughcoating_spec_prob(bl, wi)
+    choose_spec = u_lobe < p_spec
+    au = bl.alpha[..., 0]
+    mh = torch.where((bl.dist == mf.GGX)[..., None],
+                     mf.sample(mf.GGX, au, au, wi, u2)[0],
+                     mf.sample(mf.BECKMANN, au, au, wi, u2)[0])
+    wo_s = m.reflect(wi, mh)
+
+    wi_p, ci_p = _coat_refract(wi, eta)
+    u_n = torch.clamp(m.safe_div(u_lobe - p_spec, 1.0 - p_spec),
+                      0.0, 1.0 - 1e-7)
+    r_n = _sample_base(bl_a, wi_p, u_n, u2, ntypes)
+    wo_c, valid_out = _coat_refract_out(r_n.wo, eta)
+    wo_rc = torch.where(choose_spec[..., None], wo_s, wo_c)
+    nested_delta = ~choose_spec & r_n.is_delta
+    f_rc = _roughcoating_eval(bl, bl_a, ntypes, wi, wo_rc)
+    p_rc = _roughcoating_pdf(bl, bl_a, ntypes, wi, wo_rc)
+    w_smooth = m.safe_div(f_rc, torch.clamp(p_rc, min=1e-12)[..., None])
+    T_i = _rt_T(bl, wi[..., 2])
+    T_o = _rt_T(bl, wo_c[..., 2])
+    co_p = torch.abs(r_n.wo[..., 2])
+    Tabs = _coat_absorption(bl, ci_p, co_p)
+    w_delta = r_n.weight * Tabs * m.safe_div(T_i * T_o, 1.0 - p_spec)[..., None]
+    ok_n = valid_out & (r_n.pdf > 0)
+    jac = m.safe_div(torch.abs(wo_c[..., 2]),
+                     eta * eta * torch.clamp(co_p, min=1e-6))
+    keep = choose_spec | ok_n
+    weight = torch.where(nested_delta[..., None], w_delta, w_smooth)
+    pdf = torch.where(nested_delta, (1.0 - p_spec) * r_n.pdf * jac, p_rc)
+    return BsdfSample(
+        wo=wo_rc, weight=torch.where(keep[..., None], weight, 0.0),
+        pdf=torch.where(keep, pdf, 0.0), is_delta=nested_delta,
+        eta=torch.ones(wi.shape[:-1], device=wi.device))
+
+
+def eval(bl: BsdfLocals, wi, wo, active_types=SUPPORTED_TYPES, nested=None):
+    """f(wi, wo)·|cos θo| of the smooth lobes, per-lane type dispatch; the
+    nested types through ``nested`` (they are 0 without it)."""
+    _check_types(active_types)
+    out = _eval_base(bl, wi, wo, active_types)
+    if nested is None:
+        return out
+    bl_a, bl_b, ntypes = nested
+    _check_types(ntypes)
+    types = active_types
+    if MIXTURE in types or BLEND in types or MASK in types:
+        f_a = _eval_base(bl_a, wi, wo, ntypes)
+        if MIXTURE in types or BLEND in types:
+            w = bl.blend_w[..., None]
+            f_b = _eval_base(bl_b, wi, wo, ntypes)
+            mixsel = (bl.type == MIXTURE) | (bl.type == BLEND)
+            out = torch.where(mixsel[..., None], w * f_a + (1.0 - w) * f_b,
+                              out)
+        if MASK in types:
+            out = torch.where((bl.type == MASK)[..., None],
+                              bl.opacity[..., None] * f_a, out)
+    if COATING in types:
+        out = torch.where((bl.type == COATING)[..., None],
+                          _coating_eval(bl, bl_a, ntypes, wi, wo), out)
+    if ROUGHCOATING in types:
+        out = torch.where((bl.type == ROUGHCOATING)[..., None],
+                          _roughcoating_eval(bl, bl_a, ntypes, wi, wo), out)
+    return out
+
+
+def pdf(bl: BsdfLocals, wi, wo, active_types=SUPPORTED_TYPES, nested=None):
+    _check_types(active_types)
+    out = _pdf_base(bl, wi, wo, active_types)
+    if nested is None:
+        return out
+    bl_a, bl_b, ntypes = nested
+    _check_types(ntypes)
+    types = active_types
+    if MIXTURE in types or BLEND in types or MASK in types:
+        p_a = _pdf_base(bl_a, wi, wo, ntypes)
+        if MIXTURE in types or BLEND in types:
+            w = bl.blend_w
+            p_b = _pdf_base(bl_b, wi, wo, ntypes)
+            mixsel = (bl.type == MIXTURE) | (bl.type == BLEND)
+            out = torch.where(mixsel, w * p_a + (1.0 - w) * p_b, out)
+        if MASK in types:
+            out = torch.where(bl.type == MASK, bl.opacity * p_a, out)
+    if ROUGHCOATING in types:
+        out = torch.where(bl.type == ROUGHCOATING,
+                          _roughcoating_pdf(bl, bl_a, ntypes, wi, wo), out)
+    if COATING in types:
+        out = torch.where(bl.type == COATING,
+                          _coating_pdf(bl, bl_a, ntypes, wi, wo), out)
+    return out
+
+
+def sample(bl: BsdfLocals, wi, u_lobe, u2, active_types=SUPPORTED_TYPES,
+           nested=None) -> BsdfSample:
+    _check_types(active_types)
+    out = _sample_base(bl, wi, u_lobe, u2, active_types)
+    if nested is None:
+        return out
+    bl_a, bl_b, ntypes = nested
+    _check_types(ntypes)
+    types = active_types
+    if MIXTURE in types or BLEND in types:
+        out = _select((bl.type == MIXTURE) | (bl.type == BLEND),
+                      _mixture_sample_nested(bl, bl_a, bl_b, ntypes, wi,
+                                             u_lobe, u2), out)
+    if MASK in types:
+        out = _select(bl.type == MASK,
+                      _mask_sample(bl, bl_a, ntypes, wi, u_lobe, u2), out)
+    if COATING in types:
+        out = _select(bl.type == COATING,
+                      _coating_sample(bl, bl_a, ntypes, wi, u_lobe, u2), out)
+    if ROUGHCOATING in types:
+        out = _select(bl.type == ROUGHCOATING,
+                      _roughcoating_sample(bl, bl_a, ntypes, wi, u_lobe, u2),
+                      out)
+    return out

@@ -53,6 +53,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
         L = L + torch.where(active[..., None], Le, 0.0)
 
     bl = scene_mod.bsdf_locals(scene, its, static)
+    nst = scene_mod.bsdf_nested(scene, its, static)
     dim = DIM_BASE
 
     for _ in range(nE):
@@ -65,8 +66,10 @@ def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
         vis = ~scene_mod.occluded(scene, static, o_sh, ds.d, 0.0,
                                   ds.dist * (1.0 - 1e-3), active=ok)
         wo_local = its.sh_frame.to_local(ds.d)
-        f = bsdf_mod.eval(bl, its.wi, wo_local, active_types=types)
-        pdf_b = bsdf_mod.pdf(bl, its.wi, wo_local, active_types=types)
+        f = bsdf_mod.eval(bl, its.wi, wo_local, active_types=types,
+                          nested=nst)
+        pdf_b = bsdf_mod.pdf(bl, its.wi, wo_local, active_types=types,
+                             nested=nst)
         # fractional MIS (direct.cpp:99-101)
         w = torch.where(ds.delta, 1.0,
                         mis_power(ds.pdf_sa * frac_e, pdf_b * frac_b))
@@ -78,7 +81,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
         u = rng_mod.uniform4(sampler, pixel, sample, dim)
         dim += 1
         bs = bsdf_mod.sample(bl, its.wi, u[..., 0], u[..., 1:3],
-                             active_types=types)
+                             active_types=types, nested=nst)
         ok = active & (bs.pdf > 0) & (torch.amax(bs.weight, dim=-1) > 0)
         n_rays = n_rays + ok.sum()
         d2 = m.normalize(its.sh_frame.to_world(bs.wo))

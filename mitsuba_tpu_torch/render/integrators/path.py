@@ -93,6 +93,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
         if i == 0 and pixel_spread is not None and static.has_textures:
             fp_uv = scene_mod.uv_footprint(scene, its, pixel_spread)
         bl = scene_mod.bsdf_locals(scene, its, static, fp_uv=fp_uv)
+        nst = scene_mod.bsdf_nested(scene, its, static)
 
         # --- next event estimation (path.cpp:196-263)
         if static.emitter_types:
@@ -104,8 +105,10 @@ def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
             vis = ~scene_mod.occluded(scene, static, o_sh, ds.d, 0.0,
                                       ds.dist * (1.0 - 1e-3), active=nee_ok)
             wo_local = its.sh_frame.to_local(ds.d)
-            f = bsdf_mod.eval(bl, its.wi, wo_local, active_types=types)
-            bsdf_pdf_nee = bsdf_mod.pdf(bl, its.wi, wo_local, active_types=types)
+            f = bsdf_mod.eval(bl, its.wi, wo_local, active_types=types,
+                              nested=nst)
+            bsdf_pdf_nee = bsdf_mod.pdf(bl, its.wi, wo_local,
+                                        active_types=types, nested=nst)
             w_nee = torch.where(ds.delta, 1.0, mis_power(ds.pdf_sa, bsdf_pdf_nee))
             contrib = thr * f * ds.radiance \
                 * m.safe_div(w_nee, ds.pdf_sa)[..., None]
@@ -114,7 +117,7 @@ def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
         # --- BSDF sampling (path.cpp:215-233)
         u_b = rng_mod.uniform4(sampler, pixel, sample, dim0 + DIM_BSDF)
         bs = bsdf_mod.sample(bl, its.wi, u_b[..., 0], u_b[..., 1:3],
-                             active_types=types)
+                             active_types=types, nested=nst)
         thr_new = thr * bs.weight
         eta = torch.where(extend, eta * bs.eta, eta)
         alive = (torch.amax(thr_new, dim=-1) > 0) & (bs.pdf > 0)

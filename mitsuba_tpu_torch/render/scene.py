@@ -4,9 +4,11 @@ bunny_x2 scene, the Veach MIS scene and the scene-file loader's scenes use).
 
 The scene compiles on the host into flat tensors: a triangle soup with
 per-triangle shading attributes and NEE area pdfs, analytic spheres, a
-threaded BVH packed for the lane kernels, a material table, a bitmap texture
-table and an emitter table. ``SceneStatic`` holds the facts the code
-branches on.
+threaded BVH packed for the lane kernels, a material table, a texture
+table (bitmaps and the procedural textures) and an emitter table.
+``SceneStatic`` holds the facts the code branches on: every gather of a
+later feature (opacity and blend-weight textures, the nested rows, normal
+and bump maps) is gated on one, as in the JAX package.
 
 Scenes of at most ``BRUTE_FORCE_MAX_TRIS`` triangles send their queries to
 the brute-force kernels of ``ops/cuda_intersect``; larger ones build a
@@ -14,14 +16,15 @@ leaf_size=1 BVH, cut it into treelets, and send them to the lane kernels of
 ``ops/cuda_bvh``, or with ``MTS_BVH_KERNEL=treelet`` to the treelet kernel
 K7, with the JAX package's dispatch. Spheres are tested in plain tensor code
 beside those kernels and merged with the JAX package's tie rule; a scene may
-hold spheres and no triangle. Materials are the single-layer BSDF types of
-``render/bsdf.py`` (``SUPPORTED_TYPES``), with an optional bitmap albedo
-(the rough plastic's transmittance polynomial baked at ``build``,
+hold spheres and no triangle. Materials are the BSDF types of
+``render/bsdf.py`` (``SUPPORTED_TYPES``: the single-layer ones and the
+nested and layered ones, one level deep), with an optional textured albedo,
+mask opacity and blend weight, and normal or bump maps (the rough plastic's
+and rough coating's transmittance polynomial baked at ``build``,
 ``core/rtrans.py``); lights are triangle area lights, analytic sphere lights
 (cone-sampled in NEE), a constant environment and a lat-long environment
 map; meshes may be instanced. Anything else (other textures and lights,
-media, other BSDFs) raises ``NotImplementedError``: it lands in a later
-slice.
+media, irawan) raises ``NotImplementedError``: it lands in a later slice.
 """
 from __future__ import annotations
 
@@ -112,8 +115,13 @@ class SceneStatic:
     bsdf_types: tuple          # sorted tuple of bsdf type tags present
     emitter_types: tuple       # sorted tuple of emitter type tags present
     has_env: bool
-    has_textures: bool = False
+    has_textures: bool = False   # a material reads an albedo, opacity or
+                                 # weight texture
     n_bvh_nodes: int = 0       # node count of the BVH (0 without one)
+    has_opacity_tex: bool = False
+    has_weight_tex: bool = False
+    nested_bsdf_types: tuple = ()  # sorted types of the rows nested rows name
+    has_normal_maps: bool = False
 
 
 # SceneStatic fields of the JAX package whose non-default values need code
@@ -121,10 +129,8 @@ class SceneStatic:
 # n_manifold_tris: the JAX builder sets it for any small glass or window
 # mesh, and only the MLT family reads it, so that slice checks it there)
 _LATER_SLICE_FIELDS = {
-    "has_opacity_tex": False, "has_weight_tex": False,
-    "medium_types": (), "phase_types": (), "nested_bsdf_types": (),
-    "has_normal_maps": False, "has_sss": False, "has_singlescatter": False,
-    "has_boundary_media": False, "ewa_taps": 0,
+    "medium_types": (), "phase_types": (), "has_sss": False,
+    "has_singlescatter": False, "has_boundary_media": False, "ewa_taps": 0,
 }
 
 
@@ -141,7 +147,7 @@ def check_supported(static: dict) -> None:
                 isinstance(ok, tuple) and tuple(static[key]) == ok):
             raise NotImplementedError(
                 f"{key}={static[key]!r} lands in a later slice of the port")
-    for t in static["bsdf_types"]:
+    for t in (*static["bsdf_types"], *static.get("nested_bsdf_types", ())):
         if t not in bsdf_mod.SUPPORTED_TYPES:
             raise NotImplementedError(
                 f"BSDF type {t} lands in a later slice of the port")
@@ -286,6 +292,10 @@ def ray_intersect(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
         nee_pdf = torch.where(hit_t, nee_tri, 0.0)
 
     frame = Frame.from_normal(n_sh)
+    if static.has_normal_maps and T > 0:
+        # the triangle query's index, on sphere lanes too (as the JAX
+        # package passes it: ROADMAP.md, Queue 3)
+        frame = _perturb_frame(scene, tri_idx, uv, mat_id, frame)
     wi_world = -d
     wi_local = frame.to_local(wi_world)
     return Interaction(
@@ -304,6 +314,62 @@ def ray_intersect(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
         bary=(torch.stack([tri_u, tri_v], dim=-1) if T > 0
               else torch.zeros((R, 2), device=o.device)),
     )
+
+
+def _perturb_frame(scene: Scene, tri_idx, uv, mat_id, frame: Frame) -> Frame:
+    """normalmap.cpp / bumpmap.cpp: the shading frame rebuilt from a
+    tangent-space normal map, or from a height texture's finite differences
+    at eps = 5e-4 in uv, on the lanes whose material has one. The tangent
+    is the triangle's dpdu (trimesh.cpp computeUVTangents), the frame's own
+    tangent where the uvs are degenerate."""
+    mid = torch.clamp(mat_id, min=0).to(torch.int64)
+    mats = scene.materials
+    ntex, btex = mats.normal_tex[mid], mats.bump_tex[mid]
+    bscale = mats.bump_scale[mid]
+    has_n, has_b = ntex >= 0, btex >= 0
+
+    ti = torch.clamp(tri_idx, min=0).to(torch.int64)
+    e1, e2 = scene.tri_e1[ti], scene.tri_e2[ti]
+    uv0 = scene.tri_uv0[ti]
+    duv1 = scene.tri_uv1[ti] - uv0
+    duv2 = scene.tri_uv2[ti] - uv0
+    det = duv1[..., 0] * duv2[..., 1] - duv1[..., 1] * duv2[..., 0]
+    ok_uv = torch.abs(det) > 1e-12
+    inv = m.safe_div(1.0, torch.where(ok_uv, det, 1.0))
+    dpdu = (e1 * duv2[..., 1:2] - e2 * duv1[..., 1:2]) * inv[..., None]
+    t_u = torch.where(ok_uv[..., None], dpdu, frame.s)
+    n = frame.n
+    t_u = t_u - n * m.dot(n, t_u, keepdim=True)
+    t_len = m.length(t_u)
+    t_u = torch.where((t_len > 1e-9)[..., None],
+                      t_u / torch.clamp(t_len, min=1e-9)[..., None], frame.s)
+    b_v = m.cross(n, t_u)
+
+    # the normal map: tangent-space rgb in [0, 1]
+    flat = torch.tensor([0.5, 0.5, 1.0], device=n.device).expand(n.shape)
+    nt = 2.0 * tex_mod.eval_texture(scene.textures, ntex, uv, flat) - 1.0
+    n_nm = m.normalize(nt[..., 0:1] * t_u + nt[..., 1:2] * b_v
+                       + nt[..., 2:3] * n)
+    n_new = torch.where(has_n[..., None], n_nm, n)
+    # the bump map: the height's finite differences (a tensor divisor: the
+    # card divides by a host scalar through its reciprocal)
+    duv = torch.tensor([[5e-4, 0.0], [0.0, 5e-4]], device=n.device)
+    eps = duv[0, 0]
+    zero3 = torch.zeros(n.shape, device=n.device)
+    h0, hu, hv = (tex_mod.eval_texture(scene.textures, btex, uv_, zero3)[..., 0]
+                  for uv_ in (uv, uv + duv[0], uv + duv[1]))
+    dhdu = (hu - h0) / eps * bscale
+    dhdv = (hv - h0) / eps * bscale
+    n_bm = m.normalize(m.cross(t_u + dhdu[..., None] * n,
+                               b_v + dhdv[..., None] * n))
+    n_bm = n_bm * torch.sign(m.dot(n_bm, n, keepdim=True))
+    n_new = torch.where(has_b[..., None], n_bm, n_new)
+
+    new_frame = Frame.from_normal(m.normalize(n_new))
+    any_map = (has_n | has_b)[..., None]
+    return Frame(s=torch.where(any_map, new_frame.s, frame.s),
+                 t=torch.where(any_map, new_frame.t, frame.t),
+                 n=torch.where(any_map, new_frame.n, frame.n))
 
 
 def occluded(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
@@ -366,12 +432,59 @@ def eval_albedo(scene: Scene, its: Interaction, static: SceneStatic,
 
 def bsdf_locals(scene: Scene, its: Interaction, static: SceneStatic,
                 fp_uv=None) -> bsdf_mod.BsdfLocals:
-    """Per-lane BSDF parameters at the hits, with the textured albedo.
-    ``fp_uv`` is the ray-cone footprint that selects the MIP level."""
+    """Per-lane BSDF parameters at the hits, with the textured albedo and,
+    where the scene has them, the textured mask opacity and blend weight
+    (base level). ``fp_uv`` is the ray-cone footprint that selects the
+    albedo's MIP level."""
+    types = static.bsdf_types
+    textured_opacity = (static.has_textures and static.has_opacity_tex
+                        and bsdf_mod.MASK in types)
+    textured_weight = (static.has_textures and static.has_weight_tex and any(
+        t in types for t in (bsdf_mod.MIXTURE, bsdf_mod.BLEND)))
+    opacity = blend = None
+    if textured_opacity or textured_weight:
+        mid = torch.clamp(its.mat_id, min=0).to(torch.int64)
+        ones3 = torch.ones(its.uv.shape[:-1] + (3,), device=its.uv.device)
+        if textured_opacity:
+            opacity = tex_mod.eval_texture(
+                scene.textures, scene.materials.opacity_tex[mid], its.uv,
+                ones3)[..., 0]
+        if textured_weight:
+            w_base = scene.materials.weight[mid][..., None].expand(
+                ones3.shape)
+            blend = tex_mod.eval_texture(
+                scene.textures, scene.materials.weight_tex[mid], its.uv,
+                w_base)[..., 0]
     return bsdf_mod.gather_locals(
-        scene.materials, its.mat_id,
+        scene.materials, its.mat_id, types,
         albedo_override=eval_albedo(scene, its, static, fp_uv=fp_uv),
-        types=static.bsdf_types)
+        opacity_override=opacity, blend_override=blend)
+
+
+def bsdf_nested(scene: Scene, its: Interaction, static: SceneStatic):
+    """``nested`` of bsdf.eval, pdf and sample: the locals of each lane's
+    nested rows A and B (B only where the scene has a mixture or a blend,
+    the only types that read it) with their textured albedos (base level),
+    and the types they can hold; None in a scene without nesting."""
+    ntypes = static.nested_bsdf_types
+    if not ntypes:
+        return None
+    mid = torch.clamp(its.mat_id, min=0).to(torch.int64)
+
+    def locals_of(nid):
+        nid = torch.clamp(nid, min=0).to(torch.int64)
+        alb = scene.materials.albedo[nid]
+        if static.has_textures:
+            alb = tex_mod.eval_texture(scene.textures,
+                                       scene.materials.albedo_tex[nid],
+                                       its.uv, alb)
+        return bsdf_mod.gather_locals(scene.materials, nid, ntypes,
+                                      albedo_override=alb)
+
+    bl_b = None
+    if any(t in static.bsdf_types for t in (bsdf_mod.MIXTURE, bsdf_mod.BLEND)):
+        bl_b = locals_of(scene.materials.nested_b[mid])
+    return locals_of(scene.materials.nested_a[mid]), bl_b, ntypes
 
 
 def emitted_radiance(scene: Scene, static: SceneStatic, its: Interaction, d):
@@ -450,18 +563,27 @@ class SceneBuilder:
                      eta=(1.5046, 1.5046, 1.5046),
                      k=(0.0, 0.0, 0.0), alpha=(0.1, 0.1), alpha_tex: int = -1,
                      dist: int = 0, nonlinear: bool = False,
-                     twosided: bool = False, hk_thickness: float = 1.0,
+                     twosided: bool = False, opacity_tex: int = -1,
+                     nested_a: int = -1, nested_b: int = -1,
+                     weight: float = 0.5, weight_tex: int = -1,
+                     normal_tex: int = -1, bump_tex: int = -1,
+                     bump_scale: float = 1.0, hk_thickness: float = 1.0,
                      hk_g: float = 0.0) -> int:
         """A material row with the JAX package's keywords and defaults
         (scene.py:819-865) for the columns the port reads; a scalar
         ``eta`` or ``alpha`` is replicated. An HK row reads sigma_s from
-        ``albedo`` and sigma_t from ``k``."""
+        ``albedo`` and sigma_t from ``k``. A nested row (MASK, MIXTURE,
+        BLEND, COATING, ROUGHCOATING) names rows ``nested_a`` (and
+        ``nested_b``) of single-layer types; a coating's ``k`` is sigma_a
+        times the thickness. ``normal_tex`` / ``bump_tex`` put a normal or
+        bump map on the row."""
         if type not in bsdf_mod.SUPPORTED_TYPES:
             raise NotImplementedError(
                 f"BSDF type {type} lands in a later slice of the port")
         if alpha_tex >= 0:
             raise NotImplementedError(
-                "roughness textures land in a later slice of the port")
+                "roughness textures land in a later slice of the port "
+                "(ROADMAP.md, Queue 1 item 3.2.3)")
         if np.isscalar(eta):
             eta = (float(eta),) * 3
         if np.isscalar(alpha):
@@ -471,8 +593,51 @@ class SceneBuilder:
                               spec_trans=tuple(spec_trans), eta=tuple(eta),
                               k=tuple(k), alpha=tuple(alpha), dist=dist,
                               nonlinear=bool(nonlinear), twosided=twosided,
+                              opacity_tex=opacity_tex, nested_a=nested_a,
+                              nested_b=nested_b, weight=weight,
+                              weight_tex=weight_tex, normal_tex=normal_tex,
+                              bump_tex=bump_tex, bump_scale=bump_scale,
                               hk_thickness=hk_thickness, hk_g=hk_g))
         return len(self.mats) - 1
+
+    def _add_texture(self, type, color0=(0.0,) * 3, color1=(0.0,) * 3,
+                     uv_scale=(1.0, 1.0), uv_offset=(0.0, 0.0),
+                     line_width=0.01, scale=(1.0, 1.0, 1.0),
+                     bitmap=-1) -> int:
+        self.textures.append(dict(
+            type=type, color0=tuple(color0), color1=tuple(color1),
+            uv_scale=tuple(uv_scale), uv_offset=tuple(uv_offset),
+            line_width=line_width, scale=tuple(scale), bitmap=bitmap))
+        return len(self.textures) - 1
+
+    def add_texture_constant(self, value) -> int:
+        """A constant texture (the JAX builder's, e.g. a mask's constant
+        opacity)."""
+        return self._add_texture(tex_mod.TEX_CONSTANT, color0=value)
+
+    def add_texture_checkerboard(self, color0=(0.4,) * 3, color1=(0.2,) * 3,
+                                 uv_scale=(1.0, 1.0), uv_offset=(0.0, 0.0),
+                                 scale=(1.0, 1.0, 1.0)) -> int:
+        """checkerboard.cpp: color0 where floor(2u) + floor(2v) is even."""
+        return self._add_texture(tex_mod.TEX_CHECKERBOARD, color0, color1,
+                                 uv_scale, uv_offset, scale=scale)
+
+    def add_texture_grid(self, color0=(0.2,) * 3, color1=(0.4,) * 3,
+                         line_width=0.01, uv_scale=(1.0, 1.0),
+                         uv_offset=(0.0, 0.0)) -> int:
+        """gridtexture.cpp: color1 within ``line_width`` of a unit cell's
+        edge, color0 inside."""
+        return self._add_texture(tex_mod.TEX_GRID, color0, color1, uv_scale,
+                                 uv_offset, line_width)
+
+    def add_texture_scale(self, nested: int, value) -> int:
+        """scale.cpp: a copy of texture ``nested`` with its multiplier times
+        ``value`` (folded at build time)."""
+        src = dict(self.textures[nested])
+        v = np.asarray(value, float) * np.ones(3)
+        src["scale"] = tuple(np.asarray(src["scale"], float) * v)
+        self.textures.append(src)
+        return len(self.textures) - 1
 
     def add_texture_bitmap(self, image, uv_scale=(1.0, 1.0),
                            uv_offset=(0.0, 0.0), scale=(1.0, 1.0, 1.0)) -> int:
@@ -482,11 +647,9 @@ class SceneBuilder:
         if img.ndim == 2:
             img = np.repeat(img[..., None], 3, axis=-1)
         self.bitmaps.append(img)
-        self.textures.append(dict(
-            type=tex_mod.TEX_BITMAP, uv_scale=tuple(uv_scale),
-            uv_offset=tuple(uv_offset), scale=tuple(scale),
-            bitmap=len(self.bitmaps) - 1))
-        return len(self.textures) - 1
+        return self._add_texture(tex_mod.TEX_BITMAP, uv_scale=uv_scale,
+                                 uv_offset=uv_offset, scale=scale,
+                                 bitmap=len(self.bitmaps) - 1)
 
     def add_mesh(self, verts, faces, mat: int, emitter_radiance=None,
                  normals=None, uvs=None) -> None:
@@ -565,10 +728,23 @@ class SceneBuilder:
         envmap_index = max((i for i, e in enumerate(self.emitters)
                             if e["type"] == em_mod.ENVMAP), default=-1)
         use_bvh = T > BRUTE_FORCE_MAX_TRIS
-        check_supported(dict(
-            n_tris=T, use_bvh=use_bvh,
-            bsdf_types=tuple(sorted({mm["type"] for mm in self.mats})),
-            emitter_types=tuple(sorted({e["type"] for e in self.emitters}))))
+        mats = self.mats
+        # the static facts of the materials (scene.py:1620-1642)
+        facts = dict(
+            bsdf_types=tuple(sorted({mm["type"] for mm in mats})),
+            has_textures=any(mm["albedo_tex"] >= 0 or mm["opacity_tex"] >= 0
+                             or mm["weight_tex"] >= 0 for mm in mats),
+            has_opacity_tex=any(mm["opacity_tex"] >= 0 for mm in mats),
+            has_weight_tex=any(mm["weight_tex"] >= 0 for mm in mats),
+            nested_bsdf_types=tuple(sorted({
+                mats[mm[key]]["type"] for mm in mats
+                for key in ("nested_a", "nested_b") if mm[key] >= 0})),
+            has_normal_maps=any(mm["normal_tex"] >= 0 or mm["bump_tex"] >= 0
+                                for mm in mats),
+        )
+        emitter_types = tuple(sorted({e["type"] for e in self.emitters}))
+        check_supported(dict(n_tris=T, use_bvh=use_bvh,
+                             emitter_types=emitter_types, **facts))
 
         P0, E1, E2, N0, N1, N2, UV0, UV1, UV2, GN, MAT, EM, AREA_ = (
             [], [], [], [], [], [], [], [], [], [], [], [], []
@@ -664,13 +840,13 @@ class SceneBuilder:
 
         # the rough-transmittance bake (scene.py:1427-1441): T(cos) and
         # the internal diffuse reflectance (through 1/eta, from the dense
-        # side) of each ROUGH_PLASTIC row, in float64, cast to float32;
-        # zeros elsewhere
+        # side) of each ROUGH_PLASTIC and ROUGHCOATING row, in float64,
+        # cast to float32; zeros elsewhere
         Mn = len(self.mats)
         rt_coef = np.zeros((Mn, rtrans.RT_DEG), np.float32)
         rt_fdr = np.zeros(Mn, np.float32)
         for i, mm in enumerate(self.mats):
-            if mm["type"] == bsdf_mod.ROUGH_PLASTIC:
+            if mm["type"] in (bsdf_mod.ROUGH_PLASTIC, bsdf_mod.ROUGHCOATING):
                 a, e, d = (float(mm["alpha"][0]), float(mm["eta"][0]),
                            int(mm["dist"]))
                 rt_coef[i], _ = rtrans.fit_poly(d, a, e)
@@ -751,6 +927,11 @@ class SceneBuilder:
                 rt_coef=f32(rt_coef), rt_fdr=f32(rt_fdr),
                 hk_thickness=f32([mm["hk_thickness"] for mm in self.mats]),
                 hk_g=f32([mm["hk_g"] for mm in self.mats]),
+                **{k: i32([mm[k] for mm in self.mats]) for k in (
+                    "opacity_tex", "nested_a", "nested_b", "weight_tex",
+                    "normal_tex", "bump_tex")},
+                weight=f32([mm["weight"] for mm in self.mats]),
+                bump_scale=f32([mm["bump_scale"] for mm in self.mats]),
             ),
             textures=tex_mod.build_table(self.textures, self.bitmaps, dev),
             emitters=em_mod.EmitterTable(
@@ -765,12 +946,8 @@ class SceneBuilder:
         )
         static = SceneStatic(
             n_tris=T, n_spheres=S, use_bvh=use_bvh,
-            bsdf_types=tuple(sorted({mm["type"] for mm in self.mats})),
-            emitter_types=tuple(sorted({e["type"] for e in self.emitters})),
-            has_env=env_index >= 0,
-            has_textures=any(mm["albedo_tex"] >= 0 for mm in self.mats),
-            n_bvh_nodes=n_bvh_nodes,
-        )
+            emitter_types=emitter_types, has_env=env_index >= 0,
+            n_bvh_nodes=n_bvh_nodes, **facts)
         return scene, static
 
 

@@ -1,5 +1,7 @@
-"""Bitmap textures with MIP filtering (port of the bitmap part of
-``mitsuba_tpu/render/texture.py``).
+"""Bitmap textures with MIP filtering and the procedural textures a scene
+file can declare (port of the bitmap, constant, checkerboard and grid parts
+of ``mitsuba_tpu/render/texture.py``; scale.cpp is folded into the value
+multiplier at build time).
 
 All bitmaps live in one padded stack, stored flat as ``(B*H*W, 3)`` rows with
 explicit strides, and their MIP pyramids in one vertically packed chain
@@ -8,9 +10,12 @@ per tap. ``eval_texture`` does bilinear lookups at the base level, or
 trilinear ones when given the ray-cone footprint ``fp_uv``. The MIP chain
 is built from the bitmaps once, at build time, as in the JAX package: a
 trainer that replaces ``stack`` (``parallel.train.merge_params``) trains the
-base level, and lookups above it read the chain as built. The procedural
-textures (checkerboard, grid, wireframe, vertex colors, curvature, noise),
-EWA taps and explicit LODs land in a later slice.
+base level, and lookups above it read the chain as built. A table without a
+bitmap holds a 1x1 dummy stack, as in the JAX package. The procedural
+columns (``color0``, ``color1``, ``line_width``) are None in a table without
+a procedural row, so a bitmap-only scene gathers what it did before they
+existed. The builder-only textures (wireframe, vertex colors, curvature,
+noise), EWA taps and explicit LODs land in a later slice.
 """
 from __future__ import annotations
 
@@ -20,26 +25,41 @@ import numpy as np
 import torch
 
 # type tags, the JAX package's numbering
+TEX_CONSTANT = 0
+TEX_CHECKERBOARD = 1
 TEX_BITMAP = 2
+TEX_GRID = 3
 
-SUPPORTED_TYPES = (TEX_BITMAP,)
+SUPPORTED_TYPES = (TEX_CONSTANT, TEX_CHECKERBOARD, TEX_BITMAP, TEX_GRID)
+PROCEDURAL_TYPES = (TEX_CONSTANT, TEX_CHECKERBOARD, TEX_GRID)
 
 
 class TextureTable(NamedTuple):
     type: torch.Tensor        # (K,) int32
     uv_scale: torch.Tensor    # (K, 2)
     uv_offset: torch.Tensor   # (K, 2)
-    scale: torch.Tensor       # (K, 3) value multiplier
-    bitmap_idx: torch.Tensor  # (K,) int32 into the stack
+    scale: torch.Tensor       # (K, 3) value multiplier (scale.cpp folded in)
+    bitmap_idx: torch.Tensor  # (K,) int32 into the stack, -1 if procedural
     stack: torch.Tensor       # (B*H*W, 3) padded bitmap stack rows
     stack_hw: torch.Tensor    # (2,) int32 padded (H, W) stride of the stack
     sizes: torch.Tensor       # (B, 2) int32 (h, w) true sizes
     mips: torch.Tensor        # (B*H*(W//2), 3) packed MIP chain
     mips_hw: torch.Tensor     # (2,) int32 padded (H, W//2) stride of mips
+    # the procedural columns; None where the table has no procedural row
+    color0: torch.Tensor = None      # (K, 3) constant / checker dark / grid cell
+    color1: torch.Tensor = None      # (K, 3) checker bright / grid line
+    line_width: torch.Tensor = None  # (K,) grid line width
+
+
+def has_procedural(types) -> bool:
+    """Whether a table of texture ``types`` carries the procedural columns."""
+    return any(int(t) in PROCEDURAL_TYPES for t in types)
 
 
 def empty_table(device) -> TextureTable:
-    """The table of a scene without textures (TextureTable.empty)."""
+    """The table of a scene without textures (TextureTable.empty): one
+    constant row, so it carries the procedural columns, which no lookup
+    reads."""
     def f32(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
@@ -51,7 +71,8 @@ def empty_table(device) -> TextureTable:
         uv_offset=f32(np.zeros((1, 2))), scale=f32(np.ones((1, 3))),
         bitmap_idx=i32([-1]), stack=f32(np.zeros((1, 3))), stack_hw=i32([1, 1]),
         sizes=i32(np.ones((1, 2))), mips=f32(np.zeros((1, 3))),
-        mips_hw=i32([1, 1]))
+        mips_hw=i32([1, 1]), color0=f32(np.ones((1, 3))),
+        color1=f32(np.ones((1, 3))), line_width=f32([0.01]))
 
 
 def eval_texture(tt: TextureTable, tex_id, uv, default, fp_uv=None):
@@ -76,8 +97,31 @@ def eval_texture(tt: TextureTable, tex_id, uv, default, fp_uv=None):
         lod = torch.where(texels > 1.0,
                           torch.log2(torch.clamp(texels, min=1.0)), 0.0)
         v_bitmap = _bitmap_trilinear(tt, tid, uv_t, lod)
+    if tt.color0 is not None:
+        v_bitmap = _procedural(tt, tid, uv_t, v_bitmap)
     out = v_bitmap * tt.scale[tid]
     return torch.where((tex_id >= 0)[..., None], out, default)
+
+
+def _procedural(tt: TextureTable, tid, uv_t, v_bitmap):
+    """The value before the multiplier, by type: color0 (constant),
+    checkerboard.cpp's parity of the 2x-scaled uv, gridtexture.cpp's line of
+    width line_width on the unit-cell boundary, or the bitmap's."""
+    ttype = tt.type[tid]
+    c0, c1 = tt.color0[tid], tt.color1[tid]
+    out = c0
+    iu = torch.floor(uv_t[..., 0] * 2.0).to(torch.int32)
+    iv = torch.floor(uv_t[..., 1] * 2.0).to(torch.int32)
+    checker = torch.remainder(iu + iv, 2) == 0
+    v_check = torch.where(checker[..., None], c0, c1)
+    out = torch.where((ttype == TEX_CHECKERBOARD)[..., None], v_check, out)
+    fu = uv_t[..., 0] - torch.floor(uv_t[..., 0])
+    fv = uv_t[..., 1] - torch.floor(uv_t[..., 1])
+    lw = tt.line_width[tid]
+    on_line = (fu < lw) | (fu > 1.0 - lw) | (fv < lw) | (fv > 1.0 - lw)
+    v_grid = torch.where(on_line[..., None], c1, c0)
+    out = torch.where((ttype == TEX_GRID)[..., None], v_grid, out)
+    return torch.where((ttype == TEX_BITMAP)[..., None], v_bitmap, out)
 
 
 def n_mip_levels(h, w):
@@ -178,21 +222,28 @@ def build_mip_chain(stack, sizes):
 def build_table(textures, bitmaps, device) -> TextureTable:
     """Compile the builder's texture list (dicts) and bitmaps (H, W, 3)
     float32 into a TextureTable on ``device`` (SceneBuilder._build_textures
-    for bitmap textures)."""
+    for the bitmap and procedural textures). Without a procedural row the
+    procedural columns are None."""
     if not textures:
         return empty_table(device)
     for t in textures:
         if t["type"] not in SUPPORTED_TYPES:
             raise NotImplementedError(
                 f"texture type {t['type']} lands in a later slice of the port")
-    Hm = max(b.shape[0] for b in bitmaps)
-    Wm = max(b.shape[1] for b in bitmaps)
-    stack = np.zeros((len(bitmaps), Hm, Wm, 3), np.float32)
-    sizes = np.zeros((len(bitmaps), 2), np.int32)
-    for i, b in enumerate(bitmaps):
-        stack[i, : b.shape[0], : b.shape[1]] = b[..., :3]
-        sizes[i] = (b.shape[0], b.shape[1])
-    mips = build_mip_chain(stack, sizes)
+    if bitmaps:
+        Hm = max(b.shape[0] for b in bitmaps)
+        Wm = max(b.shape[1] for b in bitmaps)
+        stack = np.zeros((len(bitmaps), Hm, Wm, 3), np.float32)
+        sizes = np.zeros((len(bitmaps), 2), np.int32)
+        for i, b in enumerate(bitmaps):
+            stack[i, : b.shape[0], : b.shape[1]] = b[..., :3]
+            sizes[i] = (b.shape[0], b.shape[1])
+        mips = build_mip_chain(stack, sizes)
+    else:
+        # a 1x1 dummy entry (scene.py:1671-1674)
+        stack = np.zeros((1, 1, 1, 3), np.float32)
+        sizes = np.ones((1, 2), np.int32)
+        mips = np.zeros((1, 1, 1, 3), np.float32)
 
     def f32(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
@@ -211,4 +262,9 @@ def build_table(textures, bitmaps, device) -> TextureTable:
         sizes=i32(sizes),
         mips=f32(np.ascontiguousarray(mips).reshape(-1, 3)),
         mips_hw=i32(mips.shape[1:3]),
+        **(dict(color0=f32([t["color0"] for t in textures]),
+                color1=f32([t["color1"] for t in textures]),
+                line_width=f32([t["line_width"] for t in textures]))
+           if has_procedural(t["type"] for t in textures)
+           else {}),
     )

@@ -31,7 +31,13 @@ them without one):
   ``chip_smoke.GALLERY_BSDFS``: ``scenes/cbox.xml`` with its glass sphere
   and the added Cornell short block made of one single-layer BSDF
   (``chip_smoke.gallery_xml``, which takes ``--block-y`` and
-  ``--eye-shift``), loaded and rendered as the ldsampler file.
+  ``--eye-shift``), loaded and rendered as the ldsampler file;
+- the layered gallery, ``layered {variant}`` for each variant of
+  ``chip_smoke.LAYERED_BSDFS``: the same scene with the sphere and the block
+  made of one nested or layered BSDF (the map variants: the block alone),
+  the bump map's height field written by ``chip_smoke.write_height_pfm``
+  beside the file, loaded with ``-D spp=32``
+  (``chip_smoke.LAYERED_GALLERY.spp``) and rendered as above.
 
 For each it prints the seconds, ``mean_rgb`` and ``tv_rgb`` (the mean
 absolute difference of horizontally adjacent pixels, per channel: it sees a
@@ -192,9 +198,11 @@ def renders(labels=(), block_y=None, eye_shift=0.0):
                                    spp=FIELD_SPP, filter_type=0))))
         block = {"block_y": (chip_smoke.GALLERY_BLOCK_Y if block_y is None
                              else block_y), "eye_shift": eye_shift}
-        for v in chip_smoke.GALLERY_BSDFS:
-            out.append((f"gallery {v}", lambda v=v: scene_file(
-                chip_smoke.gallery_xml(v, **block), 64, 256)))
+        chip_smoke.write_height_pfm(os.path.join(tmp, chip_smoke.HEIGHT_PFM))
+        for g in (chip_smoke.MATERIAL_GALLERY, chip_smoke.LAYERED_GALLERY):
+            for v in g.bsdfs:
+                out.append((f"{g.kind} {v}", lambda g=g, v=v: scene_file(
+                    g.xml(v, **block), g.spp, 256)))
         values = {}
         for label, thunk in out:
             if labels and not any(label.startswith(x) for x in labels):

@@ -7,10 +7,11 @@ them to.
         [--block-y Y] [--eye-shift DX] [LABEL ...]
 
 Renders each render of ``chip_smoke.py``'s sensor-header phase (9e,
-``chip_smoke.header_renders`` and ``bunny_ao_case``) and material-gallery
+``chip_smoke.header_renders`` and ``bunny_ao_case``), material-gallery
 phase (9f, ``chip_smoke.gallery_renders``, labels ``gallery {variant}``)
-whose label starts with one of the LABELs (all of them without one) through
-this tree's
+and layered-gallery phase (9g, labels ``layered {variant}``) whose label
+starts with one of the LABELs (all of them without one) through this
+tree's
 ``mitsuba_tpu_torch`` on ``--device`` (the card by default), and prints its
 ``mean_rgb`` and ``tv_rgb`` with their relative gaps to
 ``chip_smoke.HEADER_REF`` (``scripts/jax_header_ref_mean.py``'s values) and
@@ -59,8 +60,9 @@ def main() -> int:
           f"tv {cs.HEADER_TV_RTOL} relative", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         cases = cs.header_renders(dev, tmp, cs.cornell(dev))
-        cases.update(cs.gallery_renders(dev, tmp, block_y=args.block_y,
-                                        eye_shift=args.eye_shift))
+        for g in (cs.MATERIAL_GALLERY, cs.LAYERED_GALLERY):
+            cases.update(cs.gallery_renders(dev, tmp, g, block_y=args.block_y,
+                                            eye_shift=args.eye_shift))
         if wanted("ao bunny_x2"):
             cases["ao bunny_x2"] = cs.bunny_ao_case(cs.bunny(dev))
         for label, (scene, static, sensor, cfg, settings, _) in cases.items():

@@ -57,7 +57,9 @@ TRI_FIELDS = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
               "tri_emitter", "tri_nee_pdf_area")
 MAT_FIELDS = ("type", "dist", "albedo", "albedo_tex", "spec_refl", "eta", "k",
               "alpha", "twosided", "spec_trans", "nonlinear", "rt_coef",
-              "rt_fdr", "hk_thickness", "hk_g")
+              "rt_fdr", "hk_thickness", "hk_g", "opacity_tex", "nested_a",
+              "nested_b", "weight", "weight_tex", "normal_tex", "bump_tex",
+              "bump_scale")
 TEX_FIELDS = ("type", "uv_scale", "uv_offset", "scale", "bitmap_idx", "stack",
               "stack_hw", "sizes", "mips", "mips_hw")
 EM_FIELDS = ("type", "radiance", "position", "spot_cos", "pmf", "cdf",
@@ -181,13 +183,19 @@ def test_bridge_carries_the_bvh_scene(port_bunny, bridged):
         a, b = getattr(scene, f), getattr(port_bunny[0], f)
         for x, y in zip(*((t,) if isinstance(t, torch.Tensor) else t
                           for t in (a, b))):
+            if x is None:  # a column the table leaves out (no procedural row)
+                assert y is None, f
+                continue
             assert x.dtype == y.dtype and torch.equal(x, y), f
 
 
 def test_bridge_rejects_procedural_textures(jax_bunny):
+    """The builder-only procedural textures land in a later slice (the
+    constant, checkerboard and grid textures joined the port with the
+    nested BSDFs)."""
     arrays = jax_scene_arrays(jax_bunny[0])
-    arrays["textures"]["type"] = np.asarray([jtex.TEX_CHECKERBOARD], np.int32)
-    with pytest.raises(NotImplementedError, match="bitmaps"):
+    arrays["textures"]["type"] = np.asarray([jtex.TEX_WIREFRAME], np.int32)
+    with pytest.raises(NotImplementedError, match="item 3.2.3"):
         bridge.scene_from_arrays(arrays, dataclasses.asdict(jax_bunny[1]),
                                  device="cpu")
 

@@ -130,17 +130,45 @@ def test_elements_load_as_the_jax_loaders(tmp_path, case):
     assert tls.ids["m"] == ("bsdf", 0)
 
 
+# the nested and layered elements, which raised here until the port
+# rendered them (irawan still does): the element's children, the type of
+# the row the shape gets, and the column its map sets
+_NESTED_BODIES = {
+    "mixturebsdf": ('<string name="weights" value="0.4 0.6"/>'
+                    '<bsdf type="diffuse"/><bsdf type="roughconductor"/>',
+                    B.MIXTURE, None),
+    "blendbsdf": ('<float name="weight" value="0.3"/><bsdf type="diffuse"/>'
+                  '<bsdf type="conductor"/>', B.MIXTURE, None),
+    "roughcoating": ('<bsdf type="diffuse"/>', B.ROUGHCOATING, None),
+    "irawan": ('<bsdf type="diffuse"/>', None, None),
+    "normalmap": ('<texture type="checkerboard"/><bsdf type="diffuse"/>',
+                  B.DIFFUSE, "normal_tex"),
+    "bumpmap": ('<texture type="gridtexture"/><bsdf type="diffuse"/>',
+                B.DIFFUSE, "bump_tex"),
+}
+
+
 @pytest.mark.parametrize("t", ["mixturebsdf", "blendbsdf", "roughcoating",
                                "irawan", "normalmap", "bumpmap"])
 def test_nested_and_layered_elements_still_raise(tmp_path, t):
-    """The nested and layered types land in the next slice: each raises,
-    naming its ROADMAP.md item."""
+    """irawan lands in a later slice: it raises, naming its ROADMAP.md item.
+    The other nested and layered types load into the JAX loader's tables
+    (tests/test_torch_nested.py holds each element against it)."""
+    body, tag, col = _NESTED_BODIES[t]
     path = tmp_path / "s.xml"
     path.write_text(f'<scene version="0.6.0"><shape type="rectangle">'
-                    f'<bsdf type="{t}"><bsdf type="diffuse"/></bsdf>'
-                    "</shape></scene>")
-    with pytest.raises(NotImplementedError, match="item 3.2"):
-        txml.load_scene(str(path), device="cpu")
+                    f'<bsdf type="{t}">{body}</bsdf></shape></scene>')
+    if t == "irawan":
+        with pytest.raises(NotImplementedError, match="item 3.2.4"):
+            txml.load_scene(str(path), device="cpu")
+        return
+    _, tls, ref, ref_static = _both(path)
+    _equal_tables(tls, ref, ref_static)
+    mats = tls.scene.materials
+    row = int(tls.scene.tri_mat[0])
+    assert mats.type[row] == tag
+    if col is not None:
+        assert getattr(mats, col)[row] == 0
 
 
 # --- one scene with every single-layer type --------------------------------
@@ -171,7 +199,7 @@ def all_types_xml():
     100 x 100 tiles in
     front of the back wall, one per other type; depth 6, roulette from
     depth 2."""
-    text = chip_smoke.gallery_xml("roughdielectric ggx")
+    text = chip_smoke.MATERIAL_GALLERY.xml("roughdielectric ggx")
     hk = chip_smoke.GALLERY_BSDFS["hk"].replace('id="gallery"', 'id="hk"')
     tiles = "".join(
         f'<shape type="rectangle"><transform name="toWorld">'
@@ -251,7 +279,7 @@ def test_columns_are_gathered_where_a_type_reads_them(tmp_path, variant,
     Cornell, bunny, Veach and training renders issue the same ops as
     before)."""
     path = tmp_path / "g.xml"
-    path.write_text(chip_smoke.gallery_xml(variant))
+    path.write_text(chip_smoke.MATERIAL_GALLERY.xml(variant))
     tls = txml.load_scene(str(path), {"spp": 1, "res": 4}, device="cpu")
     seen, bl = _gathered(tls.scene, tls.static)
     eta_s = ["eta"] if variant == "thindielectric" else []

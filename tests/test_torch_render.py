@@ -55,7 +55,9 @@ TRI_FIELDS = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
               "tri_emitter", "tri_nee_pdf_area")
 MAT_FIELDS = ("type", "dist", "albedo", "albedo_tex", "spec_refl", "eta", "k",
               "alpha", "twosided", "spec_trans", "nonlinear", "rt_coef",
-              "rt_fdr", "hk_thickness", "hk_g")
+              "rt_fdr", "hk_thickness", "hk_g", "opacity_tex", "nested_a",
+              "nested_b", "weight", "weight_tex", "normal_tex", "bump_tex",
+              "bump_scale")
 EM_FIELDS = ("type", "radiance", "position", "spot_cos", "pmf", "cdf",
              "etri_tri", "etri_cdf", "env_index", "env_map", "env_alias",
              "env_hw", "env_to_world", "env_scale")
@@ -74,7 +76,10 @@ def jax_scene_arrays(scene):
     """The JAX Scene's leaves that the port reads, as numpy, by field name."""
     arrays = _np_tree(scene, SCENE_FIELDS + ("bvh_pages",))
     arrays["materials"] = _np_tree(scene.materials, MAT_FIELDS)
-    arrays["textures"] = _np_tree(scene.textures, TEX_FIELDS)
+    # the procedural columns, which the port's table leaves out where it
+    # has no procedural row (so they are not in FIELD_PATHS)
+    arrays["textures"] = _np_tree(scene.textures, TEX_FIELDS + (
+        "color0", "color1", "line_width"))
     arrays["emitters"] = _np_tree(scene.emitters, EM_FIELDS)
     return arrays
 
@@ -153,14 +158,15 @@ def test_bridge_sensor(sensors):
                                       getattr(ts, f).numpy(), err_msg=f)
 
 
-# emitter 4 is the directional light, BSDF 12 the mask and 18 the rough
-# coating (the sphere light 7 and the plastics 4 and 5 joined the port with
-# the Veach MIS scene, the smooth conductor 2 and the rough dielectric 6
-# with the single-layer BSDFs)
+# emitter 4 is the directional light and BSDF 19 irawan (the sphere light 7
+# and the plastics 4 and 5 joined the port with the Veach MIS scene, the
+# smooth conductor 2 and the rough dielectric 6 with the single-layer BSDFs,
+# the opacity textures and the mask 12 and rough coating 18 with the nested
+# and layered ones)
 @pytest.mark.parametrize("change", [
-    dict(has_opacity_tex=True), dict(emitter_types=(0, 4)),
-    dict(emitter_types=(0, 5)), dict(ewa_taps=4), dict(bsdf_types=(0, 12)), dict(emitter_types=(0, 1)),
-    dict(medium_types=(0,)), dict(bsdf_types=(0, 18)),
+    dict(has_sss=True), dict(emitter_types=(0, 4)),
+    dict(emitter_types=(0, 5)), dict(ewa_taps=4), dict(bsdf_types=(0, 19)), dict(emitter_types=(0, 1)),
+    dict(medium_types=(0,)), dict(phase_types=(0,)),
 ])
 def test_later_slices_raise(cornell, change):
     static = dict(dataclasses.asdict(cornell[1]), **change)
@@ -424,7 +430,9 @@ def test_port_and_chip_smoke_import_no_jax():
     for new in ("__main__.py", "io/mitsuba_xml.py", "io/image.py",
                 "utils/logging.py", "render/integrators/direct.py",
                 "core/rtrans.py", "core/qmc.py", "core/sobol_table.py",
-                "render/integrators/misc.py", "utils/chi2.py"):
+                "render/integrators/misc.py", "utils/chi2.py",
+                "render/bsdf.py", "render/texture.py", "render/scene.py",
+                "bridge.py"):
         assert REPO / "mitsuba_tpu_torch" / new in files, new
     for f in files:
         for mod in _imports(f):

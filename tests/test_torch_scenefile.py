@@ -225,11 +225,7 @@ CASE3 = {
     **{f"sensor-{t}": _sensor(stype=t)
        for t in ("thinlens", "orthographic", "spherical", "radiancemeter",
                  "irradiancemeter")},
-    "bsdf-coating": _shape_bsdf('<bsdf type="coating"/>'),
-    "bsdf-mask": _shape_bsdf('<bsdf type="mask"><bsdf type="diffuse"/></bsdf>'),
-    "bsdf-toplevel-coating": '<bsdf type="coating"/>',
-    **{f"texture-{t}": f'<texture type="{t}"/>'
-       for t in ("checkerboard", "gridtexture", "scale")},
+    "bsdf-toplevel-irawan": '<bsdf type="irawan"/>',
     **{f"emitter-{t}": f'<emitter type="{t}"/>'
        for t in ("point", "directional", "spot", "collimated", "sky", "sun",
                  "sunsky")},
@@ -246,10 +242,33 @@ CASE3 = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASE3))
+# the nested and layered elements and the procedural textures, which
+# raised here until the port rendered them: each loads, under the id it had
+# (tests/test_torch_nested.py holds every one against the JAX loader)
+NESTED = {
+    "bsdf-coating": (_shape_bsdf('<bsdf type="coating"/>'), "materials",
+                     tbsdf.COATING),
+    "bsdf-mask": (_shape_bsdf('<bsdf type="mask"><bsdf type="diffuse"/>'
+                              '</bsdf>'), "materials", tbsdf.MASK),
+    **{f"texture-{t}": (f'<texture type="{t}"/>', "textures", tag)
+       for t, tag in (("checkerboard", 1), ("gridtexture", 3),
+                      ("scale", 0))},
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASE3) + sorted(NESTED))
 def test_later_slice_elements_raise(tmp_path, case):
     (tmp_path / "tex.png").write_bytes(b"\x89PNG\r\n\x1a\n")
     path = tmp_path / "s.xml"
+    if case in NESTED:
+        body, table, tag = NESTED[case]
+        path.write_text(_scene_xml(body))
+        ls = txml.load_scene(str(path), device="cpu")
+        if table == "materials":
+            assert tag in ls.scene.materials.type.tolist()
+        else:  # a texture no material reads: no lookups, one row
+            assert ls.scene.textures.type.tolist() == [tag]
+        return
     path.write_text(_scene_xml(CASE3[case]))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         txml.load_scene(str(path), device="cpu")
@@ -312,14 +331,10 @@ def test_sensor_header_elements_load(tmp_path, case):
 
 # --- renders against the JAX package --------------------------------------
 
-def jax_render(scene, static, sensor, cfg, settings):
-    """The JAX package's image, as japi.render makes it with one sample per
-    pass, and the exact count of its ray queries, from one compile: the
-    path tracer's own counter, or the direct integrator's queries counted
-    lane by lane (its loops are plain Python, so the counts are outputs of
-    the same trace)."""
+def jax_pass(static, sensor, cfg, settings):
+    """jax_render's pass: one sample into the film, jitted, returning the
+    film data and the pass's ray queries."""
     st = dataclasses.replace(settings, spp_per_pass=1)
-    H, W = st.height, st.width
 
     @jax.jit
     def one_pass(scene_, film_data, s):
@@ -347,6 +362,19 @@ def jax_render(scene, static, sensor, cfg, settings):
                                     jfilm.Film(film_data), s, 1)
         return film.data, sum(jnp.asarray(n, jnp.float32) for n in rays)
 
+    return one_pass
+
+
+def jax_render(scene, static, sensor, cfg, settings, one_pass=None):
+    """The JAX package's image, as japi.render makes it with one sample per
+    pass, and the exact count of its ray queries, from one compile: the
+    path tracer's own counter, or the direct integrator's queries counted
+    lane by lane (its loops are plain Python, so the counts are outputs of
+    the same trace). ``one_pass``: jax_pass's function of the same
+    arguments, compiled already."""
+    st = dataclasses.replace(settings, spp_per_pass=1)
+    H, W = st.height, st.width
+    one_pass = one_pass or jax_pass(static, sensor, cfg, st)
     film, n_rays = jnp.zeros((H, W, 4)), 0
     for s in range(st.spp):
         film, n = one_pass(scene, film, jnp.int32(s))
