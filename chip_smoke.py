@@ -177,6 +177,18 @@ timed (the seconds printed at its end and together before the JSON lines):
      api.render at 256x256, 32 spp (LAYERED_GALLERY: 160 K1 + 160 K2),
      held as phase 9f's renders; then the CLI on the rough-coating file,
      whose EXR must equal the image;
+ 9h. lights and cameras (LIGHTS_VARIANTS, lights_xml): cbox.xml at 128x128,
+     16 spp with its area light replaced by a point, a spot or a
+     directional light, or joined by all three and a collimated beam
+     (through the path tracer and the direct integrator, 2 emitter and 1
+     BSDF sample), or its camera a thin lens, an orthographic or a
+     spherical camera (128x64), each held as phase 9f's renders (80 + 80
+     K1/K2 launches, direct 32 + 32); a radiance, an irradiance (on a floor
+     patch) and a fluence meter of 65,536 samples through api.render
+     (render_meter: 10 + 10 launches), held to the JAX package's CPU value
+     within METER_RTOL; sample_ray of all nine sensor types on 65,536 film
+     and aperture draws against the CPU within SENSOR_ATOL; then the CLI on
+     the "all" file, whose EXR must equal its image;
  10. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
      2, seed 0 (bench.py:289-293); checks 10 launches of K4 and 300 of K3
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
@@ -196,8 +208,8 @@ timed (the seconds printed at its end and together before the JSON lines):
  13. profile: one render pass of each scene (the bunny in both BVH modes;
      4 spp of cbox.xml at 256x256, of the same file with the ldsampler, of
      the gallery's GGX rough dielectric and of the layered gallery's rough
-     coating, of the Cornell direct render at 64x64 and of the Veach MIS
-     path render at 512x512)
+     coating, of phase 9h's "all" scene, of the Cornell direct render at
+     64x64 and of the Veach MIS path render at 512x512)
      under torch.profiler, printing the device's busy share of the wall time,
      the pass's device kernel launches, the kernels that take it and each
      port kernel's render mean per launch;
@@ -222,6 +234,7 @@ import tempfile
 import threading
 import time
 import types
+import typing
 from pathlib import Path
 
 import numpy as np
@@ -551,11 +564,13 @@ HEADER_REF = {
          0.07317904482396649),
         (0.010836224139934438, 0.008591527030939168,
          0.0040207549463084575)),
+    # the difftrans row carries the file's transmittance in spec_trans (its
+    # lobe's column; the JAX loader's albedo column is read by no lobe)
     "gallery difftrans": (
-        (0.22278693153102663, 0.17338804028470584,
-         0.07817694321716613),
-        (0.011339311111481265, 0.009022356795718453,
-         0.004258389323882226)),
+        (0.20935489356762838, 0.16054416615686004,
+         0.0715809099896078),
+        (0.010354935422598967, 0.008053641107680766,
+         0.003714357497644973)),
     "gallery hk": (
         (0.20403838192461193, 0.15895111894186206,
          0.07179679091658335),
@@ -608,7 +623,44 @@ HEADER_REF = {
          0.07425677333128017),
         (0.013044368798493636, 0.010441384847664038,
          0.00485247001482834)),
+    # lights and cameras (phase 9h), scripts/jax_header_ref_mean.py's
+    # lights renders (128x128, 16 spp)
+    "lights point": (
+        (0.21659413623882315, 0.1574337035550497, 0.06373706632689365),
+        (0.03596181976083751, 0.02594232953367247, 0.010615166879458465)),
+    "lights spot": (
+        (0.20105790908221155, 0.14944877216177435, 0.06631155505808507),
+        (0.0413737907019966, 0.030101518276904216, 0.01264453261477785)),
+    "lights directional": (
+        (0.20053153238346413, 0.17742071167397627, 0.07034948352434914),
+        (0.024510739480420946, 0.019588378744695288, 0.008046695341885615)),
+    "lights all": (
+        (0.7951488551379955, 0.6215328774564108, 0.2632268780034714),
+        (0.15431151510464042, 0.11756577130627809, 0.05202964129209508)),
+    "lights all direct": (
+        (0.4754375627673364, 0.3977737913714687, 0.1841718646873454),
+        (0.06858730204988973, 0.057049553178633194, 0.02657380889122705)),
+    "lights thinlens": (
+        (0.22978547060918045, 0.17738458599487195, 0.07983381183016511),
+        (0.02379434147151723, 0.018899810833969778, 0.008865871187898491)),
+    "lights orthographic": (
+        (0.17047828208453275, 0.13017695235201998, 0.05724311916141156),
+        (0.011055414247146574, 0.008197045880776178, 0.0037165602789790806)),
+    "lights spherical": (
+        (1.4818568836941126, 1.2397048476861765, 0.6258338658944133),
+        (0.04392308598510512, 0.035935917162161365, 0.01786362259263983)),
 }
+# the meters of phase 9h through the JAX package's render_meter on its CPU
+# backend, 65,536 samples: scripts/jax_header_ref_mean.py's lights meters
+METER_REF = {
+    "lights radiancemeter": (0.10019056499004364, 0.08333784341812134,
+                             0.037494853138923645),
+    "lights irradiancemeter": (1.116687297821045, 0.8858837485313416,
+                               0.41900119185447693),
+    "lights fluencemeter": (4.85649299621582, 3.8972349166870117,
+                            1.8554370403289795),
+}
+METER_RTOL = 1e-4
 # the port on the CPU at these sizes: within 4.9e-6 (mean) and 2.7e-5 (tv)
 # of these values, a flipped lane or lobe choice being the gap; one flipped
 # ao lane at 128x128, 16 spp moves tv by 8.5e-5, so the tv limit leaves room
@@ -762,6 +814,143 @@ class Gallery:
 MATERIAL_GALLERY = Gallery("gallery", GALLERY_BSDFS, CBOX_SPP, "hk")
 LAYERED_GALLERY = Gallery("layered", LAYERED_BSDFS, 32, "roughcoating",
                           glass_sphere=("normalmap", "bumpmap"))
+
+
+# phase 9h, lights and cameras: scenes/cbox.xml (its materials, glass
+# sphere, depth 5 and Gaussian filter) at -D res=128 and 16 spp (256x256
+# took the script to 588.6-605.8 s, past the 600 s it is held to) with its
+# area light replaced or joined by delta lights, or its camera another
+# sensor type; and three meters through api.render (render_meter) at
+# METER_SPP samples. Each light's intensity puts its image mean within a
+# factor of three of cbox.xml's (PERF.md section 4). The spot aims straight
+# down from under the ceiling, its falloff band on the floor; the
+# directional light comes in through the open front onto the floor and the
+# back wall; the collimated beam has no NEE branch and is never hit, so in
+# "all" it only takes its share of the selection pmf
+LIGHTS_SPP, LIGHTS_RES, METER_SPP = 16, 128, 65536
+LIGHTS_DEFINES = {"spp": LIGHTS_SPP, "res": LIGHTS_RES,
+                  "half": LIGHTS_RES // 2}
+POINT_LIGHT = ('<emitter type="point"><point name="position" x="278" '
+               'y="500" z="279.6"/><rgb name="intensity" '
+               'value="{}"/></emitter>')
+SPOT_LIGHT = ('<emitter type="spot"><transform name="toWorld"><lookat '
+              'origin="278, 540, 279.6" target="278, 0, 279.6" '
+              'up="0, 0, 1"/></transform><float name="cutoffAngle" '
+              'value="25"/><float name="beamWidth" value="15"/><rgb '
+              'name="intensity" value="{}"/></emitter>')
+DIRECTIONAL_LIGHT = ('<emitter type="directional"><vector name="direction" '
+                     'x="0.3" y="-0.5" z="1"/><rgb name="irradiance" '
+                     'value="{}"/></emitter>')
+COLLIMATED_BEAM = ('<emitter type="collimated"><transform name="toWorld">'
+                   '<lookat origin="150, 400, 150" target="350, 0, 400" '
+                   'up="0, 1, 0"/></transform><rgb name="power" '
+                   'value="{}"/></emitter>')
+LIGHT_ELEMENTS = {"point": POINT_LIGHT, "spot": SPOT_LIGHT,
+                  "directional": DIRECTIONAL_LIGHT,
+                  "collimated": COLLIMATED_BEAM}
+LIGHT_RGB = {"point": "100000, 84800, 43500",
+             "spot": "3000000, 2544000, 1305000",
+             "directional": "4, 3.392, 1.74", "collimated": "1000, 1000, 1000"}
+_CBOX_LOOK = 'origin="278, 273, -800" target="278, 273, -799" up="0, 1, 0"'
+_METER_SAMPLER = ('<sampler type="independent"><integer name="sampleCount" '
+                  'value="{}"/></sampler>'.format(METER_SPP))
+LIGHTS_SENSORS = {
+    "thinlens": ('<sensor type="thinlens"><float name="fov" '
+                 'value="39.3077"/><float name="apertureRadius" value="20"/>'
+                 '<float name="focusDistance" value="1050"/>{look}{header}'
+                 "</sensor>"),
+    "orthographic": ('<sensor type="orthographic"><transform name="toWorld">'
+                     '<scale x="280" y="280" z="1"/><lookat ' + _CBOX_LOOK
+                     + "/></transform>{header}</sensor>"),
+    "spherical": ('<sensor type="spherical"><transform name="toWorld"><lookat '
+                  'origin="278, 274, 279.6" target="278, 274, 280.6" '
+                  'up="0, 1, 0"/></transform>{header}</sensor>'),
+    "radiancemeter": ('<sensor type="radiancemeter"><transform '
+                      'name="toWorld"><lookat origin="278, 273, -800" '
+                      'target="400, 90, 250" up="0, 1, 0"/></transform>'
+                      + _METER_SAMPLER + "</sensor>"),
+    "fluencemeter": ('<sensor type="fluencemeter"><transform name="toWorld">'
+                     '<translate x="278" y="274" z="279.6"/></transform>'
+                     + _METER_SAMPLER + "</sensor>"),
+}
+# the irradiance meter rides on a 40 x 40 rectangle floating 0.5 above the
+# floor, facing up (its disk's radius 20, the transform's x scale)
+METER_PATCH = ('<shape type="rectangle"><transform name="toWorld"><scale '
+               'x="20" y="20" z="1"/><rotate x="1" angle="-90"/><translate '
+               'x="278" y="0.5" z="279.6"/></transform><sensor '
+               'type="irradiancemeter">' + _METER_SAMPLER + "</sensor>"
+               "</shape>")
+LIGHTS_DIRECT = ('<integrator type="direct"><integer name="emitterSamples" '
+                 'value="2"/><integer name="bsdfSamples" value="1"/>'
+                 "</integrator>")
+
+
+class LightsCase(typing.NamedTuple):
+    """A phase-9h scene: the delta lights it adds (LIGHT_ELEMENTS' keys),
+    whether it keeps the file's area light, the LIGHTS_SENSORS key of its
+    sensor (or "irradiancemeter"; None: the file's camera), and its
+    integrator element (None: the file's path tracer)."""
+    lights: tuple = ()
+    keep_area: bool = True
+    sensor: typing.Optional[str] = None
+    integrator: typing.Optional[str] = None
+
+
+_ALL = ("point", "spot", "directional", "collimated")
+LIGHTS_VARIANTS = {
+    "point": LightsCase(("point",), keep_area=False),
+    "spot": LightsCase(("spot",), keep_area=False),
+    "directional": LightsCase(("directional",), keep_area=False),
+    "all": LightsCase(_ALL),
+    "all direct": LightsCase(_ALL, integrator=LIGHTS_DIRECT),
+    **{k: LightsCase(sensor=k) for k in (
+        "thinlens", "orthographic", "spherical", "radiancemeter",
+        "irradiancemeter", "fluencemeter")},
+}
+LIGHTS_METERS = ("radiancemeter", "irradiancemeter", "fluencemeter")
+LIGHTS_CLI = "all"
+
+
+def lights_xml(case) -> str:
+    """scenes/cbox.xml's text for a LightsCase (or a LIGHTS_VARIANTS key):
+    the delta lights added before the floor, the area light's shape taken
+    out unless kept, the sensor replaced (the cameras keep the file's
+    sampler and film, the spherical camera's film $res x $half; the radiance
+    and fluence meters have their own sampler and a 1x1 film; the
+    irradiance meter rides on METER_PATCH), and the integrator replaced.
+    The JAX side (scripts/jax_header_ref_mean.py) loads the same text."""
+    if isinstance(case, str):
+        case = LIGHTS_VARIANTS[case]
+    lights, keep_area, sensor, integrator = case
+    text = CBOX_XML.read_text()
+
+    def cut(start, end):
+        i = text.index(start)
+        return text[:i], text[i:text.index(end, i) + len(end)], \
+            text[text.index(end, i) + len(end):]
+
+    emitters = "".join(LIGHT_ELEMENTS[k].format(LIGHT_RGB[k])
+                       for k in lights)
+    text = text.replace("<!-- floor -->", emitters + "\n    <!-- floor -->")
+    if not keep_area:
+        head, _, tail = cut("<!-- light -->", "</shape>")
+        text = head + tail
+    if sensor == "irradiancemeter":
+        text = text.replace("<!-- floor -->", METER_PATCH
+                            + "\n    <!-- floor -->")
+    elif sensor is not None:
+        head, block, tail = cut('<sensor type="perspective">', "</sensor>")
+        header = block[block.index("<sampler"):block.index("</sensor>")]
+        if sensor == "spherical":
+            header = header.replace('name="height" value="$res"',
+                                    'name="height" value="$half"')
+        text = head + LIGHTS_SENSORS[sensor].format(
+            look=f'<transform name="toWorld"><lookat {_CBOX_LOOK}/>'
+                 "</transform>", header=header) + tail
+    if integrator is not None:
+        head, _, tail = cut('<integrator type="path">', "</integrator>")
+        text = head + integrator + tail
+    return text
 
 
 def height_field():
@@ -2827,6 +3016,132 @@ def gallery_phase(dev, gallery):
     return cases
 
 
+def lights_renders(dev, tmp):
+    """Every render of phase 9h, by label (``lights {variant}``): (scene,
+    static, sensor, cfg, settings, expected launches), loaded from
+    ``{tmp}/lights_{variant}.xml`` with LIGHTS_DEFINES.
+    scripts/torch_header_stats.py renders the same."""
+    out = {}
+    for variant in LIGHTS_VARIANTS:
+        path = Path(tmp) / f"lights_{variant.replace(' ', '_')}.xml"
+        path.write_text(lights_xml(variant))
+        ls = mitsuba_xml.load_scene(str(path), LIGHTS_DEFINES, device=dev)
+        spp = ls.settings.spp
+        if variant in LIGHTS_METERS:
+            # render_meter: per chunk of lanes, a closest hit and a shadow
+            # query per bounce
+            k1 = k2 = DEPTH * -(-spp // api.METER_CHUNK)
+        elif ls.integrator.type == DIRECT:
+            # the camera and the BSDF ray; a shadow ray per emitter sample
+            k1 = (1 + ls.integrator.bsdf_samples) * spp
+            k2 = ls.integrator.emitter_samples * spp
+        else:
+            k1 = k2 = DEPTH * spp
+        out[f"lights {variant}"] = (
+            ls.scene, ls.static, ls.sensor, ls.integrator, ls.settings,
+            {"brute_force_interaction": k1, "brute_force_closest_hit": k2})
+    return out
+
+
+def meter_render(dev, label, scene, static, sensor, cfg, settings,
+                 expected):
+    """timed_render of a meter (api.render -> render_meter) held to
+    METER_REF[label] within METER_RTOL per channel. Returns the value."""
+    img = timed_render(dev, label, scene, static, sensor, cfg, settings,
+                       METER_REF[label], METER_RTOL, expected)[0]
+    return img[0, 0].tolist()
+
+
+# sample_ray of every sensor type on the card against the CPU, on
+# SENSOR_DRAWS film and aperture draws (the CPU's own gaps to the JAX
+# package: tests/test_torch_lights.py): origins and directions within
+# SENSOR_ATOL in a box of size 1, the irradiance meter's directions from
+# its disk's rim within SENSOR_RIM_ATOL (z = sqrt(1 - x^2 - y^2) cancels)
+SENSOR_DRAWS = 65536
+SENSOR_ATOL, SENSOR_RIM_ATOL = 1e-5, 1e-3
+
+
+def all_sensors(dev):
+    """One sensor of each of the nine types, with non-default parameters
+    (the port's constructors on ``dev``), framing a unit box."""
+    cam = Transform.look_at([0.4, 0.6, -1.2], [0.5, 0.45, 0.5], [0, 1, 0])
+    ortho = cam * Transform.scale([0.6, 0.6, 1.0])
+    S = sensor_mod
+    return [
+        S.make_perspective(cam, 40.0, 24, 16, device=dev),
+        S.make_thinlens(cam, 40.0, 24, 16, 0.05, 1.4, device=dev),
+        S.make_orthographic(ortho, 24, 16, device=dev),
+        S.make_spherical(cam, device=dev),
+        S.make_radiancemeter([0.3, 0.2, 0.1], [0.2, 0.5, 1.0], device=dev),
+        S.make_irradiancemeter([0.5, 0.01, 0.5], [0.0, 1.0, 0.1], 0.03,
+                               device=dev),
+        S.make_telecentric(ortho, 24, 16, 0.04, 0.9, device=dev),
+        S.make_perspective_rdist(cam, 40.0, 24, 16, kc=(0.12, -0.05),
+                                 device=dev),
+        S.make_fluencemeter([0.5, 0.5, 0.5], device=dev),
+    ]
+
+
+def sensor_rays_phase(dev):
+    """sample_ray of each sensor type on the card and on the CPU, on the
+    same SENSOR_DRAWS draws (the film's corners and the poles among them):
+    prints the largest gaps and raises past SENSOR_ATOL."""
+    g = torch.Generator().manual_seed(SEED)
+    uv = torch.rand((SENSOR_DRAWS, 2), generator=g)
+    u_ap = torch.rand((SENSOR_DRAWS, 2), generator=g)
+    uv[:6] = torch.tensor([[0.5, 0.0], [0.3, 0.0], [0.5, 1.0 - 2 ** -24],
+                           [0.0, 0.0], [0.0, 0.5], [1.0 - 2 ** -24, 0.5]])
+    rim = (2.0 * uv - 1.0).abs().amax(dim=1) > 1.0 - 1e-6
+    for sc, sd in zip(all_sensors("cpu"), all_sensors(dev)):
+        o_c, d_c = sensor_mod.sample_ray(sc, uv, u_ap)
+        o_d, d_d = sensor_mod.sample_ray(sd, uv.to(dev), u_ap.to(dev))
+        torch.cuda.synchronize()
+        err_o = (o_d.cpu() - o_c).abs().amax(dim=1)
+        err_d = (d_d.cpu() - d_c).abs().amax(dim=1)
+        lim = torch.full_like(err_d, SENSOR_ATOL)
+        if sc.type == sensor_mod.IRRADIANCEMETER:
+            lim[rim] = SENSOR_RIM_ATOL
+        log(f"sample_ray type {sc.type}: {SENSOR_DRAWS} draws, card against "
+            f"CPU: origin max abs err {float(err_o.max()):.3g}, direction "
+            f"{float(err_d.max()):.3g} (rim lanes "
+            f"{float(err_d[rim].max()):.3g}); bit-equal lanes "
+            f"{int(((err_o == 0) & (err_d == 0)).sum())}")
+        if not (bool((err_o <= SENSOR_ATOL).all())
+                and bool((err_d <= lim).all())):
+            raise AssertionError(f"sample_ray type {sc.type}: the card "
+                                 "differs from the CPU past SENSOR_ATOL")
+
+
+def lights_phase(dev):
+    """Phase 9h: each camera and light render of lights_renders held as
+    phase 9f's (mean and tv_rgb to the JAX package, exact K1/K2 launches),
+    each meter to METER_REF with its launches, sample_ray of every sensor
+    type against the CPU, and the CLI on the "all" file, whose EXR must
+    equal its image. Returns the "all" render's (scene, static, sensor,
+    cfg) for the profile phase."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = lights_renders(dev, tmp)
+        for label, case in cases.items():
+            log(f"{label}: sensor type {case[2].type}, {case[1]}")
+        # warm-up: one sample of each camera render (a meter's chunk is
+        # its own warm-up)
+        for label, (scene, static, sensor, cfg, settings, _) in cases.items():
+            if label not in METER_REF:
+                api.render(scene, static, sensor, cfg, dataclasses.replace(
+                    settings, spp=1, spp_per_pass=1), device=dev)
+        imgs = {}
+        for label, case in cases.items():
+            if label in METER_REF:
+                log(f"render {label} value {meter_render(dev, label, *case)}")
+            else:
+                imgs[label] = header_render(dev, label, *case)
+        sensor_rays_phase(dev)
+        cli = f"lights {LIGHTS_CLI}"
+        cli_matches(cli, Path(tmp) / f"lights_{LIGHTS_CLI}.xml",
+                    LIGHTS_DEFINES, imgs[cli])
+    return cases[cli][:4]
+
+
 def bunny_ao_case(bunny_scene):
     """ao on bunny_x2 (lane mode) at 512x512, BUNNY_AO_SPP spp, the default
     ray length (half the scene's radius), box filter: K3 launches only,
@@ -3047,6 +3362,8 @@ def main() -> int:
     with phase("9g layered gallery"):
         layered = gallery_phase(dev, LAYERED_GALLERY)[
             f"layered {LAYERED_GALLERY.cli}"][:4]
+    with phase("9h lights and cameras"):
+        lights_all = lights_phase(dev)
     with phase("10 bunny"):
         bunny_scene = bunny(dev)
         bunny_launches, lane_mean, lane_ms = render_phase(
@@ -3098,6 +3415,9 @@ def main() -> int:
         # and its base-layer calls at the refracted directions
         profile_phase(dev, f"layered {LAYERED_GALLERY.cli}", *layered[:3], 4,
                       cfg=layered[3], size=CBOX_RES)
+        # phase 9h's area light with the three delta lights and the beam
+        profile_phase(dev, f"lights {LIGHTS_CLI}", *lights_all[:3], 4,
+                      cfg=lights_all[3], size=CBOX_RES)
         profile_phase(dev, "cornell direct", *cornell_direct[:3], 4,
                       cfg=cornell_direct[3], size=DIRECT_RES)
         profile_phase(dev, "veach_mis", *veach[:3], VEACH_SPP_PER_PASS,

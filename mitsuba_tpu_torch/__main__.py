@@ -3,7 +3,10 @@
 The reference CLI (mitsuba.cpp), as the JAX package's ``__main__`` has it:
 -o output, -D key=value scene defines, -L log level, -z quiet, -x skip
 scenes whose output exists, -r SEC periodic partial-image flush, --spp and
---size overrides. It renders on the card; ``--cpu`` asks for the CPU. The
+--size overrides. It renders on the card; ``--cpu`` asks for the CPU. Every file goes through
+``render_pass``, a 1x1 meter's too (its film of pixel-jittered samples,
+times ``ray_weight``), as in the JAX CLI; ``api.render`` sends a meter to
+``render_meter`` instead. The
 JAX CLI's checkpoints (-c), device count above 1 (-p) and concurrent scenes
 (-j above 1) land in a later slice of the port and raise.
 """

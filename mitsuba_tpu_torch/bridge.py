@@ -184,7 +184,9 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
         emitters=em_mod.EmitterTable(
             type=_i32(ems["type"], dev), radiance=_f32(ems["radiance"], dev),
             position=_f32(ems["position"], dev),
+            direction=_f32(ems["direction"], dev),
             spot_cos=_f32(ems["spot_cos"], dev),
+            delta=_bool(ems["delta"], dev),
             pmf=_f32(ems["pmf"], dev), cdf=_f32(ems["cdf"], dev),
             etri_tri=_i32(ems["etri_tri"], dev),
             etri_cdf=_f32(ems["etri_cdf"], dev),
@@ -208,12 +210,12 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
 
 
 def sensor_from_arrays(arrays: dict, device=None) -> sensor_mod.Sensor:
-    """The port's Sensor from the JAX Sensor's fields as numpy arrays."""
+    """The port's Sensor from the JAX Sensor's fields as numpy arrays (any
+    of the nine types)."""
     dev = resolve_device(device)
     stype = int(np.asarray(arrays["type"]))
-    if stype != sensor_mod.PERSPECTIVE:
-        raise NotImplementedError(
-            f"sensor type {stype} lands in a later slice of the port")
+    if stype not in sensor_mod.TYPES:
+        raise ValueError(f"unknown sensor type {stype}")
     rdist = arrays.get("rdist")
     return sensor_mod.Sensor(
         type=stype,

@@ -83,6 +83,10 @@ class Transform(NamedTuple):
         w = self.m[3, :3] @ p.T + self.m[3, 3] if p.ndim == 2 else self.m[3, :3] @ p + self.m[3, 3]
         return (r / w).T if p.ndim == 2 else r / w
 
+    def apply_vector(self, v):
+        v = np.asarray(v, dtype=np.float64)
+        return (self.m[:3, :3] @ v.T).T if v.ndim == 2 else self.m[:3, :3] @ v
+
     def apply_normal(self, n):
         n = np.asarray(n, dtype=np.float64)
         A = self.inv[:3, :3].T

@@ -88,12 +88,9 @@ _RFILTERS = {
     "mitchell": RF.MITCHELL, "catmullrom": RF.CATMULLROM,
     "lanczos": RF.LANCZOS,
 }
-_LATER_SENSORS = ("thinlens", "orthographic", "spherical", "radiancemeter",
-                  "irradiancemeter", "fluencemeter")
+_LATER_SENSORS = {}  # every sensor element loads since item 3.3
 _LATER_BSDFS = {"irawan": "3.2.4"}
-_LATER_EMITTERS = {"point": "3.3", "directional": "3.3", "spot": "3.3",
-                   "collimated": "3.3", "sunsky": "3.8", "sky": "3.8",
-                   "sun": "3.8"}
+_LATER_EMITTERS = {"sunsky": "3.8", "sky": "3.8", "sun": "3.8"}
 _METERS = ("radiancemeter", "irradiancemeter", "fluencemeter")
 
 
@@ -312,14 +309,20 @@ class XMLSceneLoader:
         t = node.get("type")
         p = _props(node, self.params)
         if t in _LATER_SENSORS:
-            raise _later(f"the {t} sensor", "3.3")
+            raise _later(f"the {t} sensor", _LATER_SENSORS[t])
         film = node.find("film")
+        is_meter = t in _METERS
         if film is not None:
             fp = _props(film, self.params)
-            # mfilm defaults to a 1x1 numeric matrix (mfilm.cpp)
-            dw, dh = (1, 1) if film.get("type") == "mfilm" else (768, 576)
+            # a meter's film and mfilm default to a 1x1 numeric matrix
+            # (mfilm.cpp, irradiancemeter.cpp)
+            dw, dh = ((1, 1) if is_meter or film.get("type") == "mfilm"
+                      else (768, 576))
             self.width = int(fp.get("width", dw))
             self.height = int(fp.get("height", dh))
+        elif is_meter:
+            self.width = self.height = 1
+        if film is not None:
             rf = film.find("rfilter")
             if rf is not None:
                 self.filter_type = _RFILTERS.get(rf.get("type"), RF.GAUSSIAN)
@@ -330,10 +333,28 @@ class XMLSceneLoader:
             self.sampler_type = _SAMPLERS.get(samp.get("type"),
                                               api_mod.INDEPENDENT)
         to_world = p.get("toWorld", Transform.identity())
+        fov = float(p.get("fov", 45.0))
+        fov_axis = p.get("fovAxis", "x")
+        dev = self.device
         if t == "perspective":
             self.sensor = sensor_mod.make_perspective(
-                to_world, float(p.get("fov", 45.0)), self.width, self.height,
-                fov_axis=p.get("fovAxis", "x"), device=self.device)
+                to_world, fov, self.width, self.height, fov_axis=fov_axis,
+                device=dev)
+        elif t == "thinlens":
+            self.sensor = sensor_mod.make_thinlens(
+                to_world, fov, self.width, self.height,
+                float(p.get("apertureRadius", 0.0)),
+                float(p.get("focusDistance", 1.0)), fov_axis=fov_axis,
+                device=dev)
+        elif t == "orthographic":
+            self.sensor = sensor_mod.make_orthographic(
+                to_world, self.width, self.height, device=dev)
+        elif t == "spherical":
+            self.sensor = sensor_mod.make_spherical(to_world, device=dev)
+        elif t in _METERS:
+            # at the transform's origin, along its +z
+            self.sensor = self._meter(t, to_world.apply_point([0, 0, 0]),
+                                      to_world.apply_vector([0, 0, 1]))
         else:
             log.warning(f"scene: unsupported sensor type '{t}', "
                         "falling back to perspective")
@@ -493,13 +514,16 @@ class XMLSceneLoader:
                 spec_refl=p.get("specularReflectance", (0.2,) * 3),
                 alpha=(alpha_u, alpha_v), twosided=twosided)
         if t == "difftrans":
-            # the JAX loader stores the transmittance in the albedo column,
-            # while the lobe reads spec_trans (default 1): the port does the
-            # same, so both render a scene file's difftrans alike
-            refl, tex = self._texture_ref_or_value(node, p, "transmittance",
-                                                   (0.5,) * 3)
-            return self.builder.add_material(type=B.DIFFTRANS, albedo=refl,
-                                             albedo_tex=tex)
+            # the lobe reads spec_trans; a textured transmittance has no
+            # column it reads yet (the JAX loader puts the transmittance in
+            # the albedo column, which the lobe never reads)
+            trans, tex = self._texture_ref_or_value(node, p, "transmittance",
+                                                    (0.5,) * 3)
+            if tex >= 0:
+                raise _later("a textured difftrans transmittance", "3.2.3")
+            return self.builder.add_material(
+                type=B.DIFFTRANS, spec_trans=tuple(
+                    np.broadcast_to(np.asarray(trans, np.float64), (3,))))
         if t == "hk":
             ss = np.broadcast_to(
                 np.asarray(p.get("sigmaS", (1.0,) * 3), np.float64), (3,))
@@ -620,7 +644,7 @@ class XMLSceneLoader:
         mat = self._shape_material(node)
         emitter = self._shape_emitter(node)
         flip = bool(p.get("flipNormals", False))
-        self._shape_sensor(node)
+        self._shape_sensor(node, to_world, flip)
 
         if t in ("obj", "ply", "serialized"):
             path = self.resolve_path(p["filename"])
@@ -673,23 +697,74 @@ class XMLSceneLoader:
         else:
             log.warning(f"scene: ignoring unsupported shape type '{t}'")
 
-    def _shape_sensor(self, node):
-        """A sensor nested in a shape: the JAX loader's meters."""
+    def _shape_sensor(self, node, to_world, flip):
+        """A meter nested in a shape (data/tests/test_bidir_0.xml style): at
+        the shape's origin along its +z (-z when ``flip``); an irradiance
+        meter's disk takes the transform's x scale as its radius."""
         sn = node.find("sensor")
         if sn is None:
             return
-        if sn.get("type") in _METERS:
-            raise _later(f"the {sn.get('type')} sensor", "3.3")
-        log.warning(f"scene: unsupported shape-attached sensor "
-                    f"'{sn.get('type')}'")
+        t = sn.get("type")
+        if t not in _METERS:
+            log.warning(f"scene: unsupported shape-attached sensor '{t}'")
+            return
+        n = to_world.apply_vector([0, 0, 1])
+        n = n / np.linalg.norm(n)
+        r = (float(np.linalg.norm(to_world.apply_vector([1, 0, 0])))
+             if t == "irradiancemeter" else 0.0)
+        self.sensor = self._meter(t, to_world.apply_point([0, 0, 0]),
+                                  -n if flip else n, r)
+        self.width = self.height = 1
+        samp = sn.find("sampler")
+        if samp is not None:
+            sp = _props(samp, self.params)
+            self.spp = int(sp.get("sampleCount", 16))
+            self.sampler_type = _SAMPLERS.get(samp.get("type"),
+                                              api_mod.INDEPENDENT)
+        film = sn.find("film")
+        if film is not None:
+            fp = _props(film, self.params)
+            self.width = int(fp.get("width", 1))
+            self.height = int(fp.get("height", 1))
+
+    def _meter(self, t, o, n, radius=0.0):
+        """The meter of type name ``t`` at ``o`` along ``n`` (an irradiance
+        meter's disk of ``radius``)."""
+        if t == "radiancemeter":
+            return sensor_mod.make_radiancemeter(o, n, device=self.device)
+        if t == "irradiancemeter":
+            return sensor_mod.make_irradiancemeter(o, n, radius,
+                                                   device=self.device)
+        return sensor_mod.make_fluencemeter(o, device=self.device)
 
     def _load_emitter(self, node):
         t = node.get("type")
         p = _props(node, self.params)
         if t in _LATER_EMITTERS:
             raise _later(f"the {t} emitter", _LATER_EMITTERS[t])
-        if t == "constant":
+        if t == "point":
+            self.builder.add_point_light(p.get("position", (0, 0, 0)),
+                                         p.get("intensity", (1.0,) * 3))
+        elif t == "constant":
             self.builder.add_constant_emitter(p.get("radiance", (1.0,) * 3))
+        elif t == "directional":
+            self.builder.add_directional_light(
+                p.get("direction", (0, 0, -1)),
+                p.get("irradiance", (1.0,) * 3))
+        elif t in ("spot", "collimated"):
+            # at toWorld's origin, along its +z
+            to_world = p.get("toWorld", Transform.identity())
+            o = to_world.apply_point([0, 0, 0])
+            d = to_world.apply_vector([0, 0, 1])
+            if t == "spot":
+                cutoff = p.get("cutoffAngle", 20.0)
+                self.builder.add_spot_light(
+                    o, d, p.get("intensity", (1.0,) * 3),
+                    cutoff_deg=float(cutoff),
+                    beamwidth_deg=float(p.get("beamWidth", cutoff * 0.75)))
+            else:
+                self.builder.add_collimated_beam(o, d,
+                                                 p.get("power", (1.0,) * 3))
         elif t == "envmap":
             try:
                 img = _load_image(self.resolve_path(p["filename"]))

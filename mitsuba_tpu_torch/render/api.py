@@ -1,10 +1,12 @@
 """Top-level render orchestration (port of ``mitsuba_tpu/render/api.py``: the
 PATH, DIRECT, AO and FIELD integrators with every sampler and every
-reconstruction filter of the JAX package; the other integrators land in a
-later slice).
+reconstruction filter of the JAX package, and the meters' render; the other
+integrators land in a later slice).
 
 The whole image is one wavefront per sample: every pixel is a lane. A host
-loop runs the sample passes and accumulates into the film.
+loop runs the sample passes and accumulates into the film. A 1x1 meter
+(radiance, irradiance, fluence) renders through ``render_meter`` instead:
+its samples are the lanes.
 """
 from __future__ import annotations
 
@@ -115,6 +117,11 @@ def render_pass(scene, static, sensor, cfg: icommon.IntegratorConfig,
         o, d = sensor_mod.sample_ray(sensor, uv, u_ap)
         L, n = li(scene, static, cfg, o, d, sampler, pixel_idx, sample_idx,
                   with_stats=True, **kw)
+        # a meter's constant importance turns the radiance mean into
+        # irradiance or fluence (1 for a camera: no multiply)
+        w = sensor_mod.ray_weight(sensor)
+        if w != 1.0:
+            L = L * w
         if stats is not None:
             stats["n_rays"] = stats["n_rays"] + n
         if settings.filter_type == rfilter.BOX:
@@ -126,9 +133,46 @@ def render_pass(scene, static, sensor, cfg: icommon.IntegratorConfig,
     return film
 
 
+# lanes of one render_meter chunk (api.py:579)
+METER_CHUNK = 1 << 15
+# the integrators whose 1x1 meter renders go to render_meter (api.py:640)
+_METER_INTEGRATORS = (icommon.PATH, icommon.DIRECT, icommon.AO)
+
+
+def render_meter(scene, static, sensor, cfg: icommon.IntegratorConfig,
+                 settings: RenderSettings, stats=None):
+    """A meter's measurement (the JAX ``render_meter``): pixel 0, one lane
+    per sample in chunks of ``METER_CHUNK`` (the sample count rounded up to
+    whole chunks), the independent sampler whatever the settings say, the
+    mean of the lanes times ``ray_weight``. Returns (1, 1, 3); adds the
+    issued ray queries to ``stats["n_rays"]`` when given."""
+    dev = scene.tri_p0.device
+    li = _li(cfg)
+    sampler = settings.seed  # an int seed: the independent sampler
+    pixel_idx = torch.zeros(METER_CHUNK, dtype=torch.int64, device=dev)
+    lanes = torch.arange(METER_CHUNK, dtype=torch.int64, device=dev)
+    total = torch.zeros(3, device=dev)
+    n = 0
+    while n < settings.spp:
+        sample_idx = lanes + n
+        u = rng_mod.uniform2(sampler, pixel_idx, sample_idx,
+                             icommon.DIM_SENSOR)
+        u_ap = rng_mod.uniform2(sampler, pixel_idx, sample_idx,
+                                icommon.DIM_APERTURE)
+        o, d = sensor_mod.sample_ray(sensor, u, u_ap)
+        L, k = li(scene, static, cfg, o, d, sampler, pixel_idx, sample_idx,
+                  with_stats=True)
+        if stats is not None:
+            stats["n_rays"] = stats["n_rays"] + k
+        total = total + L.sum(dim=0)
+        n += METER_CHUNK
+    return (total / n * sensor_mod.ray_weight(sensor)).reshape(1, 1, 3)
+
+
 def render(scene, static, sensor, cfg: icommon.IntegratorConfig,
            settings: RenderSettings, device=None, with_stats: bool = False):
-    """Full render: host loop over passes of ``spp_per_pass`` samples.
+    """Full render: host loop over passes of ``spp_per_pass`` samples, or
+    ``render_meter`` for a 1x1 meter under PATH, DIRECT or AO.
 
     Runs on ``device`` (CUDA by default), where the scene and sensor must
     already live. Returns the developed (H, W, 3) image, or (image, n_rays)
@@ -138,6 +182,13 @@ def render(scene, static, sensor, cfg: icommon.IntegratorConfig,
     check_on(scene.tri_p0, dev, "scene")
     check_on(sensor.to_world, dev, "sensor")
     _li(cfg)  # raises for an integrator the port does not render
+    if (settings.width == settings.height == 1
+            and sensor.type in sensor_mod.METERS
+            and cfg.type in _METER_INTEGRATORS):
+        stats = {"n_rays": torch.zeros((), dtype=torch.int64, device=dev)}
+        with torch.no_grad():
+            img = render_meter(scene, static, sensor, cfg, settings, stats)
+        return (img, int(stats["n_rays"])) if with_stats else img
     H, W = settings.height, settings.width
     chunk = min(settings.spp_per_pass, settings.spp)
     film = film_mod.Film.empty(H, W, dev)

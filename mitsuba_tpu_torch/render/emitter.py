@@ -1,6 +1,7 @@
 """Emitters and next-event estimation (port of ``mitsuba_tpu/render/emitter.py``:
-triangle area lights, analytic sphere lights, the constant environment and
-the lat-long environment map).
+triangle area lights, analytic sphere lights, the point, spot, directional
+and collimated delta lights, the constant environment and the lat-long
+environment map).
 
 Area emitters own a contiguous range of an emissive-triangle array with a
 globally monotone CDF: entry j stores ``emitter_index + local_cdf``, so
@@ -10,7 +11,12 @@ table and samples texels through a Walker alias table (one uniform, two row
 gathers). A sphere light is sampled by the cone of directions it subtends
 (sphere.cpp sampleDirect), so every sample hits it; its center is the
 table's ``position`` row and its radius ``spot_cos[:, 0]``, as in the JAX
-package. Other emitter types land in a later slice.
+package. A delta light (point, spot, directional) reports its selection pmf
+as the sample's pdf, with ``delta`` set, so the integrators weigh it 1 and
+divide by the pmf alone. A collimated beam has no NEE branch, as in the JAX
+package: its row is never valid in ``sample_direct`` and never hit, and it
+takes its share of the selection pmf. Sun, sky and sunsky land in a later
+slice.
 """
 from __future__ import annotations
 
@@ -26,19 +32,30 @@ from .records import DirectSample
 
 # type tags, the JAX package's numbering
 AREA = 0
+POINT = 1
 CONSTANT = 2
 ENVMAP = 3
+DIRECTIONAL = 4
+SPOT = 5
+COLLIMATED = 6
 SPHERE = 7   # analytic sphere area light, cone-sampled NEE
 
-SUPPORTED_TYPES = (AREA, CONSTANT, ENVMAP, SPHERE)
+SUPPORTED_TYPES = (AREA, POINT, CONSTANT, ENVMAP, DIRECTIONAL, SPOT,
+                   COLLIMATED, SPHERE)
+DELTA_TYPES = (POINT, SPOT, DIRECTIONAL)
 
 
 class EmitterTable(NamedTuple):
     type: torch.Tensor      # (E,) int32
     radiance: torch.Tensor  # (E, 3)
-    position: torch.Tensor  # (E, 3) a sphere light's center, else 0
-    spot_cos: torch.Tensor  # (E, 2) a sphere light's radius in column 0;
-                            # (0, 1) on other rows (the JAX spot columns)
+    position: torch.Tensor  # (E, 3) a sphere, point, spot or collimated
+                            # light's position, else 0
+    direction: torch.Tensor  # (E, 3) unit; a spot's axis, a directional or
+                             # collimated light's travel; (0, 0, -1) else
+    spot_cos: torch.Tensor  # (E, 2) a spot's cos(cutoff), cos(beam width);
+                            # a sphere light's radius in column 0; (0, 1) on
+                            # other rows
+    delta: torch.Tensor     # (E,) bool: point, spot, directional
     pmf: torch.Tensor       # (E,) emitter-selection pmf
     cdf: torch.Tensor       # (E,) emitter-selection cdf (inclusive)
     etri_tri: torch.Tensor  # (ET,) int32 scene triangle index
@@ -121,6 +138,51 @@ def sample_direct(scene, static, p_ref, u3):
         pdf_sa = torch.where(sel, pdf_s, pdf_sa)
         valid = torch.where(sel, dist_s > 1e-6, valid)
 
+    has_delta = any(t in static.emitter_types for t in DELTA_TYPES)
+    if has_delta:
+        epmf = em.pmf[e_idx]
+    if POINT in static.emitter_types or SPOT in static.emitter_types:
+        to_p = em.position[e_idx] - p_ref
+        dist_p = m.length(to_p)
+        d_p = to_p / torch.clamp(dist_p, min=1e-12)[..., None]
+        r2 = torch.clamp(dist_p * dist_p, min=1e-12)
+
+    if POINT in static.emitter_types:
+        val = em.radiance[e_idx] / r2[..., None]
+        sel = etype == POINT
+        d = torch.where(sel[..., None], d_p, d)
+        dist = torch.where(sel, dist_p, dist)
+        radiance = torch.where(sel[..., None], val, radiance)
+        pdf_sa = torch.where(sel, epmf, pdf_sa)  # delta: the selection pmf
+        delta = torch.where(sel, True, delta)
+        valid = torch.where(sel, dist_p > 1e-6, valid)
+
+    if SPOT in static.emitter_types:
+        # spot.cpp falloff: the three selects in the JAX order, so a lane
+        # at cos == cos(beam width) or cos == cos(cutoff) lands alike
+        cos_f = -m.dot(d_p, em.direction[e_idx])
+        cc, cb = em.spot_cos[e_idx, 0], em.spot_cos[e_idx, 1]
+        fall = torch.clamp(m.safe_div(cos_f - cc, cb - cc), 0.0, 1.0)
+        fall = torch.where(cos_f >= cb, 1.0, fall)
+        fall = torch.where(cos_f <= cc, 0.0, fall)
+        val = em.radiance[e_idx] * (fall / r2)[..., None]
+        sel = etype == SPOT
+        d = torch.where(sel[..., None], d_p, d)
+        dist = torch.where(sel, dist_p, dist)
+        radiance = torch.where(sel[..., None], val, radiance)
+        pdf_sa = torch.where(sel, epmf, pdf_sa)
+        delta = torch.where(sel, True, delta)
+        valid = torch.where(sel, (dist_p > 1e-6) & (fall > 0), valid)
+
+    if DIRECTIONAL in static.emitter_types:
+        sel = etype == DIRECTIONAL
+        d = torch.where(sel[..., None], -em.direction[e_idx], d)
+        dist = torch.where(sel, 2.0 * scene.radius, dist)
+        radiance = torch.where(sel[..., None], em.radiance[e_idx], radiance)
+        pdf_sa = torch.where(sel, epmf, pdf_sa)
+        delta = torch.where(sel, True, delta)
+        valid = torch.where(sel, True, valid)
+
     if CONSTANT in static.emitter_types:
         d_c = warp.square_to_uniform_sphere(torch.stack([u0, u1], dim=-1))
         sel = etype == CONSTANT
@@ -139,10 +201,14 @@ def sample_direct(scene, static, p_ref, u3):
         pdf_sa = torch.where(sel, pdf_e, pdf_sa)
         valid = torch.where(sel, pdf_e > 0, valid)
 
-    # fold the emitter-selection pmf into the solid-angle pdf (no emitter of
-    # the port is a delta light yet); AREA folded it into tri_nee_pdf_area
-    # at build time
-    pdf_sa = pdf_sa * torch.where(etype == AREA, 1.0, em.pmf[e_idx])
+    # fold the emitter-selection pmf into the solid-angle pdf of the
+    # non-delta samples (a delta sample's pdf is the pmf already); AREA
+    # folded it into tri_nee_pdf_area at build time
+    if has_delta:
+        pdf_sa = torch.where(delta, pdf_sa,
+                             pdf_sa * torch.where(etype == AREA, 1.0, epmf))
+    else:
+        pdf_sa = pdf_sa * torch.where(etype == AREA, 1.0, em.pmf[e_idx])
     return DirectSample(d=d, dist=dist, radiance=radiance, pdf_sa=pdf_sa,
                         delta=delta, valid=valid)
 

@@ -23,8 +23,9 @@ mask opacity and blend weight, and normal or bump maps (the rough plastic's
 and rough coating's transmittance polynomial baked at ``build``,
 ``core/rtrans.py``); lights are triangle area lights, analytic sphere lights
 (cone-sampled in NEE), a constant environment and a lat-long environment
-map; meshes may be instanced. Anything else (other textures and lights,
-media, irawan) raises ``NotImplementedError``: it lands in a later slice.
+map, and the point, spot, directional and collimated delta lights; meshes
+may be instanced. Anything else (other textures, sun and sky, media,
+irawan) raises ``NotImplementedError``: it lands in a later slice.
 """
 from __future__ import annotations
 
@@ -271,10 +272,17 @@ def ray_intersect(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
     # downstream NEE math
     t_safe = torch.where(valid, t, 1.0)
     p = o + t_safe[..., None] * d
+    sph_dpdu = None
     if static.n_spheres > 0:
         # sphere.cpp fillIntersectionRecord
         si = torch.clamp(sph_idx, 0, static.n_spheres - 1).to(torch.int64)
-        n_sph = m.normalize(p - scene.sph_center[si])
+        rel = p - scene.sph_center[si]
+        n_sph = m.normalize(rel)
+        if static.has_normal_maps:
+            # dp/du of the (u, v) = (phi / 2pi, theta / pi) map below
+            sph_dpdu = torch.stack([-rel[..., 1], rel[..., 0],
+                                    torch.zeros_like(t)], dim=-1) \
+                * (2.0 * math.pi)
         theta, phi = m.spherical_coordinates(n_sph)
         uv_sph = torch.stack([phi * (0.5 / math.pi), theta * (1.0 / math.pi)],
                              dim=-1)
@@ -292,10 +300,11 @@ def ray_intersect(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
         nee_pdf = torch.where(hit_t, nee_tri, 0.0)
 
     frame = Frame.from_normal(n_sh)
-    if static.has_normal_maps and T > 0:
-        # the triangle query's index, on sphere lanes too (as the JAX
-        # package passes it: ROADMAP.md, Queue 3)
-        frame = _perturb_frame(scene, tri_idx, uv, mat_id, frame)
+    if static.has_normal_maps:
+        # a sphere lane takes its own sphere's tangent; the JAX package
+        # hands every lane the triangle query's (ROADMAP.md, Queue 3)
+        sph = None if sph_dpdu is None else (closer, sph_dpdu)
+        frame = _perturb_frame(scene, tri_idx, uv, mat_id, frame, sph)
     wi_world = -d
     wi_local = frame.to_local(wi_world)
     return Interaction(
@@ -316,12 +325,15 @@ def ray_intersect(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
     )
 
 
-def _perturb_frame(scene: Scene, tri_idx, uv, mat_id, frame: Frame) -> Frame:
+def _perturb_frame(scene: Scene, tri_idx, uv, mat_id, frame: Frame,
+                   sph=None) -> Frame:
     """normalmap.cpp / bumpmap.cpp: the shading frame rebuilt from a
     tangent-space normal map, or from a height texture's finite differences
     at eps = 5e-4 in uv, on the lanes whose material has one. The tangent
     is the triangle's dpdu (trimesh.cpp computeUVTangents), the frame's own
-    tangent where the uvs are degenerate."""
+    tangent where the uvs are degenerate; ``sph`` = (lanes, dpdu) gives the
+    lanes that hit a sphere and its dpdu there (sphere.cpp), which falls
+    back to the frame's tangent at the poles."""
     mid = torch.clamp(mat_id, min=0).to(torch.int64)
     mats = scene.materials
     ntex, btex = mats.normal_tex[mid], mats.bump_tex[mid]
@@ -338,6 +350,8 @@ def _perturb_frame(scene: Scene, tri_idx, uv, mat_id, frame: Frame) -> Frame:
     inv = m.safe_div(1.0, torch.where(ok_uv, det, 1.0))
     dpdu = (e1 * duv2[..., 1:2] - e2 * duv1[..., 1:2]) * inv[..., None]
     t_u = torch.where(ok_uv[..., None], dpdu, frame.s)
+    if sph is not None:
+        t_u = torch.where(sph[0][..., None], sph[1], t_u)
     n = frame.n
     t_u = t_u - n * m.dot(n, t_u, keepdim=True)
     t_len = m.length(t_u)
@@ -697,6 +711,49 @@ class SceneBuilder:
                 spot_cos=(float(radius), 0.0)))
         self.spheres.append((np.asarray(center, float), float(radius), mat, e))
 
+    def add_point_light(self, position, intensity) -> int:
+        """point.cpp: a point light of radiant ``intensity``."""
+        self.emitters.append(dict(type=em_mod.POINT,
+                                  radiance=tuple(intensity),
+                                  position=tuple(position)))
+        return len(self.emitters) - 1
+
+    def add_spot_light(self, position, direction, intensity,
+                       cutoff_deg=20.0, beamwidth_deg=None) -> int:
+        """spot.cpp: a point light along ``direction`` whose intensity falls
+        off linearly in cos from ``beamwidth_deg`` (0.75 of the cutoff by
+        default) to ``cutoff_deg``."""
+        if beamwidth_deg is None:
+            beamwidth_deg = cutoff_deg * 0.75
+        d = np.asarray(direction, float)
+        d = d / np.linalg.norm(d)
+        self.emitters.append(dict(
+            type=em_mod.SPOT, radiance=tuple(intensity),
+            position=tuple(position), direction=tuple(d),
+            spot_cos=(float(np.cos(np.deg2rad(cutoff_deg))),
+                      float(np.cos(np.deg2rad(beamwidth_deg))))))
+        return len(self.emitters) - 1
+
+    def add_directional_light(self, direction, irradiance) -> int:
+        """directional.cpp: light travelling along ``direction``."""
+        d = np.asarray(direction, float)
+        d = d / np.linalg.norm(d)
+        self.emitters.append(dict(type=em_mod.DIRECTIONAL,
+                                  radiance=tuple(irradiance),
+                                  direction=tuple(d)))
+        return len(self.emitters) - 1
+
+    def add_collimated_beam(self, position, direction, power) -> int:
+        """collimated.cpp: a zero-radius beam. Next-event estimation and hit
+        queries never see it; it takes its share of the selection pmf."""
+        d = np.asarray(direction, float)
+        d = d / np.linalg.norm(d)
+        self.emitters.append(dict(type=em_mod.COLLIMATED,
+                                  radiance=tuple(power),
+                                  position=tuple(position),
+                                  direction=tuple(d)))
+        return len(self.emitters) - 1
+
     def add_constant_emitter(self, radiance) -> int:
         """A constant environment (constant.cpp): the same radiance from
         every direction, sampled uniformly over the sphere."""
@@ -800,14 +857,19 @@ class SceneBuilder:
         etype = np.zeros(E, np.int32)
         erad = np.zeros((E, 3), np.float32)
         epos = np.zeros((E, 3), np.float32)
+        edir = np.tile(np.array([[0, 0, -1.0]], np.float32), (E, 1))
         espot = np.tile(np.array([[0.0, 1.0]], np.float32), (E, 1))
+        edelta = np.zeros(E, bool)
         for i, e in enumerate(self.emitters):
             etype[i] = e["type"]
             erad[i] = np.asarray(e["radiance"], np.float32)
             if "position" in e:
                 epos[i] = e["position"]
+            if "direction" in e:
+                edir[i] = e["direction"]
             if "spot_cos" in e:
                 espot[i] = e["spot_cos"]
+            edelta[i] = e["type"] in em_mod.DELTA_TYPES
         n_emitters = len(self.emitters)
         pmf = np.full(E, 1.0 / max(n_emitters, 1), np.float32)
         if n_emitters == 0:
@@ -936,7 +998,8 @@ class SceneBuilder:
             textures=tex_mod.build_table(self.textures, self.bitmaps, dev),
             emitters=em_mod.EmitterTable(
                 type=i32(etype), radiance=f32(erad), position=f32(epos),
-                spot_cos=f32(espot), pmf=f32(pmf),
+                direction=f32(edir), spot_cos=f32(espot),
+                delta=torch.as_tensor(edelta, device=dev), pmf=f32(pmf),
                 cdf=f32(cdf), etri_tri=i32(etri_tri), etri_cdf=f32(etri_cdf),
                 env_index=i32(env_index), env_map=f32(env["env_map"]),
                 env_alias=f32(env["env_alias"]), env_hw=i32(env["env_hw"]),

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Image statistics of the sensor-header and material-gallery renders
-through the JAX package on the CPU.
+"""Image statistics of the sensor-header, gallery and lights-and-cameras
+renders through the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/jax_header_ref_mean.py
         [--block-y Y] [--eye-shift DX] [LABEL ...]
@@ -37,7 +37,17 @@ them without one):
   made of one nested or layered BSDF (the map variants: the block alone),
   the bump map's height field written by ``chip_smoke.write_height_pfm``
   beside the file, loaded with ``-D spp=32``
-  (``chip_smoke.LAYERED_GALLERY.spp``) and rendered as above.
+  (``chip_smoke.LAYERED_GALLERY.spp``) and rendered as above;
+- lights and cameras, ``lights {variant}`` for each variant of
+  ``chip_smoke.LIGHTS_VARIANTS`` (phase 9h): ``chip_smoke.lights_xml``'s
+  text, cbox.xml with delta lights, another camera or a meter, loaded with
+  ``chip_smoke.LIGHTS_DEFINES`` and rendered by ``api.render`` (a meter
+  through its ``render_meter``; its tv_rgb is None).
+
+Every scene file is loaded with its difftrans rows made as
+``add_material(type=DIFFTRANS, spec_trans=t)`` (``difftrans_in_spec_trans``):
+the JAX loader puts the transmittance in the albedo column, which the lobe
+never reads, and the port's loader stores it in spec_trans.
 
 For each it prints the seconds, ``mean_rgb`` and ``tv_rgb`` (the mean
 absolute difference of horizontally adjacent pixels, per channel: it sees a
@@ -48,6 +58,7 @@ JAX side of tests/test_torch_header.py.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -64,7 +75,7 @@ REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 sys.path.insert(0, REPO)
 from mitsuba_tpu.core.transform import Transform  # noqa: E402
 from mitsuba_tpu.io.mitsuba_xml import load_scene  # noqa: E402
-from mitsuba_tpu.render import api, shapes  # noqa: E402
+from mitsuba_tpu.render import api, bsdf, shapes  # noqa: E402
 from mitsuba_tpu.render import film as film_mod  # noqa: E402
 from mitsuba_tpu.render import sensor as sensor_mod  # noqa: E402
 from mitsuba_tpu.render.integrators import misc as int_misc  # noqa: E402
@@ -95,9 +106,34 @@ def variant_xml(sampler="independent", rfilter="gaussian") -> str:
     return text
 
 
+@contextlib.contextmanager
+def difftrans_in_spec_trans():
+    """Within the block, the JAX builder makes a difftrans row as
+    ``add_material(type=DIFFTRANS, spec_trans=t)`` with the albedo at its
+    default, where the JAX loader asks for ``albedo=t``: so a loaded scene
+    carries a difftrans element's transmittance in the column the lobe
+    reads (the JAX loader's albedo column is read by no difftrans lobe;
+    the PyTorch port's loader stores it in spec_trans)."""
+    orig = SceneBuilder.add_material
+
+    def add_material(self, *args, **kw):
+        if kw.get("type") == bsdf.DIFFTRANS:
+            kw["spec_trans"] = kw.pop("albedo", (0.5, 0.5, 0.5))
+        return orig(self, *args, **kw)
+
+    SceneBuilder.add_material = add_material
+    try:
+        yield
+    finally:
+        SceneBuilder.add_material = orig
+
+
 def image_stats(img):
-    """(mean_rgb, tv_rgb) of an (H, W, 3) image, float64 sums."""
+    """(mean_rgb, tv_rgb) of an (H, W, 3) image, float64 sums; tv_rgb None
+    for an image one pixel wide (a meter's)."""
     img = np.asarray(img, np.float64)
+    if img.shape[1] < 2:
+        return img.mean(axis=(0, 1)).tolist(), None
     tv = np.abs(img[:, 1:] - img[:, :-1]).mean(axis=(0, 1))
     return img.mean(axis=(0, 1)).tolist(), tv.tolist()
 
@@ -157,11 +193,12 @@ def renders(labels=(), block_y=None, eye_shift=0.0):
 
     out = []
     with tempfile.TemporaryDirectory() as tmp:
-        def scene_file(text, spp, res):
+        def scene_file(text, spp, res, defines=None):
             path = os.path.join(tmp, "scene.xml")
             with open(path, "w") as f:
                 f.write(text)
-            ls = load_scene(path, {"spp": spp, "res": res})
+            with difftrans_in_spec_trans():
+                ls = load_scene(path, defines or {"spp": spp, "res": res})
             return np.asarray(api.render(ls.scene, ls.static, ls.sensor,
                                          ls.integrator, ls.settings))
 
@@ -203,6 +240,9 @@ def renders(labels=(), block_y=None, eye_shift=0.0):
             for v in g.bsdfs:
                 out.append((f"{g.kind} {v}", lambda g=g, v=v: scene_file(
                     g.xml(v, **block), g.spp, 256)))
+        for v in chip_smoke.LIGHTS_VARIANTS:
+            out.append((f"lights {v}", lambda v=v: scene_file(
+                chip_smoke.lights_xml(v), 0, 0, chip_smoke.LIGHTS_DEFINES)))
         values = {}
         for label, thunk in out:
             if labels and not any(label.startswith(x) for x in labels):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Image statistics of the sensor-header and material-gallery renders
-through the port, beside the JAX package's values that chip_smoke.py holds
+"""Image statistics of the sensor-header, gallery and lights-and-cameras
+renders through the port, beside the JAX package's values that chip_smoke.py holds
 them to.
 
     python scripts/torch_header_stats.py [--device cpu|cuda] [--threads N]
@@ -8,8 +8,10 @@ them to.
 
 Renders each render of ``chip_smoke.py``'s sensor-header phase (9e,
 ``chip_smoke.header_renders`` and ``bunny_ao_case``), material-gallery
-phase (9f, ``chip_smoke.gallery_renders``, labels ``gallery {variant}``)
-and layered-gallery phase (9g, labels ``layered {variant}``) whose label
+phase (9f, ``chip_smoke.gallery_renders``, labels ``gallery {variant}``),
+layered-gallery phase (9g, labels ``layered {variant}``) and
+lights-and-cameras phase (9h, ``chip_smoke.lights_renders``, labels
+``lights {variant}``; a meter's value against ``METER_REF``) whose label
 starts with one of the LABELs (all of them without one) through this
 tree's
 ``mitsuba_tpu_torch`` on ``--device`` (the card by default), and prints its
@@ -63,6 +65,7 @@ def main() -> int:
         for g in (cs.MATERIAL_GALLERY, cs.LAYERED_GALLERY):
             cases.update(cs.gallery_renders(dev, tmp, g, block_y=args.block_y,
                                             eye_shift=args.eye_shift))
+        cases.update(cs.lights_renders(dev, tmp))
         if wanted("ao bunny_x2"):
             cases["ao bunny_x2"] = cs.bunny_ao_case(cs.bunny(dev))
         for label, (scene, static, sensor, cfg, settings, _) in cases.items():
@@ -72,6 +75,12 @@ def main() -> int:
             img = api.render(scene, static, sensor, cfg, settings, device=dev)
             dt = time.perf_counter() - t0
             mean = img.double().mean(dim=(0, 1)).tolist()
+            if label in cs.METER_REF:
+                mean_ref = cs.METER_REF[label]
+                print(f"{label}: {dt:.1f} s; value {mean} gap "
+                      f"{[a / b - 1 for a, b in zip(mean, mean_ref)]} (limit "
+                      f"{cs.METER_RTOL})", flush=True)
+                continue
             tv = cs.tv_rgb(img)
             mean_ref, tv_ref = cs.HEADER_REF[label]
             print(f"{label}: {dt:.1f} s; mean_rgb {mean} gap "

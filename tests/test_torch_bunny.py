@@ -62,7 +62,8 @@ MAT_FIELDS = ("type", "dist", "albedo", "albedo_tex", "spec_refl", "eta", "k",
               "bump_scale")
 TEX_FIELDS = ("type", "uv_scale", "uv_offset", "scale", "bitmap_idx", "stack",
               "stack_hw", "sizes", "mips", "mips_hw")
-EM_FIELDS = ("type", "radiance", "position", "spot_cos", "pmf", "cdf",
+EM_FIELDS = ("type", "radiance", "position", "direction", "spot_cos",
+             "delta", "pmf", "cdf",
              "etri_tri", "etri_cdf", "env_index", "env_map", "env_alias",
              "env_hw", "env_to_world", "env_scale")
 TL_FIELDS = ("tl_root", "tl_skip", "tl_lo", "tl_hi")

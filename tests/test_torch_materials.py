@@ -10,6 +10,10 @@ dielectric's and HK's transmissions) continue paths, HK's per-lane delta
 flag drives the next vertex's MIS, and a rough-dielectric refraction's eta
 enters roulette, lane by lane as in the JAX package.
 
+A difftrans element is held against a JAX scene whose difftrans row
+carries the file's transmittance in spec_trans, the column its lobe reads
+(the JAX loader puts it in the albedo column; ROADMAP.md, Queue 3).
+
 Tolerances: loaded tables exactly (the same numpy arithmetic, cast to
 float32 at the end); the render as in test_torch_scenefile.py: image means
 within 1e-3 relative, >= 99% of pixels within atol 1e-4 / rtol 1e-3, and
@@ -41,8 +45,9 @@ from test_torch_render import FIELD_PATHS, _leaf, jax_scene_arrays
 from test_torch_scenefile import jax_render
 
 REPO = Path(__file__).resolve().parents[1]
-sys.path[:0] = [str(REPO)]
+sys.path[:0] = [str(REPO), str(REPO / "scripts")]
 import chip_smoke  # noqa: E402
+from jax_header_ref_mean import difftrans_in_spec_trans  # noqa: E402
 
 B = tbsdf
 
@@ -101,8 +106,13 @@ ELEMENTS = {
 
 
 def _both(path, defines=None):
-    """(port LoadedScene, bridged JAX scene, its static) of one file."""
-    jls = jxml.load_scene(str(path), defines)
+    """(JAX LoadedScene, port LoadedScene, bridged JAX scene, its static) of
+    one file. The JAX scene carries a difftrans element's transmittance in
+    spec_trans, as add_material(type=DIFFTRANS, spec_trans=...) builds it
+    (``difftrans_in_spec_trans``): the JAX loader puts it in the albedo
+    column, which its lobe never reads (ROADMAP.md, Queue 3)."""
+    with difftrans_in_spec_trans():
+        jls = jxml.load_scene(str(path), defines)
     tls = txml.load_scene(str(path), defines, device="cpu")
     ref, ref_static = bridge.scene_from_arrays(
         jax_scene_arrays(jls.scene), dataclasses.asdict(jls.static),

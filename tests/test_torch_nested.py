@@ -381,24 +381,28 @@ def test_perturbed_frames_match_jax():
     assert not moved[mat == 2].any()
 
 
+TILT = (0.75, 0.5, 0.85)
+
+
 def _sphere_behind_wall(b, tf, ang):
-    """A sphere whose material has a constant normal-map tilt, and behind
-    it a plain rectangle turned by ``ang`` degrees about the ray."""
-    tilt = b.add_texture_checkerboard(color0=(0.75, 0.5, 0.85),
-                                      color1=(0.75, 0.5, 0.85))
-    b.add_sphere([0.0, 0.0, 0.0], 1.0, b.add_material(normal_tex=tilt))
+    """A sphere and, behind it, a rectangle turned by ``ang`` degrees about
+    the z axis, both with a constant normal-map tilt."""
+    tilt = b.add_texture_checkerboard(color0=TILT, color1=TILT)
+    mat = b.add_material(normal_tex=tilt)
+    b.add_sphere([0.0, 0.0, 0.0], 1.0, mat)
     v, f, uv = tf(ang)
-    b.add_mesh(v, f, b.add_material(), uvs=uv)
+    b.add_mesh(v, f, mat, uvs=uv)
     return b.build(**({} if isinstance(b, jscene.SceneBuilder)
                       else {"device": "cpu"}))
 
 
-def test_a_sphere_takes_the_triangle_tangent_as_in_jax():
-    """The JAX package hands _perturb_frame the triangle query's index, so a
-    sphere lane whose material has a map takes the tangent of whatever
-    triangle that query met (ROADMAP.md, Queue 3): the port does the same,
-    through ray_intersect. Turning the triangle turns the sphere's perturbed
-    normal."""
+def test_a_sphere_takes_its_own_tangent_and_a_triangle_the_jax_one():
+    """A sphere lane's normal map perturbs the sphere's own frame: its
+    tangent is dp/du of the sphere's (u, v) = (phi / 2pi, theta / pi) map
+    (sphere.cpp), computed here, and turning the wall behind it changes
+    nothing. A triangle lane is held to the JAX ray_intersect (jitted, one
+    compile for both scenes), which hands every lane the triangle query's
+    tangent (ROADMAP.md, Queue 3): the repair leaves triangle lanes alone."""
     from mitsuba_tpu.core.transform import Transform
 
     def jtf(ang):
@@ -411,8 +415,12 @@ def test_a_sphere_takes_the_triangle_tangent_as_in_jax():
                                  * TTransform.rotate([0, 0, 1], ang)
                                  * TTransform.scale([3, 3, 1]))
 
-    o, d = np.float32([[0.0, 0.0, -5.0]]), np.float32([[0.0, 0.0, 1.0]])
-    # one compile for both scenes (their static facts are equal)
+    # three lanes on the sphere (off its poles on the z axis), two on the
+    # wall beside it
+    o = np.float32([[0.3, 0.4, -5.0], [-0.6, 0.1, -5.0], [0.2, -0.7, -5.0],
+                    [2.0, 0.5, -5.0], [-1.5, -2.0, -5.0]])
+    d = np.float32([[0.0, 0.0, 1.0]] * 5)
+    on_sphere = np.array([True, True, True, False, False])
     jhit = jax.jit(jscene.ray_intersect, static_argnums=1)
     normals = {}
     for ang in (0.0, 90.0):
@@ -421,18 +429,34 @@ def test_a_sphere_takes_the_triangle_tangent_as_in_jax():
         jits = jhit(js, jst, jnp.asarray(o), jnp.asarray(d), 1e-4, jnp.inf)
         tits = tscene.ray_intersect(ts, tst, torch.from_numpy(o),
                                     torch.from_numpy(d), 1e-4, torch.inf)
-        assert tits.prim_id.tolist() == [tst.n_tris]  # the sphere
-        assert np.asarray(jits.prim_id).tolist() == [jst.n_tris]
+        assert ((tits.prim_id.numpy() == tst.n_tris) == on_sphere).all()
+        frame = tits.sh_frame
         for f in ("s", "t", "n"):
             np.testing.assert_allclose(
-                getattr(tits.sh_frame, f).numpy(),
-                np.asarray(getattr(jits.sh_frame, f)), rtol=1e-5, atol=1e-5,
-                err_msg=f)
-        normals[ang] = tits.sh_frame.n[0].numpy()
-    # the wall's quarter turn turns the sphere's normal by a quarter turn
-    n0, n90 = normals[0.0], normals[90.0]
-    np.testing.assert_allclose(n90, [-n0[1], n0[0], n0[2]], atol=1e-5)
-    assert abs(n0[0]) > 0.5
+                getattr(frame, f).numpy()[~on_sphere],
+                np.asarray(getattr(jits.sh_frame, f))[~on_sphere], rtol=1e-5,
+                atol=1e-5, err_msg=f"triangle lanes, {f}")
+        # the sphere's frame, from its parametrisation
+        p = tits.p.numpy()[on_sphere].astype(np.float64)
+        n = p / np.linalg.norm(p, axis=1, keepdims=True)
+        t_u = np.stack([-p[:, 1], p[:, 0], np.zeros(len(p))], axis=1)
+        t_u /= np.linalg.norm(t_u, axis=1, keepdims=True)
+        b_v = np.cross(n, t_u)
+        nt = 2.0 * np.float32(TILT) - 1.0
+        n_map = nt[0] * t_u + nt[1] * b_v + nt[2] * n
+        n_map /= np.linalg.norm(n_map, axis=1, keepdims=True)
+        ref = JFrame.from_normal(jnp.asarray(n_map, jnp.float32))
+        for f in ("s", "t", "n"):
+            np.testing.assert_allclose(
+                getattr(frame, f).numpy()[on_sphere],
+                np.asarray(getattr(ref, f)), rtol=1e-5, atol=1e-5,
+                err_msg=f"sphere lanes, {f}")
+        normals[ang] = frame.n.numpy()
+    # the wall's quarter turn turns its own lanes' normals, not the sphere's
+    np.testing.assert_array_equal(normals[0.0][on_sphere],
+                                  normals[90.0][on_sphere])
+    assert np.abs(normals[0.0][~on_sphere]
+                  - normals[90.0][~on_sphere]).max() > 0.1
 
 
 # --- the scene-file elements through both loaders ---------------------------

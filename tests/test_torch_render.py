@@ -58,7 +58,8 @@ MAT_FIELDS = ("type", "dist", "albedo", "albedo_tex", "spec_refl", "eta", "k",
               "rt_fdr", "hk_thickness", "hk_g", "opacity_tex", "nested_a",
               "nested_b", "weight", "weight_tex", "normal_tex", "bump_tex",
               "bump_scale")
-EM_FIELDS = ("type", "radiance", "position", "spot_cos", "pmf", "cdf",
+EM_FIELDS = ("type", "radiance", "position", "direction", "spot_cos",
+             "delta", "pmf", "cdf",
              "etri_tri", "etri_cdf", "env_index", "env_map", "env_alias",
              "env_hw", "env_to_world", "env_scale")
 TEX_FIELDS = ("type", "uv_scale", "uv_offset", "scale", "bitmap_idx", "stack",
@@ -158,15 +159,17 @@ def test_bridge_sensor(sensors):
                                       getattr(ts, f).numpy(), err_msg=f)
 
 
-# emitter 4 is the directional light and BSDF 19 irawan (the sphere light 7
-# and the plastics 4 and 5 joined the port with the Veach MIS scene, the
-# smooth conductor 2 and the rough dielectric 6 with the single-layer BSDFs,
-# the opacity textures and the mask 12 and rough coating 18 with the nested
-# and layered ones)
+# BSDF 19 is irawan, also as a nested row (the sphere light 7 and the
+# plastics 4 and 5 joined the port with the Veach MIS scene, the smooth
+# conductor 2 and the rough dielectric 6 with the single-layer BSDFs, the
+# opacity textures and the mask 12 and rough coating 18 with the nested and
+# layered ones, the point 1, directional 4 and spot 5 lights with the delta
+# lights)
 @pytest.mark.parametrize("change", [
-    dict(has_sss=True), dict(emitter_types=(0, 4)),
-    dict(emitter_types=(0, 5)), dict(ewa_taps=4), dict(bsdf_types=(0, 19)), dict(emitter_types=(0, 1)),
-    dict(medium_types=(0,)), dict(phase_types=(0,)),
+    dict(has_sss=True), dict(has_singlescatter=True),
+    dict(has_boundary_media=True), dict(ewa_taps=4), dict(bsdf_types=(0, 19)),
+    dict(nested_bsdf_types=(19,)), dict(medium_types=(0,)),
+    dict(phase_types=(0,)),
 ])
 def test_later_slices_raise(cornell, change):
     static = dict(dataclasses.asdict(cornell[1]), **change)
@@ -432,7 +435,8 @@ def test_port_and_chip_smoke_import_no_jax():
                 "core/rtrans.py", "core/qmc.py", "core/sobol_table.py",
                 "render/integrators/misc.py", "utils/chi2.py",
                 "render/bsdf.py", "render/texture.py", "render/scene.py",
-                "bridge.py"):
+                "bridge.py", "render/emitter.py", "render/sensor.py",
+                "render/api.py", "core/transform.py"):
         assert REPO / "mitsuba_tpu_torch" / new in files, new
     for f in files:
         for mod in _imports(f):
