@@ -189,6 +189,18 @@ timed (the seconds printed at its end and together before the JSON lines):
      within METER_RTOL; sample_ray of all nine sensor types on 65,536 film
      and aperture draws against the CPU within SENSOR_ATOL; then the CLI on
      the "all" file, whose EXR must equal its image;
+ 9i. cloth and spectra: tests/test_irawan.py's cloth scene (cloth_xml: a
+     rectangle of woven cloth under a point light, path depth 3) at 256x256,
+     16 spp, its irawan element the plain or the twill preset or a written
+     .cloth pattern with yarn-tension noise and intensity variation
+     (CLOTH_TEXT), through load_scene + api.render (48 + 48 K1/K2
+     launches); tests/test_spectral.py's glass slab (spectral_scene, the
+     port's builder) through api.render_spectral at 256x256, 16 spp, depth
+     6, with Cauchy's B 0 and 0.3 (96 + 96); each held as phase 9f's
+     renders; the plain variant's file with a multichannel integrator
+     through load_scene + api.render_multichannel, whose image must equal
+     the plain variant's bit for bit; then the CLI on the .cloth variant's
+     file, whose EXR must equal its image;
  10. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
      2, seed 0 (bench.py:289-293); checks 10 launches of K4 and 300 of K3
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
@@ -206,10 +218,8 @@ timed (the seconds printed at its end and together before the JSON lines):
      treelet and lane-resort kernels report the same hit rate on each batch
      and that K7 and K3 launched as the utility drives them;
  13. profile: one render pass of each scene (the bunny in both BVH modes;
-     4 spp of cbox.xml at 256x256, of the same file with the ldsampler, of
-     the gallery's GGX rough dielectric and of the layered gallery's rough
-     coating, of phase 9h's "all" scene, of the Cornell direct render at
-     64x64 and of the Veach MIS path render at 512x512)
+     4 spp of cbox.xml at 256x256, of the Cornell direct render at 64x64
+     and of the Veach MIS path render at 512x512)
      under torch.profiler, printing the device's busy share of the wall time,
      the pass's device kernel launches, the kernels that take it and each
      port kernel's render mean per launch;
@@ -649,6 +659,23 @@ HEADER_REF = {
     "lights spherical": (
         (1.4818568836941126, 1.2397048476861765, 0.6258338658944133),
         (0.04392308598510512, 0.035935917162161365, 0.01786362259263983)),
+    # cloth and spectra (phase 9i), scripts/jax_header_ref_mean.py's cloth
+    # (256x256, 16 spp) and spectral renders (256x256, 16 spp, depth 6)
+    "cloth plain": (
+        (0.4324094324319123, 0.3023091261070059, 0.2372589667236089),
+        (0.04653793890681532, 0.046303363658859654, 0.04618788356833291)),
+    "cloth twill": (
+        (0.3451984219119897, 0.21509811233097853, 0.15004795535416138),
+        (0.029308547604020584, 0.029085177563164883, 0.028975751521623832)),
+    "cloth cloth file": (
+        (0.3017132319425384, 0.32599155018674475, 0.4566806244267658),
+        (0.04896814464863222, 0.04587395203623146, 0.048810802584925934)),
+    "spectral cauchy_b 0.0": (
+        (2.63249723164013, 2.635025821987128, 2.6330219649668494),
+        (1.4254991147612102, 0.8239264923059689, 1.0082237749325298)),
+    "spectral cauchy_b 0.3": (
+        (1.0312935078058574, 1.0633426766658711, 0.9861515777259151),
+        (0.9738411742306726, 0.6738309242698424, 0.7733010739919838)),
 }
 # the meters of phase 9h through the JAX package's render_meter on its CPU
 # backend, 65,536 samples: scripts/jax_header_ref_mean.py's lights meters
@@ -809,8 +836,7 @@ class Gallery:
 
 
 # phase 9f at the file's 64 spp; phase 9g at 32, so that the script stays
-# within its time (PERF.md section 4). The layered gallery's rough coating
-# also goes through the profile phase
+# within its time (PERF.md section 4)
 MATERIAL_GALLERY = Gallery("gallery", GALLERY_BSDFS, CBOX_SPP, "hk")
 LAYERED_GALLERY = Gallery("layered", LAYERED_BSDFS, 32, "roughcoating",
                           glass_sphere=("normalmap", "bumpmap"))
@@ -951,6 +977,112 @@ def lights_xml(case) -> str:
         head, _, tail = cut('<integrator type="path">', "</integrator>")
         text = head + integrator + tail
     return text
+
+
+# phase 9i, cloth and spectra. The woven cloth: tests/test_irawan.py's
+# end-to-end scene (a rectangle under a point light, the path tracer at
+# depth 3) at -D res=256 and 16 spp, its irawan element one of CLOTH_BSDFS:
+# the plain and the twill preset, and CLOTH_TEXT, a .cloth pattern whose
+# period and fineness turn on the yarn-tension noise and the specular
+# intensity variation (the presets reach neither), written beside the file
+# as CLOTH_FILE; and the same file with its integrator the multichannel
+# wrapper of that path tracer (CLOTH_MULTICHANNEL), whose image must equal
+# the plain variant's
+CLOTH_DEFINES = {"spp": 16, "res": 256}
+CLOTH_DEPTH = 3
+CLOTH_FILE = "weave.cloth"
+CLOTH_TEXT = """/* a 3x3 twill of blue warp and light weft yarns */
+weave {
+  name = "denim", tileWidth = 3, tileHeight = 3,
+  alpha = 0.01, beta = 4.0, ss = 0.5, hWidth = 0.5,
+  warpArea = 0.7, weftArea = 0.3, fineness = 4.0, period = 3.0,
+  dWarpUmaxOverDWarp = 20, dWarpUmaxOverDWeft = 10,
+  dWeftUmaxOverDWarp = -8, dWeftUmaxOverDWeft = 12,
+  pattern { 1, 2, 2,  2, 1, 2,  2, 2, 1 },
+  yarn { type = warp, psi = 0, umax = 38, kappa = 1.0,
+         width = 1, length = 3, centerU = 0.5, centerV = 0.5,
+         kd = {0.1, 0.2, 0.5}, ks = {0.2, 0.3, 0.6} },
+  yarn { type = weft, psi = 30, umax = 30, kappa = 0.5,
+         width = 1, length = 2, centerU = 0.5, centerV = 0.5,
+         kd = {0.5, 0.5, 0.6}, ks = {0.4, 0.4, 0.5} }
+}
+"""
+_CLOTH_COLOURS = ('<rgb name="kd" value="0.4, 0.2, 0.1"/><rgb name="ks" '
+                  'value="0.3, 0.3, 0.3"/>')
+CLOTH_BSDFS = {
+    "plain": '<string name="preset" value="plain"/>' + _CLOTH_COLOURS,
+    "twill": '<string name="preset" value="twill"/>' + _CLOTH_COLOURS,
+    "cloth file": f'<string name="filename" value="{CLOTH_FILE}"/>',
+}
+CLOTH_PATH = ('<integrator type="path"><integer name="maxDepth" '
+              f'value="{CLOTH_DEPTH}"/></integrator>')
+CLOTH_MULTICHANNEL = ('<integrator type="multichannel">' + CLOTH_PATH
+                      + "</integrator>")
+CLOTH_CLI = "cloth file"
+# the spectral render: tests/test_spectral.py's dispersion scene (a glass
+# slab turned 40 degrees before an area light), built by the builder (the
+# loaders read no cauchy_b), through api.render_spectral at 256x256, 16 spp,
+# depth 6, without dispersion and with Cauchy's B = 0.3 um^2
+SPECTRAL_RES, SPECTRAL_SPP, SPECTRAL_DEPTH = 256, 16, 6
+SPECTRAL_CAUCHY = (0.0, 0.3)
+SPECTRAL_EYE, SPECTRAL_AT, SPECTRAL_FOV = [0, 0, -1.5], [0, 0, 0.5], 40.0
+
+
+def cloth_xml(variant, integrator=CLOTH_PATH) -> str:
+    """The cloth scene's text with the CLOTH_BSDFS ``variant`` and the
+    ``integrator`` element ($spp and $res defined by CLOTH_DEFINES; the
+    "cloth file" variant needs write_cloth beside it). The JAX side
+    (scripts/jax_header_ref_mean.py) loads the same text."""
+    return f"""<scene version="0.6.0">
+  <default name="spp" value="16"/><default name="res" value="12"/>
+  {integrator}
+  <sensor type="perspective">
+    <float name="fov" value="40"/>
+    <transform name="toWorld">
+      <lookat origin="0, 0.6, -1.2" target="0, 0, 0" up="0, 1, 0"/>
+    </transform>
+    <sampler type="independent">
+      <integer name="sampleCount" value="$spp"/>
+    </sampler>
+    <film type="hdrfilm">
+      <integer name="width" value="$res"/><integer name="height" value="$res"/>
+    </film>
+  </sensor>
+  <shape type="rectangle">
+    <transform name="toWorld"><rotate x="1" angle="-90"/></transform>
+    <bsdf type="irawan">{CLOTH_BSDFS[variant]}
+      <float name="repeatU" value="20"/><float name="repeatV" value="20"/>
+    </bsdf>
+  </shape>
+  <emitter type="point">
+    <point name="position" x="0.5" y="1.2" z="-0.5"/>
+    <rgb name="intensity" value="6, 6, 6"/>
+  </emitter>
+</scene>
+"""
+
+
+def write_cloth(directory):
+    """CLOTH_TEXT as ``directory``/CLOTH_FILE."""
+    (Path(directory) / CLOTH_FILE).write_text(CLOTH_TEXT)
+
+
+def spectral_scene(builder, bsdf, shapes, transform, cauchy_b):
+    """tests/test_spectral.py's dispersion scene added to ``builder`` (a
+    SceneBuilder of either package, with that package's ``bsdf``, ``shapes``
+    and ``Transform``): a glass slab of eta 1.5 and Cauchy coefficient
+    ``cauchy_b``, and an emitting rectangle behind it. Returns the
+    builder."""
+    glass = builder.add_material(type=bsdf.DIELECTRIC, eta=1.5,
+                                 cauchy_b=cauchy_b)
+    t = transform.translate([0, 0, 0.5]) * transform.rotate([0, 1, 0], 40.0)
+    v, f, uv = shapes.cube(t * transform.scale([0.6, 0.6, 0.15]))
+    builder.add_mesh(v, f, glass, uvs=uv)
+    v, f, uv = shapes.rectangle(transform.translate([0, 0, 2.0])
+                                * transform.rotate([1, 0, 0], 180.0))
+    builder.add_mesh(v, f, builder.add_material(albedo=(0, 0, 0)),
+                     emitter_radiance=(5.0, 5.0, 5.0), uvs=uv)
+    return builder
 
 
 def height_field():
@@ -2663,20 +2795,27 @@ def render_phase(dev, label, scene, static, sensor, eye, at, fov, spp,
     return launches, mean, ms
 
 
+def render_fn(label):
+    """The entry point a render's label names: api.render_spectral for
+    phase 9i's spectral renders, api.render for every other."""
+    return api.render_spectral if label.startswith("spectral") else api.render
+
+
 def timed_render(dev, label, scene, static, sensor, cfg, settings, ref_mean,
                  rtol, expected):
-    """api.render with every launch count set to 0 just before and read
-    just after; prints its wall time, rays/s, ms/spp, the exact ray count
-    and the peak memory; checks the counts against ``expected`` (0 for a
-    kernel not named), the image's shape and finiteness, and its mean
-    against the JAX package's value within ``rtol`` per channel. Returns
-    (image, launches, mean_rgb, ms/spp)."""
+    """render_fn(label) (api.render but for the spectral renders) with every
+    launch count set to 0 just before and read just after; prints its wall
+    time, rays/s, ms/spp, the exact ray count and the peak memory; checks
+    the counts against ``expected`` (0 for a kernel not named), the image's
+    shape and finiteness, and its mean against the JAX package's value
+    within ``rtol`` per channel. Returns (image, launches, mean_rgb,
+    ms/spp)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     t0 = time.perf_counter()
-    img, n_rays = api.render(scene, static, sensor, cfg, settings, device=dev,
-                             with_stats=True)
+    img, n_rays = render_fn(label)(scene, static, sensor, cfg, settings,
+                                   device=dev, with_stats=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     spp = settings.spp
@@ -2997,9 +3136,7 @@ def gallery_phase(dev, gallery):
     the nested and layered ones and the maps): each render of
     gallery_renders held to the JAX package's mean and tv_rgb within
     HEADER_MEAN_RTOL and HEADER_TV_RTOL and to its exact K1/K2 launches, and
-    the CLI on the gallery's CLI variant, whose EXR must equal its image.
-    Returns the renders' (scene, static, sensor, cfg, settings, launches)
-    by label."""
+    the CLI on the gallery's CLI variant, whose EXR must equal its image."""
     cli = f"{gallery.kind} {gallery.cli}"
     with tempfile.TemporaryDirectory() as tmp:
         cases = gallery_renders(dev, tmp, gallery)
@@ -3013,7 +3150,6 @@ def gallery_phase(dev, gallery):
                 for label, case in cases.items()}
         cli_matches(cli, Path(tmp) / f"{cli.replace(' ', '_')}.xml",
                     {"spp": gallery.spp, "res": CBOX_RES}, imgs[cli])
-    return cases
 
 
 def lights_renders(dev, tmp):
@@ -3117,8 +3253,7 @@ def lights_phase(dev):
     phase 9f's (mean and tv_rgb to the JAX package, exact K1/K2 launches),
     each meter to METER_REF with its launches, sample_ray of every sensor
     type against the CPU, and the CLI on the "all" file, whose EXR must
-    equal its image. Returns the "all" render's (scene, static, sensor,
-    cfg) for the profile phase."""
+    equal its image."""
     with tempfile.TemporaryDirectory() as tmp:
         cases = lights_renders(dev, tmp)
         for label, case in cases.items():
@@ -3139,7 +3274,89 @@ def lights_phase(dev):
         cli = f"lights {LIGHTS_CLI}"
         cli_matches(cli, Path(tmp) / f"lights_{LIGHTS_CLI}.xml",
                     LIGHTS_DEFINES, imgs[cli])
-    return cases[cli][:4]
+
+
+def cloth_renders(dev, tmp):
+    """Every cloth render of phase 9i, by label (``cloth {variant}``):
+    (scene, static, sensor, cfg, settings, expected launches), loaded from
+    ``{tmp}/cloth_{variant}.xml`` with CLOTH_DEFINES, CLOTH_FILE written
+    beside them. scripts/torch_header_stats.py renders the same."""
+    write_cloth(tmp)
+    out = {}
+    for variant in CLOTH_BSDFS:
+        path = Path(tmp) / f"cloth_{variant.replace(' ', '_')}.xml"
+        path.write_text(cloth_xml(variant))
+        ls = mitsuba_xml.load_scene(str(path), CLOTH_DEFINES, device=dev)
+        # a closest-hit (K1) and a shadow query (K2) per bounce and sample
+        n = CLOTH_DEPTH * ls.settings.spp
+        out[f"cloth {variant}"] = (
+            ls.scene, ls.static, ls.sensor, ls.integrator, ls.settings,
+            {"brute_force_interaction": n, "brute_force_closest_hit": n})
+    return out
+
+
+def spectral_renders(dev):
+    """The spectral renders of phase 9i, by label (``spectral cauchy_b
+    {B}``): (scene, static, sensor, cfg, settings, expected launches) of
+    spectral_scene built by the port's builder, for api.render_spectral.
+    scripts/torch_header_stats.py renders the same."""
+    sensor = sensor_mod.make_perspective(
+        Transform.look_at(SPECTRAL_EYE, SPECTRAL_AT, UP), SPECTRAL_FOV,
+        SPECTRAL_RES, SPECTRAL_RES, device=dev)
+    cfg = IntegratorConfig(type=PATH, max_depth=SPECTRAL_DEPTH)
+    settings = api.RenderSettings(width=SPECTRAL_RES, height=SPECTRAL_RES,
+                                  spp=SPECTRAL_SPP, seed=SEED)
+    n = SPECTRAL_DEPTH * SPECTRAL_SPP
+    out = {}
+    for b in SPECTRAL_CAUCHY:
+        scene, static = spectral_scene(SceneBuilder(), bsdf_mod, shapes,
+                                       Transform, b).build(device=dev)
+        out[f"spectral cauchy_b {b}"] = (
+            scene, static, sensor, cfg, settings,
+            {"brute_force_interaction": n, "brute_force_closest_hit": n})
+    return out
+
+
+def cloth_spectra_phase(dev):
+    """Phase 9i: each cloth render (load_scene + api.render) and each
+    spectral render (api.render_spectral) held as phase 9f's renders (mean
+    and tv_rgb to the JAX package, exact K1/K2 launches); the multichannel
+    file through load_scene and api.render_multichannel, whose image must
+    equal the plain cloth's bit for bit; and the CLI on the .cloth file's
+    scene, whose EXR must equal its image."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = cloth_renders(dev, tmp)
+        cases.update(spectral_renders(dev))
+        for label, case in cases.items():
+            log(f"{label}: {case[1]}")
+        # warm-up: one sample of each (first-call set-up of the new lobes)
+        for label, (scene, static, sensor, cfg, settings, _) in cases.items():
+            render_fn(label)(scene, static, sensor, cfg, dataclasses.replace(
+                settings, spp=1, spp_per_pass=1), device=dev)
+        imgs = {label: header_render(dev, label, *case)
+                for label, case in cases.items()}
+
+        path = Path(tmp) / "cloth_multichannel.xml"
+        path.write_text(cloth_xml("plain", CLOTH_MULTICHANNEL))
+        ls = mitsuba_xml.load_scene(str(path), CLOTH_DEFINES, device=dev)
+        plain = cases["cloth plain"]
+        if ls.integrator != plain[3]:
+            raise AssertionError(f"multichannel: integrator {ls.integrator}, "
+                                 f"expected its nested {plain[3]}")
+        _zero_counts()
+        img = api.render_multichannel(ls.scene, ls.static, ls.sensor,
+                                      [ls.integrator], ls.settings,
+                                      device=dev)
+        _check_launches("render cloth multichannel", plain[5])
+        same = torch.equal(img, imgs["cloth plain"])
+        log(f"render cloth multichannel: image {tuple(img.shape)} equal to "
+            f"the nested path tracer's (cloth plain) bit for bit: {same}")
+        if not same:
+            raise AssertionError("multichannel: the image differs from its "
+                                 "nested integrator's")
+        cli = f"cloth {CLOTH_CLI}"
+        cli_file = f"cloth_{CLOTH_CLI.replace(' ', '_')}.xml"
+        cli_matches(cli, Path(tmp) / cli_file, CLOTH_DEFINES, imgs[cli])
 
 
 def bunny_ao_case(bunny_scene):
@@ -3155,9 +3372,7 @@ def bunny_ao_case(bunny_scene):
 def header_phase(dev, cornell_scene):
     """The scene file's sensor header on the card: header_renders, each
     held to the JAX package's statistics and its exact K1/K2 launches, the
-    CLI on the ldsampler + Mitchell file, and the ao variance check.
-    Returns the ldsampler render's (scene, static, sensor, cfg) for the
-    profile phase."""
+    CLI on the ldsampler + Mitchell file, and the ao variance check."""
     ld = "cbox.xml ldsampler mitchell"
     with tempfile.TemporaryDirectory() as tmp:
         cases = header_renders(dev, tmp, cornell_scene)
@@ -3184,7 +3399,6 @@ def header_phase(dev, cornell_scene):
     if not ratio < AO_LD_GAIN:
         raise AssertionError(f"ao cornell: the ldsampler's error is {ratio} "
                              f"of the independent sampler's")
-    return cases[ld][:4]
 
 
 def bunny_ao_phase(dev, bunny_scene):
@@ -3255,8 +3469,7 @@ def kdbench_phase():
 
 
 def profile_phase(dev, label, scene, static, sensor, spp, cfg=None, size=W,
-                  filter_type=api.RenderSettings.filter_type,
-                  sampler_type=api.INDEPENDENT):
+                  filter_type=api.RenderSettings.filter_type):
     """Device time by kernel over one render pass of ``spp`` samples at
     ``size`` x ``size`` (torch.profiler), through ``cfg`` (the path tracer at
     depth 5 by default). Returns {kernel: (ms, launches)} of the port's
@@ -3267,8 +3480,7 @@ def profile_phase(dev, label, scene, static, sensor, spp, cfg=None, size=W,
     cfg = cfg or IntegratorConfig(type=PATH, max_depth=DEPTH)
     settings = api.RenderSettings(width=size, height=size, spp=spp,
                                   spp_per_pass=spp, seed=SEED,
-                                  filter_type=filter_type,
-                                  sampler_type=sampler_type)
+                                  filter_type=filter_type)
     api.render(scene, static, sensor, cfg, settings, device=dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3355,15 +3567,15 @@ def main() -> int:
     with phase("9e sampler bits"):
         sampler_bits_phase(dev)
     with phase("9e sensor header"):
-        ld_cbox = header_phase(dev, cornell_scene)
+        header_phase(dev, cornell_scene)
     with phase("9f material gallery"):
-        gallery = gallery_phase(dev, MATERIAL_GALLERY)[
-            "gallery roughdielectric ggx"][:4]
+        gallery_phase(dev, MATERIAL_GALLERY)
     with phase("9g layered gallery"):
-        layered = gallery_phase(dev, LAYERED_GALLERY)[
-            f"layered {LAYERED_GALLERY.cli}"][:4]
+        gallery_phase(dev, LAYERED_GALLERY)
     with phase("9h lights and cameras"):
-        lights_all = lights_phase(dev)
+        lights_phase(dev)
+    with phase("9i cloth and spectra"):
+        cloth_spectra_phase(dev)
     with phase("10 bunny"):
         bunny_scene = bunny(dev)
         bunny_launches, lane_mean, lane_ms = render_phase(
@@ -3402,22 +3614,6 @@ def main() -> int:
         profile_phase(dev, "cornell", *cornell_scene, SPP_PER_PASS)
         profile_phase(dev, "cbox.xml", *cbox_xml[:3], 4, cfg=cbox_xml[3],
                       size=CBOX_RES)
-        # the same file's pass with the ldsampler alone changed: the cost
-        # of the low-discrepancy draws
-        profile_phase(dev, "cbox.xml ldsampler", *ld_cbox[:3], 4,
-                      cfg=ld_cbox[3], size=CBOX_RES,
-                      sampler_type=api.LDSAMPLER)
-        # the gallery's rough dielectric, which evaluates both microfacet
-        # distributions on every lane
-        profile_phase(dev, "gallery roughdielectric ggx", *gallery[:3], 4,
-                      cfg=gallery[3], size=CBOX_RES)
-        # the layered gallery's rough coating: the nested layer's lookups
-        # and its base-layer calls at the refracted directions
-        profile_phase(dev, f"layered {LAYERED_GALLERY.cli}", *layered[:3], 4,
-                      cfg=layered[3], size=CBOX_RES)
-        # phase 9h's area light with the three delta lights and the beam
-        profile_phase(dev, f"lights {LIGHTS_CLI}", *lights_all[:3], 4,
-                      cfg=lights_all[3], size=CBOX_RES)
         profile_phase(dev, "cornell direct", *cornell_direct[:3], 4,
                       cfg=cornell_direct[3], size=DIRECT_RES)
         profile_phase(dev, "veach_mis", *veach[:3], VEACH_SPP_PER_PASS,

@@ -16,6 +16,7 @@ from .device import resolve_device
 from .ops import cuda_bvh
 from .render import bsdf as bsdf_mod
 from .render import emitter as em_mod
+from .render import irawan as irawan_mod
 from .render import scene as scene_mod
 from .render import sensor as sensor_mod
 from .render import texture as tex_mod
@@ -26,9 +27,11 @@ _TRI_INT = ("tri_mat", "tri_emitter")
 _SPH_FLOAT = ("sph_center", "sph_radius")
 _SPH_INT = ("sph_mat", "sph_emitter")
 _MAT_FLOAT = ("spec_refl", "spec_trans", "eta", "k", "alpha", "rt_coef",
-              "rt_fdr", "hk_thickness", "hk_g", "weight", "bump_scale")
+              "rt_fdr", "hk_thickness", "hk_g", "weight", "bump_scale",
+              "cauchy_b")
 _MAT_INT = ("type", "dist", "albedo_tex", "opacity_tex", "nested_a",
-            "nested_b", "weight_tex", "normal_tex", "bump_tex")
+            "nested_b", "weight_tex", "normal_tex", "bump_tex", "irawan")
+_IRAWAN_INT = ("pattern", "tile_w", "tile_h")
 _TEX_PROCEDURAL = ("color0", "color1", "line_width")
 _ENV_FLOAT = ("env_map", "env_alias", "env_to_world", "env_scale")
 _TEX_FLOAT = ("uv_scale", "uv_offset", "scale", "stack", "mips")
@@ -112,7 +115,8 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
     """(Scene, SceneStatic) of the port from the JAX scene's leaves.
 
     ``arrays`` maps Scene field names to numpy arrays, with ``materials``,
-    ``textures`` and ``emitters`` as dicts of their tables' fields (a
+    ``textures``, ``emitters`` and ``irawan`` (the weave patterns, their
+    specular normalization included) as dicts of their tables' fields (a
     material's ``alpha_tex``, if given, must be -1 throughout; the
     textures' ``color0``, ``color1`` and ``line_width`` are read where the
     table holds a procedural row);
@@ -147,6 +151,7 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
     octants = (cuda_bvh.octant_tables(nodes, arrays["tl_root"], dev)
                if use_bvh else None)
     mats, texs, ems = arrays["materials"], arrays["textures"], arrays["emitters"]
+    iw = arrays["irawan"]
     if np.any(np.asarray(mats.get("alpha_tex", -1)) >= 0):
         raise NotImplementedError(
             "roughness textures land in a later slice of the port "
@@ -193,6 +198,9 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
             env_index=_i32(ems["env_index"], dev),
             env_hw=_i32(ems["env_hw"], dev),
             **{k: _f32(ems[k], dev) for k in _ENV_FLOAT}),
+        irawan=irawan_mod.IrawanTable(**{
+            k: (_i32 if k in _IRAWAN_INT else _f32)(iw[k], dev)
+            for k in irawan_mod.IrawanTable._fields}),
     )
     st = scene_mod.SceneStatic(
         n_tris=T, n_spheres=S, use_bvh=use_bvh,

@@ -69,6 +69,10 @@ def safe_sqrt(x):
     return torch.where(pos, sqrt(torch.where(pos, x, 1.0)), rest)
 
 
+def safe_acos(x):
+    return torch.acos(torch.clamp(x, -1.0, 1.0))
+
+
 def safe_div(a, b, eps: float = 1e-20):
     """a / b with 0 where |b| <= eps (the JAX form: the untaken branch
     divides by 1, so no inf or NaN is ever formed)."""

@@ -27,6 +27,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..core.spectrum import spd_to_rgb
 from ..core.transform import Transform
 from ..device import resolve_device
 from ..render import api as api_mod
@@ -73,7 +74,6 @@ _LATER_INTEGRATORS = {
     "ptracer": "3.9", "bdpt": "3.9", "pssmlt": "3.10", "mlt": "3.10",
     "erpt": "3.10", "vpl": "3.11", "sppm": "3.11", "ppm": "3.11",
     "photonmapper": "3.11", "irrcache": "3.11", "adaptive": "3.12",
-    "multichannel": "3.5",
 }
 _INTEGRATORS = {"path": icommon.PATH, "direct": icommon.DIRECT,
                 "ao": icommon.AO, "field": icommon.FIELD}
@@ -89,7 +89,7 @@ _RFILTERS = {
     "lanczos": RF.LANCZOS,
 }
 _LATER_SENSORS = {}  # every sensor element loads since item 3.3
-_LATER_BSDFS = {"irawan": "3.2.4"}
+_LATER_BSDFS = {}  # every BSDF element loads since item 3.2.4
 _LATER_EMITTERS = {"sunsky": "3.8", "sky": "3.8", "sun": "3.8"}
 _METERS = ("radiancemeter", "irradiancemeter", "fluencemeter")
 
@@ -146,7 +146,10 @@ def _parse_spectrum(tag, val):
     if "," in val or " " in val:
         parts = [p for p in re.split(r"[,\s]+", val) if p]
         if all(":" in p for p in parts):
-            raise _later("a spectrum of wavelength:value pairs", "3.5")
+            # wavelength:value pairs, resampled to RGB
+            wl = [float(p.split(":")[0]) for p in parts]
+            vv = [float(p.split(":")[1]) for p in parts]
+            return tuple(np.maximum(spd_to_rgb(wl, vv), 0.0))
         vals = [float(p) for p in parts]
         if len(vals) == 3:
             return tuple(vals)
@@ -292,6 +295,15 @@ class XMLSceneLoader:
         p = _props(node, self.params)
         if t in _LATER_INTEGRATORS:
             raise _later(f"the {t} integrator", _LATER_INTEGRATORS[t])
+        if t == "multichannel":
+            # multichannel.cpp wraps nested integrators: the JAX loader
+            # adopts the first one (api.render_multichannel stacks several)
+            nested = node.find("integrator")
+            if nested is None:
+                raise ValueError("the multichannel integrator needs a "
+                                 "nested integrator")
+            self._load_integrator(nested)
+            return
         if t not in _INTEGRATORS:
             raise ValueError(f"unsupported integrator type '{t}'")
         self.integrator = icommon.IntegratorConfig(
@@ -537,6 +549,21 @@ class XMLSceneLoader:
             return self.builder.add_material(
                 type=B.HK, albedo=tuple(ss), k=tuple(ss + sa),
                 hk_thickness=float(p.get("thickness", 1.0)), hk_g=g)
+        if t == "irawan":
+            # woven cloth (irawan.cpp): a .cloth pattern file, resolved
+            # relative to the scene, or else a built-in preset
+            fn = str(p.get("filename", ""))
+            if fn:
+                fn = self.resolve_path(fn)
+            pid = self.builder.add_irawan_pattern(
+                preset=str(p.get("preset", "plain")), filename=fn,
+                kd=tuple(np.broadcast_to(
+                    np.asarray(p.get("kd", (0.3,) * 3), np.float64), (3,))),
+                ks=tuple(np.broadcast_to(
+                    np.asarray(p.get("ks", (0.4,) * 3), np.float64), (3,))),
+                repeat_u=float(p.get("repeatU", 10.0)),
+                repeat_v=float(p.get("repeatV", 10.0)))
+            return self.builder.add_material(type=B.IRAWAN, irawan=pid)
         if t == "mixturebsdf":
             return self._load_mixture(node, p)
         if t == "blendbsdf":

@@ -1,6 +1,7 @@
 """Top-level render orchestration (port of ``mitsuba_tpu/render/api.py``: the
 PATH, DIRECT, AO and FIELD integrators with every sampler and every
-reconstruction filter of the JAX package, and the meters' render; the other
+reconstruction filter of the JAX package, the meters' render, the
+hero-wavelength spectral render and the multichannel stack; the other
 integrators land in a later slice).
 
 The whole image is one wavefront per sample: every pixel is a lane. A host
@@ -15,6 +16,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core import rng as rng_mod
+from ..core import spectrum as spec_mod
 from ..device import check_on, resolve_device
 from . import film as film_mod
 from . import rfilter
@@ -167,6 +169,54 @@ def render_meter(scene, static, sensor, cfg: icommon.IntegratorConfig,
         total = total + L.sum(dim=0)
         n += METER_CHUNK
     return (total / n * sensor_mod.ray_weight(sensor)).reshape(1, 1, 3)
+
+
+def render_spectral(scene, static, sensor, cfg: icommon.IntegratorConfig,
+                    settings: RenderSettings, device=None,
+                    with_stats: bool = False):
+    """Hero-wavelength spectral render (the JAX ``render_spectral``; the
+    reference's spectral build, spectrum.h:25-32): the path tracer with
+    ``spectral_wl`` (RGB scene parameters lifted to smooth spectra on the
+    fly, dielectrics with a ``cauchy_b`` dispersing), whatever ``cfg.type``
+    says; one sample per pass, the independent sampler (a ``Sampler``
+    record of the settings' seed) whatever the settings' sampler, box
+    splats, each sample's wavelengths turned to RGB by
+    ``spectrum.spectral_to_rgb``. Returns the (H, W, 3) linear-sRGB image,
+    or (image, n_rays) when ``with_stats``."""
+    dev = resolve_device(device)
+    check_on(scene.tri_p0, dev, "scene")
+    check_on(sensor.to_world, dev, "sensor")
+    H, W = settings.height, settings.width
+    sampler = rng_mod.Sampler(seed=settings.seed)
+    pixel_idx = torch.arange(H * W, dtype=torch.int64, device=dev)
+    res = torch.tensor([W, H], dtype=torch.float32, device=dev)
+    film = film_mod.Film.empty(H, W, dev)
+    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        for s in range(settings.spp):
+            pos = pixel_sample_positions(settings, pixel_idx, s, sampler)
+            u_ap = rng_mod.uniform2(sampler, pixel_idx, s,
+                                    icommon.DIM_APERTURE)
+            o, d = sensor_mod.sample_ray(sensor, pos / res, u_ap)
+            u_wl = rng_mod.uniform1(sampler, pixel_idx, s,
+                                    icommon.DIM_WAVELENGTH)
+            wl, pdf = spec_mod.sample_wavelengths(u_wl)
+            L, n = int_path.li(scene, static, cfg, o, d, sampler, pixel_idx,
+                               s, with_stats=True, spectral_wl=wl)
+            n_rays = n_rays + n
+            L = spec_mod.spectral_to_rgb(L, wl, pdf)
+            film = film_mod.splat_aligned(film, L.reshape(H, W, 3))
+        img = film_mod.develop(film)
+    return (img, int(n_rays)) if with_stats else img
+
+
+def render_multichannel(scene, static, sensor, cfgs,
+                        settings: RenderSettings, device=None):
+    """The multichannel integrator (misc/multichannel.cpp): ``render`` of
+    each integrator of ``cfgs``, stacked on the last axis in order (3
+    channels each). Returns (H, W, 3 * len(cfgs))."""
+    return torch.cat([render(scene, static, sensor, c, settings,
+                             device=device) for c in cfgs], dim=-1)
 
 
 def render(scene, static, sensor, cfg: icommon.IntegratorConfig,

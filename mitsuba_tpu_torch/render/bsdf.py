@@ -23,8 +23,11 @@ The nested layer (mask, mixture, blend, coating and rough coating) takes
 ``nested=(bl_a, bl_b, ntypes)``: the locals of each lane's nested rows A
 and B (``scene.bsdf_nested``) and the types they can hold. Nesting is one
 level deep: nested rows dispatch through the base layer alone. The rough
-coating reads the same baked transmittance as the rough plastic. irawan
-lands in a later slice.
+coating reads the same baked transmittance as the rough plastic.
+
+The Irawan-Marschner woven cloth (IRAWAN) reads per-lane yarn parameters
+(``iw_par``, ``iw_ks``) that ``render/irawan.lane_params`` looks up from the
+weave pattern at the hit's uv; it is sampled through the cosine lobe.
 """
 from __future__ import annotations
 
@@ -59,13 +62,14 @@ DIFFTRANS = 15      # diffuse transmitter (difftrans.cpp)
 COATING = 16        # smooth dielectric layer over nested A (coating.cpp)
 HK = 17             # Hanrahan-Krueger single-scattering slab (hk.cpp)
 ROUGHCOATING = 18   # rough dielectric layer over nested A (roughcoating.cpp)
+IRAWAN = 19         # Irawan-Marschner woven cloth (irawan.cpp)
 
 # the types whose rows reference other rows through nested_a / nested_b
 NESTED_TYPES = (MASK, MIXTURE, BLEND, COATING, ROUGHCOATING)
 SUPPORTED_TYPES = (DIFFUSE, DIELECTRIC, CONDUCTOR, ROUGH_CONDUCTOR, PLASTIC,
                    ROUGH_PLASTIC, ROUGH_DIELECTRIC, THIN_DIELECTRIC,
-                   ROUGH_DIFFUSE, PHONG, WARD, NULL, DIFFTRANS, HK) \
-    + NESTED_TYPES
+                   ROUGH_DIFFUSE, PHONG, WARD, NULL, DIFFTRANS, HK,
+                   IRAWAN) + NESTED_TYPES
 # the types that read each column that only some types read (gathered only
 # where such a lane can be)
 _SPEC_TRANS_TYPES = (DIELECTRIC, ROUGH_DIELECTRIC, THIN_DIELECTRIC,
@@ -112,6 +116,10 @@ class MaterialTable(NamedTuple):
     normal_tex: torch.Tensor    # (M,) int32 tangent-space normal map
     bump_tex: torch.Tensor      # (M,) int32 bump map height texture
     bump_scale: torch.Tensor    # (M,) bump height scale
+    # the Cauchy dispersion coefficient B (um^2), which the spectral render
+    # reads: eta(l) = eta + B (1 / l^2 - 1 / 0.5893^2)
+    cauchy_b: torch.Tensor      # (M,)
+    irawan: torch.Tensor        # (M,) int32 weave pattern (-1: none)
 
 
 class BsdfLocals(NamedTuple):
@@ -137,6 +145,12 @@ class BsdfLocals(NamedTuple):
     hk_g: torch.Tensor = None          # (R,) HK
     opacity: torch.Tensor = None       # (R,) mask opacity (1: present)
     blend_w: torch.Tensor = None       # (R,) mixture / blend weight of A
+    # irawan: the yarn segment at the lane's uv (render/irawan.py layout:
+    # is_weft, psi, umax, kappa, width, length, x, y, alpha, beta, ss,
+    # hwidth, specular normalization x area ratio) and its specular colour;
+    # gathered by scene.bsdf_locals / bsdf_nested, not by gather_locals
+    iw_par: torch.Tensor = None        # (R, 13)
+    iw_ks: torch.Tensor = None         # (R, 3)
 
 
 class BsdfSample(NamedTuple):
@@ -838,6 +852,201 @@ def _hk_sample(bl, wi, u_lobe, u2):
             torch.ones(wi.shape[:-1], device=wi.device))
 
 
+def _rdiv(s: float, x):
+    """s / x, divided (``s / tensor`` in PyTorch multiplies by the
+    reciprocal)."""
+    return torch.div(torch.full_like(x, s), x)
+
+
+def _irawan_radius_of_curvature(u, umax, kappa, w, l):
+    """Radius of curvature of the yarn's spine (irawan.cpp:551-587, Irawan's
+    thesis 5.3: a circle, ellipse, hyperbola or parabola by rhat), every
+    branch evaluated and one selected per lane."""
+    rhat = 1.0 + kappa * (1.0 + _rdiv(1.0, torch.tan(umax)))
+    a = 0.5 * w
+    sin_umax = torch.sin(umax)
+    half = 0.5 * l - a * sin_umax
+    # circle
+    R_circ = m.safe_div(half, sin_umax)
+    # ellipse (rhat > 0)
+    rh_e = torch.where(rhat > 0, rhat, 1.0)
+    tmax_e = torch.atan(rh_e * torch.tan(umax))
+    bhat_e = m.safe_div(half, torch.clamp(torch.sin(tmax_e), min=1e-9))
+    ahat_e = m.safe_div(bhat_e, rh_e)
+    t_e = torch.atan(rh_e * torch.tan(u))
+    c_e, s_e = torch.cos(t_e), torch.sin(t_e)
+    R_ell = m.safe_div(torch.pow(
+        bhat_e * bhat_e * (c_e * c_e) + ahat_e * ahat_e * (s_e * s_e), 1.5),
+        ahat_e * bhat_e)
+    # hyperbola (rhat < 0)
+    rh_h = torch.where(rhat < 0, rhat, -1.0)
+    arg_h = torch.clamp(rh_h * torch.tan(umax), -1.0 + 1e-6, 1.0 - 1e-6)
+    tmax_h = -torch.atanh(arg_h)
+    bhat_h = m.safe_div(half, torch.clamp(torch.sinh(tmax_h), min=1e-9))
+    ahat_h = m.safe_div(bhat_h, rh_h)
+    arg_u = torch.clamp(rh_h * torch.tan(u), -1.0 + 1e-6, 1.0 - 1e-6)
+    t_h = -torch.atanh(arg_u)
+    c_h, s_h = torch.cosh(t_h), torch.sinh(t_h)
+    R_hyp = -m.safe_div(torch.pow(
+        bhat_h * bhat_h * (c_h * c_h) + ahat_h * ahat_h * (s_h * s_h), 1.5),
+        ahat_h * bhat_h)
+    # parabola (rhat == 0)
+    tm_p = torch.tan(umax)
+    ahat_p = m.safe_div(half, 2.0 * torch.clamp(tm_p, min=1e-9))
+    t_p = torch.tan(u)
+    R_par = 2.0 * ahat_p * torch.pow(1.0 + t_p * t_p, 1.5)
+    return torch.where(torch.abs(rhat - 1.0) < 1e-6, R_circ,
+                       torch.where(rhat > 0, R_ell,
+                                   torch.where(rhat < 0, R_hyp, R_par)))
+
+
+def _irawan_von_mises(cos_x, b):
+    """The von Mises density on the circle (irawan.cpp:588-606; Abramowitz
+    and Stegun's polynomials for I0)."""
+    ab = torch.abs(b)
+    q = ab / 3.75
+    t_s = q * q
+    i0_small = 1.0 + t_s * (3.5156229 + t_s * (3.0899424 + t_s * (
+        1.2067492 + t_s * (0.2659732 + t_s * (0.0360768 + t_s * 0.0045813)))))
+    t_l = _rdiv(3.75, torch.clamp(ab, min=1e-6))
+    i0_large = torch.exp(ab) / m.sqrt(torch.clamp(ab, min=1e-6)) * (
+        0.39894228 + t_l * (0.01328592 + t_l * (0.00225319 + t_l * (
+            -0.00157565 + t_l * (0.00916281 + t_l * (-0.02057706 + t_l * (
+                0.02635537 + t_l * (-0.01647633 + t_l * 0.00392377))))))))
+    i0 = torch.where(ab <= 3.75, i0_small, i0_large)
+    return torch.exp(b * cos_x) / (2.0 * math.pi * i0)
+
+
+def _irawan_seeliger(c1, c2):
+    """Lommel-Seeliger attenuation with albedo 1 (irawan.cpp:608-615)."""
+    c1 = torch.clamp(c1, min=0.0)
+    c2 = torch.clamp(c2, min=0.0)
+    return torch.where((c1 > 0) & (c2 > 0),
+                       m.safe_div(c1 * c2, 4.0 * math.pi * (c1 + c2)), 0.0)
+
+
+def _smoothstep01(x):
+    x = torch.clamp(x, 0.0, 1.0)
+    return x * x * (3.0 - 2.0 * x)
+
+
+def _irawan_eval(bl, wi, wo):
+    """The Irawan-Marschner woven-cloth BRDF (irawan.cpp eval:230-320, with
+    evalFilamentIntegrand:390 and evalStapleIntegrand:482) times cos(wo):
+    kd / pi plus the yarn segment's specular integrand (a filament yarn
+    where psi = 0, a staple yarn otherwise), scaled by ks and the pattern's
+    normalization. A weft segment sees the frame turned by pi / 2 about z."""
+    p = bl.iw_par
+    is_weft = p[..., 0] > 0.5
+    psi = p[..., 1]
+    umax = torch.clamp(p[..., 2], min=1e-4)
+    kappa = p[..., 3]
+    w = torch.clamp(p[..., 4], min=1e-6)
+    l = torch.clamp(p[..., 5], min=1e-6)
+    x = p[..., 6]
+    y = p[..., 7]
+    alpha = p[..., 8]
+    beta = p[..., 9]
+    ss = p[..., 10]
+    hwidth = torch.clamp(p[..., 11], min=1e-4)
+    snorm = p[..., 12]
+
+    ok = (wi[..., 2] > 0) & (wo[..., 2] > 0)
+
+    def rot(v):
+        return torch.stack([-v[..., 1], v[..., 0], v[..., 2]], dim=-1)
+
+    om_i = torch.where(is_weft[..., None], rot(wi), wi)
+    om_r = torch.where(is_weft[..., None], rot(wo), wo)
+    xx = torch.where(is_weft, -y, x)
+    yy = torch.where(is_weft, x, y)
+
+    u = yy / (l / 2.0) * umax
+    v = xx * math.pi / w
+
+    h = m.normalize(om_i + om_r)
+    len_ir = m.length(om_i + om_r)
+    geom_ok = (w * torch.sin(umax) < l) & (kappa > -1.0)
+
+    # --- the filament integrand (psi == 0) ---
+    u_of_v = torch.atan(m.safe_div(h[..., 1], torch.clamp(
+        torch.abs(h[..., 2]), min=1e-9)) * torch.sign(h[..., 2]))
+    in_rng_f = torch.abs(u_of_v) < umax
+    n_f = m.normalize(torch.stack([
+        torch.sin(v), torch.sin(u_of_v) * torch.cos(v),
+        torch.cos(u_of_v) * torch.cos(v)], dim=-1))
+    t_f = m.normalize(torch.stack([
+        torch.zeros_like(u_of_v), torch.cos(u_of_v), -torch.sin(u_of_v)],
+        dim=-1))
+    ss_c = torch.clamp(ss, 0.0, 1.0 - 1e-4)
+    R_f = _irawan_radius_of_curvature(
+        torch.minimum(torch.abs(u_of_v), (1 - ss_c) * umax),
+        (1 - ss_c) * umax, kappa, w, l)
+    a_half = 0.5 * w
+    t_cross_h = m.cross(t_f, h)
+    Gu = m.safe_div(a_half * (R_f + a_half * torch.cos(v)),
+                    len_ir * torch.clamp(torch.abs(t_cross_h[..., 0]),
+                                         min=1e-9))
+    fc = alpha + _irawan_von_mises(-m.dot(om_i, om_r), beta)
+    A_f = _irawan_seeliger(m.dot(n_f, om_i), m.dot(n_f, om_r))
+    As = torch.where(
+        ss_c > 0,
+        A_f * (1.0 - _smoothstep01(m.safe_div(
+            torch.abs(u_of_v) - (1.0 - ss_c) * umax,
+            torch.clamp(ss_c * umax, min=1e-9)))),
+        A_f)
+    fs_f = Gu * fc * As * math.pi * l
+    delta_y = l * hwidth
+    y_of_v = torch.clamp(u_of_v * 0.5 * l / umax,
+                         0.5 * (delta_y - l), 0.5 * (l - delta_y))
+    hit_f = torch.abs(y_of_v - u * 0.5 * l / umax) < 0.5 * delta_y
+    filament = torch.where(in_rng_f & hit_f & geom_ok,
+                           m.safe_div(fs_f, delta_y), 0.0)
+
+    # --- the staple integrand (psi != 0) ---
+    psi_s = torch.where(torch.abs(psi) > 1e-6, psi, 1.0)  # masked out below
+    hy, hz, hx = h[..., 1], h[..., 2], h[..., 0]
+    sin_u, cos_u = torch.sin(u), torch.cos(u)
+    hyz = hy * sin_u + hz * cos_u
+    D = m.safe_div(
+        hy * cos_u - hz * sin_u,
+        m.sqrt(torch.clamp(hx * hx + hyz * hyz, min=1e-12))
+        * torch.tan(psi_s))
+    v_of_u = torch.atan2(-hy * sin_u - hz * cos_u, hx) \
+        + m.safe_acos(torch.clamp(D, -1.0, 1.0))
+    in_rng_s = (torch.abs(D) < 1.0) & (torch.abs(v_of_u) < math.pi / 2.0)
+    n_s = m.normalize(torch.stack([
+        torch.sin(v_of_u), sin_u * torch.cos(v_of_u),
+        cos_u * torch.cos(v_of_u)], dim=-1))
+    R_s = _irawan_radius_of_curvature(torch.abs(u), umax, kappa, w, l)
+    Gv = m.safe_div(
+        a_half * (R_s + a_half * torch.cos(v_of_u)),
+        len_ir * torch.clamp(m.dot(n_s, h), min=1e-9)
+        * torch.clamp(torch.abs(torch.sin(psi_s)), min=1e-9))
+    A_s = _irawan_seeliger(m.dot(n_s, om_i), m.dot(n_s, om_r))
+    fs_s = Gv * fc * A_s * 2.0 * w * umax
+    delta_x = w * hwidth
+    x_of_u = torch.clamp(v_of_u * w / math.pi,
+                         0.5 * (delta_x - w), 0.5 * (w - delta_x))
+    hit_s = torch.abs(x_of_u - v * w / math.pi) < 0.5 * delta_x
+    staple = torch.where(in_rng_s & hit_s & geom_ok,
+                         m.safe_div(fs_s, delta_x), 0.0)
+
+    integrand = torch.where(torch.abs(psi) > 1e-6, staple, filament)
+    spec = bl.iw_ks * (integrand * snorm)[..., None]
+    f = (bl.albedo * warp.INV_PI + spec) \
+        * torch.clamp(wo[..., 2], min=0.0)[..., None]
+    return torch.where(ok[..., None], torch.clamp(f, min=0.0), 0.0)
+
+
+def _irawan_sample(bl, wi, u_lobe, u2):
+    """irawan.cpp sample: the cosine lobe, weighted by f / pdf."""
+    wo, _, pdf, is_delta, eta = _diffuse_sample(bl, wi, u_lobe, u2)
+    f = _irawan_eval(bl, wi, wo)
+    return (wo, m.safe_div(f, torch.clamp(pdf, min=1e-9)[..., None]), pdf,
+            is_delta, eta)
+
+
 def _dist_mix(bl, fn):
     """fn for both microfacet distributions, selected per lane; the tensors
     of a tuple each selected alike."""
@@ -858,14 +1067,15 @@ def _dist_mix(bl, fn):
 # the samplers; a rough type's functions take the microfacet distribution
 _EVAL = {DIFFUSE: _diffuse_eval, ROUGH_DIFFUSE: _rough_diffuse_eval,
          PLASTIC: _plastic_eval, PHONG: _phong_eval, WARD: _ward_eval,
-         DIFFTRANS: _difftrans_eval, HK: _hk_eval}
+         DIFFTRANS: _difftrans_eval, HK: _hk_eval, IRAWAN: _irawan_eval}
 _EVAL_ROUGH = {ROUGH_CONDUCTOR: _rough_conductor_f,
                ROUGH_PLASTIC: _rough_plastic_eval,
                ROUGH_DIELECTRIC: _rough_dielectric_eval}
-# roughdiffuse samples the cosine lobe, so its density is the diffuse one
+# roughdiffuse and irawan sample the cosine lobe, so their density is the
+# diffuse one
 _PDF = {DIFFUSE: _diffuse_pdf, ROUGH_DIFFUSE: _diffuse_pdf,
         PLASTIC: _plastic_pdf, PHONG: _phong_pdf, WARD: _ward_pdf,
-        DIFFTRANS: _difftrans_pdf, HK: _hk_pdf}
+        DIFFTRANS: _difftrans_pdf, HK: _hk_pdf, IRAWAN: _diffuse_pdf}
 _PDF_ROUGH = {ROUGH_CONDUCTOR: _rough_conductor_pdf,
               ROUGH_PLASTIC: _rough_plastic_pdf,
               ROUGH_DIELECTRIC: _rough_dielectric_pdf}
@@ -874,7 +1084,8 @@ _SAMPLE = {DIFFUSE: _diffuse_sample, ROUGH_DIFFUSE: _rough_diffuse_sample,
            THIN_DIELECTRIC: _thin_dielectric_sample,
            CONDUCTOR: _conductor_sample, PLASTIC: _plastic_sample,
            PHONG: _phong_sample, WARD: _ward_sample,
-           DIFFTRANS: _difftrans_sample, HK: _hk_sample, NULL: _null_sample}
+           DIFFTRANS: _difftrans_sample, HK: _hk_sample, NULL: _null_sample,
+           IRAWAN: _irawan_sample}
 _SAMPLE_ROUGH = {ROUGH_CONDUCTOR: _rough_conductor_sample,
                  ROUGH_PLASTIC: _rough_plastic_sample,
                  ROUGH_DIELECTRIC: _rough_dielectric_sample}

@@ -13,6 +13,7 @@ AO = 0
 DIRECT = 1
 PATH = 2
 FIELD = 3
+MULTICHANNEL = 9  # misc/multichannel.cpp (api.render_multichannel)
 
 # field integrator AOVs (misc/field.cpp)
 FIELD_POSITION = 0
@@ -47,10 +48,12 @@ def mis_power(pdf_a, pdf_b):
     return m.safe_div(a2, a2 + pdf_b * pdf_b)
 
 
-# RNG dimension allocation per sample: 0 pixel jitter, 1 aperture, 2 spare,
-# then DIMS_PER_BOUNCE per bounce from DIM_BASE
+# RNG dimension allocation per sample: 0 pixel jitter, 1 aperture, 2 the
+# spectral render's hero wavelength, then DIMS_PER_BOUNCE per bounce from
+# DIM_BASE
 DIM_SENSOR = 0
 DIM_APERTURE = 1
+DIM_WAVELENGTH = 2
 DIM_BASE = 4
 DIMS_PER_BOUNCE = 4
 DIM_NEE = 0       # 4d: emitter select + 2d position

@@ -7,7 +7,8 @@ the NEE pdf, one next-event sample weighted against the BSDF pdf, BSDF
 sampling to extend the path, and Russian roulette from ``rr_depth`` on.
 The whole wavefront advances through an eager loop over bounces with
 per-lane ``active`` masks; dead lanes trace degenerate rays (t_max = t_min),
-so every lane keeps its place.
+so every lane keeps its place. With ``spectral_wl`` the three channels carry
+three wavelengths (the hero-wavelength mode of ``api.render_spectral``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from ...core import math as m
 from ...core import rng as rng_mod
+from ...core import spectrum as spec_mod
 from .. import bsdf as bsdf_mod
 from .. import emitter as em_mod
 from .. import scene as scene_mod
@@ -32,7 +34,7 @@ def roulette_probability(thr, eta):
 
 
 def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
-       with_stats: bool = False, pixel_spread=None):
+       with_stats: bool = False, pixel_spread=None, spectral_wl=None):
     """Radiance along primary rays o, d (R, 3). Returns (R, 3), or
     ((R, 3), n_rays) with ``n_rays`` the exact count of issued ray queries
     (closest-hit plus shadow), an int64 tensor, when ``with_stats``.
@@ -40,11 +42,33 @@ def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
     for the independent sampler.
 
     ``pixel_spread``: the angular pixel size (radians) for the ray-cone MIP
-    footprint of textures at the primary hit; None disables MIP lookups."""
+    footprint of textures at the primary hit; None disables MIP lookups.
+
+    ``spectral_wl``: (R, 3) wavelengths (nm) for hero-wavelength transport
+    (the JAX path.py:74-105): every RGB reflectance and emission factor is
+    lifted to a smooth spectrum at those wavelengths (emission times the
+    reference white ``spectrum.d65``), a dielectric's eta takes the Cauchy
+    shift of its row's ``cauchy_b`` at the hero wavelength, and the two
+    companion wavelengths die through a dispersive delta transmission (their
+    refracted direction is another). The result is then per-wavelength
+    radiance, for ``spectrum.spectral_to_rgb``."""
     R = o.shape[0]
     dev = o.device
     types = static.bsdf_types
     max_depth = cfg.max_depth if cfg.max_depth > 0 else 16
+    if spectral_wl is not None:
+        def lift(v):
+            return spec_mod.uplift_rgb(v, spectral_wl)
+
+        white = spec_mod.d65(spectral_wl)
+
+        def lift_emit(v):
+            return spec_mod.uplift_rgb(v, spectral_wl) * white
+    else:
+        def lift(v):
+            return v
+
+        lift_emit = lift
 
     L = torch.zeros((R, 3), device=dev)
     thr = torch.ones((R, 3), device=dev)
@@ -71,7 +95,8 @@ def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
             env_L, lum_pdf = em_mod.eval_env_pdf(scene, static, d)
             w = torch.where(prev_delta, 1.0, mis_power(prev_pdf, lum_pdf))
             show = active & ~its.valid & hidden_ok
-            L = L + torch.where(show[..., None], thr * env_L * w[..., None], 0.0)
+            L = L + torch.where(show[..., None],
+                                thr * lift_emit(env_L) * w[..., None], 0.0)
 
         active = active & its.valid
 
@@ -80,7 +105,8 @@ def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
         lum_pdf_hit = scene_mod.pdf_emitter_hit(scene, its, o, static)
         w_hit = torch.where(prev_delta, 1.0, mis_power(prev_pdf, lum_pdf_hit))
         show = active & (its.emitter_id >= 0) & hidden_ok
-        L = L + torch.where(show[..., None], thr * Le * w_hit[..., None], 0.0)
+        L = L + torch.where(show[..., None],
+                            thr * lift_emit(Le) * w_hit[..., None], 0.0)
 
         # the final vertex only collects emission (path.cpp depth check)
         extend = active & (depth < max_depth)
@@ -110,15 +136,32 @@ def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
             bsdf_pdf_nee = bsdf_mod.pdf(bl, its.wi, wo_local,
                                         active_types=types, nested=nst)
             w_nee = torch.where(ds.delta, 1.0, mis_power(ds.pdf_sa, bsdf_pdf_nee))
-            contrib = thr * f * ds.radiance \
+            contrib = thr * lift(f) * lift_emit(ds.radiance) \
                 * m.safe_div(w_nee, ds.pdf_sa)[..., None]
             L = L + torch.where((nee_ok & vis)[..., None], contrib, 0.0)
 
         # --- BSDF sampling (path.cpp:215-233)
         u_b = rng_mod.uniform4(sampler, pixel, sample, dim0 + DIM_BSDF)
+        if spectral_wl is not None:
+            # Cauchy dispersion at the hero wavelength: eta(l) = eta +
+            # B (1 / l^2 - 1 / l_d^2), l in um, l_d = 589.3 nm
+            disp_b = scene.materials.cauchy_b[
+                torch.clamp(its.mat_id, min=0).to(torch.int64)]
+            wl_um = spectral_wl[..., 0] * 1e-3
+            d_eta = disp_b * (1.0 / (wl_um * wl_um) - 1.0 / 0.5893**2)
+            bl = bl._replace(eta_c=bl.eta_c + d_eta[..., None])
+            if bl.eta_s is not None:
+                bl = bl._replace(eta_s=bl.eta_s + d_eta)
         bs = bsdf_mod.sample(bl, its.wi, u_b[..., 0], u_b[..., 1:3],
                              active_types=types, nested=nst)
-        thr_new = thr * bs.weight
+        w_step = lift(bs.weight)
+        if spectral_wl is not None:
+            # the companions' delta lobe points elsewhere: value 0
+            dispersed = (disp_b > 0.0) & bs.is_delta & (bs.eta != 1.0)
+            keep = torch.where(dispersed, 0.0, 1.0)[..., None]
+            w_step = torch.cat([w_step[..., :1], w_step[..., 1:] * keep],
+                               dim=-1)
+        thr_new = thr * w_step
         eta = torch.where(extend, eta * bs.eta, eta)
         alive = (torch.amax(thr_new, dim=-1) > 0) & (bs.pdf > 0)
 

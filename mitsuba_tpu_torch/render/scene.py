@@ -17,15 +17,16 @@ leaf_size=1 BVH, cut it into treelets, and send them to the lane kernels of
 K7, with the JAX package's dispatch. Spheres are tested in plain tensor code
 beside those kernels and merged with the JAX package's tie rule; a scene may
 hold spheres and no triangle. Materials are the BSDF types of
-``render/bsdf.py`` (``SUPPORTED_TYPES``: the single-layer ones and the
-nested and layered ones, one level deep), with an optional textured albedo,
+``render/bsdf.py`` (``SUPPORTED_TYPES``: the single-layer ones, the nested
+and layered ones, one level deep, and the woven cloth, whose weave patterns
+the builder stacks into ``Scene.irawan``), with an optional textured albedo,
 mask opacity and blend weight, and normal or bump maps (the rough plastic's
 and rough coating's transmittance polynomial baked at ``build``,
 ``core/rtrans.py``); lights are triangle area lights, analytic sphere lights
 (cone-sampled in NEE), a constant environment and a lat-long environment
 map, and the point, spot, directional and collimated delta lights; meshes
-may be instanced. Anything else (other textures, sun and sky, media,
-irawan) raises ``NotImplementedError``: it lands in a later slice.
+may be instanced. Anything else (other textures, sun and sky, media)
+raises ``NotImplementedError``: it lands in a later slice.
 """
 from __future__ import annotations
 
@@ -48,6 +49,7 @@ from ..ops import cuda_intersect as bf
 from ..ops import intersect as isect
 from . import bsdf as bsdf_mod
 from . import emitter as em_mod
+from . import irawan as irawan_mod
 from . import texture as tex_mod
 from .records import Interaction
 
@@ -104,6 +106,7 @@ class Scene(NamedTuple):
     materials: bsdf_mod.MaterialTable
     textures: tex_mod.TextureTable
     emitters: em_mod.EmitterTable
+    irawan: irawan_mod.IrawanTable  # weave patterns (one zero row if none)
 
 
 @dataclass(frozen=True)
@@ -469,10 +472,26 @@ def bsdf_locals(scene: Scene, its: Interaction, static: SceneStatic,
             blend = tex_mod.eval_texture(
                 scene.textures, scene.materials.weight_tex[mid], its.uv,
                 w_base)[..., 0]
-    return bsdf_mod.gather_locals(
+    bl = bsdf_mod.gather_locals(
         scene.materials, its.mat_id, types,
         albedo_override=eval_albedo(scene, its, static, fp_uv=fp_uv),
         opacity_override=opacity, blend_override=blend)
+    if bsdf_mod.IRAWAN in types:
+        bl = _yarn_locals(scene, its, bl, its.mat_id)
+    return bl
+
+
+def _yarn_locals(scene: Scene, its: Interaction, bl, mat_id):
+    """``bl`` with the yarn parameters of the weave pattern at the hits'
+    uv on its IRAWAN lanes (and the yarn's kd as their albedo), zeros
+    elsewhere (the JAX scene.py:709-723)."""
+    mid = torch.clamp(mat_id, min=0).to(torch.int64)
+    iw_par, iw_ks, iw_kd = irawan_mod.lane_params(
+        scene.irawan, scene.materials.irawan[mid], its.uv)
+    sel = (bl.type == bsdf_mod.IRAWAN)[..., None]
+    return bl._replace(iw_par=torch.where(sel, iw_par, 0.0),
+                       iw_ks=torch.where(sel, iw_ks, 0.0),
+                       albedo=torch.where(sel, iw_kd, bl.albedo))
 
 
 def bsdf_nested(scene: Scene, its: Interaction, static: SceneStatic):
@@ -492,8 +511,14 @@ def bsdf_nested(scene: Scene, its: Interaction, static: SceneStatic):
             alb = tex_mod.eval_texture(scene.textures,
                                        scene.materials.albedo_tex[nid],
                                        its.uv, alb)
-        return bsdf_mod.gather_locals(scene.materials, nid, ntypes,
-                                      albedo_override=alb)
+        bl = bsdf_mod.gather_locals(scene.materials, nid, ntypes,
+                                    albedo_override=alb)
+        # the JAX package gathers no yarn parameters for a nested row
+        # (scene.py:727: a nested irawan is a Lambertian of the row's
+        # albedo there; ROADMAP.md, Queue 3)
+        if bsdf_mod.IRAWAN in ntypes:
+            bl = _yarn_locals(scene, its, bl, nid)
+        return bl
 
     bl_b = None
     if any(t in static.bsdf_types for t in (bsdf_mod.MIXTURE, bsdf_mod.BLEND)):
@@ -570,6 +595,7 @@ class SceneBuilder:
     bitmaps: list = field(default_factory=list)
     shapegroups: list = field(default_factory=list)
     spheres: list = field(default_factory=list)
+    irawan: list = field(default_factory=list)  # (pattern dict, repeats)
 
     def add_material(self, type: int = bsdf_mod.DIFFUSE,
                      albedo=(0.5, 0.5, 0.5), albedo_tex: int = -1,
@@ -582,7 +608,8 @@ class SceneBuilder:
                      weight: float = 0.5, weight_tex: int = -1,
                      normal_tex: int = -1, bump_tex: int = -1,
                      bump_scale: float = 1.0, hk_thickness: float = 1.0,
-                     hk_g: float = 0.0) -> int:
+                     hk_g: float = 0.0, cauchy_b: float = 0.0,
+                     irawan: int = -1) -> int:
         """A material row with the JAX package's keywords and defaults
         (scene.py:819-865) for the columns the port reads; a scalar
         ``eta`` or ``alpha`` is replicated. An HK row reads sigma_s from
@@ -590,7 +617,10 @@ class SceneBuilder:
         BLEND, COATING, ROUGHCOATING) names rows ``nested_a`` (and
         ``nested_b``) of single-layer types; a coating's ``k`` is sigma_a
         times the thickness. ``normal_tex`` / ``bump_tex`` put a normal or
-        bump map on the row."""
+        bump map on the row. An IRAWAN row names the weave pattern
+        ``irawan`` (``add_irawan_pattern``). ``cauchy_b`` is the row's
+        Cauchy dispersion coefficient (um^2), which the spectral render
+        reads."""
         if type not in bsdf_mod.SUPPORTED_TYPES:
             raise NotImplementedError(
                 f"BSDF type {type} lands in a later slice of the port")
@@ -611,8 +641,22 @@ class SceneBuilder:
                               nested_b=nested_b, weight=weight,
                               weight_tex=weight_tex, normal_tex=normal_tex,
                               bump_tex=bump_tex, bump_scale=bump_scale,
-                              hk_thickness=hk_thickness, hk_g=hk_g))
+                              hk_thickness=hk_thickness, hk_g=hk_g,
+                              cauchy_b=cauchy_b, irawan=irawan))
         return len(self.mats) - 1
+
+    def add_irawan_pattern(self, preset: str = "plain", filename: str = "",
+                           kd=(0.3, 0.3, 0.3), ks=(0.4, 0.4, 0.4),
+                           repeat_u: float = 10.0,
+                           repeat_v: float = 10.0) -> int:
+        """A weave pattern: a reference-format ``.cloth`` file, or else a
+        built-in preset with yarn colours ``kd`` and ``ks``, repeated
+        (``repeat_u``, ``repeat_v``) times over the uv square. Returns its
+        id for ``add_material(type=bsdf.IRAWAN, irawan=id)``."""
+        pd = (irawan_mod.load_cloth(filename) if filename
+              else irawan_mod.preset(preset, kd=kd, ks=ks))
+        self.irawan.append((pd, (float(repeat_u), float(repeat_v))))
+        return len(self.irawan) - 1
 
     def _add_texture(self, type, color0=(0.0,) * 3, color1=(0.0,) * 3,
                      uv_scale=(1.0, 1.0), uv_offset=(0.0, 0.0),
@@ -994,6 +1038,8 @@ class SceneBuilder:
                     "normal_tex", "bump_tex")},
                 weight=f32([mm["weight"] for mm in self.mats]),
                 bump_scale=f32([mm["bump_scale"] for mm in self.mats]),
+                cauchy_b=f32([mm["cauchy_b"] for mm in self.mats]),
+                irawan=i32([mm["irawan"] for mm in self.mats]),
             ),
             textures=tex_mod.build_table(self.textures, self.bitmaps, dev),
             emitters=em_mod.EmitterTable(
@@ -1006,6 +1052,8 @@ class SceneBuilder:
                 env_to_world=f32(env["env_to_world"]),
                 env_scale=f32(env["env_scale"]),
             ),
+            irawan=irawan_mod.build_table([p for p, _ in self.irawan],
+                                          [r for _, r in self.irawan], dev),
         )
         static = SceneStatic(
             n_tris=T, n_spheres=S, use_bvh=use_bvh,

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Image statistics of the sensor-header, gallery and lights-and-cameras
-renders through the JAX package on the CPU.
+"""Image statistics of the sensor-header, gallery, lights-and-cameras and
+cloth-and-spectra renders through the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/jax_header_ref_mean.py
         [--block-y Y] [--eye-shift DX] [LABEL ...]
@@ -42,7 +42,15 @@ them without one):
   ``chip_smoke.LIGHTS_VARIANTS`` (phase 9h): ``chip_smoke.lights_xml``'s
   text, cbox.xml with delta lights, another camera or a meter, loaded with
   ``chip_smoke.LIGHTS_DEFINES`` and rendered by ``api.render`` (a meter
-  through its ``render_meter``; its tv_rgb is None).
+  through its ``render_meter``; its tv_rgb is None);
+- cloth and spectra (phase 9i): ``cloth {variant}`` for each variant of
+  ``chip_smoke.CLOTH_BSDFS``, ``chip_smoke.cloth_xml``'s text (a rectangle
+  of woven cloth under a point light) with ``chip_smoke.CLOTH_FILE``
+  written beside it, loaded with ``chip_smoke.CLOTH_DEFINES`` and rendered
+  by ``api.render``; ``spectral cauchy_b {B}`` for each B of
+  ``chip_smoke.SPECTRAL_CAUCHY``, ``chip_smoke.spectral_scene`` built by
+  the JAX builder and rendered by ``api.render_spectral`` at
+  ``chip_smoke.SPECTRAL_RES``, ``SPECTRAL_SPP`` and ``SPECTRAL_DEPTH``.
 
 Every scene file is loaded with its difftrans rows made as
 ``add_material(type=DIFFTRANS, spec_trans=t)`` (``difftrans_in_spec_trans``):
@@ -80,7 +88,8 @@ from mitsuba_tpu.render import film as film_mod  # noqa: E402
 from mitsuba_tpu.render import sensor as sensor_mod  # noqa: E402
 from mitsuba_tpu.render.integrators import misc as int_misc  # noqa: E402
 from mitsuba_tpu.render.integrators.common import (  # noqa: E402
-    AO, DIM_APERTURE, FIELD, FIELD_ALBEDO, FIELD_POSITION, IntegratorConfig)
+    AO, DIM_APERTURE, FIELD, FIELD_ALBEDO, FIELD_POSITION, PATH,
+    IntegratorConfig)
 from mitsuba_tpu.render.scene import SceneBuilder  # noqa: E402
 
 CBOX = os.path.join(REPO, "scenes", "cbox.xml")
@@ -186,6 +195,22 @@ def bunny_ao():
     return film_mod.develop(film)
 
 
+def spectral(cauchy_b):
+    """chip_smoke.spectral_scene through api.render_spectral."""
+    import chip_smoke as cs
+
+    scene, static = cs.spectral_scene(SceneBuilder(), bsdf, shapes, Transform,
+                                      cauchy_b).build()
+    sens = sensor_mod.make_perspective(
+        Transform.look_at(cs.SPECTRAL_EYE, cs.SPECTRAL_AT, UP),
+        cs.SPECTRAL_FOV, cs.SPECTRAL_RES, cs.SPECTRAL_RES)
+    return api.render_spectral(
+        scene, static, sens, IntegratorConfig(type=PATH,
+                                              max_depth=cs.SPECTRAL_DEPTH),
+        api.RenderSettings(width=cs.SPECTRAL_RES, height=cs.SPECTRAL_RES,
+                           spp=cs.SPECTRAL_SPP))
+
+
 def renders(labels=(), block_y=None, eye_shift=0.0):
     """Statistics of every render whose label starts with one of
     ``labels`` (all without one), in chip_smoke.py's order."""
@@ -243,6 +268,12 @@ def renders(labels=(), block_y=None, eye_shift=0.0):
         for v in chip_smoke.LIGHTS_VARIANTS:
             out.append((f"lights {v}", lambda v=v: scene_file(
                 chip_smoke.lights_xml(v), 0, 0, chip_smoke.LIGHTS_DEFINES)))
+        chip_smoke.write_cloth(tmp)
+        for v in chip_smoke.CLOTH_BSDFS:
+            out.append((f"cloth {v}", lambda v=v: scene_file(
+                chip_smoke.cloth_xml(v), 0, 0, chip_smoke.CLOTH_DEFINES)))
+        for b in chip_smoke.SPECTRAL_CAUCHY:
+            out.append((f"spectral cauchy_b {b}", lambda b=b: spectral(b)))
         values = {}
         for label, thunk in out:
             if labels and not any(label.startswith(x) for x in labels):

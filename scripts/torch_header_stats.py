@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Image statistics of the sensor-header, gallery and lights-and-cameras
-renders through the port, beside the JAX package's values that chip_smoke.py holds
-them to.
+"""Image statistics of the sensor-header, gallery, lights-and-cameras and
+cloth-and-spectra renders through the port, beside the JAX package's values
+that chip_smoke.py holds them to.
 
     python scripts/torch_header_stats.py [--device cpu|cuda] [--threads N]
         [--block-y Y] [--eye-shift DX] [LABEL ...]
@@ -11,7 +11,10 @@ Renders each render of ``chip_smoke.py``'s sensor-header phase (9e,
 phase (9f, ``chip_smoke.gallery_renders``, labels ``gallery {variant}``),
 layered-gallery phase (9g, labels ``layered {variant}``) and
 lights-and-cameras phase (9h, ``chip_smoke.lights_renders``, labels
-``lights {variant}``; a meter's value against ``METER_REF``) whose label
+``lights {variant}``; a meter's value against ``METER_REF``) and
+cloth-and-spectra phase (9i, ``chip_smoke.cloth_renders`` and
+``spectral_renders``, labels ``cloth {variant}`` and ``spectral cauchy_b
+{B}``, the latter through ``api.render_spectral``) whose label
 starts with one of the LABELs (all of them without one) through this
 tree's
 ``mitsuba_tpu_torch`` on ``--device`` (the card by default), and prints its
@@ -37,7 +40,6 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
-from mitsuba_tpu_torch.render import api  # noqa: E402
 
 
 def main() -> int:
@@ -66,13 +68,16 @@ def main() -> int:
             cases.update(cs.gallery_renders(dev, tmp, g, block_y=args.block_y,
                                             eye_shift=args.eye_shift))
         cases.update(cs.lights_renders(dev, tmp))
+        cases.update(cs.cloth_renders(dev, tmp))
+        cases.update(cs.spectral_renders(dev))
         if wanted("ao bunny_x2"):
             cases["ao bunny_x2"] = cs.bunny_ao_case(cs.bunny(dev))
         for label, (scene, static, sensor, cfg, settings, _) in cases.items():
             if not wanted(label):
                 continue
             t0 = time.perf_counter()
-            img = api.render(scene, static, sensor, cfg, settings, device=dev)
+            img = cs.render_fn(label)(scene, static, sensor, cfg, settings,
+                                      device=dev)
             dt = time.perf_counter() - t0
             mean = img.double().mean(dim=(0, 1)).tolist()
             if label in cs.METER_REF:

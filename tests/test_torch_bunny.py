@@ -59,7 +59,10 @@ MAT_FIELDS = ("type", "dist", "albedo", "albedo_tex", "spec_refl", "eta", "k",
               "alpha", "twosided", "spec_trans", "nonlinear", "rt_coef",
               "rt_fdr", "hk_thickness", "hk_g", "opacity_tex", "nested_a",
               "nested_b", "weight", "weight_tex", "normal_tex", "bump_tex",
-              "bump_scale")
+              "bump_scale", "cauchy_b", "irawan")
+# the weave-pattern table (render/irawan.py)
+IRAWAN_FIELDS = ("pattern", "tile_w", "tile_h", "yarns", "yarn_kd", "yarn_ks",
+                 "meta", "repeat", "spec_norm")
 TEX_FIELDS = ("type", "uv_scale", "uv_offset", "scale", "bitmap_idx", "stack",
               "stack_hw", "sizes", "mips", "mips_hw")
 EM_FIELDS = ("type", "radiance", "position", "direction", "spot_cos",
@@ -72,7 +75,8 @@ FIELD_PATHS = ([(f,) for f in TRI_FIELDS + ("aabb_lo", "aabb_hi", "radius")
                 + TL_FIELDS]
                + [("materials", f) for f in MAT_FIELDS]
                + [("textures", f) for f in TEX_FIELDS]
-               + [("emitters", f) for f in EM_FIELDS])
+               + [("emitters", f) for f in EM_FIELDS]
+               + [("irawan", f) for f in IRAWAN_FIELDS])
 
 
 def bunny_layout(builder, shapes, transform, n=24, tex=64, env_hw=(16, 32),
@@ -121,7 +125,7 @@ def jax_scene_arrays(scene):
     arrays = {f: np.asarray(getattr(scene, f)) for f in TRI_FIELDS + TL_FIELDS
               + SPH_FIELDS + ("aabb_lo", "aabb_hi", "radius", "bvh_pages")}
     for table, fields in (("materials", MAT_FIELDS), ("textures", TEX_FIELDS),
-                          ("emitters", EM_FIELDS)):
+                          ("emitters", EM_FIELDS), ("irawan", IRAWAN_FIELDS)):
         arrays[table] = {f: np.asarray(getattr(getattr(scene, table), f))
                          for f in fields}
     return arrays

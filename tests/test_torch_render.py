@@ -57,7 +57,10 @@ MAT_FIELDS = ("type", "dist", "albedo", "albedo_tex", "spec_refl", "eta", "k",
               "alpha", "twosided", "spec_trans", "nonlinear", "rt_coef",
               "rt_fdr", "hk_thickness", "hk_g", "opacity_tex", "nested_a",
               "nested_b", "weight", "weight_tex", "normal_tex", "bump_tex",
-              "bump_scale")
+              "bump_scale", "cauchy_b", "irawan")
+# the weave-pattern table (render/irawan.py)
+IRAWAN_FIELDS = ("pattern", "tile_w", "tile_h", "yarns", "yarn_kd", "yarn_ks",
+                 "meta", "repeat", "spec_norm")
 EM_FIELDS = ("type", "radiance", "position", "direction", "spot_cos",
              "delta", "pmf", "cdf",
              "etri_tri", "etri_cdf", "env_index", "env_map", "env_alias",
@@ -82,6 +85,7 @@ def jax_scene_arrays(scene):
     arrays["textures"] = _np_tree(scene.textures, TEX_FIELDS + (
         "color0", "color1", "line_width"))
     arrays["emitters"] = _np_tree(scene.emitters, EM_FIELDS)
+    arrays["irawan"] = _np_tree(scene.irawan, IRAWAN_FIELDS)
     return arrays
 
 
@@ -109,7 +113,8 @@ def _leaf(port_scene, path):
 
 FIELD_PATHS = ([(f,) for f in SCENE_FIELDS] + [("materials", f) for f in MAT_FIELDS]
                + [("textures", f) for f in TEX_FIELDS]
-               + [("emitters", f) for f in EM_FIELDS])
+               + [("emitters", f) for f in EM_FIELDS]
+               + [("irawan", f) for f in IRAWAN_FIELDS])
 
 
 @pytest.mark.parametrize("path", FIELD_PATHS, ids=".".join)
@@ -159,16 +164,16 @@ def test_bridge_sensor(sensors):
                                       getattr(ts, f).numpy(), err_msg=f)
 
 
-# BSDF 19 is irawan, also as a nested row (the sphere light 7 and the
-# plastics 4 and 5 joined the port with the Veach MIS scene, the smooth
-# conductor 2 and the rough dielectric 6 with the single-layer BSDFs, the
-# opacity textures and the mask 12 and rough coating 18 with the nested and
-# layered ones, the point 1, directional 4 and spot 5 lights with the delta
-# lights)
+# BSDF 20 is a tag no BSDF has, also as a nested row (the sphere light 7
+# and the plastics 4 and 5 joined the port with the Veach MIS scene, the
+# smooth conductor 2 and the rough dielectric 6 with the single-layer BSDFs,
+# the opacity textures and the mask 12 and rough coating 18 with the nested
+# and layered ones, the point 1, directional 4 and spot 5 lights with the
+# delta lights, irawan 19, the last BSDF type, with the woven cloth)
 @pytest.mark.parametrize("change", [
     dict(has_sss=True), dict(has_singlescatter=True),
-    dict(has_boundary_media=True), dict(ewa_taps=4), dict(bsdf_types=(0, 19)),
-    dict(nested_bsdf_types=(19,)), dict(medium_types=(0,)),
+    dict(has_boundary_media=True), dict(ewa_taps=4), dict(bsdf_types=(0, 20)),
+    dict(nested_bsdf_types=(20,)), dict(medium_types=(0,)),
     dict(phase_types=(0,)),
 ])
 def test_later_slices_raise(cornell, change):

@@ -220,17 +220,12 @@ def _shape_bsdf(bsdf):
 CASE3 = {
     **{f"integrator-{t}": f'<integrator type="{t}"/>'
        for t in ("volpath", "ptracer", "bdpt", "pssmlt", "mlt",
-                 "vpl", "sppm", "photonmapper", "irrcache", "adaptive",
-                 "multichannel")},
-    "bsdf-toplevel-irawan": '<bsdf type="irawan"/>',
+                 "vpl", "sppm", "photonmapper", "irrcache", "adaptive")},
     **{f"emitter-{t}": f'<emitter type="{t}"/>'
        for t in ("sky", "sun", "sunsky")},
     "medium": '<medium type="homogeneous"/>',
     "shape-medium": '<shape type="rectangle"><medium name="interior" '
                     'type="homogeneous"/></shape>',
-    "spectrum-pairs": _shape_bsdf('<bsdf type="diffuse"><spectrum '
-                                  'name="reflectance" value="400:0.5, '
-                                  '700:0.7"/></bsdf>'),
     "bitmap-png": '<texture type="bitmap"><string name="filename" '
                   'value="tex.png"/></texture>',
 }
@@ -265,11 +260,49 @@ LIGHTS = {
 }
 
 
+# the woven cloth, the spectra and the multichannel integrator, which
+# raised here until the port rendered them: each loads
+# (tests/test_torch_cloth.py and tests/test_torch_spectral.py hold them
+# against the JAX package): the material's type, the integrator's type or
+# the reflectance's RGB
+PAIRS = "400:0.5, 700:0.7"
+CLOTH_SPECTRA = {
+    "bsdf-toplevel-irawan": ('<bsdf type="irawan"/>', tbsdf.IRAWAN),
+    "bsdf-irawan-cloth": (_shape_bsdf(
+        '<bsdf type="irawan"><string name="filename" value="w.cloth"/>'
+        '</bsdf>'), tbsdf.IRAWAN),
+    "integrator-multichannel": ('<integrator type="multichannel"><integrator '
+                                'type="direct"/></integrator>',
+                                tcommon.DIRECT),
+    "spectrum-pairs": (_shape_bsdf('<bsdf type="diffuse"><spectrum '
+                                   f'name="reflectance" value="{PAIRS}"/>'
+                                   '</bsdf>'),
+                       jxml._parse_spectrum("spectrum", PAIRS)),
+}
+
+
 @pytest.mark.parametrize("case", sorted(CASE3) + sorted(NESTED)
-                         + sorted(LIGHTS))
+                         + sorted(LIGHTS) + sorted(CLOTH_SPECTRA))
 def test_later_slice_elements_raise(tmp_path, case):
     (tmp_path / "tex.png").write_bytes(b"\x89PNG\r\n\x1a\n")
+    (tmp_path / "w.cloth").write_text("weave { pattern { 1, 2, 2, 1 }, "
+                                      "yarn { type = warp }, "
+                                      "yarn { type = weft } }")
     path = tmp_path / "s.xml"
+    if case in CLOTH_SPECTRA:
+        body, want = CLOTH_SPECTRA[case]
+        path.write_text(_scene_xml(body))
+        ls = txml.load_scene(str(path), device="cpu")
+        if case.startswith("bsdf"):
+            assert ls.scene.materials.type.tolist()[-1] == want
+            assert ls.scene.irawan.tile_w.tolist() == [2]
+            assert float(ls.scene.irawan.spec_norm[0]) > 0
+        elif case.startswith("integrator"):
+            assert ls.integrator.type == want
+        else:
+            np.testing.assert_array_equal(
+                ls.scene.materials.albedo[-1].numpy(), np.asarray(want))
+        return
     if case in LIGHTS:
         body, kind, tag = LIGHTS[case]
         path.write_text(_scene_xml(body))
