@@ -201,6 +201,18 @@ timed (the seconds printed at its end and together before the JSON lines):
      through load_scene + api.render_multichannel, whose image must equal
      the plain variant's bit for bit; then the CLI on the .cloth variant's
      file, whose EXR must equal its image;
+ 9j. participating media (VOLUME_DEFINES, volume_xml) through load_scene +
+     api.render with the volumetric path tracer at depth 8: cbox.xml with
+     a homogeneous HG medium (g 0.7) in its glass sphere, and with a null
+     cube over the floor holding a sparse 64^3 smoke plume written as a
+     .vol file by the port's save_vol (both 256x256, 16 spp: 6 K1 launches
+     per bounce and sample, a closest hit and the 5-query shadow walk); the
+     fallback heightfield (a PLY, 79,202 triangles) in a null box of
+     Rayleigh fog at 128x128, 8 spp (6 resorted closest hits of 4 + 1 K3
+     launches per bounce and sample); each held as phase 9f's renders but
+     within VOLUME_MEAN_RTOL and VOLUME_TV_RTOL, with the tracking steps
+     its lanes took and the host time in the tracking loops; then the CLI on the medium sphere's file, whose EXR must equal
+     its image;
  10. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
      2, seed 0 (bench.py:289-293); checks 10 launches of K4 and 300 of K3
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
@@ -217,15 +229,12 @@ timed (the seconds printed at its end and together before the JSON lines):
      (["kdbench", path], defaults: 2^18 rays, 3 repeats); checks that the
      treelet and lane-resort kernels report the same hit rate on each batch
      and that K7 and K3 launched as the utility drives them;
- 13. profile: one render pass of each scene (the bunny in both BVH modes;
-     4 spp of cbox.xml at 256x256, of the Cornell direct render at 64x64
-     and of the Veach MIS path render at 512x512)
-     under torch.profiler, printing the device's busy share of the wall time,
-     the pass's device kernel launches, the kernels that take it and each
-     port kernel's render mean per launch;
-     K4's render mean beside its times of phase 4; and one training step
-     with its forward and its backward each profiled: their busy shares and
-     the backward's top kernels.
+ 13. profile: one render pass of the Cornell box and of the bunny (in both
+     BVH modes) under torch.profiler, printing the device's busy share of
+     the wall time, the pass's device kernel launches, the kernels that take
+     it and each port kernel's render mean per launch; K4's render mean
+     beside its times of phase 4; and the backward of one lane gather from a
+     trainable table, table[index] against index_select (CUDA events).
 
 The second-to-last line of output is the kernels' JSON record, the last
 {"ok": true, "device": {...}}. Without CUDA the script exits nonzero before
@@ -258,11 +267,13 @@ from mitsuba_tpu_torch.core import rng as rng_mod
 from mitsuba_tpu_torch.core.transform import Transform
 from mitsuba_tpu_torch.io import image as image_mod
 from mitsuba_tpu_torch.io import mitsuba_xml
+from mitsuba_tpu_torch.io import volgrid
 from mitsuba_tpu_torch.ops import build
 from mitsuba_tpu_torch.ops import cuda_bvh as cb
 from mitsuba_tpu_torch.ops import cuda_intersect as bf
 from mitsuba_tpu_torch.render import api, shapes
 from mitsuba_tpu_torch.render import bsdf as bsdf_mod
+from mitsuba_tpu_torch.render import medium as medium_mod
 from mitsuba_tpu_torch.render import emitter as em_mod
 from mitsuba_tpu_torch.render import microfacet as mf
 from mitsuba_tpu_torch.render import scene as scene_mod
@@ -676,6 +687,17 @@ HEADER_REF = {
     "spectral cauchy_b 0.3": (
         (1.0312935078058574, 1.0633426766658711, 0.9861515777259151),
         (0.9738411742306726, 0.6738309242698424, 0.7733010739919838)),
+    # participating media (phase 9j), scripts/jax_header_ref_mean.py's
+    # volumes renders (volume_xml with VOLUME_DEFINES, volpath depth 8)
+    "volumes medium_sphere": (
+        (0.23158934531937617, 0.1748406811487356, 0.0776067727920602),
+        (0.01841507643756077, 0.013042502439644908, 0.005268325717155292)),
+    "volumes smoke_box": (
+        (0.22704179843164224, 0.1768212365473587, 0.07867684750600086),
+        (0.018581700022886602, 0.01471119770778335, 0.006412877121663166)),
+    "volumes fog_terrain": (
+        (0.3750483208161768, 0.44497437294785414, 0.582414051569458),
+        (0.02881972749871532, 0.027729650891081644, 0.030015640281595465)),
 }
 # the meters of phase 9h through the JAX package's render_meter on its CPU
 # backend, 65,536 samples: scripts/jax_header_ref_mean.py's lights meters
@@ -1083,6 +1105,142 @@ def spectral_scene(builder, bsdf, shapes, transform, cauchy_b):
     builder.add_mesh(v, f, builder.add_material(albedo=(0, 0, 0)),
                      emitter_radiance=(5.0, 5.0, 5.0), uvs=uv)
     return builder
+
+
+# participating media (phase 9j): three scenes through load_scene and the
+# volumetric path tracer. "medium_sphere" is cbox.xml with its glass sphere
+# holding a scattering medium (milk, jade or a tinted liquid behind a
+# dielectric); "smoke_box" a null cube over the Cornell floor holding a
+# grid medium read from SMOKE_FILE, a sparse procedural plume of
+# SMOKE_RES^3 float32 densities written by the port's save_vol (smoke and
+# clouds from grid volumes); "fog_terrain" the kdbench fallback heightfield
+# (79,202 triangles, so the BVH drivers answer every query) as a PLY
+# inside a null box of Rayleigh fog under a sun and a sky (aerial
+# perspective; the heightfield, a sheet in the xy plane, laid flat and
+# its relief stretched). Depth VOLUME_DEPTH; each bounce issues one closest-hit
+# query and VOLUME_WALK in the NEE shadow walk through the null
+# boundaries (max_crossings + 1), and no any-hit query
+VOLUME_DEPTH = 8
+VOLUME_WALK = 5
+VOLUME_DEFINES = {"medium_sphere": {"spp": 16, "res": 256},
+                  "smoke_box": {"spp": 16, "res": 256},
+                  "fog_terrain": {"spp": 8, "res": 128}}
+VOLUME_CLI = "medium_sphere"
+# 9j's limits, tighter than HEADER_MEAN_RTOL / HEADER_TV_RTOL: the port on
+# the CPU is within 5.4e-6 (mean) and 2.7e-5 (tv) of the JAX values, the
+# card within 2.8e-6 and 1.6e-5, while the supergrid without its one-voxel
+# dilation moves smoke_box's mean by only 6.6e-5-9.1e-5 and its tv by
+# 5.0e-4-9.3e-4 (PERF.md section 6)
+VOLUME_MEAN_RTOL, VOLUME_TV_RTOL = 2e-5, 2e-4
+SMOKE_FILE, SMOKE_RES = "smoke.vol", 64
+# the grid's box, and the null cube's: 2 units wider on each side, so no
+# lane starts on a face of the grid's box (where its inside is decided by
+# the last bit of the origin: PERF.md section 6)
+SMOKE_LO, SMOKE_HI = (100.0, 3.0, 150.0), (300.0, 303.0, 400.0)
+SMOKE_MARGIN = 2.0
+TERRAIN_FILE = "terrain.ply"
+_VOLPATH = ('<integrator type="volpath"><integer name="maxDepth" '
+            f'value="{VOLUME_DEPTH}"/></integrator>')
+_CBOX_PATH = '<integrator type="path">\n        <integer name="maxDepth" ' \
+             'value="5"/>\n    </integrator>'
+_CBOX_GLASS = ('<bsdf type="dielectric">\n            <string name="intIOR" '
+               'value="bk7"/>\n        </bsdf>')
+MILK = ('<medium type="homogeneous" name="interior">'
+        '<rgb name="sigmaT" value="0.02, 0.025, 0.03"/>'
+        '<rgb name="albedo" value="0.95, 0.85, 0.6"/>'
+        '<phase type="hg"><float name="g" value="0.7"/></phase></medium>')
+_SMOKE_BOX = f"""<shape type="cube">
+        <transform name="toWorld">
+            <scale x="{(SMOKE_HI[0] - SMOKE_LO[0]) / 2 + SMOKE_MARGIN}" y="{(SMOKE_HI[1] - SMOKE_LO[1]) / 2 + SMOKE_MARGIN}" z="{(SMOKE_HI[2] - SMOKE_LO[2]) / 2 + SMOKE_MARGIN}"/>
+            <translate x="{(SMOKE_HI[0] + SMOKE_LO[0]) / 2}" y="{(SMOKE_HI[1] + SMOKE_LO[1]) / 2}" z="{(SMOKE_HI[2] + SMOKE_LO[2]) / 2}"/>
+        </transform>
+        <medium type="heterogeneous" name="interior">
+            <volume type="gridvolume" name="density">
+                <string name="filename" value="{SMOKE_FILE}"/>
+            </volume>
+            <rgb name="sigmaT" value="0.15, 0.15, 0.15"/>
+            <rgb name="albedo" value="0.9, 0.9, 0.85"/>
+            <phase type="isotropic"/>
+        </medium>
+    </shape>
+    <!-- glass sphere -->"""
+
+
+def volume_xml(variant) -> str:
+    """The 9j scene ``variant``'s text ($spp and $res by VOLUME_DEFINES;
+    "smoke_box" and "fog_terrain" need write_volume_files beside it).
+    scripts/jax_header_ref_mean.py loads the same text."""
+    if variant == "fog_terrain":
+        return f"""<scene version="0.6.0">
+  {_VOLPATH}
+  <sensor type="perspective">
+    <float name="fov" value="40"/>
+    <transform name="toWorld">
+      <lookat origin="0.1, 0.7, -1.4" target="0, 0.12, 0" up="0, 1, 0"/>
+    </transform>
+    <sampler type="independent">
+      <integer name="sampleCount" value="$spp"/>
+    </sampler>
+    <film type="hdrfilm">
+      <integer name="width" value="$res"/><integer name="height" value="$res"/>
+    </film>
+  </sensor>
+  <shape type="ply">
+    <string name="filename" value="{TERRAIN_FILE}"/>
+    <transform name="toWorld">
+      <scale x="4" y="4" z="15"/><rotate x="1" angle="-90"/>
+      <translate y="0.1" z="0.4"/>
+    </transform>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.45, 0.4, 0.3"/></bsdf>
+  </shape>
+  <shape type="cube">
+    <transform name="toWorld">
+      <scale x="0.5" y="0.4" z="0.5"/><translate x="0" y="0.35" z="0"/>
+    </transform>
+    <medium type="homogeneous" name="interior">
+      <rgb name="sigmaT" value="1.2, 1.2, 1.2"/>
+      <rgb name="albedo" value="0.9, 0.92, 0.95"/>
+      <phase type="rayleigh"/>
+    </medium>
+  </shape>
+  <emitter type="directional">
+    <vector name="direction" x="-0.5" y="-1" z="0.4"/>
+    <rgb name="irradiance" value="3, 2.8, 2.4"/>
+  </emitter>
+  <emitter type="constant"><rgb name="radiance" value="0.3, 0.4, 0.6"/></emitter>
+</scene>
+"""
+    text = CBOX_XML.read_text()
+    new = (_CBOX_GLASS + MILK if variant == "medium_sphere" else _SMOKE_BOX)
+    old = _CBOX_GLASS if variant == "medium_sphere" else "<!-- glass sphere -->"
+    for a, b in ((_CBOX_PATH, _VOLPATH), (old, new)):
+        if text.count(a) != 1:
+            raise AssertionError(f"cbox.xml has no single {a!r}")
+        text = text.replace(a, b)
+    return text
+
+
+def smoke_plume(n=SMOKE_RES):
+    """A rising plume, n^3 densities in [0, 1] (z, y, x): a column that
+    swirls and widens with height, thinned by two sine ripples and cut to
+    0 below 0.08, so most supercells are empty."""
+    z, y, x = np.meshgrid(*(np.linspace(0.0, 1.0, n),) * 3, indexing="ij")
+    cx = 0.5 + 0.15 * np.sin(5.0 * y)
+    cz = 0.5 + 0.15 * np.cos(4.0 * y)
+    w = 0.01 + 0.04 * y
+    g = np.exp(-((x - cx) ** 2 + (z - cz) ** 2) / w) * (1.0 - 0.8 * y)
+    g *= 0.75 + 0.25 * np.sin(20.0 * y + 9.0 * x) * np.cos(17.0 * z)
+    g[g < 0.08] = 0.0
+    return g.astype(np.float32)
+
+
+def write_volume_files(directory):
+    """The files phase 9j's scenes read, in ``directory``: smoke_plume() as
+    SMOKE_FILE over the box SMOKE_LO .. SMOKE_HI (the port's save_vol) and
+    fallback_mesh() as TERRAIN_FILE."""
+    volgrid.save_vol(str(Path(directory) / SMOKE_FILE), smoke_plume(),
+                     SMOKE_LO, SMOKE_HI)
+    write_ply(str(Path(directory) / TERRAIN_FILE), *fallback_mesh())
 
 
 def height_field():
@@ -1671,8 +1829,7 @@ def train_phase(dev):
     samples: loss 0, gradients 0), then steps 1-4 timed as bench times
     them. Step 1 runs at the initial parameters (step 0's Adam update of
     zero gradients moves nothing), and its loss and gradients are held
-    against scripts/jax_train_ref.py's. Returns what ``train_profile``
-    steps on."""
+    against scripts/jax_train_ref.py's."""
     from mitsuba_tpu_torch.parallel import train as train_mod
 
     scene, static, sensor = train_scene(dev)
@@ -1762,51 +1919,6 @@ def train_phase(dev):
                              f"(loss rtol {TRAIN_LOSS_RTOL}, gradients "
                              f"relative L2 {TRAIN_GRAD_RTOL}, cosine "
                              f"{TRAIN_GRAD_COS})")
-    return target, step, params, opt_state
-
-
-def train_profile(trainer):
-    """One training step (it = 5) with the forward and the backward each
-    under torch.profiler: the device's busy share of each part's wall time
-    and the backward's top device kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    target, step, params, opt_state = trainer
-    profs = {p: profile(activities=[ProfilerActivity.CPU,
-                                    ProfilerActivity.CUDA])
-             for p in ("forward", "backward")}
-    walls = {}
-    clock = [0.0]
-
-    def mark(part):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        if part in profs:
-            profs[part].stop()
-            walls[part] = now - clock[0]
-        if part == "forward":
-            clock[0] = time.perf_counter()
-            profs["backward"].start()
-
-    torch.cuda.synchronize()
-    profs["forward"].start()
-    clock[0] = time.perf_counter()
-    step(params, opt_state, target, TRAIN_ITERS + 1, mark=mark)
-    for part, prof in profs.items():
-        dev_us = {e.key: e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0}
-        busy = sum(dev_us.values()) / 1e6
-        log(f"profile train {part}: wall {walls[part] * 1e3:.3f} ms, device "
-            f"busy {busy * 1e3:.3f} ms "
-            f"({'not measured' if not dev_us else f'{busy / walls[part]:.1%}'}), "
-            f"{sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)} "
-            f"kernel launches")
-        if part == "backward":
-            for k, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]:
-                log(f"profile   {us / 1e3:9.3f} ms  {k[:90]}")
-    gather_backward(params["albedo"].device)
 
 
 def gather_backward(dev):
@@ -2847,8 +2959,7 @@ def scene_file_phase(dev):
     """The scene-file entry points on the card: load_scene + api.render of
     cbox.xml (path tracer, its glass sphere), the Cornell box through the
     direct integrator, and the CLI in a subprocess, whose EXR must equal
-    the first image bit for bit. Returns the two renders' (scene, static,
-    sensor, cfg) for the profile phase."""
+    the first image bit for bit."""
     defines = {"spp": CBOX_SPP, "res": CBOX_RES}
     t0 = time.perf_counter()
     ls = mitsuba_xml.load_scene(str(CBOX_XML), defines)
@@ -2878,8 +2989,6 @@ def scene_file_phase(dev):
          "brute_force_closest_hit": DIRECT_SPP})
 
     cli_matches("scene file", CBOX_XML, defines, img)
-    return ((ls.scene, ls.static, ls.sensor, ls.integrator),
-            (scene, static, sensor, direct_cfg))
 
 
 def cli_matches(label, path, defines, img):
@@ -2916,9 +3025,7 @@ def veach_phase(dev):
     lights, cone-sampled NEE against four rough plates) and its plastic
     variant through the path tracer at depth 3, 32 spp, and the first
     through the direct integrator, 16 spp; 512x512, box filter, seed 0,
-    each held to the JAX package's mean and the exact K1/K2 launches.
-    Returns the first scene's (scene, static, sensor, cfg) for the profile
-    phase."""
+    each held to the JAX package's mean and the exact K1/K2 launches."""
     path_cfg = IntegratorConfig(type=PATH, max_depth=VEACH_DEPTH)
     direct_cfg = IntegratorConfig(type=DIRECT)
     scenes = {}
@@ -2955,7 +3062,6 @@ def veach_phase(dev):
             ref, VEACH_MEAN_RTOL,
             {"brute_force_interaction": k1 * spp,
              "brute_force_closest_hit": k2 * spp})
-    return scenes[False] + (path_cfg,)
 
 
 def sampler_bits_phase(dev):
@@ -3018,21 +3124,31 @@ def tv_rgb(img):
 def header_render(dev, label, scene, static, sensor, cfg, settings,
                   expected):
     """timed_render held to HEADER_REF[label]: the mean within
-    HEADER_MEAN_RTOL per channel, then tv_rgb within HEADER_TV_RTOL.
+    limits(label)[0] per channel, then tv_rgb within limits(label)[1].
     Returns the image."""
     mean_ref, tv_ref = HEADER_REF[label]
+    mean_rtol, tv_rtol = limits(label)
     img = timed_render(dev, label, scene, static, sensor, cfg, settings,
-                       mean_ref, HEADER_MEAN_RTOL, expected)[0]
+                       mean_ref, mean_rtol, expected)[0]
     tv = tv_rgb(img)
     gap = [a / b - 1.0 for a, b in zip(tv, tv_ref)]
     log(f"render {label} tv_rgb {tv} (reference {list(tv_ref)}, relative "
         f"gap {gap})")
     for c, g in enumerate(gap):
-        if abs(g) > HEADER_TV_RTOL:
+        if abs(g) > tv_rtol:
             raise AssertionError(
                 f"{label}: tv_rgb[{c}] = {tv[c]:.6f}, reference {tv_ref[c]} "
-                f"(tolerance {HEADER_TV_RTOL:.1%})")
+                f"(tolerance {tv_rtol:.2%})")
     return img
+
+
+def limits(label):
+    """(mean, tv_rgb) relative limits of a render held to HEADER_REF:
+    VOLUME_MEAN_RTOL and VOLUME_TV_RTOL for phase 9j's, HEADER_MEAN_RTOL and
+    HEADER_TV_RTOL for the others."""
+    if label.startswith("volumes"):
+        return VOLUME_MEAN_RTOL, VOLUME_TV_RTOL
+    return HEADER_MEAN_RTOL, HEADER_TV_RTOL
 
 
 def header_renders(dev, tmp, cornell_scene):
@@ -3359,6 +3475,62 @@ def cloth_spectra_phase(dev):
         cli_matches(cli, Path(tmp) / cli_file, CLOTH_DEFINES, imgs[cli])
 
 
+def volume_renders(dev, tmp):
+    """Every render of phase 9j, by label (``volumes {variant}``): (scene,
+    static, sensor, cfg, settings, expected launches), loaded from
+    ``{tmp}/volumes_{variant}.xml`` with VOLUME_DEFINES, the grid and the
+    PLY written beside them. scripts/torch_header_stats.py renders the
+    same."""
+    write_volume_files(tmp)
+    out = {}
+    for variant, defines in VOLUME_DEFINES.items():
+        path = Path(tmp) / f"volumes_{variant}.xml"
+        path.write_text(volume_xml(variant))
+        ls = mitsuba_xml.load_scene(str(path), defines, device=dev)
+        # per bounce and sample one closest-hit query and VOLUME_WALK in
+        # the shadow walk: K1 on the Cornell scenes, the K3 resort driver's
+        # rounds + 1 launches each above BRUTE_FORCE_MAX_TRIS
+        queries = (1 + VOLUME_WALK) * VOLUME_DEPTH * ls.settings.spp
+        if ls.static.use_bvh:
+            expected = {"lane_chunk": queries * (scene_mod.BVH_RESORT[0] + 1)}
+        else:
+            expected = {"brute_force_interaction": queries}
+        out[f"volumes {variant}"] = (ls.scene, ls.static, ls.sensor,
+                                     ls.integrator, ls.settings, expected)
+    return out
+
+
+def volume_phase(dev):
+    """Phase 9j: each render of volume_renders held as phase 9f's (mean and
+    tv_rgb to the JAX package, exact launches), with the tracking steps its
+    lanes took; and the CLI on the VOLUME_CLI file, whose EXR must equal
+    its image."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = volume_renders(dev, tmp)
+        for label, case in cases.items():
+            log(f"{label}: {case[1]}; {case[3]}")
+        # warm-up: one sample of each (first-call set-up of the new modules)
+        for scene, static, sensor, cfg, settings, _ in cases.values():
+            api.render(scene, static, sensor, cfg, dataclasses.replace(
+                settings, spp=1, spp_per_pass=1), device=dev)
+        imgs = {}
+        for label, case in cases.items():
+            medium_mod.reset_steps()
+            t0 = time.perf_counter()
+            imgs[label] = header_render(dev, label, *case)
+            wall = time.perf_counter() - t0
+            st = medium_mod.STEPS
+            log(f"render {label} tracking: {st['distance']} steps of delta "
+                f"tracking and {st['transmittance']} of ratio tracking in "
+                f"{st['loops']} loops over {case[4].spp} samples; host "
+                f"{st['loop_s']:.3f} s in the loops, {st['sync_s']:.3f} s "
+                f"of it blocked in their tests for live lanes, of "
+                f"{wall:.3f} s ({card_line()})")
+        cli = f"volumes {VOLUME_CLI}"
+        cli_matches(cli, Path(tmp) / f"volumes_{VOLUME_CLI}.xml",
+                    VOLUME_DEFINES[VOLUME_CLI], imgs[cli])
+
+
 def bunny_ao_case(bunny_scene):
     """ao on bunny_x2 (lane mode) at 512x512, BUNNY_AO_SPP spp, the default
     ray length (half the scene's radius), box filter: K3 launches only,
@@ -3559,11 +3731,11 @@ def main() -> int:
              "brute_force_closest_hit": DEPTH * SPP})
         live_share_phase(dev, *cornell_scene)
     with phase("9b training"):
-        trainer = train_phase(dev)
+        train_phase(dev)
     with phase("9c scene files"):
-        cbox_xml, cornell_direct = scene_file_phase(dev)
+        scene_file_phase(dev)
     with phase("9d veach"):
-        veach = veach_phase(dev)
+        veach_phase(dev)
     with phase("9e sampler bits"):
         sampler_bits_phase(dev)
     with phase("9e sensor header"):
@@ -3576,6 +3748,8 @@ def main() -> int:
         lights_phase(dev)
     with phase("9i cloth and spectra"):
         cloth_spectra_phase(dev)
+    with phase("9j participating media"):
+        volume_phase(dev)
     with phase("10 bunny"):
         bunny_scene = bunny(dev)
         bunny_launches, lane_mean, lane_ms = render_phase(
@@ -3612,14 +3786,7 @@ def main() -> int:
         records[name]["launches"] = large_launches[name]
     with phase("13 profile"):
         profile_phase(dev, "cornell", *cornell_scene, SPP_PER_PASS)
-        profile_phase(dev, "cbox.xml", *cbox_xml[:3], 4, cfg=cbox_xml[3],
-                      size=CBOX_RES)
-        profile_phase(dev, "cornell direct", *cornell_direct[:3], 4,
-                      cfg=cornell_direct[3], size=DIRECT_RES)
-        profile_phase(dev, "veach_mis", *veach[:3], VEACH_SPP_PER_PASS,
-                      cfg=veach[3], filter_type=0)
-        train_profile(trainer)
-        del trainer
+        gather_backward(dev)
         bunny_profile = profile_phase(dev, "bunny", *bunny_scene,
                                       BUNNY_SPP_PER_PASS)
         k4 = records["bvh_traverse_lane_packed"]

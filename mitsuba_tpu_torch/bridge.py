@@ -17,6 +17,7 @@ from .ops import cuda_bvh
 from .render import bsdf as bsdf_mod
 from .render import emitter as em_mod
 from .render import irawan as irawan_mod
+from .render import medium as med_mod
 from .render import scene as scene_mod
 from .render import sensor as sensor_mod
 from .render import texture as tex_mod
@@ -32,6 +33,8 @@ _MAT_FLOAT = ("spec_refl", "spec_trans", "eta", "k", "alpha", "rt_coef",
 _MAT_INT = ("type", "dist", "albedo_tex", "opacity_tex", "nested_a",
             "nested_b", "weight_tex", "normal_tex", "bump_tex", "irawan")
 _IRAWAN_INT = ("pattern", "tile_w", "tile_h")
+_MEDIUM_INT = ("type", "phase_type", "grid_idx", "grid_size")
+_MAT_MEDIA = ("interior_medium", "exterior_medium")
 _TEX_PROCEDURAL = ("color0", "color1", "line_width")
 _ENV_FLOAT = ("env_map", "env_alias", "env_to_world", "env_scale")
 _TEX_FLOAT = ("uv_scale", "uv_offset", "scale", "stack", "mips")
@@ -117,9 +120,11 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
     ``arrays`` maps Scene field names to numpy arrays, with ``materials``,
     ``textures``, ``emitters`` and ``irawan`` (the weave patterns, their
     specular normalization included) as dicts of their tables' fields (a
-    material's ``alpha_tex``, if given, must be -1 throughout; the
+    material's ``alpha_tex``, if given, must be -1 throughout; its
+    ``interior_medium`` and ``exterior_medium`` are -1 where not given; the
     textures' ``color0``, ``color1`` and ``line_width`` are read where the
-    table holds a procedural row);
+    table holds a procedural row), and ``media``, if given, the medium
+    table's fields (the empty table without it);
     ``static`` maps SceneStatic field names to values. The BVH comes across
     as the JAX scene's ``bvh_pages`` (the same tree, repacked by
     ``nodes_from_pages``), with its treelet cut (``tl_root``, ``tl_skip``,
@@ -151,6 +156,12 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
     octants = (cuda_bvh.octant_tables(nodes, arrays["tl_root"], dev)
                if use_bvh else None)
     mats, texs, ems = arrays["materials"], arrays["textures"], arrays["emitters"]
+    n_mats = len(np.asarray(mats["type"]))
+    med = arrays.get("media")
+    media = (med_mod.MediumTable(**{
+        k: (_i32 if k in _MEDIUM_INT else _f32)(med[k], dev)
+        for k in med_mod.MediumTable._fields}) if med is not None
+        else med_mod.MediumTable.empty(dev))
     iw = arrays["irawan"]
     if np.any(np.asarray(mats.get("alpha_tex", -1)) >= 0):
         raise NotImplementedError(
@@ -182,7 +193,9 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
             **{k: _i32(mats[k], dev) for k in _MAT_INT},
             **{k: _f32(mats[k], dev) for k in _MAT_FLOAT},
             twosided=_bool(mats["twosided"], dev),
-            nonlinear=_bool(mats["nonlinear"], dev)),
+            nonlinear=_bool(mats["nonlinear"], dev),
+            **{k: _i32(mats.get(k, np.full(n_mats, -1)), dev)
+               for k in _MAT_MEDIA}),
         textures=tex_mod.TextureTable(
             **{k: _f32(texs[k], dev) for k in _TEX_FLOAT},
             **{k: _i32(texs[k], dev) for k in _TEX_INT}, **procedural),
@@ -201,6 +214,7 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
         irawan=irawan_mod.IrawanTable(**{
             k: (_i32 if k in _IRAWAN_INT else _f32)(iw[k], dev)
             for k in irawan_mod.IrawanTable._fields}),
+        media=media,
     )
     st = scene_mod.SceneStatic(
         n_tris=T, n_spheres=S, use_bvh=use_bvh,
@@ -213,6 +227,9 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
         nested_bsdf_types=tuple(
             int(t) for t in static.get("nested_bsdf_types", ())),
         has_normal_maps=has_maps,
+        medium_types=tuple(int(t) for t in static.get("medium_types", ())),
+        phase_types=tuple(int(t) for t in static.get("phase_types", ())),
+        has_boundary_media=bool(static.get("has_boundary_media", False)),
     )
     return scene, st
 

@@ -33,6 +33,7 @@ from ..device import resolve_device
 from ..render import api as api_mod
 from ..render import bsdf as B
 from ..render import microfacet as mf
+from ..render import phase as PH
 from ..render import rfilter as RF
 from ..render import sensor as sensor_mod
 from ..render import shapes as shapes_mod
@@ -40,6 +41,7 @@ from ..render.integrators import common as icommon
 from ..render.scene import SceneBuilder
 from ..utils.logging import get_logger
 from .mesh import load_mesh, load_obj
+from .volgrid import load_vol
 
 log = get_logger()
 
@@ -70,13 +72,16 @@ DIELECTRIC_IOR = {
 # the elements of case 3, by the JAX loader's type name, with the ROADMAP.md
 # item (Queue 1) where each lands
 _LATER_INTEGRATORS = {
-    "volpath": "3.6", "volpath_simple": "3.6",
     "ptracer": "3.9", "bdpt": "3.9", "pssmlt": "3.10", "mlt": "3.10",
     "erpt": "3.10", "vpl": "3.11", "sppm": "3.11", "ppm": "3.11",
     "photonmapper": "3.11", "irrcache": "3.11", "adaptive": "3.12",
 }
-_INTEGRATORS = {"path": icommon.PATH, "direct": icommon.DIRECT,
+_INTEGRATORS = {"path": icommon.PATH, "volpath": icommon.VOLPATH,
+                "volpath_simple": icommon.VOLPATH, "direct": icommon.DIRECT,
                 "ao": icommon.AO, "field": icommon.FIELD}
+# the phase functions a scene file names (the JAX loader's three; any other
+# name is isotropic there too)
+_PHASES = {"isotropic": PH.ISOTROPIC, "hg": PH.HG, "rayleigh": PH.RAYLEIGH}
 _SAMPLERS = {
     "independent": api_mod.INDEPENDENT, "stratified": api_mod.STRATIFIED,
     "ldsampler": api_mod.LDSAMPLER, "sobol": api_mod.SOBOL,
@@ -92,6 +97,11 @@ _LATER_SENSORS = {}  # every sensor element loads since item 3.3
 _LATER_BSDFS = {}  # every BSDF element loads since item 3.2.4
 _LATER_EMITTERS = {"sunsky": "3.8", "sky": "3.8", "sun": "3.8"}
 _METERS = ("radiancemeter", "irradiancemeter", "fluencemeter")
+
+
+def _rgb(v) -> np.ndarray:
+    """A property's value as three float64 channels (a scalar repeated)."""
+    return np.broadcast_to(np.asarray(v, np.float64), (3,))
 
 
 def _later(what: str, item: str) -> NotImplementedError:
@@ -273,7 +283,9 @@ class XMLSceneLoader:
             elif c.tag == "emitter":
                 self._load_emitter(c)
             elif c.tag == "medium":
-                raise _later("participating media", "3.6")
+                mid = self._load_medium(c)
+                if c.get("id"):
+                    self.ids[c.get("id")] = ("medium", mid)
             elif c.tag == "include":
                 sub = ET.parse(self.resolve_path(
                     _subst(c.get("filename"), self.params)))
@@ -640,10 +652,71 @@ class XMLSceneLoader:
             type=B.MIXTURE, nested_a=mids[0], nested_b=mids[1],
             weight=ws[0] / max(tot, 1e-9))
 
-    def _shape_material(self, node) -> int:
-        # a referenced medium cannot exist: a top-level <medium> raises
-        if node.find("medium") is not None:
-            raise _later("participating media", "3.6")
+    def _load_medium(self, node) -> int:
+        """<medium type="homogeneous|heterogeneous"> with a nested <phase>
+        (isotropic, hg, rayleigh). A homogeneous medium takes sigmaT and
+        albedo, or else sigmaS and sigmaA; a heterogeneous one a gridvolume
+        .vol file (resolved relative to the scene) or a constvolume as its
+        density; both take a scale."""
+        t = node.get("type")
+        p = _props(node, self.params)
+        ph_type, ph_g = PH.ISOTROPIC, 0.0
+        ph = node.find("phase")
+        if ph is not None:
+            ph_type = _PHASES.get(ph.get("type"), PH.ISOTROPIC)
+            ph_g = float(_props(ph, self.params).get("g", 0.0))
+        scale = float(p.get("scale", 1.0))
+        if t == "homogeneous":
+            if "sigmaT" in p or "albedo" in p:
+                st = _rgb(p.get("sigmaT", 1.0))
+                ss = st * _rgb(p.get("albedo", 0.5))
+                sa = st - ss
+            else:
+                ss = _rgb(p.get("sigmaS", 1.0))
+                sa = _rgb(p.get("sigmaA", 0.5))
+            return self.builder.add_medium_homogeneous(
+                sigma_s=tuple(ss), sigma_a=tuple(sa), phase_type=ph_type,
+                phase_g=ph_g, scale=scale)
+        if t == "heterogeneous":
+            vol, w2g = None, np.eye(4)
+            for c in node.findall("volume"):
+                if c.get("name") in ("density", None):
+                    vp = _props(c, self.params)
+                    if c.get("type") == "gridvolume":
+                        vol, w2g = load_vol(self.resolve_path(vp["filename"]))
+                    elif c.get("type") == "constvolume":
+                        vol = np.full((2, 2, 2), float(np.mean(
+                            vp.get("value", 1.0))), np.float32)
+                        w2g = np.eye(4)
+            if vol is None:
+                vol = np.ones((2, 2, 2), np.float32)
+            return self.builder.add_medium_heterogeneous(
+                vol, sigma_t=tuple(_rgb(p.get("sigmaT", 1.0))),
+                albedo=tuple(_rgb(p.get("albedo", 0.8))),
+                phase_type=ph_type, phase_g=ph_g, scale=scale,
+                world_to_grid=w2g)
+        raise ValueError(f"unsupported medium type '{t}'")
+
+    def _shape_medium(self, node, which: str) -> int:
+        """A shape's nested or referenced ``which`` ("interior" or
+        "exterior") medium; a nested medium without a name is the
+        interior. -1 for none."""
+        for c in node.findall("medium"):
+            if c.get("name") == which or (which == "interior"
+                                          and c.get("name") is None):
+                mid = self._load_medium(c)
+                if c.get("id"):
+                    self.ids[c.get("id")] = ("medium", mid)
+                return mid
+        for c in node.findall("ref"):
+            if c.get("name") == which:
+                kind, idx = self.ids[c.get("id")]
+                if kind == "medium":
+                    return idx
+        return -1
+
+    def _shape_material(self, node, interior_medium: int = -1,
+                        exterior_medium: int = -1) -> int:
         mat_id = None
         for c in node.findall("ref"):
             if c.get("name") in (None, "bsdf"):
@@ -654,6 +727,18 @@ class XMLSceneLoader:
             inner = node.find("bsdf")
             if inner is not None:
                 mat_id = self._load_bsdf(inner)
+        if interior_medium >= 0 or exterior_medium >= 0:
+            if mat_id is None:
+                # a shape with media and no BSDF is a transparent boundary
+                return self.builder.add_material(
+                    type=B.NULL, interior_medium=interior_medium,
+                    exterior_medium=exterior_medium)
+            # a shared row cannot carry one shape's media: a clone does
+            rec = dict(self.builder.mats[mat_id])
+            rec["interior_medium"] = interior_medium
+            rec["exterior_medium"] = exterior_medium
+            self.builder.mats.append(rec)
+            return len(self.builder.mats) - 1
         if mat_id is None:
             return self.builder.add_material()  # gray diffuse default
         return mat_id
@@ -668,7 +753,9 @@ class XMLSceneLoader:
         t = node.get("type")
         p = _props(node, self.params)
         to_world = p.get("toWorld", Transform.identity())
-        mat = self._shape_material(node)
+        medium = self._shape_medium(node, "interior")
+        ext_medium = self._shape_medium(node, "exterior")
+        mat = self._shape_material(node, medium, ext_medium)
         emitter = self._shape_emitter(node)
         flip = bool(p.get("flipNormals", False))
         self._shape_sensor(node, to_world, flip)

@@ -1,5 +1,5 @@
 """Top-level render orchestration (port of ``mitsuba_tpu/render/api.py``: the
-PATH, DIRECT, AO and FIELD integrators with every sampler and every
+PATH, VOLPATH, DIRECT, AO and FIELD integrators with every sampler and every
 reconstruction filter of the JAX package, the meters' render, the
 hero-wavelength spectral render and the multichannel stack; the other
 integrators land in a later slice).
@@ -25,10 +25,12 @@ from .integrators import common as icommon
 from .integrators import direct as int_direct
 from .integrators import misc as int_misc
 from .integrators import path as int_path
+from .integrators import volpath as int_volpath
 
 # the integrators the port renders, by type tag
 _LI = {icommon.PATH: int_path.li, icommon.DIRECT: int_direct.li,
-       icommon.AO: int_misc.li_ao, icommon.FIELD: int_misc.li_field}
+       icommon.AO: int_misc.li_ao, icommon.FIELD: int_misc.li_field,
+       icommon.VOLPATH: int_volpath.li}
 
 # sampler types, the JAX API's numbering (api.py:33-39; not rng's tags)
 INDEPENDENT = 0
@@ -138,7 +140,8 @@ def render_pass(scene, static, sensor, cfg: icommon.IntegratorConfig,
 # lanes of one render_meter chunk (api.py:579)
 METER_CHUNK = 1 << 15
 # the integrators whose 1x1 meter renders go to render_meter (api.py:640)
-_METER_INTEGRATORS = (icommon.PATH, icommon.DIRECT, icommon.AO)
+_METER_INTEGRATORS = (icommon.PATH, icommon.DIRECT, icommon.VOLPATH,
+                      icommon.AO)
 
 
 def render_meter(scene, static, sensor, cfg: icommon.IntegratorConfig,
@@ -222,7 +225,7 @@ def render_multichannel(scene, static, sensor, cfgs,
 def render(scene, static, sensor, cfg: icommon.IntegratorConfig,
            settings: RenderSettings, device=None, with_stats: bool = False):
     """Full render: host loop over passes of ``spp_per_pass`` samples, or
-    ``render_meter`` for a 1x1 meter under PATH, DIRECT or AO.
+    ``render_meter`` for a 1x1 meter under PATH, VOLPATH, DIRECT or AO.
 
     Runs on ``device`` (CUDA by default), where the scene and sensor must
     already live. Returns the developed (H, W, 3) image, or (image, n_rays)

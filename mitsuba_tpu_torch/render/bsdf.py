@@ -120,6 +120,10 @@ class MaterialTable(NamedTuple):
     # reads: eta(l) = eta + B (1 / l^2 - 1 / 0.5893^2)
     cauchy_b: torch.Tensor      # (M,)
     irawan: torch.Tensor        # (M,) int32 weave pattern (-1: none)
+    # the media inside and outside the surface (-1: none), which a path
+    # crossing it enters (volpath)
+    interior_medium: torch.Tensor  # (M,) int32
+    exterior_medium: torch.Tensor  # (M,) int32
 
 
 class BsdfLocals(NamedTuple):

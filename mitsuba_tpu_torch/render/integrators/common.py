@@ -13,6 +13,7 @@ AO = 0
 DIRECT = 1
 PATH = 2
 FIELD = 3
+VOLPATH = 4       # path/volpath.cpp and volpath_simple.cpp
 MULTICHANNEL = 9  # misc/multichannel.cpp (api.render_multichannel)
 
 # field integrator AOVs (misc/field.cpp)
@@ -28,7 +29,7 @@ FIELD_GEO_NORMAL = 7
 
 @dataclass(frozen=True)
 class IntegratorConfig:
-    """Integrator settings (the fields the path tracer and the direct, ao
+    """Integrator settings (the fields the path tracers and the direct, ao
     and field integrators read)."""
 
     type: int = PATH

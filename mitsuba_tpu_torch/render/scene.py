@@ -25,8 +25,11 @@ and rough coating's transmittance polynomial baked at ``build``,
 ``core/rtrans.py``); lights are triangle area lights, analytic sphere lights
 (cone-sampled in NEE), a constant environment and a lat-long environment
 map, and the point, spot, directional and collimated delta lights; meshes
-may be instanced. Anything else (other textures, sun and sky, media)
-raises ``NotImplementedError``: it lands in a later slice.
+may be instanced. Participating media (``render/medium.py``: homogeneous
+and grid media with their phase functions) sit in ``Scene.media``, and a
+material row names the media inside and outside its surface. Anything else
+(other textures, sun and sky, subsurface scattering) raises
+``NotImplementedError``: it lands in a later slice.
 """
 from __future__ import annotations
 
@@ -50,6 +53,8 @@ from ..ops import intersect as isect
 from . import bsdf as bsdf_mod
 from . import emitter as em_mod
 from . import irawan as irawan_mod
+from . import medium as med_mod
+from . import phase as phase_mod
 from . import texture as tex_mod
 from .records import Interaction
 
@@ -107,6 +112,7 @@ class Scene(NamedTuple):
     textures: tex_mod.TextureTable
     emitters: em_mod.EmitterTable
     irawan: irawan_mod.IrawanTable  # weave patterns (one zero row if none)
+    media: med_mod.MediumTable      # participating media (one row if none)
 
 
 @dataclass(frozen=True)
@@ -126,6 +132,10 @@ class SceneStatic:
     has_weight_tex: bool = False
     nested_bsdf_types: tuple = ()  # sorted types of the rows nested rows name
     has_normal_maps: bool = False
+    medium_types: tuple = ()   # sorted medium type tags present (no media: ())
+    phase_types: tuple = ()    # sorted phase function tags of the media
+    has_boundary_media: bool = False  # a material names an interior or
+                                      # exterior medium
 
 
 # SceneStatic fields of the JAX package whose non-default values need code
@@ -133,9 +143,12 @@ class SceneStatic:
 # n_manifold_tris: the JAX builder sets it for any small glass or window
 # mesh, and only the MLT family reads it, so that slice checks it there)
 _LATER_SLICE_FIELDS = {
-    "medium_types": (), "phase_types": (), "has_sss": False,
-    "has_singlescatter": False, "has_boundary_media": False, "ewa_taps": 0,
+    "has_sss": False, "has_singlescatter": False, "ewa_taps": 0,
 }
+# the medium and phase function type tags the port renders
+MEDIUM_TYPES = (med_mod.HOMOGENEOUS, med_mod.HETEROGENEOUS)
+PHASE_TYPES = (phase_mod.ISOTROPIC, phase_mod.HG, phase_mod.RAYLEIGH,
+               phase_mod.MIXTURE, phase_mod.KKAY, phase_mod.MICROFLAKE)
 
 
 def check_supported(static: dict) -> None:
@@ -159,6 +172,12 @@ def check_supported(static: dict) -> None:
         if t not in em_mod.SUPPORTED_TYPES:
             raise NotImplementedError(
                 f"emitter type {t} lands in a later slice of the port")
+    for key, known in (("medium_types", MEDIUM_TYPES),
+                       ("phase_types", PHASE_TYPES)):
+        for t in static.get(key, ()):
+            if t not in known:
+                raise NotImplementedError(
+                    f"{key[:-6]} type {t} lands in a later slice of the port")
 
 
 # === device queries =======================================================
@@ -410,6 +429,60 @@ def occluded(scene: Scene, static: SceneStatic, o, d, t_min, t_max,
     return occ
 
 
+def attenuated_transmittance(scene: Scene, static: SceneStatic, o, d, dist,
+                             medium0, sampler, pixel, sample, dim0: int,
+                             active=None, max_crossings: int = 4,
+                             with_stats: bool = False):
+    """Transmittance along shadow segments through chains of media behind
+    null boundaries (Scene::evalTransmittance, scene.cpp:854-898; the JAX
+    scene.py:509): each of ``max_crossings + 1`` closest-hit queries finds
+    the next surface from the last crossing on (from t + 1e-4); the medium
+    the lane is in attenuates the segment up to it (crossing i draws from
+    dimension dim0 + 8 i on); a null surface swaps the lane's medium for its
+    interior (entered against its normal) or exterior one, any other
+    surface occludes (0). A chain still crossing after the last query gives
+    0 (never brighter than the truth).
+
+    ``dist`` (R,) float32 and ``medium0`` (R,) int32 are per lane. Returns
+    (R, 3), 1 on lanes with ``active`` False; with ``with_stats``
+    also the number of ray queries issued (an int64 tensor: the lanes
+    still walking at each query)."""
+    R = o.shape[0]
+    dev = o.device
+    mtypes = static.medium_types
+    mats = scene.materials
+    tr = torch.ones((R, 3), device=dev)
+    t_ofs = torch.zeros(R, device=dev)
+    med_id = medium0
+    alive = (active if active is not None
+             else torch.ones(R, dtype=torch.bool, device=dev))
+    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(max_crossings + 1):
+        n_rays = n_rays + alive.sum()
+        its = ray_intersect(scene, static, o, d, t_ofs + 1e-4, dist,
+                            active=alive)
+        seg_end = torch.where(its.valid, its.t, dist)
+        if mtypes:
+            seg_tr = med_mod.eval_transmittance(
+                scene.media, mtypes, med_id, o + t_ofs[..., None] * d, d,
+                torch.clamp(seg_end - t_ofs, min=0.0), sampler, pixel,
+                sample, dim0 + 8 * i, alive)
+            tr = tr * torch.where(alive[..., None], seg_tr, 1.0)
+        mat = torch.clamp(its.mat_id, min=0).to(torch.int64)
+        is_null = mats.type[mat] == bsdf_mod.NULL
+        blocked = alive & its.valid & ~is_null
+        tr = torch.where(blocked[..., None], 0.0, tr)
+        crossing = alive & its.valid & is_null
+        entering = m.dot(d, its.gn) < 0
+        med_id = torch.where(
+            crossing, torch.where(entering, mats.interior_medium[mat],
+                                  mats.exterior_medium[mat]), med_id)
+        t_ofs = torch.where(crossing, its.t, t_ofs)
+        alive = crossing
+    tr = torch.where(alive[..., None], 0.0, tr)
+    return (tr, n_rays) if with_stats else tr
+
+
 def uv_footprint(scene: Scene, its: Interaction, spread):
     """Ray-cone texture footprint in uv units (the isotropic branch of the
     JAX package's ray differentials). ``spread`` is the angular pixel size
@@ -596,6 +669,8 @@ class SceneBuilder:
     shapegroups: list = field(default_factory=list)
     spheres: list = field(default_factory=list)
     irawan: list = field(default_factory=list)  # (pattern dict, repeats)
+    media: list = field(default_factory=list)
+    vol_grids: list = field(default_factory=list)
 
     def add_material(self, type: int = bsdf_mod.DIFFUSE,
                      albedo=(0.5, 0.5, 0.5), albedo_tex: int = -1,
@@ -609,7 +684,8 @@ class SceneBuilder:
                      normal_tex: int = -1, bump_tex: int = -1,
                      bump_scale: float = 1.0, hk_thickness: float = 1.0,
                      hk_g: float = 0.0, cauchy_b: float = 0.0,
-                     irawan: int = -1) -> int:
+                     irawan: int = -1, interior_medium: int = -1,
+                     exterior_medium: int = -1) -> int:
         """A material row with the JAX package's keywords and defaults
         (scene.py:819-865) for the columns the port reads; a scalar
         ``eta`` or ``alpha`` is replicated. An HK row reads sigma_s from
@@ -620,7 +696,9 @@ class SceneBuilder:
         bump map on the row. An IRAWAN row names the weave pattern
         ``irawan`` (``add_irawan_pattern``). ``cauchy_b`` is the row's
         Cauchy dispersion coefficient (um^2), which the spectral render
-        reads."""
+        reads. ``interior_medium`` and ``exterior_medium`` name the media
+        (``add_medium_*``) inside and outside the row's surfaces, -1 for
+        none."""
         if type not in bsdf_mod.SUPPORTED_TYPES:
             raise NotImplementedError(
                 f"BSDF type {type} lands in a later slice of the port")
@@ -642,7 +720,9 @@ class SceneBuilder:
                               weight_tex=weight_tex, normal_tex=normal_tex,
                               bump_tex=bump_tex, bump_scale=bump_scale,
                               hk_thickness=hk_thickness, hk_g=hk_g,
-                              cauchy_b=cauchy_b, irawan=irawan))
+                              cauchy_b=cauchy_b, irawan=irawan,
+                              interior_medium=interior_medium,
+                              exterior_medium=exterior_medium))
         return len(self.mats) - 1
 
     def add_irawan_pattern(self, preset: str = "plain", filename: str = "",
@@ -657,6 +737,114 @@ class SceneBuilder:
               else irawan_mod.preset(preset, kd=kd, ks=ks))
         self.irawan.append((pd, (float(repeat_u), float(repeat_v))))
         return len(self.irawan) - 1
+
+    # --- participating media (the JAX scene.py:931-1051) ---
+    @staticmethod
+    def _phase_kw(phase_type, phase_g, kw):
+        """The medium's phase function: its type tag, g and the other
+        models' parameters (``phase_g2``, ``phase_w2``, ``phase_ks``,
+        ``phase_exp``, ``phase_sigma``, ``phase_axis``) with the JAX
+        builder's defaults."""
+        return dict(
+            phase_type=phase_type, phase_g=phase_g,
+            phase_g2=kw.get("phase_g2", 0.0), phase_w2=kw.get("phase_w2", 0.0),
+            phase_ks=kw.get("phase_ks", 0.0), phase_exp=kw.get("phase_exp", 4.0),
+            phase_sigma=kw.get("phase_sigma", 0.3),
+            phase_axis=tuple(np.asarray(kw.get("phase_axis", (0, 0, 1)),
+                                        float)))
+
+    def add_medium_homogeneous(self, sigma_s=(1.0,) * 3, sigma_a=(0.1,) * 3,
+                               phase_type: int = 0, phase_g: float = 0.0,
+                               scale: float = 1.0, **phase_kw) -> int:
+        """homogeneous.cpp: scattering and absorption coefficients (per RGB
+        channel) times ``scale``. Returns the medium's id."""
+        sigma_s = np.asarray(sigma_s, float)
+        sigma_t = sigma_s + np.asarray(sigma_a, float)
+        albedo = np.divide(sigma_s, np.maximum(sigma_t, 1e-20))
+        self.media.append(dict(
+            type=med_mod.HOMOGENEOUS, sigma_t=tuple(sigma_t),
+            albedo=tuple(albedo), scale=scale, grid=-1,
+            world_to_grid=np.eye(4),
+            **self._phase_kw(phase_type, phase_g, phase_kw)))
+        return len(self.media) - 1
+
+    def add_medium_heterogeneous(self, density_grid, sigma_t=(1.0,) * 3,
+                                 albedo=(0.8,) * 3, phase_type: int = 0,
+                                 phase_g: float = 0.0, scale: float = 1.0,
+                                 world_to_grid=None, **phase_kw) -> int:
+        """heterogeneous.cpp over a (D, H, W) density grid: extinction
+        ``sigma_t`` times density times ``scale``; ``world_to_grid`` maps
+        the grid's box onto the unit cube (identity by default). Returns
+        the medium's id."""
+        self.vol_grids.append(np.asarray(density_grid, np.float32))
+        self.media.append(dict(
+            type=med_mod.HETEROGENEOUS,
+            sigma_t=tuple(np.asarray(sigma_t, float)),
+            albedo=tuple(np.asarray(albedo, float)), scale=scale,
+            grid=len(self.vol_grids) - 1,
+            world_to_grid=(np.eye(4) if world_to_grid is None
+                           else np.asarray(world_to_grid, float)),
+            **self._phase_kw(phase_type, phase_g, phase_kw)))
+        return len(self.media) - 1
+
+    def _build_media(self, dev) -> med_mod.MediumTable:
+        """The medium table: the rows, the grids zero-padded into one stack,
+        each medium's majorant, and per grid the supergrid of maxima over
+        each of SUPER_RES^3 cells dilated by one voxel."""
+        if not self.media:
+            return med_mod.MediumTable.empty(dev)
+        grids = self.vol_grids
+        if grids:
+            shape = tuple(max(g.shape[k] for g in grids) for k in range(3))
+            stack = np.zeros((len(grids),) + shape, np.float32)
+            sizes = np.zeros((len(grids), 3), np.int32)
+            for i, g in enumerate(grids):
+                stack[i, :g.shape[0], :g.shape[1], :g.shape[2]] = g
+                sizes[i] = g.shape
+        else:
+            stack = np.zeros((1, 1, 1, 1), np.float32)
+            sizes = np.ones((1, 3), np.int32)
+        maj = []
+        for mm in self.media:
+            smax = max(mm["sigma_t"]) * mm["scale"]
+            if mm["grid"] >= 0:
+                smax = float(np.mean(mm["sigma_t"])) * mm["scale"] * float(
+                    grids[mm["grid"]].max())
+            maj.append(max(smax, 1e-9))
+        S = med_mod.SUPER_RES
+        if grids:
+            super_maj = np.zeros((len(grids), S, S, S), np.float32)
+            for i, g in enumerate(grids):
+                # each cell's voxel range [lo, hi] on every axis, one voxel
+                # wider on each side
+                rng = [[(max(int(np.floor(c / S * (n - 1))) - 1, 0),
+                         min(int(np.ceil((c + 1) / S * (n - 1))) + 1, n - 1))
+                        for c in range(S)] for n in g.shape]
+                for cz, (z0, z1) in enumerate(rng[0]):
+                    for cy, (y0, y1) in enumerate(rng[1]):
+                        for cx, (x0, x1) in enumerate(rng[2]):
+                            super_maj[i, cz, cy, cx] = g[
+                                z0:z1 + 1, y0:y1 + 1, x0:x1 + 1].max()
+        else:
+            super_maj = np.ones((1, 1, 1, 1), np.float32)
+
+        def col(key, dtype=np.float32):
+            return torch.as_tensor(
+                np.asarray([mm[key] for mm in self.media], dtype), device=dev)
+
+        return med_mod.MediumTable(
+            type=col("type", np.int32), sigma_t=col("sigma_t"),
+            albedo=col("albedo"), phase_type=col("phase_type", np.int32),
+            phase_g=col("phase_g"), phase_g2=col("phase_g2"),
+            phase_w2=col("phase_w2"), phase_ks=col("phase_ks"),
+            phase_exp=col("phase_exp"), phase_sigma=col("phase_sigma"),
+            phase_axis=col("phase_axis"), scale=col("scale"),
+            grid_idx=col("grid", np.int32),
+            grids=torch.as_tensor(stack, device=dev),
+            grid_size=torch.as_tensor(sizes, device=dev),
+            world_to_grid=col("world_to_grid"),
+            majorant=torch.as_tensor(np.asarray(maj, np.float32), device=dev),
+            super_maj=torch.as_tensor(super_maj, device=dev))
 
     def _add_texture(self, type, color0=(0.0,) * 3, color1=(0.0,) * 3,
                      uv_scale=(1.0, 1.0), uv_offset=(0.0, 0.0),
@@ -842,6 +1030,12 @@ class SceneBuilder:
                 for key in ("nested_a", "nested_b") if mm[key] >= 0})),
             has_normal_maps=any(mm["normal_tex"] >= 0 or mm["bump_tex"] >= 0
                                 for mm in mats),
+            medium_types=tuple(sorted({mm["type"] for mm in self.media})),
+            phase_types=tuple(sorted({mm["phase_type"]
+                                      for mm in self.media})),
+            has_boundary_media=any(mm["interior_medium"] >= 0
+                                   or mm["exterior_medium"] >= 0
+                                   for mm in mats),
         )
         emitter_types = tuple(sorted({e["type"] for e in self.emitters}))
         check_supported(dict(n_tris=T, use_bvh=use_bvh,
@@ -1040,6 +1234,10 @@ class SceneBuilder:
                 bump_scale=f32([mm["bump_scale"] for mm in self.mats]),
                 cauchy_b=f32([mm["cauchy_b"] for mm in self.mats]),
                 irawan=i32([mm["irawan"] for mm in self.mats]),
+                interior_medium=i32([mm["interior_medium"]
+                                     for mm in self.mats]),
+                exterior_medium=i32([mm["exterior_medium"]
+                                     for mm in self.mats]),
             ),
             textures=tex_mod.build_table(self.textures, self.bitmaps, dev),
             emitters=em_mod.EmitterTable(
@@ -1054,6 +1252,7 @@ class SceneBuilder:
             ),
             irawan=irawan_mod.build_table([p for p, _ in self.irawan],
                                           [r for _, r in self.irawan], dev),
+            media=self._build_media(dev),
         )
         static = SceneStatic(
             n_tris=T, n_spheres=S, use_bvh=use_bvh,

@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Image statistics of the sensor-header, gallery, lights-and-cameras and
-cloth-and-spectra renders through the JAX package on the CPU.
+"""Image statistics of the sensor-header, gallery, lights-and-cameras,
+cloth-and-spectra and participating-media renders through the JAX package
+on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/jax_header_ref_mean.py
         [--block-y Y] [--eye-shift DX] [LABEL ...]
@@ -50,7 +51,14 @@ them without one):
   by ``api.render``; ``spectral cauchy_b {B}`` for each B of
   ``chip_smoke.SPECTRAL_CAUCHY``, ``chip_smoke.spectral_scene`` built by
   the JAX builder and rendered by ``api.render_spectral`` at
-  ``chip_smoke.SPECTRAL_RES``, ``SPECTRAL_SPP`` and ``SPECTRAL_DEPTH``.
+  ``chip_smoke.SPECTRAL_RES``, ``SPECTRAL_SPP`` and ``SPECTRAL_DEPTH``;
+- participating media (phase 9j): ``volumes {variant}`` for each variant of
+  ``chip_smoke.VOLUME_DEFINES``, ``chip_smoke.volume_xml``'s text (the
+  volumetric path tracer on cbox.xml with a medium in its glass sphere, on
+  cbox.xml with a smoke plume's grid in a null cube, and on the fallback
+  heightfield in a box of fog) with the grid and the PLY written beside it
+  by ``chip_smoke.write_volume_files``, loaded with the variant's defines
+  and rendered by ``api.render``.
 
 Every scene file is loaded with its difftrans rows made as
 ``add_material(type=DIFFTRANS, spec_trans=t)`` (``difftrans_in_spec_trans``):
@@ -274,6 +282,10 @@ def renders(labels=(), block_y=None, eye_shift=0.0):
                 chip_smoke.cloth_xml(v), 0, 0, chip_smoke.CLOTH_DEFINES)))
         for b in chip_smoke.SPECTRAL_CAUCHY:
             out.append((f"spectral cauchy_b {b}", lambda b=b: spectral(b)))
+        chip_smoke.write_volume_files(tmp)
+        for v, defines in chip_smoke.VOLUME_DEFINES.items():
+            out.append((f"volumes {v}", lambda v=v, defines=defines:
+                        scene_file(chip_smoke.volume_xml(v), 0, 0, defines)))
         values = {}
         for label, thunk in out:
             if labels and not any(label.startswith(x) for x in labels):

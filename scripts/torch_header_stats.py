@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Image statistics of the sensor-header, gallery, lights-and-cameras and
-cloth-and-spectra renders through the port, beside the JAX package's values
-that chip_smoke.py holds them to.
+"""Image statistics of the sensor-header, gallery, lights-and-cameras,
+cloth-and-spectra and participating-media renders through the port, beside
+the JAX package's values that chip_smoke.py holds them to.
 
     python scripts/torch_header_stats.py [--device cpu|cuda] [--threads N]
         [--block-y Y] [--eye-shift DX] [LABEL ...]
@@ -11,19 +11,19 @@ Renders each render of ``chip_smoke.py``'s sensor-header phase (9e,
 phase (9f, ``chip_smoke.gallery_renders``, labels ``gallery {variant}``),
 layered-gallery phase (9g, labels ``layered {variant}``) and
 lights-and-cameras phase (9h, ``chip_smoke.lights_renders``, labels
-``lights {variant}``; a meter's value against ``METER_REF``) and
+``lights {variant}``; a meter's value against ``METER_REF``),
 cloth-and-spectra phase (9i, ``chip_smoke.cloth_renders`` and
 ``spectral_renders``, labels ``cloth {variant}`` and ``spectral cauchy_b
-{B}``, the latter through ``api.render_spectral``) whose label
-starts with one of the LABELs (all of them without one) through this
-tree's
-``mitsuba_tpu_torch`` on ``--device`` (the card by default), and prints its
+{B}``, the latter through ``api.render_spectral``) and participating-media
+phase (9j, ``chip_smoke.volume_renders``, labels ``volumes {variant}``)
+whose label starts with one of the LABELs (all of them without one)
+through this tree's ``mitsuba_tpu_torch`` on ``--device`` (the card by default), and prints its
 ``mean_rgb`` and ``tv_rgb`` with their relative gaps to
 ``chip_smoke.HEADER_REF`` (``scripts/jax_header_ref_mean.py``'s values) and
 the seconds it took. It imports nothing of JAX. Run from a copy of the tree
 with a piece of the port broken on purpose, it shows how far that break
 moves each statistic against the limits ``HEADER_MEAN_RTOL`` and
-``HEADER_TV_RTOL``. ``--block-y`` and ``--eye-shift`` go to
+``HEADER_TV_RTOL`` (9j: ``VOLUME_MEAN_RTOL`` and ``VOLUME_TV_RTOL``). ``--block-y`` and ``--eye-shift`` go to
 ``chip_smoke.gallery_xml``: the gallery's short block at another height, the
 camera moved along x (the rounding check of PERF.md section 6, PR 14).
 """
@@ -61,7 +61,8 @@ def main() -> int:
         return not args.labels or any(label.startswith(x) for x in args.labels)
 
     print(f"tree {ROOT}; device {dev}; limits: mean {cs.HEADER_MEAN_RTOL}, "
-          f"tv {cs.HEADER_TV_RTOL} relative", flush=True)
+          f"tv {cs.HEADER_TV_RTOL} relative (9j: {cs.VOLUME_MEAN_RTOL}, "
+          f"{cs.VOLUME_TV_RTOL})", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         cases = cs.header_renders(dev, tmp, cs.cornell(dev))
         for g in (cs.MATERIAL_GALLERY, cs.LAYERED_GALLERY):
@@ -70,6 +71,7 @@ def main() -> int:
         cases.update(cs.lights_renders(dev, tmp))
         cases.update(cs.cloth_renders(dev, tmp))
         cases.update(cs.spectral_renders(dev))
+        cases.update(cs.volume_renders(dev, tmp))
         if wanted("ao bunny_x2"):
             cases["ao bunny_x2"] = cs.bunny_ao_case(cs.bunny(dev))
         for label, (scene, static, sensor, cfg, settings, _) in cases.items():

@@ -43,6 +43,11 @@ from mitsuba_tpu_torch.render import bsdf as tbsdf
 from mitsuba_tpu_torch.render import microfacet as tmf
 from mitsuba_tpu_torch.utils import chi2 as tchi2
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 R = 4096
 TOL = dict(rtol=1e-5, atol=1e-6)
 SAMPLE_TOL = dict(rtol=3e-5, atol=1e-6)

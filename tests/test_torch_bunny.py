@@ -47,6 +47,11 @@ from mitsuba_tpu_torch.render import shapes as tshapes
 from mitsuba_tpu_torch.render import texture as ttex
 from mitsuba_tpu_torch.render.integrators import common as tcommon
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-6)
 W = H = 32
 SPP = 2

@@ -38,6 +38,11 @@ from mitsuba_tpu_torch import native
 from mitsuba_tpu_torch.accel import build as tbuild
 from mitsuba_tpu_torch.ops import cuda_bvh as cb
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 TOL = {"t": dict(rtol=1e-5, atol=1e-6), "u": dict(rtol=1e-5, atol=1e-5),
        "v": dict(rtol=1e-5, atol=1e-5)}
 OUT = ("hit", "t", "idx", "u", "v")

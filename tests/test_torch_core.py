@@ -22,6 +22,11 @@ from mitsuba_tpu_torch.core import rng as trng
 from mitsuba_tpu_torch.core import transform as ttransform
 from mitsuba_tpu_torch.core import warp as twarp
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 FLOAT_TOL = dict(rtol=1e-6, atol=1e-6)
 
 

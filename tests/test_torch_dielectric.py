@@ -22,6 +22,11 @@ from mitsuba_tpu_torch.render import bsdf as tbsdf
 from mitsuba_tpu_torch.render import scene as tscene
 from mitsuba_tpu_torch.render import shapes as tshapes
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-6)
 BK7 = 1.5046
 R = 4096

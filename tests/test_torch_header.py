@@ -52,6 +52,11 @@ from mitsuba_tpu_torch.render.integrators import misc as tmisc
 from test_torch_sampler import jax_sampler  # noqa: F401 (a fixture)
 from test_torch_scenefile import jax_render
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(REPO / "scripts")]
 from jax_header_ref_mean import variant_xml  # noqa: E402

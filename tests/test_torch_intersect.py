@@ -26,6 +26,11 @@ from mitsuba_tpu.ops import pallas_intersect as pti
 from mitsuba_tpu_torch.ops import cuda_intersect as bf
 from mitsuba_tpu_torch.ops import intersect as tisect
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-6)
 TRI_FIELDS = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
               "tri_uv0", "tri_uv1", "tri_uv2", "tri_gn", "tri_mat",

@@ -52,6 +52,11 @@ from mitsuba_tpu_torch.render.integrators import common as tcommon
 from test_torch_materials import _both, _equal_tables
 from test_torch_render import FIELD_PATHS, _leaf, jax_scene_arrays
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 R = 4096
 # the spot at (0, 10, 0) pointing down; lanes at (3, 6, 0) and (5, -2, 0)
 # see it at cos = 4/5 and 12/13 exactly: its cutoff and beam width

@@ -29,6 +29,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from mitsuba_tpu.io import mitsuba_xml as jxml
 from mitsuba_tpu.render import bsdf as jbsdf
@@ -43,6 +44,11 @@ from mitsuba_tpu_torch.render import shapes as tshapes
 from test_torch_plastic import _gathered
 from test_torch_render import FIELD_PATHS, _leaf, jax_scene_arrays
 from test_torch_scenefile import jax_render
+
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(REPO), str(REPO / "scripts")]

@@ -44,6 +44,11 @@ from mitsuba_tpu_torch.core import math as tm
 from mitsuba_tpu_torch.render import bsdf as tbsdf
 from mitsuba_tpu_torch.render import microfacet as tmf
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
 import jax_train_ref  # noqa: E402
 

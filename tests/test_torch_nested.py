@@ -61,6 +61,11 @@ from test_torch_materials import _both, _equal_tables
 from test_torch_plastic import _Recorder
 from test_torch_render import _leaf
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(REPO)]
 import chip_smoke  # noqa: E402

@@ -44,6 +44,11 @@ from mitsuba_tpu_torch.render import sensor as tsensor
 from mitsuba_tpu_torch.render import shapes as tshapes
 from mitsuba_tpu_torch.render.integrators import common as tcommon
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-6)
 EYE, AT, UP, FOV = [0.5, 0.5, -1.39], [0.5, 0.5, 0.5], [0, 1, 0], 39.0
@@ -57,7 +62,13 @@ MAT_FIELDS = ("type", "dist", "albedo", "albedo_tex", "spec_refl", "eta", "k",
               "alpha", "twosided", "spec_trans", "nonlinear", "rt_coef",
               "rt_fdr", "hk_thickness", "hk_g", "opacity_tex", "nested_a",
               "nested_b", "weight", "weight_tex", "normal_tex", "bump_tex",
-              "bump_scale", "cauchy_b", "irawan")
+              "bump_scale", "cauchy_b", "irawan", "interior_medium",
+              "exterior_medium")
+# the participating media (render/medium.py)
+MEDIUM_FIELDS = ("type", "sigma_t", "albedo", "phase_type", "phase_g",
+                 "phase_g2", "phase_w2", "phase_ks", "phase_exp",
+                 "phase_sigma", "phase_axis", "scale", "grid_idx", "grids",
+                 "grid_size", "world_to_grid", "majorant", "super_maj")
 # the weave-pattern table (render/irawan.py)
 IRAWAN_FIELDS = ("pattern", "tile_w", "tile_h", "yarns", "yarn_kd", "yarn_ks",
                  "meta", "repeat", "spec_norm")
@@ -86,6 +97,7 @@ def jax_scene_arrays(scene):
         "color0", "color1", "line_width"))
     arrays["emitters"] = _np_tree(scene.emitters, EM_FIELDS)
     arrays["irawan"] = _np_tree(scene.irawan, IRAWAN_FIELDS)
+    arrays["media"] = _np_tree(scene.media, MEDIUM_FIELDS)
     return arrays
 
 
@@ -114,7 +126,8 @@ def _leaf(port_scene, path):
 FIELD_PATHS = ([(f,) for f in SCENE_FIELDS] + [("materials", f) for f in MAT_FIELDS]
                + [("textures", f) for f in TEX_FIELDS]
                + [("emitters", f) for f in EM_FIELDS]
-               + [("irawan", f) for f in IRAWAN_FIELDS])
+               + [("irawan", f) for f in IRAWAN_FIELDS]
+               + [("media", f) for f in MEDIUM_FIELDS])
 
 
 @pytest.mark.parametrize("path", FIELD_PATHS, ids=".".join)
@@ -169,17 +182,34 @@ def test_bridge_sensor(sensors):
 # smooth conductor 2 and the rough dielectric 6 with the single-layer BSDFs,
 # the opacity textures and the mask 12 and rough coating 18 with the nested
 # and layered ones, the point 1, directional 4 and spot 5 lights with the
-# delta lights, irawan 19, the last BSDF type, with the woven cloth)
+# delta lights, irawan 19, the last BSDF type, with the woven cloth);
+# medium 2 and phase 6 are tags no medium and no phase function has (the
+# boundary media, the homogeneous and grid media 0 and 1 and the six phase
+# functions 0-5 joined the port with the volumetric path tracer: see
+# test_media_facts_carry_over)
 @pytest.mark.parametrize("change", [
-    dict(has_sss=True), dict(has_singlescatter=True),
-    dict(has_boundary_media=True), dict(ewa_taps=4), dict(bsdf_types=(0, 20)),
-    dict(nested_bsdf_types=(20,)), dict(medium_types=(0,)),
-    dict(phase_types=(0,)),
+    dict(has_sss=True), dict(has_singlescatter=True), dict(ewa_taps=4),
+    dict(bsdf_types=(0, 20)), dict(nested_bsdf_types=(20,)),
+    dict(medium_types=(2,)), dict(phase_types=(6,)),
 ])
 def test_later_slices_raise(cornell, change):
     static = dict(dataclasses.asdict(cornell[1]), **change)
     with pytest.raises(NotImplementedError):
         bridge.scene_from_arrays(jax_scene_arrays(cornell[0]), static, device="cpu")
+
+
+# the media's static facts, which raised in test_later_slices_raise until
+# the port rendered them: each now carries over
+@pytest.mark.parametrize("change", [
+    dict(has_boundary_media=True), dict(medium_types=(0, 1)),
+    dict(phase_types=(0, 1, 2, 3, 4, 5)),
+])
+def test_media_facts_carry_over(cornell, change):
+    static = dict(dataclasses.asdict(cornell[1]), **change)
+    _, st = bridge.scene_from_arrays(jax_scene_arrays(cornell[0]), static,
+                                     device="cpu")
+    for k, v in change.items():
+        assert getattr(st, k) == v
 
 
 def test_sample_ray_matches_jax(sensors):

@@ -22,6 +22,11 @@ from mitsuba_tpu_torch.core import rng as trng
 from mitsuba_tpu_torch.core.sobol_table import SOBOL_DIRECTIONS
 from mitsuba_tpu_torch.render import api as tapi
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 RS = np.random.default_rng(2024)
 # sample indices: the first ones, random ones, and the uint32 edges
 INDICES = [0, 1, 2, 3, 15, 16, 255, 256, 2 ** 16 - 1, 2 ** 31 - 1,

@@ -43,6 +43,11 @@ from mitsuba_tpu_torch.render import shapes as tshapes
 from mitsuba_tpu_torch.render.integrators import common as tcommon
 from test_torch_render import FIELD_PATHS, _leaf, jax_scene_arrays
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 CBOX = str(REPO / "scenes" / "cbox.xml")
 CBOX_DEFINES = {"spp": 4, "res": 8}
@@ -219,13 +224,10 @@ def _shape_bsdf(bsdf):
 
 CASE3 = {
     **{f"integrator-{t}": f'<integrator type="{t}"/>'
-       for t in ("volpath", "ptracer", "bdpt", "pssmlt", "mlt",
+       for t in ("ptracer", "bdpt", "pssmlt", "mlt",
                  "vpl", "sppm", "photonmapper", "irrcache", "adaptive")},
     **{f"emitter-{t}": f'<emitter type="{t}"/>'
        for t in ("sky", "sun", "sunsky")},
-    "medium": '<medium type="homogeneous"/>',
-    "shape-medium": '<shape type="rectangle"><medium name="interior" '
-                    'type="homogeneous"/></shape>',
     "bitmap-png": '<texture type="bitmap"><string name="filename" '
                   'value="tex.png"/></texture>',
 }
@@ -281,14 +283,39 @@ CLOTH_SPECTRA = {
 }
 
 
+# the volumetric integrators and the media, which raised here until the
+# port rendered them: each loads (tests/test_torch_volume.py holds them
+# against the JAX loader): the integrator's type, or the medium table's
+# types and the materials' interior media
+MEDIA = {
+    **{f"integrator-{t}": (f'<integrator type="{t}"/>', tcommon.VOLPATH)
+       for t in ("volpath", "volpath_simple")},
+    "medium": ('<medium type="homogeneous"/>', ([0], [])),
+    "shape-medium": ('<shape type="rectangle"><medium name="interior" '
+                     'type="homogeneous"/></shape>', ([0], [0])),
+}
+
+
 @pytest.mark.parametrize("case", sorted(CASE3) + sorted(NESTED)
-                         + sorted(LIGHTS) + sorted(CLOTH_SPECTRA))
+                         + sorted(LIGHTS) + sorted(CLOTH_SPECTRA)
+                         + sorted(MEDIA))
 def test_later_slice_elements_raise(tmp_path, case):
     (tmp_path / "tex.png").write_bytes(b"\x89PNG\r\n\x1a\n")
     (tmp_path / "w.cloth").write_text("weave { pattern { 1, 2, 2, 1 }, "
                                       "yarn { type = warp }, "
                                       "yarn { type = weft } }")
     path = tmp_path / "s.xml"
+    if case in MEDIA:
+        body, want = MEDIA[case]
+        path.write_text(_scene_xml(body))
+        ls = txml.load_scene(str(path), device="cpu")
+        if case.startswith("integrator"):
+            assert ls.integrator.type == want
+        else:
+            inside = ls.scene.materials.interior_medium.tolist()
+            assert ls.scene.media.type.tolist() == want[0]
+            assert [m for m in inside if m >= 0] == want[1]
+        return
     if case in CLOTH_SPECTRA:
         body, want = CLOTH_SPECTRA[case]
         path.write_text(_scene_xml(body))

@@ -44,6 +44,11 @@ from mitsuba_tpu_torch.render import shapes as tshapes
 from mitsuba_tpu_torch.render.integrators import common as tcommon
 from test_torch_render import FIELD_PATHS, _leaf
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(REPO)]
 import chip_smoke  # noqa: E402

@@ -60,6 +60,11 @@ from mitsuba_tpu_torch.render import sensor as tsensor
 from mitsuba_tpu_torch.render.integrators import common as tcommon
 from mitsuba_tpu_torch.render.integrators import path as tpath
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(REPO), str(REPO / "scripts")]
 import chip_smoke  # noqa: E402

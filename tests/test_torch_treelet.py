@@ -55,6 +55,11 @@ from mitsuba_tpu_torch.render import shapes as tshapes
 from mitsuba_tpu_torch.render.integrators import common as tcommon
 from test_torch_bvh import _preorder, _tie_grid
 
+# PyTorch on one thread: beside XLA's CPU thread pool, and the other test
+# workers', its own pool makes the port's small eager ops many times
+# slower
+torch.set_num_threads(1)
+
 TOL = {"t": dict(rtol=1e-5, atol=1e-6), "u": dict(rtol=1e-5, atol=1e-5),
        "v": dict(rtol=1e-5, atol=1e-5)}
 OUT = ("hit", "t", "idx", "u", "v")
