@@ -161,7 +161,7 @@ timed (the seconds printed at its end and together before the JSON lines):
      the nine single-layer BSDFs (gallery_xml: conductor Au, rough dielectric
      GGX 0.15 and Beckmann 0.3, thin dielectric, rough diffuse, Phong, Ward,
      difftrans, HK, null), each through load_scene + api.render at 256x256,
-     64 spp, depth 5, Gaussian filter, held to 320 K1 + 320 K2 launches and
+     32 spp, depth 5, Gaussian filter, held to 160 K1 + 160 K2 launches and
      to the JAX package's CPU mean and tv_rgb within HEADER_MEAN_RTOL and
      HEADER_TV_RTOL per channel (scripts/jax_header_ref_mean.py), with
      wall time, ms/spp, rays/s and the peak memory; then the CLI on the HK
@@ -213,6 +213,20 @@ timed (the seconds printed at its end and together before the JSON lines):
      within VOLUME_MEAN_RTOL and VOLUME_TV_RTOL, with the tracking steps
      its lanes took and the host time in the tracking loops; then the CLI on the medium sphere's file, whose EXR must equal
      its image;
+ 9k. the sun and the sky, and subsurface scattering: sky_xml's scenes
+     through load_scene + api.render at 128x128, path depth 5: the terrain
+     PLY of 9j under a Hosek sunsky (sunDirection, an RGB ground albedo),
+     8 spp, with bench's bunny dispatch (1 K4 + 30 K3 per sample), and a
+     floor and a diffuse sphere under a Preetham sky and a sun of one date,
+     time and place, 16 spp (80 + 80 K1/K2), each loaded scene's baked map
+     and sun irradiance held to the JAX loader's bit for bit (SKY_DIGESTS,
+     SHA-256); subsurface_scene through the port's builder at 256x256, 16
+     spp, depth 5: the Cornell box with a dipole tall block, its point
+     cloud placed by subsurface.prepare at its defaults (512 points, 16 NEE
+     samples: 16 K2 launches, timed apart; 80 + 80 in the render), and the
+     Cornell box with a single-scatter sphere of eta 1.3 (3 K1 + 2 K2 per
+     bounce and sample: 240 + 160); each render held as phase 9f's, with
+     wall time, ms/spp, rays/s and the peak memory;
  10. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
      2, seed 0 (bench.py:289-293); checks 10 launches of K4 and 300 of K3
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
@@ -229,8 +243,8 @@ timed (the seconds printed at its end and together before the JSON lines):
      (["kdbench", path], defaults: 2^18 rays, 3 repeats); checks that the
      treelet and lane-resort kernels report the same hit rate on each batch
      and that K7 and K3 launched as the utility drives them;
- 13. profile: one render pass of the Cornell box and of the bunny (in both
-     BVH modes) under torch.profiler, printing the device's busy share of
+ 13. profile: one render pass of the Cornell box and of the bunny (lane
+     mode) under torch.profiler, printing the device's busy share of
      the wall time, the pass's device kernel launches, the kernels that take
      it and each port kernel's render mean per launch; K4's render mean
      beside its times of phase 4; and the backward of one lane gather from a
@@ -278,6 +292,7 @@ from mitsuba_tpu_torch.render import emitter as em_mod
 from mitsuba_tpu_torch.render import microfacet as mf
 from mitsuba_tpu_torch.render import scene as scene_mod
 from mitsuba_tpu_torch.render import sensor as sensor_mod
+from mitsuba_tpu_torch.render import subsurface as sss_mod
 from mitsuba_tpu_torch.render.integrators.common import (
     AO, DIM_BASE, DIM_BSDF, DIM_NEE, DIRECT, FIELD, FIELD_ALBEDO,
     FIELD_POSITION, PATH, IntegratorConfig, ray_offset)
@@ -549,59 +564,59 @@ HEADER_REF = {
         (0.6041403350492942, 0.5563607621990627, 0.4755961521263714),
         (0.0016849335373485, 0.002121223633882905, 0.002719655882946713)),
     # the material gallery (phase 9f), scripts/jax_header_ref_mean.py's
-    # gallery renders
+    # gallery renders (at 32 spp since phase 9k)
     "gallery conductor": (
-        (0.22035015898003768, 0.16790580956965248,
-         0.07208642256044794),
-        (0.0202424567097491, 0.014168879572407972,
-         0.004686767218360395)),
+        (0.2201457211293903, 0.16766945549604706,
+         0.07199775437706515),
+        (0.02285459342655013, 0.015825582819393596,
+         0.0051927028472720325)),
     "gallery roughdielectric ggx": (
-        (0.21355376831443776, 0.16668953988824567,
-         0.07535592985857649),
-        (0.01134782503482132, 0.009084258025774575,
-         0.004245123818792361)),
+        (0.21339089297154662, 0.1665060262894268,
+         0.0752660278542844),
+        (0.012975933729689313, 0.010275013040949882,
+         0.004759448559439423)),
     "gallery roughdielectric beckmann": (
-        (0.2134476305616821, 0.16653752415069162,
-         0.07528106861267846),
-        (0.011319668122342417, 0.009054071982361715,
-         0.0042256302877637375)),
+        (0.21330143743477756, 0.16637444194221965,
+         0.07520189750820702),
+        (0.013033335247278007, 0.010305598558440869,
+         0.004769429769844215)),
     "gallery thindielectric": (
-        (0.21972370126185872, 0.17128105924187623,
-         0.07743872162144318),
-        (0.01577665562485624, 0.01258500540419056,
-         0.00584773715999566)),
+        (0.21982599063671476, 0.1712744103302365,
+         0.07744745119865931),
+        (0.018497475481969082, 0.014631096503037986,
+         0.006771475776313805)),
     "gallery roughdiffuse": (
-        (0.21308430590533545, 0.16237243247299193,
-         0.07120084651643853),
-        (0.010512895131504538, 0.008063178030675905,
-         0.0036517819700389717)),
+        (0.2129427539714235, 0.16220332631515902,
+         0.07111734380863177),
+        (0.01201013710410004, 0.009068744866391542,
+         0.004032640945202973)),
     "gallery phong": (
-        (0.21019963295185995, 0.16328532952344965,
-         0.07343894071198205),
-        (0.011374355958248535, 0.008972658847127012,
-         0.004191376942762313)),
+        (0.21003315627209274, 0.1630965063473656,
+         0.07334737705700703),
+        (0.01305823345491042, 0.010170929469529607,
+         0.004699053941967854)),
     "gallery ward": (
-        (0.20928867138363105, 0.16265959150674617,
-         0.07317904482396649),
-        (0.010836224139934438, 0.008591527030939168,
-         0.0040207549463084575)),
+        (0.20913041920944356, 0.16247769686976282,
+         0.07308826109005284),
+        (0.012381859965255138, 0.009710451313283406,
+         0.004492551115869625)),
     # the difftrans row carries the file's transmittance in spec_trans (its
     # lobe's column; the JAX loader's albedo column is read by no lobe)
     "gallery difftrans": (
-        (0.20935489356762838, 0.16054416615686004,
-         0.0715809099896078),
-        (0.010354935422598967, 0.008053641107680766,
-         0.003714357497644973)),
+        (0.209198292983026, 0.16038070956158848,
+         0.07149776012476879),
+        (0.011900588744426326, 0.009116630005062756,
+         0.004136489361852182)),
     "gallery hk": (
-        (0.20403838192461193, 0.15895111894186206,
-         0.07179679091658335),
-        (0.010978833019142417, 0.008691760933636092,
-         0.004065213813902336)),
+        (0.20386365861676875, 0.15877240709456836,
+         0.0717057908467959),
+        (0.01246870012151112, 0.00976626706260896,
+         0.004519902305385627)),
     "gallery null": (
-        (0.2203347729023016, 0.17201969499854264,
-         0.07786997805837186),
-        (0.014434126690758302, 0.011421012237216026,
-         0.005297890968912188)),
+        (0.22043940394608594, 0.17207682193177118,
+         0.07789517850116295),
+        (0.017204180511311704, 0.01355544549510065,
+         0.006264820288374416)),
     # the layered gallery (phase 9g), scripts/jax_header_ref_mean.py's
     # layered renders (32 spp)
     "layered mask constant": (
@@ -698,6 +713,29 @@ HEADER_REF = {
     "volumes fog_terrain": (
         (0.3750483208161768, 0.44497437294785414, 0.582414051569458),
         (0.02881972749871532, 0.027729650891081644, 0.030015640281595465)),
+    # sky and subsurface (phase 9k), scripts/jax_header_ref_mean.py's sky
+    # and subsurface renders (sky_xml with SKY_DEFINES; subsurface_scene
+    # through prepare at SSS_RES, SSS_SPP, depth SSS_DEPTH)
+    "sky sunsky_terrain": (
+        (0.2745535930568209, 0.21968099825926993,
+         0.1548795635221474),
+        (0.0748402362669752, 0.05436897377736287,
+         0.028557135416318078)),
+    "sky open_preetham": (
+        (1.4946879788795258, 1.4713325849933767,
+         1.323861706373748),
+        (0.1950957279489479, 0.18978457296391818,
+         0.15628366004382296)),
+    "subsurface dipole": (
+        (0.4881248953485323, 0.37384646082349726,
+         0.16942873228778077),
+        (0.02840900449028082, 0.021046625597257375,
+         0.009319762566652096)),
+    "subsurface singlescatter": (
+        (0.4958570755068723, 0.3873471740450649,
+         0.17523568274334317),
+        (0.03898228427376888, 0.029349779421913746,
+         0.013264661800920835)),
 }
 # the meters of phase 9h through the JAX package's render_meter on its CPU
 # backend, 65,536 samples: scripts/jax_header_ref_mean.py's lights meters
@@ -857,9 +895,9 @@ class Gallery:
                            sphere_glass=variant in self.glass_sphere, **kw)
 
 
-# phase 9f at the file's 64 spp; phase 9g at 32, so that the script stays
-# within its time (PERF.md section 4)
-MATERIAL_GALLERY = Gallery("gallery", GALLERY_BSDFS, CBOX_SPP, "hk")
+# phases 9f and 9g at 32 spp (9f at the file's 64 until phase 9k took its
+# time), so that the script stays within its time (PERF.md section 4)
+MATERIAL_GALLERY = Gallery("gallery", GALLERY_BSDFS, 32, "hk")
 LAYERED_GALLERY = Gallery("layered", LAYERED_BSDFS, 32, "roughcoating",
                           glass_sphere=("normalmap", "bumpmap"))
 
@@ -1105,6 +1143,177 @@ def spectral_scene(builder, bsdf, shapes, transform, cauchy_b):
     builder.add_mesh(v, f, builder.add_material(albedo=(0, 0, 0)),
                      emitter_radiance=(5.0, 5.0, 5.0), uvs=uv)
     return builder
+
+
+# subsurface scattering (phase 9k): the Cornell box of shapes.cornell_box
+# (its walls, light and short block, the same camera) with its tall block
+# made of a dipole material, or with a sphere of refracted single
+# scattering floating over the short block (both in the CPU test's scene),
+# built by the builder (the loaders have no subsurface element); the
+# dipole's point cloud by subsurface.prepare at its defaults (512 points,
+# 16 NEE samples, seed 7). The block's surface is a black diffuse, so it
+# shows its subsurface term alone; the sphere is a dielectric of eta 1.3
+SSS_DIPOLE = dict(sigma_s=(18.0, 14.0, 10.0), sigma_a=(0.4, 0.7, 1.2),
+                  g=0.0, eta=1.3)
+SSS_SINGLE = dict(sigma_s=(3.0, 2.4, 1.8), sigma_a=(0.3, 0.4, 0.6), g=0.3,
+                  eta=1.3)
+SSS_SPHERE = ((0.27, 0.47, 0.22), 0.15)   # over the short block's top, 0.30
+SSS_RES, SSS_SPP, SSS_DEPTH = 256, 16, 5
+SSS_VARIANTS = {"dipole": dict(dipole=True, sphere=False),
+                "singlescatter": dict(dipole=False, sphere=True)}
+
+
+def subsurface_scene(builder, bsdf, shapes, transform, sss, dipole=True,
+                     sphere=True):
+    """The subsurface scene added to ``builder`` (a SceneBuilder of either
+    package, with that package's ``bsdf``, ``shapes``, ``Transform`` and
+    ``subsurface`` modules): shapes.cornell_box's walls, light and short
+    block, its tall block white or (``dipole``) a dipole of SSS_DIPOLE, and
+    (``sphere``) a single-scatter sphere of SSS_SINGLE. Returns the
+    builder."""
+    white = builder.add_material(albedo=(0.725, 0.71, 0.68))
+    red = builder.add_material(albedo=(0.63, 0.065, 0.05))
+    green = builder.add_material(albedo=(0.14, 0.45, 0.091))
+    dark = builder.add_material(albedo=(0.0, 0.0, 0.0))
+    faces = np.array([[0, 1, 2], [0, 2, 3]])
+    uvs = np.array([[0.0, 0.0], [1.0, 0.0], [1.0, 1.0], [0.0, 1.0]])
+    e = 1e-3
+    for quad, mat, em in (
+            ([[0, 0, 0], [0, 0, 1], [1, 0, 1], [1, 0, 0]], white, None),
+            ([[0, 1, 0], [1, 1, 0], [1, 1, 1], [0, 1, 1]], white, None),
+            ([[0, 0, 1], [0, 1, 1], [1, 1, 1], [1, 0, 1]], white, None),
+            ([[0, 0, 0], [0, 1, 0], [0, 1, 1], [0, 0, 1]], red, None),
+            ([[1, 0, 0], [1, 0, 1], [1, 1, 1], [1, 1, 0]], green, None),
+            ([[0.343, 1 - e, 0.332], [0.656, 1 - e, 0.332],
+              [0.656, 1 - e, 0.645], [0.343, 1 - e, 0.645]], dark,
+             (18.4, 15.6, 8.0))):
+        builder.add_mesh(np.array(quad, np.float64), faces, mat,
+                         emitter_radiance=em, uvs=uvs)
+    tall = white
+    if dipole:
+        tall = builder.add_material(
+            albedo=(0.0, 0.0, 0.0),
+            subsurface=builder.add_subsurface(**SSS_DIPOLE))
+    for mat, lo, hi, deg in ((white, (0.130, 0.0, 0.065), (0.4, 0.30, 0.38),
+                              -18.0),
+                             (tall, (0.53, 0.0, 0.36), (0.75, 0.60, 0.70),
+                              16.5)):
+        lo, hi = np.asarray(lo), np.asarray(hi)
+        v, f, uv = shapes.cube(transform.translate(0.5 * (lo + hi))
+                               * transform.rotate([0, 1, 0], deg)
+                               * transform.scale(0.5 * (hi - lo)))
+        builder.add_mesh(v, f, mat, uvs=uv)
+    if sphere:
+        ss = builder.add_subsurface(**SSS_SINGLE,
+                                    mode=sss.MODE_SINGLESCATTER)
+        builder.add_sphere(*SSS_SPHERE, builder.add_material(
+            type=bsdf.DIELECTRIC, eta=SSS_SINGLE["eta"], subsurface=ss))
+    return builder
+
+
+# the sun and the sky (phase 9k): "sunsky_terrain" is phase 9j's terrain
+# PLY (79,202 triangles, laid flat as there) under a Hosek sunsky with a
+# sunDirection and an RGB ground albedo, through the path tracer at depth
+# 5; "open_preetham" a floor and a diffuse sphere under a Preetham sky of a
+# date, a time and a place and a sun of the same date. SKY_DIGESTS holds
+# the SHA-256 of each loaded scene's baked map (the radiance columns of its
+# envmap table) and of its directional row's irradiance through the JAX
+# loader (scripts/jax_header_ref_mean.py prints them)
+SKY_DIGESTS = {
+    "sky sunsky_terrain": (
+        "0c7f1b764ab4cd4647224498630c86d27c33cf149ca2e5bfe0b26c45c6c2e19e",
+        "771ef5784e3f08fa74b19cedc8ddcb2d1411209be5c5a85be50a66cfae9123f1"),
+    "sky open_preetham": (
+        "f43d1bea6cd21ec46b11aed1c881f793efda8db98100b72581500d3c7ccd8108",
+        "bc5c09a0a59b60c5ac0734206b330ff9059c97aa69bedeb7e3e785499c76a386"),
+}
+SKY_DEFINES = {"sunsky_terrain": {"spp": 8, "res": 128},
+               "open_preetham": {"spp": 16, "res": 128}}
+SKY_DEPTH = 5
+_SKY_DATE = ('<integer name="year" value="2022"/><integer name="month" '
+             'value="9"/><integer name="day" value="23"/><float name="hour" '
+             'value="16.25"/><float name="latitude" value="46.95"/><float '
+             'name="longitude" value="7.45"/><float name="timezone" '
+             'value="2"/>')
+
+
+def sky_xml(variant) -> str:
+    """The 9k scene ``variant``'s text ($spp and $res by SKY_DEFINES;
+    "sunsky_terrain" needs write_volume_files beside it for its PLY).
+    scripts/jax_header_ref_mean.py loads the same text."""
+    header = f"""<scene version="0.6.0">
+  <integrator type="path"><integer name="maxDepth" value="{SKY_DEPTH}"/>
+  </integrator>
+  <sensor type="perspective">
+    <float name="fov" value="40"/>
+    <transform name="toWorld">
+      <lookat origin="{{eye}}" target="{{at}}" up="0, 1, 0"/>
+    </transform>
+    <sampler type="independent">
+      <integer name="sampleCount" value="$spp"/>
+    </sampler>
+    <film type="hdrfilm">
+      <integer name="width" value="$res"/><integer name="height" value="$res"/>
+    </film>
+  </sensor>"""
+    if variant == "sunsky_terrain":
+        return header.format(eye="0.1, 0.7, -1.4", at="0, 0.12, 0") + f"""
+  <shape type="ply">
+    <string name="filename" value="{TERRAIN_FILE}"/>
+    <transform name="toWorld">
+      <scale x="4" y="4" z="15"/><rotate x="1" angle="-90"/>
+      <translate y="0.1" z="0.4"/>
+    </transform>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.45, 0.4, 0.3"/></bsdf>
+  </shape>
+  <emitter type="sunsky">
+    <vector name="sunDirection" x="-0.5" y="0.45" z="0.6"/>
+    <float name="turbidity" value="4"/>
+    <rgb name="albedo" value="0.3, 0.25, 0.2"/>
+    <float name="sunScale" value="0.05"/>
+  </emitter>
+</scene>
+"""
+    return header.format(eye="0, 1.5, -4", at="0, 0.5, 0") + f"""
+  <shape type="rectangle">
+    <transform name="toWorld">
+      <scale value="4"/><rotate x="1" angle="-90"/>
+    </transform>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.5, 0.5, 0.45"/></bsdf>
+  </shape>
+  <shape type="sphere">
+    <point name="center" x="0" y="0.8" z="0"/><float name="radius" value="0.8"/>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.2, 0.4, 0.7"/></bsdf>
+  </shape>
+  <emitter type="sky">
+    <string name="model" value="preetham"/>{_SKY_DATE}
+    <float name="turbidity" value="2.5"/>
+    <float name="skyScale" value="0.05"/>
+  </emitter>
+  <emitter type="sun">{_SKY_DATE}
+    <float name="turbidity" value="2.5"/>
+    <float name="sunScale" value="0.05"/>
+  </emitter>
+</scene>
+"""
+
+
+def sky_digests(emitters):
+    """SHA-256 (hex) of the baked map (the radiance columns of the envmap
+    table, float32, row-major) and of the directional rows' irradiance, of
+    an emitter table of either package (numpy arrays or tensors)."""
+    import hashlib
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else \
+            np.asarray(x)
+
+    types = host(emitters.type).ravel()
+    env = np.ascontiguousarray(host(emitters.env_map)[:, :3], np.float32)
+    sun = np.ascontiguousarray(
+        host(emitters.radiance)[types == em_mod.DIRECTIONAL], np.float32)
+    return (hashlib.sha256(env.tobytes()).hexdigest(),
+            hashlib.sha256(sun.tobytes()).hexdigest())
 
 
 # participating media (phase 9j): three scenes through load_scene and the
@@ -3531,6 +3740,113 @@ def volume_phase(dev):
                     VOLUME_DEFINES[VOLUME_CLI], imgs[cli])
 
 
+def sky_renders(dev, tmp):
+    """Every sky render of phase 9k, by label (``sky {variant}``): (scene,
+    static, sensor, cfg, settings, expected launches), loaded from
+    ``{tmp}/sky_{variant}.xml`` with SKY_DEFINES, the terrain's PLY written
+    beside them. scripts/torch_header_stats.py renders the same."""
+    write_ply(str(Path(tmp) / TERRAIN_FILE), *fallback_mesh())
+    out = {}
+    for variant, defines in SKY_DEFINES.items():
+        path = Path(tmp) / f"sky_{variant}.xml"
+        path.write_text(sky_xml(variant))
+        ls = mitsuba_xml.load_scene(str(path), defines, device=dev)
+        spp = ls.settings.spp
+        if ls.static.use_bvh:
+            # bench's bunny dispatch at the same depth: K4 for the presorted
+            # camera query, K3_PER_SPP for the resorted ones
+            expected = {"bvh_traverse_lane_packed": spp,
+                        "lane_chunk": K3_PER_SPP * spp}
+        else:
+            # a closest-hit (K1) and a shadow query (K2) per bounce
+            expected = {"brute_force_interaction": SKY_DEPTH * spp,
+                        "brute_force_closest_hit": SKY_DEPTH * spp}
+        out[f"sky {variant}"] = (ls.scene, ls.static, ls.sensor,
+                                 ls.integrator, ls.settings, expected)
+    return out
+
+
+def subsurface_renders(dev):
+    """Every subsurface render of phase 9k, by label (``subsurface
+    {variant}``): (scene, static, sensor, cfg, settings, expected launches)
+    of subsurface_scene built by the port's builder, the dipole's point
+    cloud not yet placed (subsurface_prepare). scripts/torch_header_stats.py
+    renders the same."""
+    sensor = sensor_mod.make_perspective(Transform.look_at(EYE, AT, UP), FOV,
+                                         SSS_RES, SSS_RES, device=dev)
+    cfg = IntegratorConfig(type=PATH, max_depth=SSS_DEPTH)
+    settings = api.RenderSettings(width=SSS_RES, height=SSS_RES, spp=SSS_SPP,
+                                  seed=SEED)
+    out = {}
+    for variant, kw in SSS_VARIANTS.items():
+        scene, static = subsurface_scene(SceneBuilder(), bsdf_mod, shapes,
+                                         Transform, sss_mod,
+                                         **kw).build(device=dev)
+        # per bounce a closest hit and a shadow query; single scattering
+        # adds two closest hits (the chord, the exit) and a shadow query
+        k1, k2 = (3, 2) if static.has_singlescatter else (1, 1)
+        n = SSS_DEPTH * SSS_SPP
+        out[f"subsurface {variant}"] = (
+            scene, static, sensor, cfg, settings,
+            {"brute_force_interaction": k1 * n,
+             "brute_force_closest_hit": k2 * n})
+    return out
+
+
+def subsurface_prepare(dev, label, scene, static):
+    """subsurface.prepare at its defaults, timed, with its launches (one
+    shadow query per NEE sample: 16 K2) set to 0 before and checked after;
+    a scene without a dipole comes back as it went in."""
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sss_mod.prepare(scene, static)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = out.sss.points_p.shape[0] if out is not scene else 0
+    _check_launches(f"prepare {label}",
+                    {"brute_force_closest_hit": 16} if n else {})
+    if n:
+        E = out.sss.points_E
+        if not bool(torch.isfinite(E).all()) or float(E.max()) <= 0:
+            raise AssertionError(f"prepare {label}: irradiance {E.max()}")
+        log(f"prepare {label}: {n} points, mean irradiance "
+            f"{E.mean(dim=0).tolist()}, {dt:.3f} s ({card_line()})")
+    return out
+
+
+def sky_subsurface_phase(dev):
+    """Phase 9k: each sky render (load_scene + api.render) with its baked
+    map's and sun's digests against the JAX loader's (SKY_DIGESTS), and
+    each subsurface render (the builder, subsurface.prepare timed apart,
+    api.render), held as phase 9f's renders (mean and tv_rgb to the JAX
+    package, exact launches)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = sky_renders(dev, tmp)
+        for label, case in cases.items():
+            digests = sky_digests(case[0].emitters)
+            same = digests == SKY_DIGESTS[label]
+            log(f"{label}: {case[1]}; baked map sha256 {digests[0]}, sun "
+                f"irradiance sha256 {digests[1]}: equal to the JAX loader's "
+                f"bit for bit: {same}")
+            if not same:
+                raise AssertionError(f"{label}: the sky bake or the sun's "
+                                     "irradiance differs from the JAX "
+                                     "package's")
+        sss_cases = subsurface_renders(dev)
+        for label, (scene, static, *rest) in sss_cases.items():
+            log(f"{label}: {static}")
+            sss_cases[label] = (subsurface_prepare(dev, label, scene, static),
+                                static, *rest)
+        cases.update(sss_cases)
+        # warm-up: one sample of each (first-call set-up of the new modules)
+        for scene, static, sensor, cfg, settings, _ in cases.values():
+            api.render(scene, static, sensor, cfg, dataclasses.replace(
+                settings, spp=1, spp_per_pass=1), device=dev)
+        for label, case in cases.items():
+            header_render(dev, label, *case)
+
+
 def bunny_ao_case(bunny_scene):
     """ao on bunny_x2 (lane mode) at 512x512, BUNNY_AO_SPP spp, the default
     ray length (half the scene's radius), box filter: K3 launches only,
@@ -3750,6 +4066,8 @@ def main() -> int:
         cloth_spectra_phase(dev)
     with phase("9j participating media"):
         volume_phase(dev)
+    with phase("9k sky and subsurface"):
+        sky_subsurface_phase(dev)
     with phase("10 bunny"):
         bunny_scene = bunny(dev)
         bunny_launches, lane_mean, lane_ms = render_phase(
@@ -3795,9 +4113,6 @@ def main() -> int:
             f"ms per launch; on sample 0's camera rays {k4['warm_ms']:.5f} ms "
             f"back to back, {k4['cold_ms']:.5f} ms with the L2 flushed before "
             f"each launch (phase 4)")
-        with bvh_kernel("treelet"):
-            profile_phase(dev, "bunny treelet", *bunny_scene,
-                          BUNNY_SPP_PER_PASS)
 
     log("phase times (s): " + ", ".join(
         f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items())

@@ -20,6 +20,7 @@ from .render import irawan as irawan_mod
 from .render import medium as med_mod
 from .render import scene as scene_mod
 from .render import sensor as sensor_mod
+from .render import subsurface as sss_mod
 from .render import texture as tex_mod
 
 _TRI_FLOAT = ("tri_p0", "tri_e1", "tri_e2", "tri_n0", "tri_n1", "tri_n2",
@@ -34,6 +35,7 @@ _MAT_INT = ("type", "dist", "albedo_tex", "opacity_tex", "nested_a",
             "nested_b", "weight_tex", "normal_tex", "bump_tex", "irawan")
 _IRAWAN_INT = ("pattern", "tile_w", "tile_h")
 _MEDIUM_INT = ("type", "phase_type", "grid_idx", "grid_size")
+_SSS_INT = ("mat_sss", "mode", "points_sss")
 _MAT_MEDIA = ("interior_medium", "exterior_medium")
 _TEX_PROCEDURAL = ("color0", "color1", "line_width")
 _ENV_FLOAT = ("env_map", "env_alias", "env_to_world", "env_scale")
@@ -123,8 +125,10 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
     material's ``alpha_tex``, if given, must be -1 throughout; its
     ``interior_medium`` and ``exterior_medium`` are -1 where not given; the
     textures' ``color0``, ``color1`` and ``line_width`` are read where the
-    table holds a procedural row), and ``media``, if given, the medium
-    table's fields (the empty table without it);
+    table holds a procedural row), ``media``, if given, the medium
+    table's fields, and ``sss``, if given, the subsurface table's (a point
+    cloud from the JAX package's ``prepare`` included; the empty tables
+    without them);
     ``static`` maps SceneStatic field names to values. The BVH comes across
     as the JAX scene's ``bvh_pages`` (the same tree, repacked by
     ``nodes_from_pages``), with its treelet cut (``tl_root``, ``tl_skip``,
@@ -162,6 +166,11 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
         k: (_i32 if k in _MEDIUM_INT else _f32)(med[k], dev)
         for k in med_mod.MediumTable._fields}) if med is not None
         else med_mod.MediumTable.empty(dev))
+    ss = arrays.get("sss")
+    sss = (sss_mod.SSSTable(**{
+        k: (_i32 if k in _SSS_INT else _f32)(ss[k], dev)
+        for k in sss_mod.SSSTable._fields}) if ss is not None
+        else sss_mod.SSSTable.empty(n_mats, dev))
     iw = arrays["irawan"]
     if np.any(np.asarray(mats.get("alpha_tex", -1)) >= 0):
         raise NotImplementedError(
@@ -215,6 +224,7 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
             k: (_i32 if k in _IRAWAN_INT else _f32)(iw[k], dev)
             for k in irawan_mod.IrawanTable._fields}),
         media=media,
+        sss=sss,
     )
     st = scene_mod.SceneStatic(
         n_tris=T, n_spheres=S, use_bvh=use_bvh,
@@ -230,6 +240,8 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
         medium_types=tuple(int(t) for t in static.get("medium_types", ())),
         phase_types=tuple(int(t) for t in static.get("phase_types", ())),
         has_boundary_media=bool(static.get("has_boundary_media", False)),
+        has_sss=bool(static.get("has_sss", False)),
+        has_singlescatter=bool(static.get("has_singlescatter", False)),
     )
     return scene, st
 

@@ -37,6 +37,7 @@ from ..render import phase as PH
 from ..render import rfilter as RF
 from ..render import sensor as sensor_mod
 from ..render import shapes as shapes_mod
+from ..render import sunsky as sunsky_mod
 from ..render.integrators import common as icommon
 from ..render.scene import SceneBuilder
 from ..utils.logging import get_logger
@@ -95,7 +96,7 @@ _RFILTERS = {
 }
 _LATER_SENSORS = {}  # every sensor element loads since item 3.3
 _LATER_BSDFS = {}  # every BSDF element loads since item 3.2.4
-_LATER_EMITTERS = {"sunsky": "3.8", "sky": "3.8", "sun": "3.8"}
+_LATER_EMITTERS = {}  # every emitter element loads since item 3.8
 _METERS = ("radiancemeter", "irradiancemeter", "fluencemeter")
 
 
@@ -889,8 +890,46 @@ class XMLSceneLoader:
             to_world = p.get("toWorld", Transform.identity())
             self.builder.add_envmap(img, to_world=to_world.m[:3, :3],
                                     scale=float(p.get("scale", 1.0)))
+        elif t in ("sunsky", "sky", "sun"):
+            self._load_sunsky(t, p)
         else:
             log.warning(f"scene: ignoring unsupported emitter type '{t}'")
+
+    def _load_sunsky(self, t, p):
+        """A sun, sky or sunsky element (the JAX loader's branch): the sky
+        baked on the host into a (resolution / 2, resolution) lat-long map
+        for ``add_envmap``, the sun a directional light of the disk's
+        irradiance, the map added first."""
+        turb = float(p.get("turbidity", 3.0))
+        if "sunDirection" in p:
+            sd = np.asarray(p["sunDirection"], np.float64)
+            sd = sd / np.linalg.norm(sd)
+        else:
+            sd = sunsky_mod.sun_direction(
+                int(p.get("year", 2010)), int(p.get("month", 7)),
+                int(p.get("day", 10)), float(p.get("hour", 15.0)),
+                float(p.get("minute", 0.0)), float(p.get("second", 0.0)),
+                float(p.get("latitude", 35.6894)),
+                float(p.get("longitude", 139.6917)),
+                float(p.get("timezone", 9.0)))
+        res = int(p.get("resolution", 256))
+        if t in ("sky", "sunsky"):
+            alb = p.get("albedo", (0.2, 0.2, 0.2))
+            if np.isscalar(alb):
+                alb = (float(alb),) * 3
+            img = sunsky_mod.bake_sky_envmap(
+                sd, turbidity=turb, resolution=(res // 2, res),
+                scale=float(p.get("scale", 1.0))
+                * float(p.get("skyScale", 1.0)),
+                extend_below=bool(p.get("extend", True)),
+                model=str(p.get("model", "hosek")), albedo=tuple(alb))
+            self.builder.add_envmap(img)
+        if t in ("sun", "sunsky"):
+            irr = sunsky_mod.sun_directional_irradiance(
+                sd, turbidity=turb,
+                sun_scale=float(p.get("sunScale", 1.0))
+                * float(p.get("scale", 1.0)))
+            self.builder.add_directional_light(tuple(-sd), tuple(irr))
 
 
 def _load_image(path: str) -> np.ndarray:

@@ -60,6 +60,7 @@ DIMS_PER_BOUNCE = 4
 DIM_NEE = 0       # 4d: emitter select + 2d position
 DIM_BSDF = 1      # 4d: lobe select + 2d direction
 DIM_RR = 2
+DIM_SSS = 3       # 4d: refracted single scattering (distance + light)
 
 
 def ray_offset(p, gn, d):

@@ -20,8 +20,9 @@ from ...core import spectrum as spec_mod
 from .. import bsdf as bsdf_mod
 from .. import emitter as em_mod
 from .. import scene as scene_mod
+from .. import subsurface as sss_mod
 from .common import (
-    DIM_BASE, DIM_BSDF, DIM_NEE, DIM_RR, DIMS_PER_BOUNCE,
+    DIM_BASE, DIM_BSDF, DIM_NEE, DIM_RR, DIM_SSS, DIMS_PER_BOUNCE,
     IntegratorConfig, mis_power, ray_offset,
 )
 
@@ -120,6 +121,19 @@ def li(scene, static, cfg: IntegratorConfig, o, d, sampler, pixel, sample,
             fp_uv = scene_mod.uv_footprint(scene, its, pixel_spread)
         bl = scene_mod.bsdf_locals(scene, its, static, fp_uv=fp_uv)
         nst = scene_mod.bsdf_nested(scene, its, static)
+
+        # --- subsurface term (Subsurface::Lo, integrator.h): the dipole's
+        # Lo at every hit on a subsurface material, and refracted single
+        # scattering, which draws at the bounce's spare slot. Under
+        # spectral_wl the RGB term is added unlifted, as in the JAX
+        # path.py:204 (ROADMAP.md, Queue 3)
+        if static.has_sss:
+            lo_ss = sss_mod.eval_lo(scene, its, d)
+            if static.has_singlescatter:
+                lo_ss = lo_ss + sss_mod.exact_single_scatter(
+                    scene, static, its, d, sampler, pixel, sample,
+                    dim0 + DIM_SSS, active)
+            L = L + torch.where(active[..., None], thr * lo_ss, 0.0)
 
         # --- next event estimation (path.cpp:196-263)
         if static.emitter_types:

@@ -27,8 +27,10 @@ and rough coating's transmittance polynomial baked at ``build``,
 map, and the point, spot, directional and collimated delta lights; meshes
 may be instanced. Participating media (``render/medium.py``: homogeneous
 and grid media with their phase functions) sit in ``Scene.media``, and a
-material row names the media inside and outside its surface. Anything else
-(other textures, sun and sky, subsurface scattering) raises
+material row names the media inside and outside its surface. A material row
+may name a subsurface profile (``render/subsurface.py``: the dipole's
+profiles and point cloud, and refracted single scattering) in
+``Scene.sss``. Anything else (the other textures) raises
 ``NotImplementedError``: it lands in a later slice.
 """
 from __future__ import annotations
@@ -55,6 +57,7 @@ from . import emitter as em_mod
 from . import irawan as irawan_mod
 from . import medium as med_mod
 from . import phase as phase_mod
+from . import subsurface as sss_mod
 from . import texture as tex_mod
 from .records import Interaction
 
@@ -113,6 +116,7 @@ class Scene(NamedTuple):
     emitters: em_mod.EmitterTable
     irawan: irawan_mod.IrawanTable  # weave patterns (one zero row if none)
     media: med_mod.MediumTable      # participating media (one row if none)
+    sss: sss_mod.SSSTable           # subsurface profiles and point cloud
 
 
 @dataclass(frozen=True)
@@ -136,15 +140,15 @@ class SceneStatic:
     phase_types: tuple = ()    # sorted phase function tags of the media
     has_boundary_media: bool = False  # a material names an interior or
                                       # exterior medium
+    has_sss: bool = False      # a material names a subsurface profile
+    has_singlescatter: bool = False  # ... a MODE_SINGLESCATTER one
 
 
 # SceneStatic fields of the JAX package whose non-default values need code
 # that lands in a later slice, with the value the port supports (not
 # n_manifold_tris: the JAX builder sets it for any small glass or window
 # mesh, and only the MLT family reads it, so that slice checks it there)
-_LATER_SLICE_FIELDS = {
-    "has_sss": False, "has_singlescatter": False, "ewa_taps": 0,
-}
+_LATER_SLICE_FIELDS = {"ewa_taps": 0}
 # the medium and phase function type tags the port renders
 MEDIUM_TYPES = (med_mod.HOMOGENEOUS, med_mod.HETEROGENEOUS)
 PHASE_TYPES = (phase_mod.ISOTROPIC, phase_mod.HG, phase_mod.RAYLEIGH,
@@ -671,6 +675,7 @@ class SceneBuilder:
     irawan: list = field(default_factory=list)  # (pattern dict, repeats)
     media: list = field(default_factory=list)
     vol_grids: list = field(default_factory=list)
+    subsurfaces: list = field(default_factory=list)
 
     def add_material(self, type: int = bsdf_mod.DIFFUSE,
                      albedo=(0.5, 0.5, 0.5), albedo_tex: int = -1,
@@ -685,7 +690,7 @@ class SceneBuilder:
                      bump_scale: float = 1.0, hk_thickness: float = 1.0,
                      hk_g: float = 0.0, cauchy_b: float = 0.0,
                      irawan: int = -1, interior_medium: int = -1,
-                     exterior_medium: int = -1) -> int:
+                     exterior_medium: int = -1, subsurface: int = -1) -> int:
         """A material row with the JAX package's keywords and defaults
         (scene.py:819-865) for the columns the port reads; a scalar
         ``eta`` or ``alpha`` is replicated. An HK row reads sigma_s from
@@ -698,7 +703,7 @@ class SceneBuilder:
         Cauchy dispersion coefficient (um^2), which the spectral render
         reads. ``interior_medium`` and ``exterior_medium`` name the media
         (``add_medium_*``) inside and outside the row's surfaces, -1 for
-        none."""
+        none; ``subsurface`` names a profile (``add_subsurface``)."""
         if type not in bsdf_mod.SUPPORTED_TYPES:
             raise NotImplementedError(
                 f"BSDF type {type} lands in a later slice of the port")
@@ -722,7 +727,8 @@ class SceneBuilder:
                               hk_thickness=hk_thickness, hk_g=hk_g,
                               cauchy_b=cauchy_b, irawan=irawan,
                               interior_medium=interior_medium,
-                              exterior_medium=exterior_medium))
+                              exterior_medium=exterior_medium,
+                              subsurface=subsurface))
         return len(self.mats) - 1
 
     def add_irawan_pattern(self, preset: str = "plain", filename: str = "",
@@ -786,6 +792,41 @@ class SceneBuilder:
                            else np.asarray(world_to_grid, float)),
             **self._phase_kw(phase_type, phase_g, phase_kw)))
         return len(self.media) - 1
+
+    def add_subsurface(self, sigma_s=(1.0,) * 3, sigma_a=(0.05,) * 3,
+                       g: float = 0.0, eta: float = 1.3,
+                       mode: int = sss_mod.MODE_DIPOLE) -> int:
+        """A subsurface profile, for ``add_material(subsurface=id)``
+        (scene.py:898-913): the dipole (``MODE_DIPOLE``: call
+        ``subsurface.prepare(scene, static)`` once after ``build`` to place
+        its point cloud) or refracted single scattering
+        (``MODE_SINGLESCATTER``, no preparation). Returns its id."""
+        self.subsurfaces.append(dict(
+            sigma_s=tuple(np.asarray(sigma_s, float)),
+            sigma_a=tuple(np.asarray(sigma_a, float)),
+            g=float(g), eta=float(eta), mode=int(mode)))
+        return len(self.subsurfaces) - 1
+
+    def _build_sss(self, dev) -> sss_mod.SSSTable:
+        """The subsurface table (scene.py:915-932): each material's profile
+        id and the profiles' rows (the empty table's one row without any),
+        with the empty point cloud."""
+        t = sss_mod.SSSTable.empty(len(self.mats), dev)
+        t = t._replace(mat_sss=torch.tensor(
+            [mm["subsurface"] for mm in self.mats], dtype=torch.int32,
+            device=dev))
+        subs = self.subsurfaces
+        if subs:
+            def f32(key):
+                return torch.tensor(np.asarray([s_[key] for s_ in subs],
+                                               np.float32), device=dev)
+
+            t = t._replace(
+                sigma_s=f32("sigma_s"), sigma_a=f32("sigma_a"), g=f32("g"),
+                eta=f32("eta"), mode=torch.tensor(
+                    [s_["mode"] for s_ in subs], dtype=torch.int32,
+                    device=dev))
+        return t
 
     def _build_media(self, dev) -> med_mod.MediumTable:
         """The medium table: the rows, the grids zero-padded into one stack,
@@ -1036,6 +1077,11 @@ class SceneBuilder:
             has_boundary_media=any(mm["interior_medium"] >= 0
                                    or mm["exterior_medium"] >= 0
                                    for mm in mats),
+            has_sss=any(mm["subsurface"] >= 0 for mm in mats),
+            has_singlescatter=any(
+                mm["subsurface"] >= 0
+                and self.subsurfaces[mm["subsurface"]]["mode"]
+                == sss_mod.MODE_SINGLESCATTER for mm in mats),
         )
         emitter_types = tuple(sorted({e["type"] for e in self.emitters}))
         check_supported(dict(n_tris=T, use_bvh=use_bvh,
@@ -1253,6 +1299,7 @@ class SceneBuilder:
             irawan=irawan_mod.build_table([p for p, _ in self.irawan],
                                           [r for _, r in self.irawan], dev),
             media=self._build_media(dev),
+            sss=self._build_sss(dev),
         )
         static = SceneStatic(
             n_tris=T, n_spheres=S, use_bvh=use_bvh,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Image statistics of the sensor-header, gallery, lights-and-cameras,
-cloth-and-spectra and participating-media renders through the JAX package
-on the CPU.
+cloth-and-spectra, participating-media and sky-and-subsurface renders
+through the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/jax_header_ref_mean.py
         [--block-y Y] [--eye-shift DX] [LABEL ...]
@@ -58,7 +58,19 @@ them without one):
   cbox.xml with a smoke plume's grid in a null cube, and on the fallback
   heightfield in a box of fog) with the grid and the PLY written beside it
   by ``chip_smoke.write_volume_files``, loaded with the variant's defines
-  and rendered by ``api.render``.
+  and rendered by ``api.render``;
+- the sun and the sky (phase 9k): ``sky {variant}`` for each variant of
+  ``chip_smoke.SKY_DEFINES``, ``chip_smoke.sky_xml``'s text (the terrain
+  PLY under a Hosek sunsky, a floor and a sphere under a Preetham sky and
+  a sun of a date), the PLY written beside it, loaded with the variant's
+  defines and rendered by ``api.render``; each also prints
+  ``chip_smoke.sky_digests`` of its loaded emitter table (``SKY_DIGESTS``);
+- subsurface scattering (phase 9k): ``subsurface {variant}`` for each
+  variant of ``chip_smoke.SSS_VARIANTS``, ``chip_smoke.subsurface_scene``
+  built by the JAX builder, its point cloud placed by ``subsurface.prepare``
+  at its defaults, rendered by ``api.render`` at ``chip_smoke.SSS_RES`` and
+  ``SSS_SPP``, depth ``SSS_DEPTH``, in passes of one sample (the dipole's
+  (lanes x points) sum stays at 65,536 lanes; the samples are the card's).
 
 Every scene file is loaded with its difftrans rows made as
 ``add_material(type=DIFFTRANS, spec_trans=t)`` (``difftrans_in_spec_trans``):
@@ -219,6 +231,40 @@ def spectral(cauchy_b):
                            spp=cs.SPECTRAL_SPP))
 
 
+def sky(variant, tmp):
+    """chip_smoke.sky_xml's scene through load_scene and api.render, after
+    printing the digests of its baked map and sun."""
+    import chip_smoke as cs
+
+    path = os.path.join(tmp, "scene.xml")
+    with open(path, "w") as f:
+        f.write(cs.sky_xml(variant))
+    ls = load_scene(path, cs.SKY_DEFINES[variant])
+    print(f"sky {variant}: digests {cs.sky_digests(ls.scene.emitters)}",
+          flush=True)
+    return np.asarray(api.render(ls.scene, ls.static, ls.sensor,
+                                 ls.integrator, ls.settings))
+
+
+def subsurface(variant):
+    """chip_smoke.subsurface_scene through prepare and api.render."""
+    import chip_smoke as cs
+    from mitsuba_tpu.render import subsurface as sss
+
+    scene, static = cs.subsurface_scene(SceneBuilder(), bsdf, shapes,
+                                        Transform, sss,
+                                        **cs.SSS_VARIANTS[variant]).build()
+    scene = sss.prepare(scene, static)
+    sens = sensor_mod.make_perspective(
+        Transform.look_at(cs.EYE, cs.AT, cs.UP), cs.FOV, cs.SSS_RES,
+        cs.SSS_RES)
+    return api.render(
+        scene, static, sens, IntegratorConfig(type=PATH,
+                                              max_depth=cs.SSS_DEPTH),
+        api.RenderSettings(width=cs.SSS_RES, height=cs.SSS_RES,
+                           spp=cs.SSS_SPP, spp_per_pass=1, seed=cs.SEED))
+
+
 def renders(labels=(), block_y=None, eye_shift=0.0):
     """Statistics of every render whose label starts with one of
     ``labels`` (all without one), in chip_smoke.py's order."""
@@ -286,6 +332,10 @@ def renders(labels=(), block_y=None, eye_shift=0.0):
         for v, defines in chip_smoke.VOLUME_DEFINES.items():
             out.append((f"volumes {v}", lambda v=v, defines=defines:
                         scene_file(chip_smoke.volume_xml(v), 0, 0, defines)))
+        for v in chip_smoke.SKY_DEFINES:
+            out.append((f"sky {v}", lambda v=v: sky(v, tmp)))
+        for v in chip_smoke.SSS_VARIANTS:
+            out.append((f"subsurface {v}", lambda v=v: subsurface(v)))
         values = {}
         for label, thunk in out:
             if labels and not any(label.startswith(x) for x in labels):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Image statistics of the sensor-header, gallery, lights-and-cameras,
-cloth-and-spectra and participating-media renders through the port, beside
-the JAX package's values that chip_smoke.py holds them to.
+cloth-and-spectra, participating-media and sky-and-subsurface renders
+through the port, beside the JAX package's values that chip_smoke.py holds
+them to.
 
     python scripts/torch_header_stats.py [--device cpu|cuda] [--threads N]
         [--block-y Y] [--eye-shift DX] [LABEL ...]
@@ -16,7 +17,10 @@ cloth-and-spectra phase (9i, ``chip_smoke.cloth_renders`` and
 ``spectral_renders``, labels ``cloth {variant}`` and ``spectral cauchy_b
 {B}``, the latter through ``api.render_spectral``) and participating-media
 phase (9j, ``chip_smoke.volume_renders``, labels ``volumes {variant}``)
-whose label starts with one of the LABELs (all of them without one)
+and sky-and-subsurface phase (9k, ``chip_smoke.sky_renders`` and
+``subsurface_renders``, labels ``sky {variant}`` and ``subsurface
+{variant}``, the dipole's point cloud placed by
+``chip_smoke.subsurface_prepare``'s call on the CPU too) whose label starts with one of the LABELs (all of them without one)
 through this tree's ``mitsuba_tpu_torch`` on ``--device`` (the card by default), and prints its
 ``mean_rgb`` and ``tv_rgb`` with their relative gaps to
 ``chip_smoke.HEADER_REF`` (``scripts/jax_header_ref_mean.py``'s values) and
@@ -40,6 +44,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
+from mitsuba_tpu_torch.render import subsurface as sss_mod  # noqa: E402
 
 
 def main() -> int:
@@ -72,6 +77,12 @@ def main() -> int:
         cases.update(cs.cloth_renders(dev, tmp))
         cases.update(cs.spectral_renders(dev))
         cases.update(cs.volume_renders(dev, tmp))
+        cases.update(cs.sky_renders(dev, tmp))
+        for label, (scene, static, *rest) in cs.subsurface_renders(
+                dev).items():
+            if wanted(label):
+                cases[label] = (sss_mod.prepare(scene, static), static,
+                                *rest)
         if wanted("ao bunny_x2"):
             cases["ao bunny_x2"] = cs.bunny_ao_case(cs.bunny(dev))
         for label, (scene, static, sensor, cfg, settings, _) in cases.items():

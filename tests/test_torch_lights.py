@@ -344,8 +344,10 @@ def test_elements_load_as_the_jax_loaders(tmp_path, case):
 
 
 def test_later_lists_name_only_sun_and_sky():
+    # every sensor and, since the sun and sky joined the port, every
+    # emitter element loads
     assert not txml._LATER_SENSORS
-    assert sorted(txml._LATER_EMITTERS) == ["sky", "sun", "sunsky"]
+    assert not txml._LATER_EMITTERS
 
 
 # --- the repairs ------------------------------------------------------------

@@ -76,6 +76,9 @@ EM_FIELDS = ("type", "radiance", "position", "direction", "spot_cos",
              "delta", "pmf", "cdf",
              "etri_tri", "etri_cdf", "env_index", "env_map", "env_alias",
              "env_hw", "env_to_world", "env_scale")
+# the subsurface table (render/subsurface.py)
+SSS_FIELDS = ("mat_sss", "sigma_s", "sigma_a", "g", "eta", "mode", "points_p",
+              "points_n", "points_E", "points_sss", "point_area")
 TEX_FIELDS = ("type", "uv_scale", "uv_offset", "scale", "bitmap_idx", "stack",
               "stack_hw", "sizes", "mips", "mips_hw")
 SCENE_FIELDS = TRI_FIELDS + ("aabb_lo", "aabb_hi", "radius", "tl_root",
@@ -98,6 +101,7 @@ def jax_scene_arrays(scene):
     arrays["emitters"] = _np_tree(scene.emitters, EM_FIELDS)
     arrays["irawan"] = _np_tree(scene.irawan, IRAWAN_FIELDS)
     arrays["media"] = _np_tree(scene.media, MEDIUM_FIELDS)
+    arrays["sss"] = _np_tree(scene.sss, SSS_FIELDS)
     return arrays
 
 
@@ -127,7 +131,8 @@ FIELD_PATHS = ([(f,) for f in SCENE_FIELDS] + [("materials", f) for f in MAT_FIE
                + [("textures", f) for f in TEX_FIELDS]
                + [("emitters", f) for f in EM_FIELDS]
                + [("irawan", f) for f in IRAWAN_FIELDS]
-               + [("media", f) for f in MEDIUM_FIELDS])
+               + [("media", f) for f in MEDIUM_FIELDS]
+               + [("sss", f) for f in SSS_FIELDS])
 
 
 @pytest.mark.parametrize("path", FIELD_PATHS, ids=".".join)
@@ -186,9 +191,10 @@ def test_bridge_sensor(sensors):
 # medium 2 and phase 6 are tags no medium and no phase function has (the
 # boundary media, the homogeneous and grid media 0 and 1 and the six phase
 # functions 0-5 joined the port with the volumetric path tracer: see
-# test_media_facts_carry_over)
+# test_media_facts_carry_over; has_sss and has_singlescatter joined it with
+# subsurface scattering: see test_subsurface_facts_carry_over)
 @pytest.mark.parametrize("change", [
-    dict(has_sss=True), dict(has_singlescatter=True), dict(ewa_taps=4),
+    dict(ewa_taps=4),
     dict(bsdf_types=(0, 20)), dict(nested_bsdf_types=(20,)),
     dict(medium_types=(2,)), dict(phase_types=(6,)),
 ])
@@ -210,6 +216,22 @@ def test_media_facts_carry_over(cornell, change):
                                      device="cpu")
     for k, v in change.items():
         assert getattr(st, k) == v
+
+
+# the subsurface facts, which raised in test_later_slices_raise until the
+# port rendered them: each now carries over, with the empty table (the JAX
+# scene's own sss table comes across when given: test_torch_subsurface.py)
+@pytest.mark.parametrize("change", [
+    dict(has_sss=True), dict(has_singlescatter=True),
+])
+def test_subsurface_facts_carry_over(cornell, change):
+    static = dict(dataclasses.asdict(cornell[1]), **change)
+    scene, st = bridge.scene_from_arrays(jax_scene_arrays(cornell[0]), static,
+                                         device="cpu")
+    for k, v in change.items():
+        assert getattr(st, k) == v
+    assert scene.sss.mat_sss.tolist() == [-1] * len(
+        scene.materials.type.tolist())
 
 
 def test_sample_ray_matches_jax(sensors):

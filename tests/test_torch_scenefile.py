@@ -226,8 +226,6 @@ CASE3 = {
     **{f"integrator-{t}": f'<integrator type="{t}"/>'
        for t in ("ptracer", "bdpt", "pssmlt", "mlt",
                  "vpl", "sppm", "photonmapper", "irrcache", "adaptive")},
-    **{f"emitter-{t}": f'<emitter type="{t}"/>'
-       for t in ("sky", "sun", "sunsky")},
     "bitmap-png": '<texture type="bitmap"><string name="filename" '
                   'value="tex.png"/></texture>',
 }
@@ -296,15 +294,33 @@ MEDIA = {
 }
 
 
+# the sun and sky emitters, which raised here until the port rendered them:
+# each loads, under the id it had (tests/test_torch_sunsky.py holds every one
+# against the JAX loader): the emitter table's types, the baked map's height
+# and width (the default resolution 256), and the sun's direction
+SKY = {f"emitter-{t}": (f'<emitter type="{t}"/>', want)
+       for t, want in (("sky", [3]), ("sun", [4]), ("sunsky", [3, 4]))}
+
+
 @pytest.mark.parametrize("case", sorted(CASE3) + sorted(NESTED)
                          + sorted(LIGHTS) + sorted(CLOTH_SPECTRA)
-                         + sorted(MEDIA))
+                         + sorted(MEDIA) + sorted(SKY))
 def test_later_slice_elements_raise(tmp_path, case):
     (tmp_path / "tex.png").write_bytes(b"\x89PNG\r\n\x1a\n")
     (tmp_path / "w.cloth").write_text("weave { pattern { 1, 2, 2, 1 }, "
                                       "yarn { type = warp }, "
                                       "yarn { type = weft } }")
     path = tmp_path / "s.xml"
+    if case in SKY:
+        body, want = SKY[case]
+        path.write_text(_scene_xml(body))
+        ems = txml.load_scene(str(path), device="cpu").scene.emitters
+        assert ems.type.tolist() == want
+        if 3 in want:
+            assert ems.env_hw.tolist() == [128, 256]
+        if 4 in want:  # the default date, time and place's sun, above
+            assert float(ems.direction[want.index(4), 1]) < 0.0
+        return
     if case in MEDIA:
         body, want = MEDIA[case]
         path.write_text(_scene_xml(body))
