@@ -174,7 +174,7 @@ timed (the seconds printed at its end and together before the JSON lines):
      made of a normal map (a checkerboard of tangent-space normals) over a
      plastic or a bump map (a height field PFM, write_height_pfm, through a
      scale texture) over a rough plastic, each through load_scene +
-     api.render at 256x256, 32 spp (LAYERED_GALLERY: 160 K1 + 160 K2),
+     api.render at 256x256, 16 spp (LAYERED_GALLERY: 80 K1 + 80 K2),
      held as phase 9f's renders; then the CLI on the rough-coating file,
      whose EXR must equal the image;
  9h. lights and cameras (LIGHTS_VARIANTS, lights_xml): cbox.xml at 128x128,
@@ -227,6 +227,19 @@ timed (the seconds printed at its end and together before the JSON lines):
      Cornell box with a single-scatter sphere of eta 1.3 (3 K1 + 2 K2 per
      bounce and sample: 240 + 160); each render held as phase 9f's, with
      wall time, ms/spp, rays/s and the peak memory;
+ 9l. the particle tracer and the bidirectional tracer (BIDIR_DEFINES,
+     bidir_xml) through load_scene + api.render at maxDepth 5: cbox.xml
+     with bdpt and with ptracer at 256x256, 16 spp (bdpt: 9 K1 + 15 K2 per
+     sample, the N eye and N - 1 light segments' closest hits and a shadow
+     ray per connection and t = 0 splat; ptracer: 4 + 5 per pass), 9h's
+     spot-light scene through 9h's orthographic camera with bdpt at
+     128x128, 16 spp (the same counts), and 9j's fog_terrain with bdpt at
+     128x128, 8 spp (84 resorted closest hits of 4 + 1 K3 launches per
+     sample: the walks and each connection's and splat's 5-query
+     transmittance walk); each held as phase 9f's renders; the cbox.xml
+     renders' means beside phase 9c's path render of the file, and one
+     pass of each rendered twice, whether the light images are equal bit
+     for bit (both logged);
  10. render the bunny_x2 scene at 512x512, depth 5, samples 0-9 in passes of
      2, seed 0 (bench.py:289-293); checks 10 launches of K4 and 300 of K3
      (the JAX dispatch: K4 for the presorted bounce 0; K3 4 x (4 + 1) for
@@ -295,7 +308,7 @@ from mitsuba_tpu_torch.render import sensor as sensor_mod
 from mitsuba_tpu_torch.render import subsurface as sss_mod
 from mitsuba_tpu_torch.render.integrators.common import (
     AO, DIM_BASE, DIM_BSDF, DIM_NEE, DIRECT, FIELD, FIELD_ALBEDO,
-    FIELD_POSITION, PATH, IntegratorConfig, ray_offset)
+    FIELD_POSITION, PATH, PTRACER, IntegratorConfig, ray_offset)
 from mitsuba_tpu_torch.render.scene import SceneBuilder
 
 W = H = 512
@@ -618,47 +631,47 @@ HEADER_REF = {
         (0.017204180511311704, 0.01355544549510065,
          0.006264820288374416)),
     # the layered gallery (phase 9g), scripts/jax_header_ref_mean.py's
-    # layered renders (32 spp)
+    # layered renders (16 spp since phase 9l)
     "layered mask constant": (
-        (0.21344315869031896, 0.16495341535751218,
-         0.0737251071106296),
-        (0.015084766231883534, 0.01174679360189759,
-         0.005385543215156477)),
+        (0.21351828633654774, 0.16504794465215536,
+         0.0737632498908592),
+        (0.017753061008504115, 0.01378117663929296,
+         0.006247174290096057)),
     "layered mask checkerboard": (
-        (0.20396422217331997, 0.16183349967979105,
-         0.07417640063880793),
-        (0.01381200791456338, 0.011050014326600539,
-         0.0053006797742155935)),
+        (0.20383097665575614, 0.16173320857749868,
+         0.07412725149375403),
+        (0.01580911401998835, 0.012583608276812992,
+         0.005985503109859874)),
     "layered mixturebsdf": (
-        (0.2077662716619746, 0.16359853186426607,
-         0.07231001284760577),
-        (0.011893177467102356, 0.009339779616053367,
-         0.004183825356393128)),
+        (0.20772684177284118, 0.16358233515776735,
+         0.07229831273938607),
+        (0.014071057485771324, 0.011009116960916183,
+         0.004839519779527286)),
     "layered blendbsdf": (
-        (0.21889369467766706, 0.1677168529235873,
-         0.07286536070771786),
-        (0.020281467460111623, 0.014378491862243225,
-         0.005083628262808464)),
+        (0.21845341019578732, 0.16749979115512428,
+         0.07280533262367084),
+        (0.022557049161904912, 0.016059020711852095,
+         0.005731411884424608)),
     "layered coating": (
-        (0.2033162228619641, 0.15700678487720546,
-         0.07042544374401012),
-        (0.012208896720496184, 0.009490519140129211,
-         0.004334875908400692)),
+        (0.20332289064102574, 0.15699838732087068,
+         0.07042306585668537),
+        (0.014337656254113578, 0.011029220958589662,
+         0.004965501214677212)),
     "layered roughcoating": (
-        (0.2000470609141328, 0.1570012677836205,
-         0.07157787390885145),
-        (0.011358710469477468, 0.008923200830101907,
-         0.004157412361482139)),
+        (0.20001085223545445, 0.15697943157123886,
+         0.07156955489867087),
+        (0.013371211484743422, 0.01043292098951008,
+         0.004806893826741703)),
     "layered normalmap": (
-        (0.21269766771474077, 0.1639110130668347,
-         0.07353600870420979),
-        (0.013650385898381452, 0.010549879186579587,
-         0.00483463329110797)),
+        (0.21286591382931674, 0.1640179496642642,
+         0.07359259506227715),
+        (0.016200024558059994, 0.012353707306292646,
+         0.005608637079892177)),
     "layered bumpmap": (
-        (0.20901192524836285, 0.164449679532561,
-         0.07425677333128017),
-        (0.013044368798493636, 0.010441384847664038,
-         0.00485247001482834)),
+        (0.20908533449481426, 0.1645072057357122,
+         0.07429317575433393),
+        (0.015397904500167618, 0.012213848992895163,
+         0.0056464372760607565)),
     # lights and cameras (phase 9h), scripts/jax_header_ref_mean.py's
     # lights renders (128x128, 16 spp)
     "lights point": (
@@ -736,6 +749,29 @@ HEADER_REF = {
          0.17523568274334317),
         (0.03898228427376888, 0.029349779421913746,
          0.013264661800920835)),
+    # the particle tracer and the bidirectional tracer (phase 9l),
+    # scripts/jax_header_ref_mean.py's bidir renders (bidir_xml with
+    # BIDIR_DEFINES, maxDepth BIDIR_DEPTH)
+    "bidir bdpt_cbox": (
+        (0.23390610815520496, 0.18085960985172989,
+         0.0814769691137831),
+        (0.030791647052266103, 0.024354907024758624,
+         0.011005262770689061)),
+    "bidir ptracer_cbox": (
+        (0.22415933879414784, 0.1724343712192084,
+         0.07770075413505512),
+        (0.03525083469006252, 0.02702695683253751,
+         0.011948217701161532)),
+    "bidir bdpt_spot_ortho": (
+        (0.16569423711452513, 0.12403158672915715,
+         0.05500074516913439),
+        (0.05087791913677403, 0.038995428889201655,
+         0.01777289732006018)),
+    "bidir bdpt_fog_terrain": (
+        (0.16002372688667713, 0.14589534935065246,
+         0.11771422857508425),
+        (0.1336902617813963, 0.12329520578759118,
+         0.10251539653649949)),
 }
 # the meters of phase 9h through the JAX package's render_meter on its CPU
 # backend, 65,536 samples: scripts/jax_header_ref_mean.py's lights meters
@@ -895,10 +931,11 @@ class Gallery:
                            sphere_glass=variant in self.glass_sphere, **kw)
 
 
-# phases 9f and 9g at 32 spp (9f at the file's 64 until phase 9k took its
-# time), so that the script stays within its time (PERF.md section 4)
+# phase 9f at 32 spp (at the file's 64 until phase 9k took its time) and
+# 9g at 16 (32 until phase 9l took its time), so that the script stays
+# within its time (PERF.md section 4)
 MATERIAL_GALLERY = Gallery("gallery", GALLERY_BSDFS, 32, "hk")
-LAYERED_GALLERY = Gallery("layered", LAYERED_BSDFS, 32, "roughcoating",
+LAYERED_GALLERY = Gallery("layered", LAYERED_BSDFS, 16, "roughcoating",
                           glass_sphere=("normalmap", "bumpmap"))
 
 
@@ -1427,6 +1464,64 @@ def volume_xml(variant) -> str:
             raise AssertionError(f"cbox.xml has no single {a!r}")
         text = text.replace(a, b)
     return text
+
+
+# the particle tracer and the bidirectional tracer (phase 9l), through
+# load_scene + api.render: cbox.xml with bdpt and with ptracer (256x256, 16
+# spp; the glass sphere's delta vertices and caustic strategies), 9h's
+# spot-light scene seen through 9h's orthographic camera (a delta-position
+# light and a delta-direction camera) and 9j's fog_terrain (MEDIUM
+# vertices, the transmittance walk, K3 through the resort driver), each
+# with maxDepth BIDIR_DEPTH
+BIDIR_DEPTH = 5
+BIDIR_DEFINES = {"bdpt_cbox": {"spp": 16, "res": 256},
+                 "ptracer_cbox": {"spp": 16, "res": 256},
+                 "bdpt_spot_ortho": {"spp": 16, "res": 128, "half": 64},
+                 "bdpt_fog_terrain": {"spp": 8, "res": 128}}
+# the variants held to phase 9c's path render of cbox.xml (a cross-check,
+# logged: tests/test_bdpt.py's)
+BIDIR_CBOX = ("bdpt_cbox", "ptracer_cbox")
+
+
+def bidir_integrator(kind):
+    return (f'<integrator type="{kind}"><integer name="maxDepth" '
+            f'value="{BIDIR_DEPTH}"/></integrator>')
+
+
+def bidir_xml(variant) -> str:
+    """The 9l scene ``variant``'s text (BIDIR_DEFINES; "bdpt_fog_terrain"
+    needs write_volume_files beside it). scripts/jax_header_ref_mean.py
+    loads the same text."""
+    kind = variant.split("_")[0]
+    if variant == "bdpt_spot_ortho":
+        return lights_xml(LightsCase(("spot",), keep_area=False,
+                                     sensor="orthographic",
+                                     integrator=bidir_integrator(kind)))
+    text, old = ((volume_xml("fog_terrain"), _VOLPATH)
+                 if variant == "bdpt_fog_terrain"
+                 else (CBOX_XML.read_text(), _CBOX_PATH))
+    if text.count(old) != 1:
+        raise AssertionError(f"{variant}: no single {old!r}")
+    return text.replace(old, bidir_integrator(kind))
+
+
+def bidir_queries(static, cfg):
+    """(closest-hit, shadow) queries per sample of a 9l render, as the JAX
+    dispatch issues them (N = maxDepth): bdpt walks N eye and N - 1 light
+    segments, connects N (N - 1) / 2 (s, t) pairs and splats N t = 0
+    strategies, each connection one shadow ray, or with media the
+    max_crossings + 1 = 5 closest hits of the transmittance walk; ptracer
+    walks N - 1 bounces, each a closest hit and a camera connection, and
+    connects an area or sphere light's own vertex."""
+    N = cfg.max_depth
+    if cfg.type == PTRACER:
+        own = any(t in static.emitter_types
+                  for t in (em_mod.AREA, em_mod.SPHERE))
+        return N - 1, N - 1 + own
+    links = N * (N - 1) // 2 + N
+    if static.medium_types:
+        return 2 * N - 1 + 5 * links, 0
+    return 2 * N - 1, links
 
 
 def smoke_plume(n=SMOKE_RES):
@@ -3168,7 +3263,7 @@ def scene_file_phase(dev):
     """The scene-file entry points on the card: load_scene + api.render of
     cbox.xml (path tracer, its glass sphere), the Cornell box through the
     direct integrator, and the CLI in a subprocess, whose EXR must equal
-    the first image bit for bit."""
+    the first image bit for bit. Returns cbox.xml's mean_rgb."""
     defines = {"spp": CBOX_SPP, "res": CBOX_RES}
     t0 = time.perf_counter()
     ls = mitsuba_xml.load_scene(str(CBOX_XML), defines)
@@ -3198,6 +3293,7 @@ def scene_file_phase(dev):
          "brute_force_closest_hit": DIRECT_SPP})
 
     cli_matches("scene file", CBOX_XML, defines, img)
+    return img.double().mean(dim=(0, 1)).tolist()
 
 
 def cli_matches(label, path, defines, img):
@@ -3354,7 +3450,7 @@ def header_render(dev, label, scene, static, sensor, cfg, settings,
 def limits(label):
     """(mean, tv_rgb) relative limits of a render held to HEADER_REF:
     VOLUME_MEAN_RTOL and VOLUME_TV_RTOL for phase 9j's, HEADER_MEAN_RTOL and
-    HEADER_TV_RTOL for the others."""
+    HEADER_TV_RTOL for the others (9l's too)."""
     if label.startswith("volumes"):
         return VOLUME_MEAN_RTOL, VOLUME_TV_RTOL
     return HEADER_MEAN_RTOL, HEADER_TV_RTOL
@@ -3847,6 +3943,64 @@ def sky_subsurface_phase(dev):
             header_render(dev, label, *case)
 
 
+def bidir_renders(dev, tmp):
+    """Every render of phase 9l, by label (``bidir {variant}``): (scene,
+    static, sensor, cfg, settings, expected launches), loaded from
+    ``{tmp}/bidir_{variant}.xml`` with BIDIR_DEFINES, the terrain's PLY
+    written beside them. scripts/torch_header_stats.py renders the same."""
+    write_volume_files(tmp)
+    out = {}
+    for variant, defines in BIDIR_DEFINES.items():
+        path = Path(tmp) / f"bidir_{variant}.xml"
+        path.write_text(bidir_xml(variant))
+        ls = mitsuba_xml.load_scene(str(path), defines, device=dev)
+        closest, shadow = bidir_queries(ls.static, ls.integrator)
+        spp = ls.settings.spp
+        if ls.static.use_bvh:
+            expected = {"lane_chunk":
+                        closest * (scene_mod.BVH_RESORT[0] + 1) * spp}
+        else:
+            expected = {"brute_force_interaction": closest * spp,
+                        "brute_force_closest_hit": shadow * spp}
+        out[f"bidir {variant}"] = (ls.scene, ls.static, ls.sensor,
+                                   ls.integrator, ls.settings, expected)
+    return out
+
+
+def bidir_phase(dev, path_mean):
+    """Phase 9l: each render of bidir_renders held as phase 9f's (mean and
+    tv_rgb to the JAX package, exact launches); the cbox.xml renders' means
+    against ``path_mean`` (phase 9c's path render of the same file, logged);
+    and one pass of each cbox.xml render twice, whether the two light
+    images are equal bit for bit (the scatter-add's float atomics on the
+    card add in no fixed order; logged)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = bidir_renders(dev, tmp)
+        for label, case in cases.items():
+            log(f"{label}: sensor type {case[2].type}, {case[1]}; {case[3]}")
+        # warm-up: one sample of each (first-call set-up of the new modules)
+        for scene, static, sensor, cfg, settings, _ in cases.values():
+            api.render(scene, static, sensor, cfg, dataclasses.replace(
+                settings, spp=1, spp_per_pass=1), device=dev)
+        imgs = {label: header_render(dev, label, *case)
+                for label, case in cases.items()}
+        for variant in BIDIR_CBOX:
+            label = f"bidir {variant}"
+            mean = imgs[label].double().mean(dim=(0, 1)).tolist()
+            log(f"render {label} mean_rgb {mean} against phase 9c's path "
+                f"render of cbox.xml {path_mean}: relative gap "
+                f"{[a / b - 1.0 for a, b in zip(mean, path_mean)]}")
+            scene, static, sensor, cfg, settings, _ = cases[label]
+            one = dataclasses.replace(settings, spp=1, spp_per_pass=1)
+            a, b = (api.render(scene, static, sensor, cfg, one, device=dev)
+                    for _ in range(2))
+            log(f"render {label} one pass twice: equal bit for bit "
+                f"{bool(torch.equal(a, b))}, max abs difference "
+                f"{float((a - b).abs().max())}, pixels that differ "
+                f"{int((a != b).any(dim=-1).sum())} of "
+                f"{settings.width * settings.height} ({card_line()})")
+
+
 def bunny_ao_case(bunny_scene):
     """ao on bunny_x2 (lane mode) at 512x512, BUNNY_AO_SPP spp, the default
     ray length (half the scene's radius), box filter: K3 launches only,
@@ -4049,7 +4203,7 @@ def main() -> int:
     with phase("9b training"):
         train_phase(dev)
     with phase("9c scene files"):
-        scene_file_phase(dev)
+        cbox_path_mean = scene_file_phase(dev)
     with phase("9d veach"):
         veach_phase(dev)
     with phase("9e sampler bits"):
@@ -4068,6 +4222,8 @@ def main() -> int:
         volume_phase(dev)
     with phase("9k sky and subsurface"):
         sky_subsurface_phase(dev)
+    with phase("9l bidirectional"):
+        bidir_phase(dev, cbox_path_mean)
     with phase("10 bunny"):
         bunny_scene = bunny(dev)
         bunny_launches, lane_mean, lane_ms = render_phase(

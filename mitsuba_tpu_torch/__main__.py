@@ -6,7 +6,10 @@ scenes whose output exists, -r SEC periodic partial-image flush, --spp and
 --size overrides. It renders on the card; ``--cpu`` asks for the CPU. Every file goes through
 ``render_pass``, a 1x1 meter's too (its film of pixel-jittered samples,
 times ``ray_weight``), as in the JAX CLI; ``api.render`` sends a meter to
-``render_meter`` instead. The
+``render_meter`` instead. A file
+whose integrator is ptracer or bdpt stops there with the JAX CLI's
+``ValueError`` naming the integrator type, since ``render_pass`` has no
+``li`` for them (``api.render`` renders them; ROADMAP.md, Queue 3). The
 JAX CLI's checkpoints (-c), device count above 1 (-p) and concurrent scenes
 (-j above 1) land in a later slice of the port and raise.
 """

@@ -1,6 +1,6 @@
 """Sampling warps (port of ``mitsuba_tpu/core/warp.py``, the subset the
-port's scenes use): square -> cosine hemisphere, uniform sphere, concentric
-disk, triangle."""
+port's scenes use): square -> cosine hemisphere, uniform sphere, uniform
+cone, concentric disk, triangle."""
 from __future__ import annotations
 
 import math
@@ -29,6 +29,18 @@ def square_to_cosine_hemisphere(u):
 
 def square_to_cosine_hemisphere_pdf(d):
     return torch.clamp(d[..., 2], min=0.0) * INV_PI
+
+
+def square_to_uniform_cone(u, cos_cutoff):
+    """Uniform direction in a cone around +Z of half-angle acos(cos_cutoff)."""
+    z = 1.0 - u[..., 0] * (1.0 - cos_cutoff)
+    r = m.safe_sqrt(1.0 - z * z)
+    phi = 2.0 * math.pi * u[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def square_to_uniform_cone_pdf(cos_cutoff):
+    return INV_TWOPI / (1.0 - cos_cutoff)
 
 
 def square_to_uniform_disk_concentric(u):

@@ -73,13 +73,14 @@ DIELECTRIC_IOR = {
 # the elements of case 3, by the JAX loader's type name, with the ROADMAP.md
 # item (Queue 1) where each lands
 _LATER_INTEGRATORS = {
-    "ptracer": "3.9", "bdpt": "3.9", "pssmlt": "3.10", "mlt": "3.10",
-    "erpt": "3.10", "vpl": "3.11", "sppm": "3.11", "ppm": "3.11",
-    "photonmapper": "3.11", "irrcache": "3.11", "adaptive": "3.12",
+    "pssmlt": "3.10", "mlt": "3.10", "erpt": "3.10", "vpl": "3.11",
+    "sppm": "3.11", "ppm": "3.11", "photonmapper": "3.11", "irrcache": "3.11",
+    "adaptive": "3.12",
 }
 _INTEGRATORS = {"path": icommon.PATH, "volpath": icommon.VOLPATH,
                 "volpath_simple": icommon.VOLPATH, "direct": icommon.DIRECT,
-                "ao": icommon.AO, "field": icommon.FIELD}
+                "ao": icommon.AO, "field": icommon.FIELD,
+                "ptracer": icommon.PTRACER, "bdpt": icommon.BDPT}
 # the phase functions a scene file names (the JAX loader's three; any other
 # name is isotropic there too)
 _PHASES = {"isotropic": PH.ISOTROPIC, "hg": PH.HG, "rayleigh": PH.RAYLEIGH}

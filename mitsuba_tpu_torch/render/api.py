@@ -1,13 +1,16 @@
 """Top-level render orchestration (port of ``mitsuba_tpu/render/api.py``: the
 PATH, VOLPATH, DIRECT, AO and FIELD integrators with every sampler and every
-reconstruction filter of the JAX package, the meters' render, the
-hero-wavelength spectral render and the multichannel stack; the other
-integrators land in a later slice).
+reconstruction filter of the JAX package, the meters' render, the particle
+tracer's and the bidirectional tracer's renders, the hero-wavelength
+spectral render and the multichannel stack; the other integrators land in a
+later slice).
 
 The whole image is one wavefront per sample: every pixel is a lane. A host
 loop runs the sample passes and accumulates into the film. A 1x1 meter
 (radiance, irradiance, fluence) renders through ``render_meter`` instead:
-its samples are the lanes.
+its samples are the lanes. PTRACER and BDPT scatter-add into a light image
+(``render_light_traced``, ``render_bdpt``); ``render_pass`` does not take
+them, as in the JAX package, whose CLI therefore cannot render them.
 """
 from __future__ import annotations
 
@@ -21,10 +24,12 @@ from ..device import check_on, resolve_device
 from . import film as film_mod
 from . import rfilter
 from . import sensor as sensor_mod
+from .integrators import bdpt as int_bdpt
 from .integrators import common as icommon
 from .integrators import direct as int_direct
 from .integrators import misc as int_misc
 from .integrators import path as int_path
+from .integrators import ptracer as int_pt
 from .integrators import volpath as int_volpath
 
 # the integrators the port renders, by type tag
@@ -87,7 +92,12 @@ def pixel_sample_positions(settings: RenderSettings, pixel_idx, sample_idx,
 
 
 def _li(cfg: icommon.IntegratorConfig):
-    """The integrator's ``li``; raises for one the port does not render."""
+    """The integrator's ``li``; raises for one the port does not render.
+    PTRACER and BDPT have no ``li``: the JAX ``_li_fn`` (api.py:63-74)
+    raises ValueError for them, and so does this one (ROADMAP.md, Queue
+    3)."""
+    if cfg.type in (icommon.PTRACER, icommon.BDPT):
+        raise ValueError(f"unknown integrator type {cfg.type}")
     if cfg.type not in _LI:
         raise NotImplementedError(
             f"integrator type {cfg.type} lands in a later slice of the port")
@@ -174,6 +184,74 @@ def render_meter(scene, static, sensor, cfg: icommon.IntegratorConfig,
     return (total / n * sensor_mod.ray_weight(sensor)).reshape(1, 1, 3)
 
 
+def render_light_traced(scene, static, sensor, cfg: icommon.IntegratorConfig,
+                        settings: RenderSettings, device=None,
+                        with_stats: bool = False):
+    """The adjoint render (ptracer; the JAX ``render_light_traced``): spp
+    passes of H x W particles each, the independent sampler (a ``Sampler``
+    of the settings' seed) whatever the settings' sampler, every vertex
+    splatted to the camera (box) and the light image scaled by pixels over
+    particles. Returns the (H, W, 3) image, or (image, n_rays) when
+    ``with_stats``."""
+    dev = resolve_device(device)
+    check_on(scene.tri_p0, dev, "scene")
+    check_on(sensor.to_world, dev, "sensor")
+    H, W = settings.height, settings.width
+    P = H * W  # particles per pass
+    sampler = rng_mod.Sampler(seed=settings.seed)
+    pid = torch.arange(P, dtype=torch.int64, device=dev)
+    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        light = torch.zeros((H, W, 3), device=dev)
+        for s in range(settings.spp):
+            n_rays = n_rays + int_pt.trace_pass(
+                scene, static, cfg, sensor, light, sampler, pid, s,
+                with_stats=True)[1]
+        img = int_pt.develop_light_image(light, settings.spp * P)
+    return (img, int(n_rays)) if with_stats else img
+
+
+def render_bdpt(scene, static, sensor, cfg: icommon.IntegratorConfig,
+                settings: RenderSettings, device=None,
+                with_stats: bool = False):
+    """The bidirectional render (the JAX ``render_bdpt``): per sample an eye
+    and a light subpath for every pixel lane, the independent sampler (the
+    pixel jitter stratified where the settings ask for the stratified
+    sampler, as there) whatever the settings' sampler; the t >= 1
+    strategies land on the lane's pixel, the t = 0 ones scatter-add into the
+    shared light image (bdpt_wr.cpp), box-filtered, and the sum is divided by
+    spp. Returns the (H, W, 3) image, or (image, n_rays) when
+    ``with_stats``."""
+    dev = resolve_device(device)
+    check_on(scene.tri_p0, dev, "scene")
+    check_on(sensor.to_world, dev, "sensor")
+    H, W = settings.height, settings.width
+    sampler = rng_mod.Sampler(seed=settings.seed)
+    pixel_idx = torch.arange(H * W, dtype=torch.int64, device=dev)
+    res = torch.tensor([W, H], dtype=torch.float32, device=dev)
+    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        film = torch.zeros((H, W, 3), device=dev)
+        for s in range(settings.spp):
+            pos = pixel_sample_positions(settings, pixel_idx, s, sampler)
+            u_ap = rng_mod.uniform2(sampler, pixel_idx, s,
+                                    icommon.DIM_APERTURE)
+            o, d = sensor_mod.sample_ray(sensor, pos / res, u_ap)
+            L, sp_uv, sp_val, n = int_bdpt.li_and_splats(
+                scene, static, cfg, sensor, o, d, sampler, pixel_idx, s,
+                with_stats=True)
+            n_rays = n_rays + n
+            film = film + L.reshape(H, W, 3)
+            if sp_uv.shape[0]:
+                # one light subpath per pixel lane and pass: scale 1
+                ok = (sp_uv[..., 0] >= 0).to(torch.float32)[..., None]
+                film.view(H * W, 3).index_add_(
+                    0, int_pt.splat_pixels(sp_uv, H, W).reshape(-1),
+                    (sp_val * ok).reshape(-1, 3))
+        img = film / float(settings.spp)
+    return (img, int(n_rays)) if with_stats else img
+
+
 def render_spectral(scene, static, sensor, cfg: icommon.IntegratorConfig,
                     settings: RenderSettings, device=None,
                     with_stats: bool = False):
@@ -225,12 +303,19 @@ def render_multichannel(scene, static, sensor, cfgs,
 def render(scene, static, sensor, cfg: icommon.IntegratorConfig,
            settings: RenderSettings, device=None, with_stats: bool = False):
     """Full render: host loop over passes of ``spp_per_pass`` samples, or
-    ``render_meter`` for a 1x1 meter under PATH, VOLPATH, DIRECT or AO.
+    ``render_meter`` for a 1x1 meter under PATH, VOLPATH, DIRECT or AO,
+    ``render_bdpt`` under BDPT, ``render_light_traced`` under PTRACER.
 
     Runs on ``device`` (CUDA by default), where the scene and sensor must
     already live. Returns the developed (H, W, 3) image, or (image, n_rays)
     with the exact number of issued ray queries when ``with_stats``.
     """
+    if cfg.type == icommon.BDPT:
+        return render_bdpt(scene, static, sensor, cfg, settings, device,
+                           with_stats)
+    if cfg.type == icommon.PTRACER:
+        return render_light_traced(scene, static, sensor, cfg, settings,
+                                   device, with_stats)
     dev = resolve_device(device)
     check_on(scene.tri_p0, dev, "scene")
     check_on(sensor.to_world, dev, "sensor")

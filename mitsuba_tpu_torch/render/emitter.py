@@ -15,8 +15,9 @@ package. A delta light (point, spot, directional) reports its selection pmf
 as the sample's pdf, with ``delta`` set, so the integrators weigh it 1 and
 divide by the pmf alone. A collimated beam has no NEE branch, as in the JAX
 package: its row is never valid in ``sample_direct`` and never hit, and it
-takes its share of the selection pmf. Sun, sky and sunsky land in a later
-slice.
+takes its share of the selection pmf; its light leaves only through
+``sample_ray``, which starts the particle tracer's and the bidirectional
+tracer's light paths at every emitter type.
 """
 from __future__ import annotations
 
@@ -211,6 +212,192 @@ def sample_direct(scene, static, p_ref, u3):
         pdf_sa = pdf_sa * torch.where(etype == AREA, 1.0, em.pmf[e_idx])
     return DirectSample(d=d, dist=dist, radiance=radiance, pdf_sa=pdf_sa,
                         delta=delta, valid=valid)
+
+
+class EmitterRaySample(NamedTuple):
+    """An emitted ray (AbstractEmitter::sampleRay) for the light paths."""
+
+    o: torch.Tensor         # (R, 3) origin (on the emitter or its disk)
+    d: torch.Tensor         # (R, 3) emission direction
+    weight: torch.Tensor    # (R, 3) power over every sampling pdf
+    n: torch.Tensor         # (R, 3) emitter surface normal (0 off a surface)
+    pdf_area: torch.Tensor  # (R,) area pdf of the origin (surface lights)
+    radiance: torch.Tensor  # (R, 3) Le at the origin (surface lights)
+    is_area: torch.Tensor   # (R,) bool: the origin is an emitting surface
+    valid: torch.Tensor     # (R,) bool
+    e_idx: torch.Tensor     # (R,) int64 chosen emitter row
+    epmf: torch.Tensor      # (R,) its selection pmf (at least 1e-12)
+
+
+def sample_ray(scene, static, u4, u2) -> EmitterRaySample:
+    """An emitter and a ray leaving it (the JAX ``sample_ray``): the emitter
+    picked through the NEE cdf, ``u4[..., 1:3]`` the position, ``u2`` the
+    direction. ``weight`` is the radiant power over all sampling pdfs, so a
+    particle tracer divides by the particle count alone. Every emitter type
+    has its branch, in the JAX package's order; a directional light, the
+    constant environment and the envmap start on the disk that bounds the
+    scene across the direction."""
+    for t in static.emitter_types:
+        if t not in SUPPORTED_TYPES:
+            raise NotImplementedError(
+                f"emitter type {t} lands in a later slice of the port")
+    em = scene.emitters
+    R = u4.shape[0]
+    dev = u4.device
+    u_sel, u0, u1 = u4[..., 0].contiguous(), u4[..., 1], u4[..., 2]
+
+    e_idx = torch.clamp(
+        torch.searchsorted(em.cdf, u_sel, right=True), 0, em.count - 1)
+    lo_cdf = torch.where(e_idx > 0, em.cdf[torch.clamp(e_idx - 1, min=0)], 0.0)
+    u_re = torch.clamp(
+        m.safe_div(u_sel - lo_cdf, torch.clamp(em.pmf[e_idx], min=1e-12)),
+        0.0, 1.0 - 1e-7)
+    etype = em.type[e_idx]
+    epmf = torch.clamp(em.pmf[e_idx], min=1e-12)
+    u_pos = torch.stack([u0, u1], dim=-1)
+
+    o = torch.zeros((R, 3), device=dev)
+    d = torch.tensor([0.0, 0.0, 1.0], device=dev).repeat(R, 1)
+    weight = torch.zeros((R, 3), device=dev)
+    n_out = torch.zeros((R, 3), device=dev)
+    pdf_area = torch.zeros((R,), device=dev)
+    radiance = torch.zeros((R, 3), device=dev)
+    is_area = torch.zeros((R,), dtype=torch.bool, device=dev)
+    valid = torch.zeros((R,), dtype=torch.bool, device=dev)
+
+    center = 0.5 * (scene.aabb_lo + scene.aabb_hi)
+    radius = scene.radius
+
+    if AREA in static.emitter_types:
+        # the origin: an area-weighted triangle, uniform barycentrics; the
+        # direction: cosine-weighted about the front normal
+        key = e_idx.to(torch.float32) + u_re
+        j = torch.clamp(torch.searchsorted(em.etri_cdf, key, right=True),
+                        0, em.etri_tri.shape[0] - 1)
+        tri = em.etri_tri[j].to(torch.int64)
+        p0, e1, e2, n_l, pdf_a_g = _gather_tri(scene, tri)
+        bc = warp.square_to_uniform_triangle(u_pos)
+        y = p0 + bc[..., 0:1] * e1 + bc[..., 1:2] * e2
+        p_A = torch.clamp(pdf_a_g, min=1e-20)
+        wo_local = warp.square_to_cosine_hemisphere(u2)
+        d_a = Frame.from_normal(n_l).to_world(wo_local)
+        Le = em.radiance[e_idx]
+        # Le cos / (p_A cos / pi) = Le pi / p_A
+        w_a = Le * (math.pi / p_A)[..., None]
+        sel = etype == AREA
+        s3 = sel[..., None]
+        o = torch.where(s3, y, o)
+        d = torch.where(s3, d_a, d)
+        weight = torch.where(s3, w_a, weight)
+        n_out = torch.where(s3, n_l, n_out)
+        pdf_area = torch.where(sel, p_A, pdf_area)
+        radiance = torch.where(s3, Le, radiance)
+        is_area = torch.where(sel, True, is_area)
+        valid = torch.where(sel, wo_local[..., 2] > 0, valid)
+
+    if SPHERE in static.emitter_types:
+        c_s = em.position[e_idx]
+        r_s = em.spot_cos[e_idx, 0]
+        n_s = warp.square_to_uniform_sphere(u_pos)
+        y_s = c_s + r_s[..., None] * n_s
+        area_s = 4.0 * math.pi * r_s * r_s
+        p_A = m.safe_div(epmf, torch.clamp(area_s, min=1e-12))
+        wo_local = warp.square_to_cosine_hemisphere(u2)
+        d_sp = Frame.from_normal(n_s).to_world(wo_local)
+        Le = em.radiance[e_idx]
+        w_s = Le * (math.pi / torch.clamp(p_A, min=1e-20))[..., None]
+        sel = etype == SPHERE
+        s3 = sel[..., None]
+        o = torch.where(s3, y_s, o)
+        d = torch.where(s3, d_sp, d)
+        weight = torch.where(s3, w_s, weight)
+        n_out = torch.where(s3, n_s, n_out)
+        pdf_area = torch.where(sel, p_A, pdf_area)
+        radiance = torch.where(s3, Le, radiance)
+        is_area = torch.where(sel, True, is_area)
+        valid = torch.where(sel, wo_local[..., 2] > 0, valid)
+
+    if POINT in static.emitter_types:
+        d_p = warp.square_to_uniform_sphere(u2)
+        w_p = em.radiance[e_idx] * (4.0 * math.pi / epmf)[..., None]
+        sel = etype == POINT
+        s3 = sel[..., None]
+        o = torch.where(s3, em.position[e_idx], o)
+        d = torch.where(s3, d_p, d)
+        weight = torch.where(s3, w_p, weight)
+        valid = torch.where(sel, True, valid)
+
+    if SPOT in static.emitter_types:
+        # uniform over the cone up to the cutoff (spot.cpp sampleRay)
+        cc = em.spot_cos[e_idx, 0]
+        cb = em.spot_cos[e_idx, 1]
+        local = warp.square_to_uniform_cone(u2, cc)
+        d_s = Frame.from_normal(em.direction[e_idx]).to_world(local)
+        cos_f = local[..., 2]
+        fall = torch.clamp(m.safe_div(cos_f - cc, cb - cc), 0.0, 1.0)
+        fall = torch.where(cos_f >= cb, 1.0, fall)
+        pdf_cone = warp.square_to_uniform_cone_pdf(cc)
+        w_s = em.radiance[e_idx] * (fall / (pdf_cone * epmf))[..., None]
+        sel = etype == SPOT
+        s3 = sel[..., None]
+        o = torch.where(s3, em.position[e_idx], o)
+        d = torch.where(s3, d_s, d)
+        weight = torch.where(s3, w_s, weight)
+        valid = torch.where(sel, True, valid)
+
+    def disk_origin(d_emit):
+        """A point of the scene's bounding disk across d_emit
+        (directional.cpp, envmap.cpp sampleRay)."""
+        dsk = warp.square_to_uniform_disk_concentric(u_pos) * radius
+        off = Frame.from_normal(d_emit).to_world(
+            torch.cat([dsk, torch.zeros_like(dsk[..., :1])], dim=-1))
+        return center - d_emit * radius + off
+
+    if DIRECTIONAL in static.emitter_types:
+        d_dir = em.direction[e_idx]
+        w_d = em.radiance[e_idx] * (
+            math.pi * radius * radius / epmf)[..., None]
+        sel = etype == DIRECTIONAL
+        s3 = sel[..., None]
+        o = torch.where(s3, disk_origin(d_dir), o)
+        d = torch.where(s3, d_dir, d)
+        weight = torch.where(s3, w_d, weight)
+        valid = torch.where(sel, True, valid)
+
+    if COLLIMATED in static.emitter_types:
+        sel = etype == COLLIMATED
+        s3 = sel[..., None]
+        o = torch.where(s3, em.position[e_idx], o)
+        d = torch.where(s3, em.direction[e_idx], d)
+        weight = torch.where(s3, em.radiance[e_idx] / epmf[..., None], weight)
+        valid = torch.where(sel, True, valid)
+
+    if CONSTANT in static.emitter_types:
+        d_env = warp.square_to_uniform_sphere(u2)  # toward the environment
+        w_c = em.radiance[e_idx] * (
+            4.0 * math.pi * math.pi * radius * radius / epmf)[..., None]
+        sel = etype == CONSTANT
+        s3 = sel[..., None]
+        o = torch.where(s3, disk_origin(-d_env), o)
+        d = torch.where(s3, -d_env, d)
+        weight = torch.where(s3, w_c, weight)
+        valid = torch.where(sel, True, valid)
+
+    if ENVMAP in static.emitter_types:
+        d_env, pdf_e, rad_e = _envmap_sample(em, u2)
+        w_e = rad_e * m.safe_div(math.pi * radius * radius,
+                                 pdf_e * epmf)[..., None]
+        sel = etype == ENVMAP
+        s3 = sel[..., None]
+        o = torch.where(s3, disk_origin(-d_env), o)
+        d = torch.where(s3, -d_env, d)
+        weight = torch.where(s3, w_e, weight)
+        valid = torch.where(sel, pdf_e > 0, valid)
+
+    return EmitterRaySample(o=o, d=d, weight=weight, n=n_out,
+                            pdf_area=pdf_area, radiance=radiance,
+                            is_area=is_area, valid=valid, e_idx=e_idx,
+                            epmf=epmf)
 
 
 def _cone(r_s, d2c):

@@ -14,7 +14,9 @@ DIRECT = 1
 PATH = 2
 FIELD = 3
 VOLPATH = 4       # path/volpath.cpp and volpath_simple.cpp
+PTRACER = 5       # ptracer/ptracer.cpp (api.render_light_traced)
 MULTICHANNEL = 9  # misc/multichannel.cpp (api.render_multichannel)
+BDPT = 11         # bdpt/bdpt.cpp (api.render_bdpt)
 
 # field integrator AOVs (misc/field.cpp)
 FIELD_POSITION = 0
@@ -29,8 +31,9 @@ FIELD_GEO_NORMAL = 7
 
 @dataclass(frozen=True)
 class IntegratorConfig:
-    """Integrator settings (the fields the path tracers and the direct, ao
-    and field integrators read)."""
+    """Integrator settings (the fields the path tracers, the particle
+    tracer, the bidirectional tracer and the direct, ao and field
+    integrators read)."""
 
     type: int = PATH
     max_depth: int = 5           # path.cpp maxDepth: 1 = Le only, 2 = direct

@@ -7,7 +7,9 @@ device, and the type tag as a Python int, so that ``sample_ray`` computes
 the branch of that type alone, with no device round trip. Each branch keeps
 the JAX package's arithmetic; the meters carry a constant estimator weight
 (``ray_weight``) that turns a cosine- or sphere-sampled radiance mean into
-irradiance or fluence.
+irradiance or fluence. ``sample_direct``, ``pdf_ray_direction`` and
+``camera_pdf_area`` connect the particle tracer's and the bidirectional
+tracer's light vertices to the camera.
 """
 from __future__ import annotations
 
@@ -45,6 +47,10 @@ class Sensor(NamedTuple):
     ortho_scale: torch.Tensor      # (2,) orthographic half-extents
     near: torch.Tensor             # ()
     rdist: torch.Tensor            # (2,) radial distortion (kc0, kc1)
+
+    @property
+    def position(self):
+        return self.to_world[:3, 3]
 
 
 def _sensor(stype, to_world, tan_half_fov, aspect, aperture_radius=0.0,
@@ -257,3 +263,117 @@ def sample_ray(sensor: Sensor, uv, u_aperture):
     else:
         o_w = o_cam @ A[:3, :3].T + A[:3, 3]
     return o_w, m.normalize(d_cam @ A[:3, :3].T)
+
+
+# --- camera connections (sensor.h sampleDirect, pdfDirection) --------------
+
+class SensorSample(NamedTuple):
+    """A world point's connection to the camera (PerspectiveCamera::
+    sampleDirect). ``imp`` is the importance 1 / (A_plane cos^3 r^2) of a
+    pinhole, 1 / A_film of the orthographic camera: a light vertex of power
+    beta splats beta f imp at film position ``uv``."""
+
+    d: torch.Tensor      # (R, 3) unit direction from the point to the sensor
+    dist: torch.Tensor   # (R,)
+    uv: torch.Tensor     # (R, 2) film position in [0, 1)^2
+    imp: torch.Tensor    # (R,) importance, 0 where not valid
+    valid: torch.Tensor  # (R,) inside the frustum and in front
+
+
+def image_plane_area(sensor: Sensor):
+    """Area of the virtual image plane at z = 1 (perspective)."""
+    t = sensor.tan_half_fov
+    return 4.0 * t * t / sensor.aspect
+
+
+def _film_uv(sensor: Sensor, d_cam):
+    """(u, v, z clamped to 1e-6, in front and inside) of camera-space
+    directions d_cam through the pinhole's image plane."""
+    z = d_cam[..., 2]
+    in_front = z > 1e-6
+    zs = torch.clamp(z, min=1e-6)
+    x_pl = d_cam[..., 0] / zs
+    y_pl = d_cam[..., 1] / zs
+    u = (x_pl / sensor.tan_half_fov + 1.0) * 0.5
+    v = (1.0 - y_pl * sensor.aspect / sensor.tan_half_fov) * 0.5
+    inside = (u >= 0.0) & (u < 1.0) & (v >= 0.0) & (v < 1.0)
+    return u, v, zs, in_front & inside
+
+
+def sample_direct(sensor: Sensor, p) -> SensorSample:
+    """Connect world points p (R, 3) to the sensor. Perspective, and a thin
+    lens as a pinhole, connect to the aperture point (perspective.cpp
+    sampleDirect); the orthographic camera along its view direction to the
+    film plane's projection (orthographic.cpp:235-264: a discrete
+    direction, importance 1 / A_film, no falloff). Every other type,
+    telecentric among them (telecentric.cpp sampleDirect refuses), is never
+    valid: the pinhole's values with ``valid`` False, as in the JAX
+    package."""
+    A = sensor.to_world
+    if sensor.type == ORTHOGRAPHIC:
+        xo, yo, zo, in_front, view, a_world = _ortho_film(sensor, p)
+        uo = (xo + 1.0) * 0.5
+        vo = (1.0 - yo) * 0.5
+        valid = (uo >= 0.0) & (uo < 1.0) & (vo >= 0.0) & (vo < 1.0) & in_front
+        imp = m.safe_div(torch.ones((), device=p.device), a_world)
+        # dist: the world distance from p to its film projection
+        return SensorSample(d=(-view).expand(p.shape).contiguous(),
+                            dist=zo * m.length(A[:3, 2]),
+                            uv=torch.stack([uo, vo], dim=-1),
+                            imp=torch.where(valid, imp, 0.0), valid=valid)
+    to_cam = A[:3, 3] - p
+    dist = m.length(to_cam)
+    d = to_cam / torch.clamp(dist, min=1e-12)[..., None]
+    # world -> camera rotation (a rigid to_world, as in the reference)
+    u, v, zs, valid = _film_uv(sensor, (-d) @ A[:3, :3])
+    cos3 = zs * zs * zs  # z = cos(theta) of a unit d_cam
+    imp = m.safe_div(torch.ones((), device=p.device),
+                     image_plane_area(sensor) * cos3
+                     * torch.clamp(dist * dist, min=1e-12))
+    valid = valid & (sensor.type in (PERSPECTIVE, THINLENS))
+    return SensorSample(d=d, dist=dist, uv=torch.stack([u, v], dim=-1),
+                        imp=torch.where(valid, imp, 0.0), valid=valid)
+
+
+def _ortho_film(sensor: Sensor, p):
+    """The orthographic projection of points p: (film x and y in [-1, 1],
+    camera-space depth, beyond the near plane, world view direction, world
+    film area); to_world may carry the extent as its scale."""
+    A = sensor.to_world
+    A_inv = torch.linalg.inv(A)
+    local = p @ A_inv[:3, :3].T + A_inv[:3, 3]
+    a1 = A[:3, 0] * sensor.ortho_scale[0]
+    a2 = A[:3, 1] * sensor.ortho_scale[1]
+    return (local[..., 0] / sensor.ortho_scale[0],
+            local[..., 1] / sensor.ortho_scale[1], local[..., 2],
+            local[..., 2] > torch.clamp(sensor.near, min=1e-6),
+            m.normalize(A[:3, 2]), 4.0 * m.length(m.cross(a1, a2)))
+
+
+def pdf_ray_direction(sensor: Sensor, d_world):
+    """Solid-angle pdf of a camera ray leaving along ``d_world`` under
+    uniform film sampling: 1 / (A_plane cos^3 theta), 0 outside the frustum
+    (perspective.cpp pdfDirection)."""
+    _, _, zs, ok = _film_uv(sensor, d_world @ sensor.to_world[:3, :3])
+    pdf = m.safe_div(torch.ones((), device=d_world.device),
+                     image_plane_area(sensor) * zs * zs * zs)
+    return torch.where(ok, pdf, 0.0)
+
+
+def camera_pdf_area(sensor: Sensor, p, n_target):
+    """Area density of the camera generating a first vertex at ``p`` with
+    normal ``n_target`` (a zero normal: a volume vertex, cos := 1), which the
+    bidirectional MIS walk compares the t = 0 and t = 1 strategies with: the
+    directional pdf times cos / d^2 for a pinhole, the parallel projection's
+    film density |cos| / A_world for the orthographic camera."""
+    is_vol = m.squared_length(n_target) < 0.5
+    if sensor.type == ORTHOGRAPHIC:
+        xo, yo, _, in_front, view, a_world = _ortho_film(sensor, p)
+        inside = (torch.abs(xo) < 1.0) & (torch.abs(yo) < 1.0) & in_front
+        cos_o = torch.where(is_vol, 1.0, torch.abs(m.dot(n_target, view)))
+        return torch.where(inside, m.safe_div(cos_o, a_world), 0.0)
+    to_p = p - sensor.position
+    dist2 = torch.clamp(m.squared_length(to_p), min=1e-12)
+    d = to_p / torch.sqrt(dist2)[..., None]
+    cos_t = torch.where(is_vol, 1.0, torch.abs(m.dot(n_target, d)))
+    return pdf_ray_direction(sensor, d) * m.safe_div(cos_t, dist2)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Image statistics of the sensor-header, gallery, lights-and-cameras,
-cloth-and-spectra, participating-media and sky-and-subsurface renders
-through the JAX package on the CPU.
+cloth-and-spectra, participating-media, sky-and-subsurface and
+bidirectional renders through the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/jax_header_ref_mean.py
         [--block-y Y] [--eye-shift DX] [LABEL ...]
@@ -70,7 +70,14 @@ them without one):
   built by the JAX builder, its point cloud placed by ``subsurface.prepare``
   at its defaults, rendered by ``api.render`` at ``chip_smoke.SSS_RES`` and
   ``SSS_SPP``, depth ``SSS_DEPTH``, in passes of one sample (the dipole's
-  (lanes x points) sum stays at 65,536 lanes; the samples are the card's).
+  (lanes x points) sum stays at 65,536 lanes; the samples are the card's);
+- the particle tracer and the bidirectional tracer (phase 9l): ``bidir
+  {variant}`` for each variant of ``chip_smoke.BIDIR_DEFINES``,
+  ``chip_smoke.bidir_xml``'s text (cbox.xml with bdpt and with ptracer, the
+  spot-light scene of 9h through its orthographic camera with bdpt, and 9j's
+  fog_terrain with bdpt, each at maxDepth 5), loaded with the variant's
+  defines and rendered by ``api.render`` (``render_bdpt``,
+  ``render_light_traced``).
 
 Every scene file is loaded with its difftrans rows made as
 ``add_material(type=DIFFTRANS, spec_trans=t)`` (``difftrans_in_spec_trans``):
@@ -336,6 +343,9 @@ def renders(labels=(), block_y=None, eye_shift=0.0):
             out.append((f"sky {v}", lambda v=v: sky(v, tmp)))
         for v in chip_smoke.SSS_VARIANTS:
             out.append((f"subsurface {v}", lambda v=v: subsurface(v)))
+        for v, defines in chip_smoke.BIDIR_DEFINES.items():
+            out.append((f"bidir {v}", lambda v=v, defines=defines:
+                        scene_file(chip_smoke.bidir_xml(v), 0, 0, defines)))
         values = {}
         for label, thunk in out:
             if labels and not any(label.startswith(x) for x in labels):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Image statistics of the sensor-header, gallery, lights-and-cameras,
-cloth-and-spectra, participating-media and sky-and-subsurface renders
-through the port, beside the JAX package's values that chip_smoke.py holds
+cloth-and-spectra, participating-media, sky-and-subsurface and
+bidirectional renders through the port, beside the JAX package's values that chip_smoke.py holds
 them to.
 
     python scripts/torch_header_stats.py [--device cpu|cuda] [--threads N]
@@ -20,7 +20,10 @@ phase (9j, ``chip_smoke.volume_renders``, labels ``volumes {variant}``)
 and sky-and-subsurface phase (9k, ``chip_smoke.sky_renders`` and
 ``subsurface_renders``, labels ``sky {variant}`` and ``subsurface
 {variant}``, the dipole's point cloud placed by
-``chip_smoke.subsurface_prepare``'s call on the CPU too) whose label starts with one of the LABELs (all of them without one)
+``chip_smoke.subsurface_prepare``'s call on the CPU too) and bidirectional
+phase (9l, ``chip_smoke.bidir_renders``, labels ``bidir {variant}``: the
+particle tracer and the bidirectional tracer) whose label starts with one of
+the LABELs (all of them without one)
 through this tree's ``mitsuba_tpu_torch`` on ``--device`` (the card by default), and prints its
 ``mean_rgb`` and ``tv_rgb`` with their relative gaps to
 ``chip_smoke.HEADER_REF`` (``scripts/jax_header_ref_mean.py``'s values) and
@@ -78,6 +81,7 @@ def main() -> int:
         cases.update(cs.spectral_renders(dev))
         cases.update(cs.volume_renders(dev, tmp))
         cases.update(cs.sky_renders(dev, tmp))
+        cases.update(cs.bidir_renders(dev, tmp))
         for label, (scene, static, *rest) in cs.subsurface_renders(
                 dev).items():
             if wanted(label):
