@@ -300,6 +300,7 @@ from mitsuba_tpu_torch.ops import cuda_bvh as cb
 from mitsuba_tpu_torch.ops import cuda_intersect as bf
 from mitsuba_tpu_torch.render import api, shapes
 from mitsuba_tpu_torch.render import bsdf as bsdf_mod
+from mitsuba_tpu_torch.render import manifold
 from mitsuba_tpu_torch.render import medium as medium_mod
 from mitsuba_tpu_torch.render import emitter as em_mod
 from mitsuba_tpu_torch.render import microfacet as mf
@@ -307,8 +308,9 @@ from mitsuba_tpu_torch.render import scene as scene_mod
 from mitsuba_tpu_torch.render import sensor as sensor_mod
 from mitsuba_tpu_torch.render import subsurface as sss_mod
 from mitsuba_tpu_torch.render.integrators.common import (
-    AO, DIM_BASE, DIM_BSDF, DIM_NEE, DIRECT, FIELD, FIELD_ALBEDO,
-    FIELD_POSITION, PATH, PTRACER, IntegratorConfig, ray_offset)
+    AO, DIM_BASE, DIM_BSDF, DIM_NEE, DIRECT, ERPT, FIELD, FIELD_ALBEDO,
+    FIELD_POSITION, MLT, PATH, PTRACER, IntegratorConfig, ray_offset)
+from mitsuba_tpu_torch.render.integrators import mlt as int_mlt
 from mitsuba_tpu_torch.render.scene import SceneBuilder
 
 W = H = 512
@@ -577,59 +579,59 @@ HEADER_REF = {
         (0.6041403350492942, 0.5563607621990627, 0.4755961521263714),
         (0.0016849335373485, 0.002121223633882905, 0.002719655882946713)),
     # the material gallery (phase 9f), scripts/jax_header_ref_mean.py's
-    # gallery renders (at 32 spp since phase 9k)
+    # gallery renders (at 16 spp since phase 9m, 32 since 9k)
     "gallery conductor": (
-        (0.2201457211293903, 0.16766945549604706,
-         0.07199775437706515),
-        (0.02285459342655013, 0.015825582819393596,
-         0.0051927028472720325)),
+        (0.21996100464866242, 0.16760026607546588,
+         0.07196421066785878),
+        (0.025744610636152156, 0.01778172733458411,
+         0.005857332204403523)),
     "gallery roughdielectric ggx": (
-        (0.21339089297154662, 0.1665060262894268,
-         0.0752660278542844),
-        (0.012975933729689313, 0.010275013040949882,
-         0.004759448559439423)),
+        (0.213408557749857, 0.16651582017414043,
+         0.07527004865984643),
+        (0.015457029397165097, 0.012117473820112742,
+         0.005542893259737404)),
     "gallery roughdielectric beckmann": (
-        (0.21330143743477756, 0.16637444194221965,
-         0.07520189750820702),
-        (0.013033335247278007, 0.010305598558440869,
-         0.004769429769844215)),
+        (0.21328892368576483, 0.1663732319441266,
+         0.07520176790174898),
+        (0.01561222192837175, 0.012234328344786508,
+         0.005588933563149875)),
     "gallery thindielectric": (
-        (0.21982599063671476, 0.1712744103302365,
-         0.07744745119865931),
-        (0.018497475481969082, 0.014631096503037986,
-         0.006771475776313805)),
+        (0.21976500091884188, 0.1712990615983888,
+         0.0774533448978472),
+        (0.021627504959439985, 0.017102258423978143,
+         0.007855359630954786)),
     "gallery roughdiffuse": (
-        (0.2129427539714235, 0.16220332631515902,
-         0.07111734380863177),
-        (0.01201013710410004, 0.009068744866391542,
-         0.004032640945202973)),
+        (0.21292543336436381, 0.16217729469390782,
+         0.07110286501620335),
+        (0.014306945052067335, 0.010657907965220146,
+         0.004636836327723661)),
     "gallery phong": (
-        (0.21003315627209274, 0.1630965063473656,
-         0.07334737705700703),
-        (0.01305823345491042, 0.010170929469529607,
-         0.004699053941967854)),
+        (0.21000982551550829, 0.16310806178334003,
+         0.073348636453291),
+        (0.01554514624422583, 0.012007351202723697,
+         0.005479009511546541)),
     "gallery ward": (
-        (0.20913041920944356, 0.16247769686976282,
-         0.07308826109005284),
-        (0.012381859965255138, 0.009710451313283406,
-         0.004492551115869625)),
+        (0.20910688918576278, 0.16248515368430022,
+         0.07308905724974567),
+        (0.014717378918863962, 0.011452032211618056,
+         0.005237221494988247)),
     # the difftrans row carries the file's transmittance in spec_trans (its
     # lobe's column; the JAX loader's albedo column is read by no lobe)
     "gallery difftrans": (
-        (0.209198292983026, 0.16038070956158848,
-         0.07149776012476879),
-        (0.011900588744426326, 0.009116630005062756,
-         0.004136489361852182)),
+        (0.20917247035739286, 0.16034669208065286,
+         0.07148104746425143),
+        (0.01423910800671803, 0.010743080226050675,
+         0.004787464728197185)),
     "gallery hk": (
-        (0.20386365861676875, 0.15877240709456836,
-         0.0717057908467959),
-        (0.01246870012151112, 0.00976626706260896,
-         0.004519902305385627)),
+        (0.20380388033001026, 0.15872594064385084,
+         0.0716877865034611),
+        (0.014634882315219939, 0.011367121169133564,
+         0.005193514401883662)),
     "gallery null": (
-        (0.22043940394608594, 0.17207682193177118,
-         0.07789517850116295),
-        (0.017204180511311704, 0.01355544549510065,
-         0.006264820288374416)),
+        (0.2202158403372686, 0.1719904548624168,
+         0.07784893344003799),
+        (0.020415557834362604, 0.016097068148193013,
+         0.00738516928088279)),
     # the layered gallery (phase 9g), scripts/jax_header_ref_mean.py's
     # layered renders (16 spp since phase 9l)
     "layered mask constant": (
@@ -720,9 +722,10 @@ HEADER_REF = {
     "volumes medium_sphere": (
         (0.23158934531937617, 0.1748406811487356, 0.0776067727920602),
         (0.01841507643756077, 0.013042502439644908, 0.005268325717155292)),
+    # at 8 spp since phase 9m (16 until then)
     "volumes smoke_box": (
-        (0.22704179843164224, 0.1768212365473587, 0.07867684750600086),
-        (0.018581700022886602, 0.01471119770778335, 0.006412877121663166)),
+        (0.2266904389414239, 0.176679190768901, 0.07854714929013452),
+        (0.022748767090377008, 0.017850829238236932, 0.007638917063148978)),
     "volumes fog_terrain": (
         (0.3750483208161768, 0.44497437294785414, 0.582414051569458),
         (0.02881972749871532, 0.027729650891081644, 0.030015640281595465)),
@@ -772,7 +775,23 @@ HEADER_REF = {
          0.11771422857508425),
         (0.1336902617813963, 0.12329520578759118,
          0.10251539653649949)),
+    # the Metropolis family (phase 9m), scripts/jax_header_ref_mean.py's
+    # metropolis renders (metro_xml with METRO_DEFINES, maxDepth
+    # METRO_DEPTH)
+    "metropolis pssmlt_cbox": (
+        (0.2381729052517499, 0.16888855355709514, 0.06607120593135751),
+        (0.0767862841967856, 0.050399840918064376, 0.019068619386056574)),
+    "metropolis mlt_cbox": (
+        (0.23520360254435413, 0.18126181064713554, 0.081510538483318),
+        (0.0984308535843418, 0.0712301994422359, 0.02916055375884358)),
+    "metropolis erpt_cbox": (
+        (0.2315675955608973, 0.17883939911640667, 0.08054878160712287),
+        (0.04876384769964431, 0.03859205509809316, 0.01774202229879754)),
 }
+# the normalisation b of phase 9m's pssmlt and mlt renders, the same
+# script's (estimate_b as the JAX render_mlt calls it)
+METRO_B = {"metropolis pssmlt_cbox": 0.17620344460010529,
+           "metropolis mlt_cbox": 0.18553471565246582}
 # the meters of phase 9h through the JAX package's render_meter on its CPU
 # backend, 65,536 samples: scripts/jax_header_ref_mean.py's lights meters
 METER_REF = {
@@ -931,10 +950,10 @@ class Gallery:
                            sphere_glass=variant in self.glass_sphere, **kw)
 
 
-# phase 9f at 32 spp (at the file's 64 until phase 9k took its time) and
-# 9g at 16 (32 until phase 9l took its time), so that the script stays
-# within its time (PERF.md section 4)
-MATERIAL_GALLERY = Gallery("gallery", GALLERY_BSDFS, 32, "hk")
+# phase 9f at 16 spp (at the file's 64 until phase 9k took its time, 32
+# until phase 9m did) and 9g at 16 (32 until phase 9l took its time), so
+# that the script stays within its time (PERF.md section 4)
+MATERIAL_GALLERY = Gallery("gallery", GALLERY_BSDFS, 16, "hk")
 LAYERED_GALLERY = Gallery("layered", LAYERED_BSDFS, 16, "roughcoating",
                           glass_sphere=("normalmap", "bumpmap"))
 
@@ -1369,7 +1388,7 @@ def sky_digests(emitters):
 VOLUME_DEPTH = 8
 VOLUME_WALK = 5
 VOLUME_DEFINES = {"medium_sphere": {"spp": 16, "res": 256},
-                  "smoke_box": {"spp": 16, "res": 256},
+                  "smoke_box": {"spp": 8, "res": 256},
                   "fog_terrain": {"spp": 8, "res": 128}}
 VOLUME_CLI = "medium_sphere"
 # 9j's limits, tighter than HEADER_MEAN_RTOL / HEADER_TV_RTOL: the port on
@@ -1522,6 +1541,84 @@ def bidir_queries(static, cfg):
     if static.medium_types:
         return 2 * N - 1 + 5 * links, 0
     return 2 * N - 1, links
+
+
+# the Metropolis family (phase 9m), through load_scene + api.render:
+# cbox.xml (12 triangles and the BK7 sphere: K1/K2, and the manifold
+# strategy on the sphere) at its own 256x256 and maxDepth METRO_DEPTH, with
+# pssmlt (16 spp: 16,384 chains x 64 mutations, b from 65,536 luminance
+# samples, pLarge 0.3), mlt (4 spp: 16,384 chains x 16 mutations over the
+# five strategies) and erpt (chainLength METRO_CHAIN_LENGTH, 4 spp: 4
+# passes of 65,536 seeds); the CLI on the METRO_CLI file
+METRO_DEPTH = 5
+METRO_CHAIN_LENGTH = 16
+METRO_DEFINES = {"pssmlt_cbox": {"spp": 16, "res": 256},
+                 "mlt_cbox": {"spp": 4, "res": 256},
+                 "erpt_cbox": {"spp": 4, "res": 256}}
+METRO_CLI = "mlt_cbox"
+# seeding candidates per chain (mlt.seed_chains' rounds)
+METRO_SEED_ROUNDS = 4
+# the manifold walk on the card against the CPU (as 9h's sample_ray,
+# manifold_cases): the emission pairs of MANIFOLD_LANES seeded lanes from
+# above a glass sphere (cbox.xml's, in metres) and above a glass mesh
+# sphere of MANIFOLD_MESH (rings, segments: 16 triangles), their exit
+# directions, the Newton walk to a perturbed exit direction and |det d
+# omega / d u|: at most 1 - MANIFOLD_OK_SHARE of the lanes past each limit
+# and with another convergence flag (a ray through the shared edge of two
+# facets, where the intersection test's 1e-6 margins are decided by the
+# last bit: the neighbour, or the crack between them)
+MANIFOLD_LANES = 65536
+MANIFOLD_MESH = (3, 4)
+MANIFOLD_DIR_ATOL, MANIFOLD_DET_RTOL, MANIFOLD_OK_SHARE = 1e-5, 1e-4, 0.999
+# 9m's mean and tv are held to HEADER_MEAN_RTOL and HEADER_TV_RTOL: the port
+# on the CPU at these sizes is within 1.4e-5 (mean) and 2.7e-4 (tv) of JAX,
+# chains whose acceptance draw fell within the last bit of I'/I and that
+# stayed apart (scripts/torch_header_stats.py --device cpu metropolis); b,
+# which holds no acceptance decision, within METRO_B_RTOL
+METRO_B_RTOL = 1e-5
+METRO_CLI_RTOL = 1e-4
+
+
+def metro_integrator(kind):
+    extra = (f'<integer name="chainLength" value="{METRO_CHAIN_LENGTH}"/>'
+             if kind == "erpt" else "")
+    return (f'<integrator type="{kind}"><integer name="maxDepth" '
+            f'value="{METRO_DEPTH}"/>{extra}</integrator>')
+
+
+def metro_xml(variant) -> str:
+    """The 9m scene ``variant``'s text (METRO_DEFINES): cbox.xml with its
+    integrator replaced. scripts/jax_header_ref_mean.py loads the same
+    text."""
+    text = CBOX_XML.read_text()
+    if text.count(_CBOX_PATH) != 1:
+        raise AssertionError(f"{variant}: no single {_CBOX_PATH!r}")
+    return text.replace(_CBOX_PATH, metro_integrator(variant.split("_")[0]))
+
+
+def metro_evaluations(cfg, settings):
+    """Target evaluations of a 9m render, as the JAX dispatch makes them:
+    pssmlt and mlt, the luminance rounds of 8,192 lanes, METRO_SEED_ROUNDS
+    seeding rounds and one per mutation; erpt, per pass the seeds and
+    chainLength mutations."""
+    n_pixels = settings.width * settings.height
+    if cfg.type == ERPT:
+        passes = max(1, settings.spp * n_pixels // min(n_pixels, 65536))
+        return passes * (cfg.chain_length + 1)
+    n_chains = min(cfg.chain_count, max(1024, n_pixels))
+    lanes = min(8192, max(cfg.luminance_samples, 1))
+    rounds = -(-cfg.luminance_samples // lanes)
+    mutations = max(1, -(-settings.spp * n_pixels // n_chains))
+    return rounds + METRO_SEED_ROUNDS + mutations
+
+
+def metro_queries(static, cfg):
+    """(closest-hit, shadow) queries of one 9m target evaluation: path.li's
+    closest hit and shadow query per bounce (pssmlt, erpt), or bdpt's
+    li_and_splats' (mlt: bidir_queries)."""
+    if cfg.type == MLT:
+        return bidir_queries(static, cfg)
+    return cfg.max_depth, cfg.max_depth
 
 
 def smoke_plume(n=SMOKE_RES):
@@ -3296,10 +3393,12 @@ def scene_file_phase(dev):
     return img.double().mean(dim=(0, 1)).tolist()
 
 
-def cli_matches(label, path, defines, img):
+def cli_matches(label, path, defines, img, rtol=0.0):
     """python -m mitsuba_tpu_torch on the scene file ``path`` with
     ``defines`` in a subprocess, on the card; its EXR must equal ``img``
-    (api.render's image of the same file) bit for bit."""
+    (api.render's image of the same file) bit for bit, or with ``rtol``
+    within rtol of each pixel's largest channel plus 1e-6 (a film
+    scatter-added with float atomics)."""
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "out.exr"
         cmd = [sys.executable, "-m", "mitsuba_tpu_torch", str(path)]
@@ -3317,10 +3416,12 @@ def cli_matches(label, path, defines, img):
         cli_img = image_mod.read_exr(str(out))
     api_img = img.cpu().numpy()
     same = np.array_equal(cli_img, api_img)
+    diff = np.abs(cli_img - api_img)
     log(f"{label} cli: {' '.join(cmd[1:])}: {dt:.2f} s with the process "
         f"start; EXR equal to api.render's image bit for bit: {same} (max "
-        f"abs difference {np.abs(cli_img - api_img).max()})")
-    if not same:
+        f"abs difference {diff.max()})")
+    scale = np.abs(api_img).max(axis=-1, keepdims=True)
+    if not (same or (rtol and bool((diff <= rtol * scale + 1e-6).all()))):
         raise AssertionError(f"{label} cli: the EXR differs from the image "
                              "of api.render")
 
@@ -3450,7 +3551,7 @@ def header_render(dev, label, scene, static, sensor, cfg, settings,
 def limits(label):
     """(mean, tv_rgb) relative limits of a render held to HEADER_REF:
     VOLUME_MEAN_RTOL and VOLUME_TV_RTOL for phase 9j's, HEADER_MEAN_RTOL and
-    HEADER_TV_RTOL for the others (9l's too)."""
+    HEADER_TV_RTOL for the others (9l's and 9m's too)."""
     if label.startswith("volumes"):
         return VOLUME_MEAN_RTOL, VOLUME_TV_RTOL
     return HEADER_MEAN_RTOL, HEADER_TV_RTOL
@@ -4001,6 +4102,193 @@ def bidir_phase(dev, path_mean):
                 f"{settings.width * settings.height} ({card_line()})")
 
 
+def metro_renders(dev, tmp):
+    """Every render of phase 9m, by label (``metropolis {variant}``):
+    (scene, static, sensor, cfg, settings, expected launches), loaded from
+    ``{tmp}/metropolis_{variant}.xml`` with METRO_DEFINES: per target
+    evaluation (metro_evaluations) the queries of metro_queries, K1 and K2.
+    scripts/torch_header_stats.py renders the same."""
+    out = {}
+    for variant, defines in METRO_DEFINES.items():
+        path = Path(tmp) / f"metropolis_{variant}.xml"
+        path.write_text(metro_xml(variant))
+        ls = mitsuba_xml.load_scene(str(path), defines, device=dev)
+        closest, shadow = metro_queries(ls.static, ls.integrator)
+        n = metro_evaluations(ls.integrator, ls.settings)
+        out[f"metropolis {variant}"] = (
+            ls.scene, ls.static, ls.sensor, ls.integrator, ls.settings,
+            {"brute_force_interaction": closest * n,
+             "brute_force_closest_hit": shadow * n})
+    return out
+
+
+def metro_quick(cfg, settings):
+    """A short render of a 9m case (one sample; pssmlt and mlt with 8,192
+    luminance samples and a chain per pixel, so one mutation; erpt with one
+    mutation per seed): the warm-up, and the pair of renders of the
+    repeatability check."""
+    n_pixels = settings.width * settings.height
+    return (dataclasses.replace(cfg, luminance_samples=8192, chain_length=1,
+                                chain_count=n_pixels),
+            dataclasses.replace(settings, spp=1, spp_per_pass=1))
+
+
+def metro_phase(dev, path_mean):
+    """Phase 9m: each render of metro_renders held as phase 9f's (mean and
+    tv_rgb to the JAX package within HEADER_MEAN_RTOL and HEADER_TV_RTOL,
+    exact K1/K2 launches), and pssmlt's and mlt's b within METRO_B_RTOL of
+    METRO_B, with each render's b and mean acceptance logged; each mean
+    beside phase 9c's path render of cbox.xml (``path_mean``, logged); one
+    short render of each twice, whether the films are equal bit for bit
+    (the scatter-add's float atomics, logged); the CLI on the METRO_CLI file,
+    its EXR within METRO_CLI_RTOL of api.render's image; then the manifold
+    walk on the card against the CPU (manifold_phase)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cases = metro_renders(dev, tmp)
+        for label, case in cases.items():
+            log(f"{label}: {case[1]}; {case[3]}")
+        # warm-up and repeatability: one short render of each, twice
+        for label, (scene, static, sensor, cfg, settings, _) in cases.items():
+            qc, qs = metro_quick(cfg, settings)
+            a, b = (api.render(scene, static, sensor, qc, qs, device=dev)
+                    for _ in range(2))
+            log(f"render {label} short render twice: equal bit for bit "
+                f"{bool(torch.equal(a, b))}, max abs difference "
+                f"{float((a - b).abs().max())}, pixels that differ "
+                f"{int((a != b).any(dim=-1).sum())} of "
+                f"{qs.width * qs.height} ({card_line()})")
+        imgs = {}
+        for label, case in cases.items():
+            imgs[label] = header_render(dev, label, *case)
+            run = dict(int_mlt.LAST_RUN)
+            log(f"render {label} {run} ({card_line()})")
+            if label in METRO_B:
+                gap = run["b"] / METRO_B[label] - 1.0
+                log(f"render {label} b {run['b']!r} (reference "
+                    f"{METRO_B[label]!r}, relative gap {gap})")
+                if abs(gap) > METRO_B_RTOL:
+                    raise AssertionError(
+                        f"{label}: b = {run['b']}, reference "
+                        f"{METRO_B[label]} (tolerance {METRO_B_RTOL})")
+            mean = imgs[label].double().mean(dim=(0, 1)).tolist()
+            log(f"render {label} mean_rgb {mean} against phase 9c's path "
+                f"render of cbox.xml {path_mean}: relative gap "
+                f"{[a / b - 1.0 for a, b in zip(mean, path_mean)]}")
+        cli = f"metropolis {METRO_CLI}"
+        cli_matches(cli, Path(tmp) / f"metropolis_{METRO_CLI}.xml",
+                    METRO_DEFINES[METRO_CLI], imgs[cli], rtol=METRO_CLI_RTOL)
+    manifold_phase(dev)
+
+
+def manifold_cases(dev):
+    """{name: (u, o, n_l, centers, radii, etas, mesh, du)} of the manifold
+    check on ``dev``: MANIFOLD_LANES seeded lanes leaving a light toward a
+    glass sphere: cbox.xml's sphere and light in metres ("sphere": points
+    of the light's plane above the sphere, emission pairs within 0.05 of
+    the square's centre, so directions within 6 degrees of the normal,
+    every one into the sphere's 11-degree disk), a glass mesh sphere of
+    MANIFOLD_MESH (the ring and segment counts) built by the port's SceneBuilder
+    below a point of tests/test_manifold.py's layout (the same pairs,
+    inside its 13-degree disk); and, logged only, "sphere" in the file's
+    millimetres ("sphere mm"). du is the pair's offset toward the target
+    direction. (Nearer the rim, where a ray meets the sphere almost
+    tangentially, the map's derivatives grow without bound, and one
+    rounding apart moves an exit by far more than 1e-5.)"""
+    g = torch.Generator().manual_seed(SEED)
+    R = MANIFOLD_LANES
+    u = 0.45 + 0.1 * torch.rand((R, 2), generator=g)
+    du = 0.02 * torch.rand((R, 2), generator=g) - 0.01
+    jit = 40.0 * torch.rand((R, 2), generator=g) - 20.0
+    down = torch.tensor([0.0, -1.0, 0.0]).expand(R, 3)
+    sph_o = torch.stack([400.0 + jit[:, 0], torch.full((R,), 548.7),
+                         250.0 + jit[:, 1]], dim=-1)
+    centre = torch.tensor([[400.0, 90.0, 250.0]])
+    b = SceneBuilder()
+    glass = b.add_material(type=bsdf_mod.DIELECTRIC, eta=1.5)
+    v, f, n, uv = shapes.sphere_mesh((0.0, 0.5, 0.0), 0.25,
+                                     rings=MANIFOLD_MESH[0],
+                                     segments=MANIFOLD_MESH[1])
+    b.add_mesh(v, f, glass, normals=n, uvs=uv)
+    mscene, mstatic = b.build(device="cpu")
+    if mstatic.n_manifold_tris < 2:
+        raise AssertionError("the manifold mesh has fewer than two rows")
+    bk7 = torch.tensor([1.5046])
+    metres = (sph_o * 1e-3, down, centre * 1e-3, torch.tensor([0.09]), bk7,
+              None, du)
+    cases = {
+        "sphere": (u, *metres),
+        f"mesh ({mstatic.n_manifold_tris} triangles)": (
+            u, torch.tensor([0.0, 1.6, 0.0]).expand(R, 3), down,
+            torch.zeros((1, 3)), torch.zeros(1), torch.ones(1),
+            mscene.man_tri, du),
+        "sphere mm": (u, sph_o, down, centre, torch.tensor([90.0]), bk7,
+                      None, du)}
+    return {k: tuple(None if x is None else x.contiguous().to(dev)
+                     for x in c) for k, c in cases.items()}
+
+
+def manifold_walk(u, o, n_l, centers, radii, etas, mesh, du):
+    """(exit directions, the target directions, the solved pairs and their
+    convergence, |det d omega / d u|) of one manifold case."""
+    geo = (centers, radii, etas, mesh)
+    d0 = manifold.chain_exit_dir(u, o, n_l, *geo)
+    d_t = manifold.chain_exit_dir(torch.clamp(u + du, 0.0, 1.0), o, n_l, *geo)
+    u_s, ok = manifold.solve_exit_dir(u, o, n_l, d_t, *geo)
+    return d0, d_t, u_s, ok, manifold.det_omega(u, o, n_l, *geo)
+
+
+def manifold_phase(dev):
+    """chain_exit_dir, solve_exit_dir and det_omega on the card against the
+    CPU on manifold_cases: exit and target directions within
+    MANIFOLD_DIR_ATOL, the solved pairs within MANIFOLD_DIR_ATOL where both
+    converged, the convergence flags equal on at least MANIFOLD_OK_SHARE of
+    the lanes, det_omega within MANIFOLD_DET_RTOL, each on all but 1 -
+    MANIFOLD_OK_SHARE of the lanes; each walk timed. "sphere mm" is logged,
+    not held: in millimetres the walk's fixed 1e-4 ray epsilon lies near
+    the rounding of a point on the sphere, so a lane leaving the sphere may
+    meet it again at t ~ 1e-4 on one device and not on the other (the JAX
+    manifold.py:82, ROADMAP.md Queue 3)."""
+    cpu = manifold_cases("cpu")
+    for (name, case), card_case in zip(cpu.items(),
+                                       manifold_cases(dev).values()):
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            ref = manifold_walk(*case)
+            t_cpu = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = manifold_walk(*card_case)
+            torch.cuda.synchronize()
+            t_card = time.perf_counter() - t0
+        out = [x.cpu() for x in out]
+        err_d = torch.maximum(*((a - b).abs().amax(dim=1)
+                                for a, b in zip(out[:2], ref[:2])))
+        both = out[3] & ref[3]
+        err_u = float((out[2] - ref[2])[both].abs().max())
+        same_ok = float((out[3] == ref[3]).double().mean())
+        rel_det = ((out[4] - ref[4]).abs()
+                   / ref[4].abs().clamp(min=1e-30)).double()
+        log(f"manifold {name}: {MANIFOLD_LANES} lanes, card against CPU: "
+            f"directions max abs err {float(err_d.max()):.3g} (lanes past "
+            f"{MANIFOLD_DIR_ATOL}: {int((err_d > MANIFOLD_DIR_ATOL).sum())}),"
+            f" solved pairs {err_u:.3g} on {int(both.sum())} lanes converged "
+            f"on both, convergence flags equal on {same_ok:.6f} of the lanes "
+            f"(converged on the card {float(out[3].double().mean()):.4f}), "
+            f"det_omega max relative err {float(rel_det.max()):.3g} (lanes "
+            f"past {MANIFOLD_DET_RTOL}: "
+            f"{int((rel_det > MANIFOLD_DET_RTOL).sum())}); walk "
+            f"{t_card * 1e3:.1f} ms on the card, {t_cpu * 1e3:.1f} ms on the "
+            f"CPU ({card_line()})")
+        if name == "sphere mm":
+            continue
+        past = [float((err_d > MANIFOLD_DIR_ATOL).double().mean()),
+                float((rel_det > MANIFOLD_DET_RTOL).double().mean()),
+                1.0 - same_ok]
+        if max(past) > 1.0 - MANIFOLD_OK_SHARE or err_u > MANIFOLD_DIR_ATOL:
+            raise AssertionError(f"manifold {name}: the card differs from "
+                                 "the CPU past the limits")
+
+
 def bunny_ao_case(bunny_scene):
     """ao on bunny_x2 (lane mode) at 512x512, BUNNY_AO_SPP spp, the default
     ray length (half the scene's radius), box filter: K3 launches only,
@@ -4224,6 +4512,8 @@ def main() -> int:
         sky_subsurface_phase(dev)
     with phase("9l bidirectional"):
         bidir_phase(dev, cbox_path_mean)
+    with phase("9m metropolis"):
+        metro_phase(dev, cbox_path_mean)
     with phase("10 bunny"):
         bunny_scene = bunny(dev)
         bunny_launches, lane_mean, lane_ms = render_phase(

@@ -3,15 +3,17 @@
 The reference CLI (mitsuba.cpp), as the JAX package's ``__main__`` has it:
 -o output, -D key=value scene defines, -L log level, -z quiet, -x skip
 scenes whose output exists, -r SEC periodic partial-image flush, --spp and
---size overrides. It renders on the card; ``--cpu`` asks for the CPU. Every file goes through
-``render_pass``, a 1x1 meter's too (its film of pixel-jittered samples,
-times ``ray_weight``), as in the JAX CLI; ``api.render`` sends a meter to
-``render_meter`` instead. A file
-whose integrator is ptracer or bdpt stops there with the JAX CLI's
-``ValueError`` naming the integrator type, since ``render_pass`` has no
-``li`` for them (``api.render`` renders them; ROADMAP.md, Queue 3). The
-JAX CLI's checkpoints (-c), device count above 1 (-p) and concurrent scenes
-(-j above 1) land in a later slice of the port and raise.
+--size overrides. It renders on the card; ``--cpu`` asks for the CPU. A
+file whose integrator has an ``li`` (path, volpath, direct, ao, field) goes
+through ``render_pass`` in passes, a 1x1 meter's too (its film of
+pixel-jittered samples, times ``ray_weight``), as in the JAX CLI;
+``api.render`` sends a meter to ``render_meter`` instead. The integrators
+without one (ptracer, bdpt, pssmlt, mlt, erpt: ``api.WHOLE_IMAGE``) render
+through ``api.render``, where the JAX CLI stops with ``ValueError:
+unknown integrator type``; they have no partial film, so -r writes nothing
+before the final image and says so once. The JAX CLI's checkpoints (-c),
+device count above 1 (-p) and concurrent scenes (-j above 1) land in a
+later slice of the port and raise.
 """
 from __future__ import annotations
 
@@ -98,25 +100,38 @@ def main(argv=None):
         progress = ProgressReporter(os.path.basename(scene_path),
                                     settings.spp, quiet=args.quiet)
 
-        # spp-chunked loop with a periodic flush (mitsuba.cpp -r), the
-        # passes api.render makes
         H, W = settings.height, settings.width
-        film = film_mod.Film.empty(H, W, dev)
-        chunk = min(settings.spp_per_pass, settings.spp)
-        last_flush = time.time()
-        s = 0
-        with torch.no_grad():
-            while s < settings.spp:
-                n = min(chunk, settings.spp - s)
-                film = api.render_pass(ls.scene, ls.static, ls.sensor,
-                                       ls.integrator, settings, film, s, n)
-                s += n
-                stats.incr(n * H * W)
-                progress.update(s)
-                if args.flush > 0 and time.time() - last_flush > args.flush:
-                    write_image(out, film_mod.develop(film).cpu().numpy())
-                    last_flush = time.time()
-            img = film_mod.develop(film).cpu().numpy()
+        if ls.integrator.type in api.WHOLE_IMAGE:
+            # no partial film: one call, the final image alone
+            if args.flush > 0:
+                log.info("-r: integrator type %d has no partial film; only "
+                         "the final image is written", ls.integrator.type)
+            img = api.render(ls.scene, ls.static, ls.sensor, ls.integrator,
+                             settings, device=dev).cpu().numpy()
+            stats.incr(settings.spp * H * W)
+            progress.update(settings.spp)
+        else:
+            # spp-chunked loop with a periodic flush (mitsuba.cpp -r), the
+            # passes api.render makes
+            film = film_mod.Film.empty(H, W, dev)
+            chunk = min(settings.spp_per_pass, settings.spp)
+            last_flush = time.time()
+            s = 0
+            with torch.no_grad():
+                while s < settings.spp:
+                    n = min(chunk, settings.spp - s)
+                    film = api.render_pass(ls.scene, ls.static, ls.sensor,
+                                           ls.integrator, settings, film, s,
+                                           n)
+                    s += n
+                    stats.incr(n * H * W)
+                    progress.update(s)
+                    if (args.flush > 0
+                            and time.time() - last_flush > args.flush):
+                        write_image(out,
+                                    film_mod.develop(film).cpu().numpy())
+                        last_flush = time.time()
+                img = film_mod.develop(film).cpu().numpy()
         write_image(out, img)
         log.info("wrote %s (%.1fs)", out, time.time() - t0)
         if not args.quiet:

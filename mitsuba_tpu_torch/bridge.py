@@ -129,7 +129,10 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
     table's fields, and ``sss``, if given, the subsurface table's (a point
     cloud from the JAX package's ``prepare`` included; the empty tables
     without them);
-    ``static`` maps SceneStatic field names to values. The BVH comes across
+    ``static`` maps SceneStatic field names to values. The manifold walk's
+    specular-mesh rows come across as ``man_tri`` where given; without it
+    they are made from the triangle and material tables as SceneBuilder
+    makes them (the same float32 values). The BVH comes across
     as the JAX scene's ``bvh_pages`` (the same tree, repacked by
     ``nodes_from_pages``), with its treelet cut (``tl_root``, ``tl_skip``,
     ``tl_lo``, ``tl_hi``); its octant tables are built from that table, as
@@ -187,6 +190,17 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
             "3.2.3)")
     procedural = ({k: _f32(texs[k], dev) for k in _TEX_PROCEDURAL}
                   if tex_mod.has_procedural(tex_types) else {})
+    if "man_tri" in arrays:
+        man_tri = np.asarray(arrays["man_tri"], np.float32)
+        n_man = int(static.get("n_manifold_tris", 0))
+    else:
+        man_tri, n_man = (scene_mod.manifold_rows(
+            *(arrays[k] for k in _TRI_FLOAT[:6]), arrays["tri_mat"],
+            mats["type"], np.asarray(mats["eta"])[:, 0]) if T > 0
+            else (np.zeros((1, 19), np.float32), 0))
+        if n_man != int(static.get("n_manifold_tris", n_man)):
+            raise ValueError(f"{n_man} specular-mesh rows for "
+                             f"n_manifold_tris={static['n_manifold_tris']}")
     scene = scene_mod.Scene(
         **tri,
         **sph,
@@ -225,6 +239,7 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
             for k in irawan_mod.IrawanTable._fields}),
         media=media,
         sss=sss,
+        man_tri=_f32(man_tri, dev),
     )
     st = scene_mod.SceneStatic(
         n_tris=T, n_spheres=S, use_bvh=use_bvh,
@@ -242,6 +257,7 @@ def scene_from_arrays(arrays: dict, static: dict, device=None):
         has_boundary_media=bool(static.get("has_boundary_media", False)),
         has_sss=bool(static.get("has_sss", False)),
         has_singlescatter=bool(static.get("has_singlescatter", False)),
+        n_manifold_tris=n_man,
     )
     return scene, st
 

@@ -99,6 +99,25 @@ def radical_inverse(prime_index: int, index: int, rotation):
     return u - torch.floor(u)
 
 
+def radical_inverse_lanes(prime_index: int, index, rotation: float = 0.0):
+    """``radical_inverse`` of a tensor of indices (the JAX
+    ``radical_inverse`` with a traced index): 16 base-b digits of each
+    index's uint32 value, summed in float32 in the JAX order, then rotated
+    by ``rotation`` modulo 1."""
+    pi = min(max(int(prime_index), 0), len(_PRIMES) - 1)
+    base = _PRIMES[pi]
+    inv_base = np.float32(1.0) / np.float32(base)
+    idx = index.to(torch.int64) & _MASK
+    result = torch.zeros(idx.shape, dtype=torch.float32, device=idx.device)
+    factor = inv_base
+    for _ in range(16):
+        result = result + (idx % base).to(torch.float32) * float(factor)
+        factor = factor * inv_base
+        idx = torch.div(idx, base, rounding_mode="floor")
+    u = result + float(np.float32(rotation))
+    return u - torch.floor(u)
+
+
 # --- Faure digit permutations (faure.cpp role) -----------------------------
 # sigma_2 = (0, 1); even b: 2*sigma_{b/2} ++ 2*sigma_{b/2}+1;
 # odd b: insert (b-1)/2 in the middle of sigma_{b-1} and bump values >= it

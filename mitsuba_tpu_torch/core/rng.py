@@ -10,7 +10,10 @@ image comparison between the two rests on that.
 The JAX package keeps the mode in a module global that its render sets while
 tracing. The port keeps no such state: a ``Sampler`` record (seed, mode,
 sample count) is handed to every draw where the seed was; an int seed stands
-for the independent sampler.
+for the independent sampler. The Metropolis family's primary-sample-space
+draws (the JAX ``pss_mode``, a global table there too) are a ``PssSampler``
+record holding the chains' table: every draw then reads
+``table[pixel, clip(dim, 0, S - 1)]``, the chain's lane as the pixel.
 
 PyTorch has no uint32 arithmetic on the CPU, so the hash runs in int64 on
 values kept in [0, 2^32). Products of two such values would overflow int64,
@@ -106,8 +109,40 @@ class Sampler:
     n: int = 16
 
 
-def _sampler(s) -> Sampler:
-    return s if isinstance(s, Sampler) else Sampler(seed=s)
+# the primary-sample-space mode (the JAX rng.py:71-98 pss_mode); not a
+# low-discrepancy mode, so a caller that batches the independent sampler's
+# draws over a tensor of dimensions (medium._draws) batches these too
+PSS = 7
+
+
+@dataclass(frozen=True, eq=False)
+class PssSampler:
+    """The Metropolis chains' primary sample vectors as a sampler: ``table``
+    is (R, S, 4) float32, one row of S slots per chain lane. A draw keyed by
+    (pixel, sample, dim) returns ``table[pixel, clip(dim, 0, S - 1)]``: the
+    pixel is the chain's lane, the sample is not read, and a dimension past
+    the table reads its last slot, as in JAX."""
+
+    table: torch.Tensor
+    kind: int = PSS
+
+
+def _sampler(s):
+    return s if isinstance(s, (Sampler, PssSampler)) else Sampler(seed=s)
+
+
+def _pss_lookup(table, pixel, dim):
+    """table[pixel, clip(dim)] with pixel and dim broadcast against each
+    other (a host int dimension, or a tensor of them: (n, 1) against the
+    (R,) lanes gives (n, R, 4)), the JAX ``_pss_lookup``."""
+    last = table.shape[1] - 1
+    if isinstance(dim, torch.Tensor):
+        pixel, dim = torch.broadcast_tensors(
+            torch.as_tensor(pixel, device=table.device),
+            torch.clamp(dim, 0, last))
+        return table[pixel.to(torch.int64), dim.to(torch.int64)]
+    return table[torch.as_tensor(pixel, device=table.device).to(torch.int64),
+                 min(max(int(dim), 0), last)]
 
 
 # Compact dimensions below this use prime-base radical inverses (halton,
@@ -161,10 +196,13 @@ def _qmc2(smp: Sampler, pixel, sample, dim):
 def uniform4(sampler, pixel, sample, dim):
     """Four U[0,1) floats keyed by (sampler, pixel, sample, dim), at least
     one of them a tensor: ``broadcast_shape + (4,)`` float32. ``sampler`` is
-    a ``Sampler`` or an int seed (the independent sampler). Under a
+    a ``Sampler``, a ``PssSampler`` or an int seed (the independent
+    sampler). Under a
     low-discrepancy mode components 1-2 are its 2D point and 0 and 3 stay
     PCG (the callers' convention: selector, 2D pair, spare)."""
     smp = _sampler(sampler)
+    if smp.kind == PSS:
+        return _pss_lookup(smp.table, pixel, dim)
     words = torch.broadcast_tensors(
         *_pcg4d(*_counter(smp.seed, pixel, sample, dim)))
     if smp.kind in _QMC_TYPES:
@@ -176,6 +214,8 @@ def uniform4(sampler, pixel, sample, dim):
 
 def uniform1(sampler, pixel, sample, dim):
     smp = _sampler(sampler)
+    if smp.kind == PSS:
+        return _pss_lookup(smp.table, pixel, dim)[..., 0]
     if smp.kind in _QMC_TYPES:
         return _qmc2(smp, pixel, sample, dim)[..., 0]
     return uniform4(smp, pixel, sample, dim)[..., 0]
@@ -183,6 +223,8 @@ def uniform1(sampler, pixel, sample, dim):
 
 def uniform2(sampler, pixel, sample, dim):
     smp = _sampler(sampler)
+    if smp.kind == PSS:
+        return _pss_lookup(smp.table, pixel, dim)[..., :2]
     if smp.kind in _QMC_TYPES:
         return _qmc2(smp, pixel, sample, dim)
     return uniform4(smp, pixel, sample, dim)[..., :2]

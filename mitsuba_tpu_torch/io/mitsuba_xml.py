@@ -73,14 +73,15 @@ DIELECTRIC_IOR = {
 # the elements of case 3, by the JAX loader's type name, with the ROADMAP.md
 # item (Queue 1) where each lands
 _LATER_INTEGRATORS = {
-    "pssmlt": "3.10", "mlt": "3.10", "erpt": "3.10", "vpl": "3.11",
-    "sppm": "3.11", "ppm": "3.11", "photonmapper": "3.11", "irrcache": "3.11",
-    "adaptive": "3.12",
+    "vpl": "3.11", "sppm": "3.11", "ppm": "3.11", "photonmapper": "3.11",
+    "irrcache": "3.11", "adaptive": "3.12",
 }
 _INTEGRATORS = {"path": icommon.PATH, "volpath": icommon.VOLPATH,
                 "volpath_simple": icommon.VOLPATH, "direct": icommon.DIRECT,
                 "ao": icommon.AO, "field": icommon.FIELD,
-                "ptracer": icommon.PTRACER, "bdpt": icommon.BDPT}
+                "ptracer": icommon.PTRACER, "bdpt": icommon.BDPT,
+                "pssmlt": icommon.PSSMLT, "mlt": icommon.MLT,
+                "erpt": icommon.ERPT}
 # the phase functions a scene file names (the JAX loader's three; any other
 # name is isotropic there too)
 _PHASES = {"isotropic": PH.ISOTROPIC, "hg": PH.HG, "rayleigh": PH.RAYLEIGH}
@@ -329,6 +330,10 @@ class XMLSceneLoader:
             bsdf_samples=int(p.get("bsdfSamples", 1)),
             ray_length=float(p.get("rayLength", -1.0)),
             shading_samples=int(p.get("shadingSamples", 1)),
+            # the Metropolis family's (the JAX loader reads no chain count)
+            p_large=float(p.get("pLarge", 0.3)),
+            luminance_samples=int(p.get("luminanceSamples", 65536)),
+            chain_length=int(p.get("chainLength", 64)),
         )
 
     def _load_sensor(self, node):

@@ -1,16 +1,18 @@
 """Top-level render orchestration (port of ``mitsuba_tpu/render/api.py``: the
 PATH, VOLPATH, DIRECT, AO and FIELD integrators with every sampler and every
 reconstruction filter of the JAX package, the meters' render, the particle
-tracer's and the bidirectional tracer's renders, the hero-wavelength
-spectral render and the multichannel stack; the other integrators land in a
-later slice).
+tracer's, the bidirectional tracer's and the Metropolis family's renders,
+the hero-wavelength spectral render and the multichannel stack; the other
+integrators land in a later slice).
 
 The whole image is one wavefront per sample: every pixel is a lane. A host
 loop runs the sample passes and accumulates into the film. A 1x1 meter
 (radiance, irradiance, fluence) renders through ``render_meter`` instead:
 its samples are the lanes. PTRACER and BDPT scatter-add into a light image
-(``render_light_traced``, ``render_bdpt``); ``render_pass`` does not take
-them, as in the JAX package, whose CLI therefore cannot render them.
+(``render_light_traced``, ``render_bdpt``), and PSSMLT, MLT and ERPT splat
+their chains' states into a film (``render_mlt``, ``render_erpt``);
+``render_pass`` does not take them, as in the JAX package. The port's CLI
+renders them through ``render``.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 from ..core import rng as rng_mod
 from ..core import spectrum as spec_mod
 from ..device import check_on, resolve_device
+from ..utils.logging import get_logger
 from . import film as film_mod
 from . import rfilter
 from . import sensor as sensor_mod
@@ -28,6 +31,7 @@ from .integrators import bdpt as int_bdpt
 from .integrators import common as icommon
 from .integrators import direct as int_direct
 from .integrators import misc as int_misc
+from .integrators import mlt as int_mlt
 from .integrators import path as int_path
 from .integrators import ptracer as int_pt
 from .integrators import volpath as int_volpath
@@ -91,12 +95,17 @@ def pixel_sample_positions(settings: RenderSettings, pixel_idx, sample_idx,
     return torch.stack([px, py], dim=-1) + u
 
 
+# the integrators without an ``li``, which ``render`` sends to their own
+# renders (the JAX api.py:648-655)
+WHOLE_IMAGE = (icommon.PTRACER, icommon.BDPT, icommon.PSSMLT, icommon.MLT,
+               icommon.ERPT)
+
+
 def _li(cfg: icommon.IntegratorConfig):
     """The integrator's ``li``; raises for one the port does not render.
-    PTRACER and BDPT have no ``li``: the JAX ``_li_fn`` (api.py:63-74)
-    raises ValueError for them, and so does this one (ROADMAP.md, Queue
-    3)."""
-    if cfg.type in (icommon.PTRACER, icommon.BDPT):
+    The types of WHOLE_IMAGE have no ``li``: the JAX ``_li_fn``
+    (api.py:63-74) raises ValueError for them, and so does this one."""
+    if cfg.type in WHOLE_IMAGE:
         raise ValueError(f"unknown integrator type {cfg.type}")
     if cfg.type not in _LI:
         raise NotImplementedError(
@@ -252,6 +261,78 @@ def render_bdpt(scene, static, sensor, cfg: icommon.IntegratorConfig,
     return (img, int(n_rays)) if with_stats else img
 
 
+def render_mlt(scene, static, sensor, cfg: icommon.IntegratorConfig,
+               settings: RenderSettings, device=None,
+               with_stats: bool = False):
+    """The pssmlt and mlt render (the JAX ``render_mlt``): spp x H x W
+    mutations over min(chain_count, max(1024, H W)) chains, one per lane,
+    drawn from the independent sampler of the settings' seed whatever the
+    settings' sampler; b from ``cfg.luminance_samples`` samples, the
+    chains seeded from 4 candidates each, and the film times b H W / N with
+    N the mutations made. Logs b and the mean acceptance, and keeps them in
+    ``mlt.LAST_RUN``. Returns the (H, W, 3) image, or (image, n_rays) when
+    ``with_stats``."""
+    dev = resolve_device(device)
+    check_on(scene.tri_p0, dev, "scene")
+    check_on(sensor.to_world, dev, "sensor")
+    H, W = settings.height, settings.width
+    n_pixels = H * W
+    seed = int(settings.seed)
+    n_chains = min(cfg.chain_count, max(1024, n_pixels))
+    n_passes = max(1, -(-settings.spp * n_pixels // n_chains))
+    mlt_mode = cfg.type == icommon.MLT
+    with torch.no_grad():
+        b, n_rays = int_mlt.estimate_b(
+            scene, static, sensor, cfg, W, H, seed, cfg.luminance_samples,
+            mlt_mode=mlt_mode, device=dev)
+        st, n = int_mlt.seed_chains(scene, static, sensor, cfg, W, H, seed,
+                                    n_chains, mlt_mode=mlt_mode, device=dev)
+        film = torch.zeros((H, W, 3), device=dev)
+        _, film, acc, k = int_mlt.chain_steps(
+            scene, static, sensor, cfg, W, H, seed, st, film, 0, n_passes,
+            mlt_mode=mlt_mode)
+        img = film * (b * n_pixels / (n_passes * n_chains))
+    int_mlt.LAST_RUN.clear()
+    int_mlt.LAST_RUN.update(b=float(b), acceptance=float(acc),
+                            chains=n_chains, mutations=n_passes)
+    get_logger().info(
+        "%s: %d chains x %d mutations, b=%.4g, mean acceptance %.3f",
+        "mlt" if mlt_mode else "pssmlt", n_chains, n_passes, float(b),
+        float(acc))
+    return (img, int(n_rays + n + k)) if with_stats else img
+
+
+def render_erpt(scene, static, sensor, cfg: icommon.IntegratorConfig,
+                settings: RenderSettings, device=None,
+                with_stats: bool = False):
+    """The erpt render (the JAX ``render_erpt``): max(1, spp H W / S)
+    passes of S = min(H W, 65536) path-traced seeds, each redistributed
+    over a ``cfg.chain_length`` chain, the independent sampler whatever the
+    settings' sampler; the film times H W over the seeds. Returns the (H,
+    W, 3) image, or (image, n_rays) when ``with_stats``."""
+    dev = resolve_device(device)
+    check_on(scene.tri_p0, dev, "scene")
+    check_on(sensor.to_world, dev, "sensor")
+    H, W = settings.height, settings.width
+    n_pixels = H * W
+    seed = int(settings.seed)
+    n_seeds = min(n_pixels, 65536)
+    passes = max(1, settings.spp * n_pixels // n_seeds)
+    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    with torch.no_grad():
+        film = torch.zeros((H, W, 3), device=dev)
+        for p in range(passes):
+            film, n = int_mlt.erpt_pass(scene, static, sensor, cfg, W, H,
+                                        seed, film, p, n_seeds,
+                                        cfg.chain_length)
+            n_rays = n_rays + n
+        img = film * (n_pixels / (passes * n_seeds))
+    int_mlt.LAST_RUN.clear()
+    int_mlt.LAST_RUN.update(passes=passes, seeds=n_seeds,
+                            chain_length=cfg.chain_length)
+    return (img, int(n_rays)) if with_stats else img
+
+
 def render_spectral(scene, static, sensor, cfg: icommon.IntegratorConfig,
                     settings: RenderSettings, device=None,
                     with_stats: bool = False):
@@ -304,7 +385,8 @@ def render(scene, static, sensor, cfg: icommon.IntegratorConfig,
            settings: RenderSettings, device=None, with_stats: bool = False):
     """Full render: host loop over passes of ``spp_per_pass`` samples, or
     ``render_meter`` for a 1x1 meter under PATH, VOLPATH, DIRECT or AO,
-    ``render_bdpt`` under BDPT, ``render_light_traced`` under PTRACER.
+    ``render_bdpt`` under BDPT, ``render_light_traced`` under PTRACER,
+    ``render_mlt`` under PSSMLT and MLT, ``render_erpt`` under ERPT.
 
     Runs on ``device`` (CUDA by default), where the scene and sensor must
     already live. Returns the developed (H, W, 3) image, or (image, n_rays)
@@ -316,6 +398,12 @@ def render(scene, static, sensor, cfg: icommon.IntegratorConfig,
     if cfg.type == icommon.PTRACER:
         return render_light_traced(scene, static, sensor, cfg, settings,
                                    device, with_stats)
+    if cfg.type in (icommon.PSSMLT, icommon.MLT):
+        return render_mlt(scene, static, sensor, cfg, settings, device,
+                          with_stats)
+    if cfg.type == icommon.ERPT:
+        return render_erpt(scene, static, sensor, cfg, settings, device,
+                           with_stats)
     dev = resolve_device(device)
     check_on(scene.tri_p0, dev, "scene")
     check_on(sensor.to_world, dev, "sensor")

@@ -29,7 +29,8 @@ distance; a scattering event is a MEDIUM vertex (a zero normal, the phase
 function for extension and the junction pdfs, cos := 1 in the density
 conversions), a transmissive crossing swaps the lane's medium, and each
 connection weighs its segment by the attenuated transmittance through chains
-of null boundaries. Subpaths start in the camera's medium.
+of null boundaries. Both subpaths start in vacuum, where the camera sits
+(``generate_subpaths``).
 
 Emitters: area and sphere lights; delta-position lights (point, spot: their
 y_0 is marked so the impossible s = 0 alternative drops out of the MIS sum)

@@ -17,6 +17,9 @@ VOLPATH = 4       # path/volpath.cpp and volpath_simple.cpp
 PTRACER = 5       # ptracer/ptracer.cpp (api.render_light_traced)
 MULTICHANNEL = 9  # misc/multichannel.cpp (api.render_multichannel)
 BDPT = 11         # bdpt/bdpt.cpp (api.render_bdpt)
+PSSMLT = 12       # pssmlt/pssmlt.cpp (api.render_mlt)
+MLT = 15          # mlt/mlt.cpp (api.render_mlt)
+ERPT = 16         # erpt/erpt.cpp (api.render_erpt)
 
 # field integrator AOVs (misc/field.cpp)
 FIELD_POSITION = 0
@@ -32,8 +35,8 @@ FIELD_GEO_NORMAL = 7
 @dataclass(frozen=True)
 class IntegratorConfig:
     """Integrator settings (the fields the path tracers, the particle
-    tracer, the bidirectional tracer and the direct, ao and field
-    integrators read)."""
+    tracer, the bidirectional tracer, the Metropolis family and the direct,
+    ao and field integrators read)."""
 
     type: int = PATH
     max_depth: int = 5           # path.cpp maxDepth: 1 = Le only, 2 = direct
@@ -44,6 +47,11 @@ class IntegratorConfig:
     ray_length: float = -1.0     # ao.cpp rayLength; <= 0: scene radius / 2
     shading_samples: int = 1     # ao.cpp shadingSamples
     field: int = FIELD_NORMAL    # field.cpp's AOV
+    # pssmlt.cpp / mlt.cpp / erpt.cpp
+    p_large: float = 0.3         # large-step probability (pssmlt.cpp pLarge)
+    chain_count: int = 16384     # Markov chains in flight, one per lane
+    luminance_samples: int = 65536  # samples of the normalization b
+    chain_length: int = 64       # erpt's mutations per seed path
 
 
 def mis_power(pdf_a, pdf_b):

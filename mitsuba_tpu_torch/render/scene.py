@@ -30,7 +30,9 @@ and grid media with their phase functions) sit in ``Scene.media``, and a
 material row names the media inside and outside its surface. A material row
 may name a subsurface profile (``render/subsurface.py``: the dipole's
 profiles and point cloud, and refracted single scattering) in
-``Scene.sss``. Anything else (the other textures) raises
+``Scene.sss``. ``Scene.man_tri`` holds the rows of the dielectric and
+thin-dielectric triangles that the Metropolis family's manifold walk
+(``render/manifold.py``) tests. Anything else (the other textures) raises
 ``NotImplementedError``: it lands in a later slice.
 """
 from __future__ import annotations
@@ -117,6 +119,10 @@ class Scene(NamedTuple):
     irawan: irawan_mod.IrawanTable  # weave patterns (one zero row if none)
     media: med_mod.MediumTable      # participating media (one row if none)
     sss: sss_mod.SSSTable           # subsurface profiles and point cloud
+    # (Tm, 19) float32 specular-mesh rows p0 e1 e2 | n0 n1 n2 | eta of the
+    # dielectric and thin-dielectric triangles (``manifold_rows``), one
+    # zero row without them; SceneBuilder and the bridge always set it
+    man_tri: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)
@@ -142,12 +148,35 @@ class SceneStatic:
                                       # exterior medium
     has_sss: bool = False      # a material names a subsurface profile
     has_singlescatter: bool = False  # ... a MODE_SINGLESCATTER one
+    n_manifold_tris: int = 0   # rows of Scene.man_tri (0: the zero row)
+
+
+# the most dielectric triangles the manifold walk tests per step; above it
+# the scene has no specular-mesh rows (scene.py:1597)
+MAX_MANIFOLD_TRIS = 4096
+
+
+def manifold_rows(p0, e1, e2, n0, n1, n2, tri_mat, mat_types, mat_eta0):
+    """(rows, n) of the manifold walk's specular mesh (the JAX SceneBuilder's
+    scene.py:1595-1615): the triangles whose material is a dielectric or a
+    thin dielectric, as (n, 19) float32 rows p0 e1 e2 | n0 n1 n2 | eta
+    (the row's first eta), when there are 1 to MAX_MANIFOLD_TRIS of them;
+    else one zero row and n = 0. Array arguments are numpy, per triangle
+    and per material."""
+    tri_mat = np.asarray(tri_mat)
+    diel = np.isin(np.asarray(mat_types)[tri_mat],
+                   (bsdf_mod.DIELECTRIC, bsdf_mod.THIN_DIELECTRIC))
+    idx = np.nonzero(diel)[0]
+    if not 0 < idx.size <= MAX_MANIFOLD_TRIS:
+        return np.zeros((1, 19), np.float32), 0
+    cols = [np.asarray(a)[idx] for a in (p0, e1, e2, n0, n1, n2)]
+    eta = np.asarray(mat_eta0, np.float64)[tri_mat[idx], None]
+    return np.concatenate(cols + [eta], axis=1).astype(np.float32), \
+        int(idx.size)
 
 
 # SceneStatic fields of the JAX package whose non-default values need code
-# that lands in a later slice, with the value the port supports (not
-# n_manifold_tris: the JAX builder sets it for any small glass or window
-# mesh, and only the MLT family reads it, so that slice checks it there)
+# that lands in a later slice, with the value the port supports
 _LATER_SLICE_FIELDS = {"ewa_taps": 0}
 # the medium and phase function type tags the port renders
 MEDIUM_TYPES = (med_mod.HOMOGENEOUS, med_mod.HETEROGENEOUS)
@@ -898,7 +927,7 @@ class SceneBuilder:
         return len(self.textures) - 1
 
     def add_texture_constant(self, value) -> int:
-        """A constant texture (the JAX builder's, e.g. a mask's constant
+        """A constant texture (the JAX SceneBuilder's, e.g. a mask's constant
         opacity)."""
         return self._add_texture(tex_mod.TEX_CONSTANT, color0=value)
 
@@ -1228,6 +1257,12 @@ class SceneBuilder:
             tl_lo, tl_hi = host_bvh.lo[tl_root], host_bvh.hi[tl_root]
             octants = cuda_bvh.octant_tables(nodes, tl_root, dev)
         if T > 0:
+            man_tri, n_man = manifold_rows(
+                tp0, te1, te2, cat(N0), cat(N1), cat(N2), cat(MAT),
+                [mm["type"] for mm in mats], [mm["eta"][0] for mm in mats])
+        else:
+            man_tri, n_man = np.zeros((1, 19), np.float32), 0
+        if T > 0:
             scene_lo, scene_hi = lo.min(axis=0), hi.max(axis=0)
         else:
             scene_lo, scene_hi = np.zeros(3), np.ones(3)
@@ -1300,11 +1335,12 @@ class SceneBuilder:
                                           [r for _, r in self.irawan], dev),
             media=self._build_media(dev),
             sss=self._build_sss(dev),
+            man_tri=f32(man_tri),
         )
         static = SceneStatic(
             n_tris=T, n_spheres=S, use_bvh=use_bvh,
             emitter_types=emitter_types, has_env=env_index >= 0,
-            n_bvh_nodes=n_bvh_nodes, **facts)
+            n_bvh_nodes=n_bvh_nodes, n_manifold_tris=n_man, **facts)
         return scene, static
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Image statistics of the sensor-header, gallery, lights-and-cameras,
-cloth-and-spectra, participating-media, sky-and-subsurface and
-bidirectional renders through the JAX package on the CPU.
+cloth-and-spectra, participating-media, sky-and-subsurface, bidirectional
+and Metropolis renders through the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python scripts/jax_header_ref_mean.py
         [--block-y Y] [--eye-shift DX] [LABEL ...]
@@ -77,7 +77,13 @@ them without one):
   spot-light scene of 9h through its orthographic camera with bdpt, and 9j's
   fog_terrain with bdpt, each at maxDepth 5), loaded with the variant's
   defines and rendered by ``api.render`` (``render_bdpt``,
-  ``render_light_traced``).
+  ``render_light_traced``);
+- the Metropolis family (phase 9m): ``metropolis {variant}`` for each
+  variant of ``chip_smoke.METRO_DEFINES``, ``chip_smoke.metro_xml``'s text
+  (cbox.xml with pssmlt, mlt and erpt at maxDepth 5), loaded with the
+  variant's defines and rendered by ``api.render`` (``render_mlt``,
+  ``render_erpt``); for pssmlt and mlt it also prints the normalisation b,
+  ``integrators.mlt.estimate_b`` as ``render_mlt`` calls it.
 
 Every scene file is loaded with its difftrans rows made as
 ``add_material(type=DIFFTRANS, spec_trans=t)`` (``difftrans_in_spec_trans``):
@@ -115,7 +121,7 @@ from mitsuba_tpu.render import film as film_mod  # noqa: E402
 from mitsuba_tpu.render import sensor as sensor_mod  # noqa: E402
 from mitsuba_tpu.render.integrators import misc as int_misc  # noqa: E402
 from mitsuba_tpu.render.integrators.common import (  # noqa: E402
-    AO, DIM_APERTURE, FIELD, FIELD_ALBEDO, FIELD_POSITION, PATH,
+    AO, DIM_APERTURE, FIELD, FIELD_ALBEDO, FIELD_POSITION, MLT, PATH, PSSMLT,
     IntegratorConfig)
 from mitsuba_tpu.render.scene import SceneBuilder  # noqa: E402
 
@@ -272,6 +278,17 @@ def subsurface(variant):
                            spp=cs.SSS_SPP, spp_per_pass=1, seed=cs.SEED))
 
 
+def metropolis_b(ls):
+    """The normalisation b of a loaded pssmlt or mlt scene, as
+    ``api.render_mlt`` computes it (one jitted ``estimate_b``)."""
+    from mitsuba_tpu.render.integrators import mlt as int_mlt
+
+    s, cfg = ls.settings, ls.integrator
+    return float(jax.jit(lambda sc: int_mlt.estimate_b(
+        sc, ls.static, ls.sensor, cfg, s.width, s.height, int(s.seed),
+        cfg.luminance_samples, mlt_mode=cfg.type == MLT))(ls.scene))
+
+
 def renders(labels=(), block_y=None, eye_shift=0.0):
     """Statistics of every render whose label starts with one of
     ``labels`` (all without one), in chip_smoke.py's order."""
@@ -279,12 +296,17 @@ def renders(labels=(), block_y=None, eye_shift=0.0):
 
     out = []
     with tempfile.TemporaryDirectory() as tmp:
-        def scene_file(text, spp, res, defines=None):
+        b_values = {}
+
+        def scene_file(text, spp, res, defines=None, b_of=None):
             path = os.path.join(tmp, "scene.xml")
             with open(path, "w") as f:
                 f.write(text)
             with difftrans_in_spec_trans():
                 ls = load_scene(path, defines or {"spp": spp, "res": res})
+            if b_of and ls.integrator.type in (PSSMLT, MLT):
+                b_values[b_of] = metropolis_b(ls)
+                print(f"{b_of}: b {b_values[b_of]!r}", flush=True)
             return np.asarray(api.render(ls.scene, ls.static, ls.sensor,
                                          ls.integrator, ls.settings))
 
@@ -346,6 +368,10 @@ def renders(labels=(), block_y=None, eye_shift=0.0):
         for v, defines in chip_smoke.BIDIR_DEFINES.items():
             out.append((f"bidir {v}", lambda v=v, defines=defines:
                         scene_file(chip_smoke.bidir_xml(v), 0, 0, defines)))
+        for v, defines in chip_smoke.METRO_DEFINES.items():
+            out.append((f"metropolis {v}", lambda v=v, defines=defines:
+                        scene_file(chip_smoke.metro_xml(v), 0, 0, defines,
+                                   b_of=f"metropolis {v}")))
         values = {}
         for label, thunk in out:
             if labels and not any(label.startswith(x) for x in labels):
@@ -355,6 +381,8 @@ def renders(labels=(), block_y=None, eye_shift=0.0):
             print(f"{label}: {time.perf_counter() - t0:.1f} s, mean_rgb "
                   f"{mean}, tv_rgb {tv}", flush=True)
             values[label] = {"mean": mean, "tv": tv}
+            if label in b_values:
+                values[label]["b"] = b_values[label]
     return values
 
 

@@ -22,7 +22,9 @@ and sky-and-subsurface phase (9k, ``chip_smoke.sky_renders`` and
 {variant}``, the dipole's point cloud placed by
 ``chip_smoke.subsurface_prepare``'s call on the CPU too) and bidirectional
 phase (9l, ``chip_smoke.bidir_renders``, labels ``bidir {variant}``: the
-particle tracer and the bidirectional tracer) whose label starts with one of
+particle tracer and the bidirectional tracer) and Metropolis phase (9m,
+``chip_smoke.metro_renders``, labels ``metropolis {variant}``; pssmlt's and
+mlt's b against ``METRO_B``) whose label starts with one of
 the LABELs (all of them without one)
 through this tree's ``mitsuba_tpu_torch`` on ``--device`` (the card by default), and prints its
 ``mean_rgb`` and ``tv_rgb`` with their relative gaps to
@@ -30,7 +32,8 @@ through this tree's ``mitsuba_tpu_torch`` on ``--device`` (the card by default),
 the seconds it took. It imports nothing of JAX. Run from a copy of the tree
 with a piece of the port broken on purpose, it shows how far that break
 moves each statistic against the limits ``HEADER_MEAN_RTOL`` and
-``HEADER_TV_RTOL`` (9j: ``VOLUME_MEAN_RTOL`` and ``VOLUME_TV_RTOL``). ``--block-y`` and ``--eye-shift`` go to
+``HEADER_TV_RTOL`` (9j: ``VOLUME_MEAN_RTOL`` and ``VOLUME_TV_RTOL``; 9m: the
+header's, and ``METRO_B_RTOL``). ``--block-y`` and ``--eye-shift`` go to
 ``chip_smoke.gallery_xml``: the gallery's short block at another height, the
 camera moved along x (the rounding check of PERF.md section 6, PR 14).
 """
@@ -82,6 +85,7 @@ def main() -> int:
         cases.update(cs.volume_renders(dev, tmp))
         cases.update(cs.sky_renders(dev, tmp))
         cases.update(cs.bidir_renders(dev, tmp))
+        cases.update(cs.metro_renders(dev, tmp))
         for label, (scene, static, *rest) in cs.subsurface_renders(
                 dev).items():
             if wanted(label):
@@ -109,6 +113,11 @@ def main() -> int:
                   f"{[a / b - 1 for a, b in zip(mean, mean_ref)]}; tv_rgb "
                   f"{tv} gap {[a / b - 1 for a, b in zip(tv, tv_ref)]}",
                   flush=True)
+            if label in cs.METRO_B:
+                b = cs.int_mlt.LAST_RUN["b"]
+                print(f"{label}: b {b!r} gap {b / cs.METRO_B[label] - 1} "
+                      f"(limit {cs.METRO_B_RTOL}); {cs.int_mlt.LAST_RUN}",
+                      flush=True)
     return 0
 
 

@@ -4,8 +4,9 @@ homogeneous HG medium. Against the JAX package on the same inputs, on the
 CPU: the rows of ``generate_subpaths``, ``_mis_weight_st`` of every (s, t),
 ``li_and_splats``' radiance and splats, and one render through
 ``api.render``; then ``load_scene`` of scenes/cbox.xml with bdpt and
-ptracer, the CLI on a bdpt file, and the independent sampler that both
-renders draw from whatever the scene file asks for.
+ptracer, the CLI on a bdpt file (its EXR is api.render's image), and the
+independent sampler that both renders draw from whatever the scene file
+asks for.
 
 Tolerances:
   * the subpaths (the render's two passes of 64 camera rays, 3 rows a
@@ -51,6 +52,7 @@ from mitsuba_tpu.render.integrators import bdpt as jbdpt
 from mitsuba_tpu.render.integrators import common as jcommon
 import mitsuba_tpu_torch.__main__ as tmain
 from mitsuba_tpu_torch.core.transform import Transform as TTransform
+from mitsuba_tpu_torch.io import image as timage
 from mitsuba_tpu_torch.io import mitsuba_xml as txml
 from mitsuba_tpu_torch.render import api as tapi
 from mitsuba_tpu_torch.render import bsdf as tbsdf
@@ -243,17 +245,23 @@ def test_loaders_agree_on_the_integrator(tmp_path, integrator):
 
 def test_cli_raises_on_a_bdpt_file_as_the_jax_cli(tmp_path):
     """The JAX CLI renders through api.render_pass, whose _li_fn knows no
-    bdpt (api.py:63-74; ROADMAP.md, Queue 3): the port's CLI stops with
-    the same error."""
+    bdpt (api.py:63-74), and stops with ValueError; the port's CLI, which
+    copied that fault until it was repaired (ROADMAP.md, Queue 3), renders
+    the file through api.render: its EXR is api.render's image bit for
+    bit. (The name is the test's from before the repair.)"""
     path = str(_cbox(tmp_path, "bdpt"))
-    args = [path, "-D", "spp=1", "-D", "res=4", "-z", "-o",
-            str(tmp_path / "o.exr")]
+    out = tmp_path / "o.exr"
+    args = [path, "-D", "spp=1", "-D", "res=4", "-z", "-o", str(out)]
     with pytest.raises(ValueError) as j:
         jmain.main(args)
-    with pytest.raises(ValueError) as t:
-        tmain.main(args + ["--cpu"])
-    assert str(t.value) == str(j.value) == "unknown integrator type 11"
-    assert not (tmp_path / "o.exr").exists()
+    assert str(j.value) == "unknown integrator type 11"
+    assert not out.exists()
+    assert tmain.main(args + ["--cpu"]) == 0
+    ls = txml.load_scene(path, {"spp": 1, "res": 4}, device="cpu")
+    img = tapi.render(ls.scene, ls.static, ls.sensor, ls.integrator,
+                      ls.settings, device="cpu").numpy()
+    assert np.isfinite(img).all() and img.mean() > 0
+    np.testing.assert_array_equal(timage.read_exr(str(out)), img)
 
 
 @pytest.fixture(scope="module")

@@ -224,8 +224,7 @@ def _shape_bsdf(bsdf):
 
 CASE3 = {
     **{f"integrator-{t}": f'<integrator type="{t}"/>'
-       for t in ("pssmlt", "mlt", "vpl", "sppm", "photonmapper", "irrcache",
-                 "adaptive")},
+       for t in ("vpl", "sppm", "photonmapper", "irrcache", "adaptive")},
     "bitmap-png": '<texture type="bitmap"><string name="filename" '
                   'value="tex.png"/></texture>',
 }
@@ -302,12 +301,14 @@ SKY = {f"emitter-{t}": (f'<emitter type="{t}"/>', want)
        for t, want in (("sky", [3]), ("sun", [4]), ("sunsky", [3, 4]))}
 
 
-# the particle tracer and the bidirectional tracer, which raised here until
-# the port rendered them: each loads as its integrator type
-# (tests/test_torch_ptracer.py and tests/test_torch_bdpt.py hold them
-# against the JAX package)
+# the particle tracer, the bidirectional tracer and the Metropolis family,
+# which raised here until the port rendered them: each loads as its
+# integrator type (tests/test_torch_ptracer.py, tests/test_torch_bdpt.py,
+# tests/test_torch_pssmlt.py and tests/test_torch_mlt.py hold them against
+# the JAX package)
 BIDIR = {f"integrator-{t}": (f'<integrator type="{t}"/>', tag)
-         for t, tag in (("ptracer", 5), ("bdpt", 11))}
+         for t, tag in (("ptracer", 5), ("bdpt", 11), ("pssmlt", 12),
+                        ("mlt", 15), ("erpt", 16))}
 
 
 @pytest.mark.parametrize("case", sorted(CASE3) + sorted(NESTED)
